@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.ops import kernels
+from opentsdb_tpu_torch.ops.aggregators import MOMENT_CODES
 
 # Fill policies (FillPolicy.java:22-27).
 FILL_NONE = "none"
@@ -28,13 +29,6 @@ FILL_ZERO = "zero"
 FILL_NAN = "nan"
 FILL_NULL = "null"     # NaN internally; serializer emits nulls
 FILL_SCALAR = "scalar"
-
-# Downsample functions of this slice, by the kernels' reduce code
-# (csrc/window_moments.cu, csrc/group_moments.cu `enum Agg`).
-MOMENT_CODES = {
-    "sum": 0, "zimsum": 0, "pfsum": 0, "count": 1, "avg": 2,
-    "min": 3, "mimmin": 3, "max": 4, "mimmax": 4, "dev": 5, "squareSum": 6,
-}
 
 
 @dataclass(frozen=True)

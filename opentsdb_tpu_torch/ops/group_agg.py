@@ -23,19 +23,10 @@ import torch
 
 from opentsdb_tpu_torch.ops import kernels
 from opentsdb_tpu_torch.ops.aggregators import (
-    LERP, ZIM, MAX_IF_MISSING, MIN_IF_MISSING, PREV)
-from opentsdb_tpu_torch.ops.downsample import MOMENT_CODES
+    MOMENT_AGGS, MOMENT_CODES, POLICY_CODES)
 from opentsdb_tpu_torch.ops.rate import (
     RateOptions, rate, prev_valid_index, next_valid_index)
-
-# Aggregators whose cross-series reduce this slice computes.
-MOMENT_AGGS = frozenset(MOMENT_CODES)
-
-# Interpolation policy -> csrc/grid_fill_rate.cu `enum Policy`.
-POLICY_CODES = {LERP: 0, ZIM: 1, MAX_IF_MISSING: 2, MIN_IF_MISSING: 3,
-                PREV: 4}
-
-_F64_MAX = float(np.finfo(np.float64).max)
+from opentsdb_tpu_torch.ops.union_agg import interpolate
 
 
 def _check_grid(*pairs) -> None:
@@ -93,23 +84,9 @@ def grid_fill_rate_plain(wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     participate = ((prev_i >= 0) & (next_i < w)) | m
     safe_prev = prev_i.clamp(0, w - 1)
     safe_next = next_i.clamp(0, w - 1)
-    y0 = torch.gather(v, 1, safe_prev)
-    if policy == LERP:
-        x0 = wts[safe_prev]
-        dx = (wts[safe_next] - x0).to(torch.float64)
-        dx = torch.where(dx == 0, 1.0, dx)
-        y1 = torch.gather(v, 1, safe_next)
-        interp = y0 + (wts[None, :] - x0).to(torch.float64) * (y1 - y0) / dx
-    elif policy == ZIM:
-        interp = torch.zeros_like(v)
-    elif policy == MAX_IF_MISSING:
-        interp = torch.full_like(v, _F64_MAX)
-    elif policy == MIN_IF_MISSING:
-        interp = torch.full_like(v, -_F64_MAX)
-    elif policy == PREV:
-        interp = y0
-    else:
-        raise ValueError("Invalid interpolation: " + policy)
+    interp = interpolate(policy, False, wts[None, :], wts[safe_prev],
+                         torch.gather(v, 1, safe_prev), wts[safe_next],
+                         torch.gather(v, 1, safe_next), v)
     contrib = torch.where(m, v, torch.where(participate, interp, torch.nan))
     return contrib, participate, m
 

@@ -9,10 +9,10 @@ process each.  The libraries are loaded with ctypes; every pointer and the
 stream pass as ``c_void_p``.
 
 A kernel launches on torch's current stream, synchronises nothing and
-allocates nothing: its wrapper (ops.downsample, ops.group_agg) allocates
-the outputs with ``torch.empty``, checks device, dtype, shape and
-contiguity, calls ``launch``, and raises when the C entry returns a CUDA
-error.  A build or launch failure always raises: nothing here falls back
+allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
+ops.union_agg) allocates the outputs and any scratch with ``torch.empty``,
+checks device, dtype, shape and contiguity, calls ``launch``, and raises
+when the C entry returns a CUDA error.  A build or launch failure always raises: nothing here falls back
 to a plain version.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
@@ -56,6 +56,18 @@ SIGNATURES: dict[str, tuple] = {
     # contrib, participate, present, offsets, g, w, agg, out, out_mask,
     # stream
     "group_moments": (_P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    # ts, val, mask, s, n, val_is_int, counter, drop_resets, counter_max,
+    # reset_value, out_ts, out_val, out_mask, stream
+    "point_rate": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64, _I64,
+                   _P, _P, _P, _P),
+    # ts, mask, offsets, s, n, g, merged, first, scans, scans_len, u, uoff,
+    # stream
+    "union_merge": (_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _I64, _P, _P,
+                    _P),
+    # ts, val, mask, offsets, u, uoff, s, n, g, total, agg, policy,
+    # val_is_int, counts, out, stream
+    "union_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                     _I32, _I32, _P, _P, _P),
 }
 
 # Launch counts per kernel, bumped only by launch().

@@ -1,11 +1,16 @@
-"""The grouped query pipeline: downsample -> (rate ->) grouped aggregation.
+"""The query pipelines: grouped (downsample -> rate -> group reduce) and
+union (rate -> union merge -> union reduce).
 
-Port of the grouped arm of opentsdb_tpu/ops/pipeline.py
-(``run_group_pipeline`` over ``_group_pipeline`` and ``_grid_tail``), in
-the reference's iterator-chain order (AggregationIterator.create
-:253-380: Span -> Downsampler -> RateSpan -> merge).  On the device it is
-three kernel launches: K1 window_moments, K2 grid_fill_rate and K3
-group_moments.  The batch builders run on the host and produce the
+Port of opentsdb_tpu/ops/pipeline.py: ``run_group_pipeline`` (over
+``_group_pipeline`` and ``_grid_tail``) and ``run_union_pipeline`` (the
+union arm of ``_pipeline`` behind ``run_pipeline`` and
+``run_union_batch_pipeline``), in the reference's iterator-chain order
+(AggregationIterator.create :253-380: Span -> Downsampler -> RateSpan ->
+merge).  On the device the grouped pipeline is three kernel launches, K1
+window_moments, K2 grid_fill_rate and K3 group_moments; the union pipeline
+is R point_rate (under a rate), U1 union_merge and U2 union_reduce.  Both
+take every group of a sub query in one [S, N] batch whose groups are
+contiguous row runs.  The batch builders run on the host and produce the
 [S, N] numpy batch that the caller moves to the device; N is the longest
 row's point count, shorter rows are padded at int64 max.
 """
@@ -17,11 +22,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from opentsdb_tpu_torch.ops.aggregators import get_agg, PREV
+from opentsdb_tpu_torch.ops.aggregators import (
+    get_agg, ma_window, MOMENT_AGGS, PREV)
 from opentsdb_tpu_torch.ops.downsample import downsample, FILL_NONE
 from opentsdb_tpu_torch.ops.group_agg import (
-    grid_fill_rate, group_moments, group_offsets, MOMENT_AGGS)
-from opentsdb_tpu_torch.ops.rate import RateOptions
+    grid_fill_rate, group_moments, group_offsets)
+from opentsdb_tpu_torch.ops.rate import RateOptions, point_rate
+from opentsdb_tpu_torch.ops.union_agg import union_aggregate
 
 PAD_TS = np.iinfo(np.int64).max
 
@@ -45,17 +52,19 @@ class PipelineSpec:
 
 def check_ported(spec: PipelineSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a pipeline
-    this slice does not compute."""
-    if spec.downsample is None:
-        raise NotImplementedError(
-            "queries without a downsample (the union path) are not ported "
-            "yet (ROADMAP queue A5, B7)")
-    for what, name in (("aggregator", spec.aggregator),
-                       ("downsample function", spec.downsample.function)):
+    this port does not compute yet."""
+    names = [("aggregator", spec.aggregator, "B6")]
+    if spec.downsample is not None:
+        names.append(("downsample function", spec.downsample.function, "B5"))
+    for what, name, item in names:
+        if ma_window(name) is not None:
+            raise NotImplementedError(
+                "%s %r is not ported yet (ROADMAP queue B4: "
+                "movingAverage<N>)" % (what, name))
         if name not in MOMENT_AGGS:
             raise NotImplementedError(
-                "%s %r is not ported yet (ROADMAP queue B5/B6: order, rank "
-                "and movingAverage functions)" % (what, name))
+                "%s %r is not ported yet (ROADMAP queue %s: order and rank "
+                "functions)" % (what, name, item))
 
 
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, gid[S] any,
@@ -71,6 +80,9 @@ def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
     emits them).
     """
     check_ported(spec)
+    if spec.downsample is None:
+        raise ValueError("run_group_pipeline takes a spec with a downsample "
+                         "(run_union_pipeline answers the others)")
     offsets = group_offsets(gid, num_groups).to(ts.device)
     step = spec.downsample
     wts, v, m = downsample(ts, val, mask, step.function, edges,
@@ -84,6 +96,37 @@ def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
     out, out_mask = group_moments(spec.aggregator, contrib, participate,
                                   present, offsets)
     return wts, out, out_mask
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, offsets[G+1] i64
+# shape: -> ([U] i64, [U] f64|i64, [G+1] i64)
+def run_union_pipeline(spec: PipelineSpec, ts: torch.Tensor,
+                       val: torch.Tensor, mask: torch.Tensor,
+                       offsets: torch.Tensor, int_mode: bool):
+    """Execute the union pipeline -> (u[U], out[U], uoff[G + 1]): group g's
+    answer is out[uoff[g]:uoff[g+1]] at timestamps u[uoff[g]:uoff[g+1]].
+
+    Every row's valid points form a time-sorted prefix (as build_batch
+    lays them out) and group g is rows [offsets[g], offsets[g+1]), all on
+    the device the pipeline runs on.  `int_mode` (every group of the batch
+    all-integer, int64 `val`) keeps Java long arithmetic: the union values
+    are int64 without a rate, and a rate takes long differences.
+    """
+    check_ported(spec)
+    if spec.downsample is not None:
+        raise ValueError("run_union_pipeline takes a spec without a "
+                         "downsample")
+    if int_mode and val.dtype != torch.int64:
+        raise TypeError("int mode takes int64 values")
+    if not int_mode:
+        val = val.to(torch.float64)
+    policy = get_agg(spec.aggregator).interpolation
+    if spec.rate is not None:
+        # a missing rate contributes the previous rate, never a LERP
+        # (AggregationIterator.java:744-752); rates are float64
+        policy = PREV
+        ts, val, mask = point_rate(ts, val, mask, spec.rate)
+    return union_aggregate(ts, val, mask, offsets, spec.aggregator, policy)
 
 
 # shape: -> ([S,N] i64, [S,N] f64|i64, [S,N] bool, [] bool)

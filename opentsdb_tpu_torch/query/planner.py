@@ -1,16 +1,21 @@
 """Query planner/executor: TSQuery -> series selection -> kernels -> results.
 
-Port of the grouped-downsample arm of opentsdb_tpu/query/planner.py
-(OpenTSDB TsdbQuery.java: UID resolution :490, tag-filter evaluation and
-group-by discovery :675, GroupByAndAggregateCB :981-1114; SpanGroup.
-computeTags :348).  Every group-by bucket of a sub query travels in one
-[S, N] batch with a group id per row; the batch is built on the
-host, moved to the device once, and reduced by the three kernels of
-ops.pipeline.run_group_pipeline.
+Port of the plain dispatch of opentsdb_tpu/query/planner.py (OpenTSDB
+TsdbQuery.java: UID resolution :490, tag-filter evaluation and group-by
+discovery :675, GroupByAndAggregateCB :981-1114; SpanGroup.computeTags
+:348), for both of its arms: a sub query with a downsample goes through
+the grouped pipeline (ops.pipeline.run_group_pipeline, the reference's
+_run_segment_grouped), one without through the union pipeline
+(ops.pipeline.run_union_pipeline, the reference's _run_segment_union).
+Every group-by bucket of a sub query travels in one [S, N] batch whose
+groups are contiguous row runs; the batch is built on the host, moved to
+the device once and reduced there.  The union arm builds one batch for its
+all-integer groups and one for the rest, since a group's int mode (Java
+long arithmetic) follows its own members.
 
-This slice answers sub queries with a downsample, whose downsample function
-and aggregator are of the moment family, with or without a rate.  Anything
-else raises NotImplementedError naming its ROADMAP item.
+Aggregators and downsample functions of the moment family are answered,
+with or without a rate.  Anything else raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,17 +29,18 @@ import torch
 from opentsdb_tpu_torch.models.tsquery import TSQuery, TSSubQuery
 from opentsdb_tpu_torch.ops.downsample import (
     FixedWindows, EdgeWindows, AllWindow)
+from opentsdb_tpu_torch.ops.group_agg import group_offsets
 from opentsdb_tpu_torch.ops.pipeline import (
     PipelineSpec, DownsampleStep, build_batch_direct, check_ported,
-    run_group_pipeline)
+    run_group_pipeline, run_union_pipeline)
 from opentsdb_tpu_torch.storage.memstore import Series
 from opentsdb_tpu_torch.uid import NoSuchUniqueName
 from opentsdb_tpu_torch.utils import datetime_util as DT
 
 _NO_MATCH = object()  # sentinel: a literal filter can never match
 
-# Host-clock phases of one grouped dispatch, in order; exec_stats carries
-# each as "<phase>Ms" summed over the run's sub queries.
+# Host-clock phases of one dispatch, in order; exec_stats carries each as
+# "<phase>Ms" summed over the run's dispatches.
 PHASES = ("build", "h2d", "kernels", "extract")
 
 
@@ -308,6 +314,68 @@ class QueryRunner:
         clock.mark("extract")
         return results
 
+    def _run_union(self, query: TSQuery, sub: TSSubQuery, groups,
+                   global_notes: list) -> dict[tuple, QueryResult]:
+        """All group-by buckets through the union pipeline: the integer
+        groups in one batch, the others in another."""
+        tsdb = self.tsdb
+        start_ms, end_ms = query.start_time, query.end_time
+        fix = tsdb.config.fix_duplicates
+        clock = _PhaseClock(tsdb.device, self.exec_stats)
+        parts: dict[bool, list] = {False: [], True: []}
+        for group_key in sorted(groups, key=lambda k: tuple(map(str, k))):
+            members = groups[group_key]
+            stats = [s.window_stats(start_ms, end_ms, fix)
+                     for s, _ in members]
+            n = sum(c for c, _ in stats)
+            if n:        # no datapoints in range -> no SpanGroup at all
+                all_int = all(isint for c, isint in stats if c)
+                parts[all_int].append((group_key, members))
+                self._bump("pointsScanned", float(n))
+        results: dict[tuple, QueryResult] = {}
+        for kept in parts.values():
+            if kept:
+                self._union_batch(query, sub, kept, clock, global_notes,
+                                  results)
+        return results
+
+    def _union_batch(self, query: TSQuery, sub: TSSubQuery, kept,
+                     clock: "_PhaseClock", global_notes: list,
+                     results: dict) -> None:
+        """One batch of groups through R (under a rate), U1 and U2."""
+        tsdb = self.tsdb
+        start_ms, end_ms = query.start_time, query.end_time
+        series_list = [s for _, members in kept for s, _t in members]
+        gid = np.concatenate([np.full(len(members), i, np.int64)
+                              for i, (_, members) in enumerate(kept)])
+        ts, val, mask, int_mode = build_batch_direct(
+            series_list, start_ms, end_ms, tsdb.config.fix_duplicates)
+        self._bump("seriesScanned", float(len(series_list)))
+        clock.mark("build")
+
+        dev = tsdb.device
+        d_ts = torch.from_numpy(ts).to(dev)
+        d_val = torch.from_numpy(val).to(dev)
+        d_mask = torch.from_numpy(mask).to(dev)
+        offsets = group_offsets(gid, len(kept)).to(dev)
+        clock.mark("h2d")
+
+        u, out, uoff = run_union_pipeline(self._spec_for(sub), d_ts, d_val,
+                                          d_mask, offsets, int_mode)
+        clock.mark("kernels")
+
+        u = u.cpu().numpy()
+        out = out.cpu().numpy()
+        uoff = uoff.cpu().numpy()
+        for i, (group_key, members) in enumerate(kept):
+            lo, hi = uoff[i], uoff[i + 1]
+            dps = extract_dps(u[lo:hi], out[lo:hi], np.ones(hi - lo, bool),
+                              start_ms, end_ms, int_mode and not sub.rate,
+                              keep_nans=sub.fill_policy != "none")
+            results[tuple(map(str, group_key))] = self._assemble_result(
+                query, sub, members, dps, global_notes)
+        clock.mark("extract")
+
     def run_sub(self, query: TSQuery, sub: TSSubQuery) -> list[QueryResult]:
         self._check_sub(sub)
         global_notes = (self.tsdb.store.get_annotations(
@@ -315,7 +383,9 @@ class QueryRunner:
             if query.global_annotations else [])
         series_tags = self._resolve_series(sub)
         groups = self._group(series_tags, sub)
-        merged = self._run_grouped(query, sub, groups, global_notes)
+        run = self._run_grouped if sub.downsample_spec is not None \
+            else self._run_union
+        merged = run(query, sub, groups, global_notes)
         return [merged[k] for k in sorted(merged)]
 
     def run(self, query: TSQuery) -> list[QueryResult]:

@@ -19,6 +19,8 @@ from opentsdb_tpu_torch.ops import downsample as tds
 from opentsdb_tpu_torch.ops import group_agg as tga
 from opentsdb_tpu_torch.ops import kernels
 from opentsdb_tpu_torch.ops import pipeline as tpipe
+from opentsdb_tpu_torch.ops import rate as trate
+from opentsdb_tpu_torch.ops import union_agg as tua
 from opentsdb_tpu_torch.ops.rate import RateOptions
 
 from torch_parity import (assert_exact, assert_values, cuda_device,  # noqa: F401
@@ -119,8 +121,8 @@ def test_pipeline_launches_each_kernel_once(cuda_device):
     out = tpipe.run_group_pipeline(spec, *_on(cuda_device, *batch), gid, 4,
                                    PLANS["fixed"].window_edges(cuda_device))
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"window_moments": 1, "grid_fill_rate": 1,
-                                "group_moments": 1}
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} \
+        == {"window_moments": 1, "grid_fill_rate": 1, "group_moments": 1}
     plain = tpipe.run_group_pipeline(spec, *[t(x) for x in batch], gid, 4,
                                      PLANS["fixed"].window_edges("cpu"))
     assert_exact(out[2].cpu().numpy(), plain[2].numpy())
@@ -149,9 +151,113 @@ def test_query_on_card_matches_cpu(cuda_device):
         q.validate()
         kernels.reset_launches()
         answers.append([r.to_json() for r in tsdb.new_query_runner().run(q)])
-    assert all(n == 1 for n in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[k] == 1 for k in (
+        "window_moments", "grid_fill_rate", "group_moments"))
     assert len(answers[0]) == len(answers[1]) == 3
     for a, b in zip(*answers):
         assert a["tags"] == b["tags"] and list(a["dps"]) == list(b["dps"])
         np.testing.assert_allclose(list(a["dps"].values()),
                                    list(b["dps"].values()), rtol=1e-9)
+
+
+def _union_batch(seed, int_values):
+    """Rows with their valid points as a sorted prefix, in 5 groups of
+    uneven size (group 2 empty); rows 6 and 7 share row 5's timestamps;
+    int rows sit near 2^53."""
+    ts, val, mask = sorted_batch(np.random.default_rng(seed), 24, 300,
+                                 int_values=int_values)
+    mask = np.arange(300)[None, :] < mask.sum(axis=1, keepdims=True)
+    ts[6:8] = ts[5]
+    mask[6:8] = mask[5]
+    if int_values:
+        val[::2] += 2**53
+    gid = np.array([0] * 4 + [1] * 9 + [3] * 6 + [4] * 5, np.int64)
+    return ts, val, mask, tga.group_offsets(gid, 5)
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+def test_union_kernels_match_plain(cuda_device, int_values):
+    ts, val, mask, offsets = _union_batch(5, int_values)
+    d_ts, d_val, d_mask, d_off = _on(cuda_device, ts, val, mask, offsets)
+    u, uoff = tua.union_merge(d_ts, d_mask, d_off)
+    pu, puoff = tua.union_merge_plain(d_ts, d_mask, d_off)
+    assert_exact(u.cpu().numpy(), pu.cpu().numpy())
+    assert_exact(uoff.cpu().numpy(), puoff.cpu().numpy())
+    for func in FUNCS:
+        for policy in POLICIES:
+            got = tua.union_reduce(d_ts, d_val, d_mask, d_off, u, uoff, func,
+                                   policy)
+            want = tua.union_reduce_plain(d_ts, d_val, d_mask, d_off, u,
+                                          uoff, func, policy)
+            if int_values and func != "dev":
+                assert_exact(got.cpu().numpy(), want.cpu().numpy())
+            else:
+                assert_values(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+def test_point_rate_kernel_matches_plain(cuda_device, int_values):
+    ts, val, mask = sorted_batch(np.random.default_rng(9), 40, 700,
+                                 int_values=int_values)
+    dv = _on(cuda_device, ts, val, mask)
+    for rate_args in RATES[1:]:
+        opts = RateOptions(*rate_args)
+        got = trate.point_rate(*dv, opts)
+        want = trate.point_rate_plain(*dv, opts)
+        assert_exact(got[0].cpu().numpy(), want[0].cpu().numpy())
+        assert_exact(got[2].cpu().numpy(), want[2].cpu().numpy())
+        assert_values(got[1].cpu().numpy(), want[1].cpu().numpy())
+
+
+def test_union_pipeline_launches_each_kernel_once(cuda_device):
+    ts, val, mask, offsets = _union_batch(6, False)
+    spec = tpipe.PipelineSpec("sum", None, RateOptions(True))
+    kernels.reset_launches()
+    out = tpipe.run_union_pipeline(spec, *_on(cuda_device, ts, val, mask,
+                                              offsets), False)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} \
+        == {"point_rate": 1, "union_merge": 1, "union_reduce": 1}
+    plain = tpipe.run_union_pipeline(spec, t(ts), t(val), t(mask), offsets,
+                                     False)
+    assert_exact(out[0].cpu().numpy(), plain[0].numpy())
+    assert_exact(out[2].cpu().numpy(), plain[2].numpy())
+    assert_values(out[1].cpu().numpy(), plain[1].numpy())
+
+
+def test_union_query_on_card_matches_cpu(cuda_device):
+    """Queries without a downsample on the card and on the CPU answer
+    alike, integer answers as integers."""
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    rng = np.random.default_rng(10)
+    uid_maps = {"metric": {"m": 1, "mi": 2}, "tagk": {"host": 1, "g": 2},
+                "tagv": {"h%d" % i: i + 1 for i in range(30)}}
+    uid_maps["tagv"].update({"g0": 41, "g1": 42, "g2": 43})
+    series = []
+    for i in range(30):
+        ts = np.sort(rng.choice(3_600_000, 400, replace=False)) + T0
+        ival = np.cumsum(rng.integers(0, 1000, 400)) + 2**53
+        series.append((1, {1: i + 1, 2: 41 + i % 3}, ts,
+                       rng.normal(10, 2, 400), np.zeros(400, np.int64),
+                       np.zeros(400, bool)))
+        series.append((2, {1: i + 1, 2: 41 + i % 3}, ts,
+                       ival.astype(np.float64), ival, np.ones(400, bool)))
+    for m in ("sum:m{g=*}", "avg:m", "sum:rate{counter}:mi{g=*}",
+              "sum:mi{g=*}", "dev:mi"):
+        answers = []
+        for dev in ("cpu", cuda_device):
+            tsdb = load_state(uid_maps, series, device=dev)
+            q = TSQuery(start="1356998400", end="1357002000",
+                        queries=[parse_m_subquery(m)])
+            q.validate()
+            answers.append([r.to_json()
+                            for r in tsdb.new_query_runner().run(q)])
+        assert len(answers[0]) == len(answers[1]) > 0
+        for a, b in zip(*answers):
+            assert a["tags"] == b["tags"] and list(a["dps"]) == list(b["dps"])
+            va, vb = list(a["dps"].values()), list(b["dps"].values())
+            assert [type(x) for x in va] == [type(x) for x in vb]
+            if m in ("sum:mi{g=*}",):
+                assert va == vb
+            else:
+                np.testing.assert_allclose(va, vb, rtol=1e-9)

@@ -1,9 +1,14 @@
-"""The grouped pipeline (K1 -> K2 -> K3) on both packages: the JAX
-run_group_pipeline against opentsdb_tpu_torch's on the CPU, over one batch
-of group-sorted rows.  The reference pads the window count to a power of
-two; its answer is cut to the query's windows, which are all the port
-computes.  Values agree at rtol 1e-9 (torch_parity.RTOL); window
-timestamps and masks are equal."""
+"""The pipelines on both packages, on the CPU.
+
+The grouped pipeline (K1 -> K2 -> K3): the JAX run_group_pipeline against
+opentsdb_tpu_torch's over one batch of group-sorted rows.  The reference
+pads the window count to a power of two; its answer is cut to the query's
+windows, which are all the port computes.  The union pipeline (R -> U1 ->
+U2): the JAX run_union_batch_pipeline over equal-sized groups against the
+port's run_union_pipeline over all groups in one batch, with and without
+a rate, in float and int mode.  Values agree at rtol 1e-9
+(torch_parity.RTOL), int-mode values exactly; timestamps and masks are
+equal."""
 
 import numpy as np
 import pytest
@@ -13,6 +18,7 @@ from opentsdb_tpu.ops import downsample as jds
 from opentsdb_tpu.ops import pipeline as jpipe
 from opentsdb_tpu.ops.rate import RateOptions as JRateOptions
 from opentsdb_tpu_torch.ops import downsample as tds
+from opentsdb_tpu_torch.ops import group_agg as tga
 from opentsdb_tpu_torch.ops import pipeline as tpipe
 from opentsdb_tpu_torch.ops.rate import RateOptions
 
@@ -71,9 +77,53 @@ def test_group_pipeline_matches_reference(case):
     assert_values(port[1], ref[1])
 
 
+UNION_CASES = [
+    # aggregator, rate options, int values
+    ("sum", None, False),
+    ("avg", None, True),
+    ("dev", None, False),
+    ("mimmin", None, True),
+    ("count", (), False),
+    ("sum", (True,), True),
+    ("max", (True, 250_000), False),
+    ("zimsum", (True, 250_000, 10), True),
+    ("sum", (True, 2**63 - 1, 0, True), False),
+]
+
+
+@pytest.mark.parametrize("case", UNION_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_union_pipeline_matches_reference(case):
+    agg, rate_args, int_values = case
+    groups, rows, n = 3, 4, 64
+    ts, val, mask = sorted_batch(np.random.default_rng(22), groups * rows, n,
+                                 int_values=int_values)
+    mask = np.arange(n)[None, :] < mask.sum(axis=1, keepdims=True)
+    if int_values:
+        val[::3] += 2**53
+    shape = (groups, rows, n)
+    ru, rout, rmask = (np.asarray(x) for x in jpipe.run_union_batch_pipeline(
+        jpipe.PipelineSpec(agg, None, None if rate_args is None
+                           else JRateOptions(*rate_args),
+                           int_mode=int_values),
+        ts.reshape(shape), val.reshape(shape), mask.reshape(shape)))
+    offsets = tga.group_offsets(np.repeat(np.arange(groups), rows), groups)
+    pu, pout, puoff = tpipe.run_union_pipeline(
+        tpipe.PipelineSpec(agg, None, None if rate_args is None
+                           else RateOptions(*rate_args)),
+        t(ts), t(val), t(mask), offsets, int_values)
+    for g in range(groups):
+        lo, hi = int(puoff[g]), int(puoff[g + 1])
+        assert_exact(pu[lo:hi].numpy(), ru[g][rmask[g]])
+        if int_values and rate_args is None:
+            assert_exact(pout[lo:hi].numpy(), rout[g][rmask[g]])
+        else:
+            assert_values(pout[lo:hi].numpy(), rout[g][rmask[g]])
+
+
 def test_unported_pipeline_raises():
-    with pytest.raises(NotImplementedError, match="union path"):
-        tpipe.check_ported(tpipe.PipelineSpec("sum"))
+    with pytest.raises(NotImplementedError, match="B6"):
+        tpipe.check_ported(tpipe.PipelineSpec("median"))
     with pytest.raises(NotImplementedError, match="movingAverage"):
         tpipe.check_ported(tpipe.PipelineSpec(
             "movingAverage", tpipe.DownsampleStep("sum")))

@@ -1,4 +1,5 @@
-"""Grouped downsample queries end to end on both packages.
+"""Queries end to end on both packages: grouped downsample queries and
+queries without a downsample (the union path).
 
 The same ingest and the same TSQuery go through the JAX package's TSDB
 and opentsdb_tpu_torch's (``device="cpu"``); every result's to_json()
@@ -62,6 +63,17 @@ def _ingest(tsdb):
             dps.append({"metric": "cpu.load",
                         "timestamp": ts * 1000 + 250 if h == 5 else ts,
                         "value": float(rng.normal(2.0, 0.5)), "tags": tags})
+    # one metric whose groups differ in type: dc0 all integers, dc1 all
+    # floats, dc2 an integer series beside a float one
+    for h, (dc, kind) in enumerate([("dc0", int), ("dc0", int),
+                                    ("dc1", float), ("dc1", float),
+                                    ("dc2", int), ("dc2", float)]):
+        for k in range(40):
+            ts = BASE + 7 * k + 3 * h
+            dps.append({"metric": "mix.val", "timestamp": ts,
+                        "value": kind(2**53 + 1000 * h + k * (h + 1))
+                        if kind is int else 0.5 * k + h,
+                        "tags": {"host": "m%d" % h, "dc": dc}})
     ok, errors = tsdb.add_points_bulk(dps)
     assert errors == [] and ok == len(dps)
     return tsdb
@@ -168,8 +180,73 @@ def test_tsuid_subquery_matches_reference(both):
     _same_json([r.to_json() for r in port], [r.to_json() for r in ref])
 
 
+UNION_CASES = [
+    # m, start, end: no downsample, so the union path
+    ("sum:sys.cpu.user", "1356998400", "1356998500"),
+    ("sum:sys.cpu.user{host=*}", "1356998400", "1356998500"),
+    ("avg:sys.cpu.user", "1356998400", "1356998500"),
+    ("sum:sys.cpu.user{host=web01}", "1356998400", "1356998430"),
+    ("avg:cpu.load", "1356998400", "1356998400+3600"),
+    ("dev:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("zimsum:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("mimmin:cpu.load{host=*}", "1356998400", "1356998400+3600"),
+    ("mimmax:cpu.load", "1356998500", "1356998400+3000"),
+    ("count:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("squareSum:cpu.load{dc=dc1|dc2}", "1356998400", "1356998400+3600"),
+    ("pfsum:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("min:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("max:net.bytes", "1356998400", "1356998400+3600"),
+    ("avg:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("dev:net.bytes", "1356998400", "1356998400+3600"),
+    ("sum:rate:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("sum:rate{counter}:net.bytes{host=*}", "1356998400", "1356998400+3600"),
+    ("avg:rate{counter,1000,10}:net.bytes", "1356998400", "1356998400+3600"),
+    ("max:rate{dropcounter}:net.bytes{dc=*}", "1356998400",
+     "1356998400+3600"),
+    ("sum:rate:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("sum:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("avg:mix.val", "1356998400", "1356998400+3600"),
+    ("sum:rate:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("sum:explicit_tags:cpu.load{host=h1,dc=dc1}", "1356998400",
+     "1356998400+3600"),
+]
+
+
+@pytest.mark.parametrize("case", UNION_CASES, ids=[c[0] for c in UNION_CASES])
+def test_union_query_matches_reference(both, case):
+    ref_tsdb, port_tsdb = both
+    m, start, end = case
+    start, end = _times(start, end)
+    ref = ref_tsdb.new_query_runner().run(
+        _query(RefTSQuery, ref_parse, m, start, end))
+    port = port_tsdb.new_query_runner().run(
+        _query(TSQuery, parse_m_subquery, m, start, end))
+    kw = dict(ms_resolution=True, show_tsuids=True)
+    assert len(port) == len(ref) > 0
+    port_js = [r.to_json(**kw) for r in port]
+    ref_js = [r.to_json(**kw) for r in ref]
+    _same_json(port_js, ref_js)
+    # integer answers stay Java longs, exactly; float answers stay floats
+    for a, b in zip(port_js, ref_js):
+        assert [type(v) for v in a["dps"].values()] \
+            == [type(v) for v in b["dps"].values()]
+
+
+def test_union_query_mixes_int_and_float_groups(both):
+    """One query, groups of both types: dc0 answers in longs above 2^53,
+    dc1 and dc2 (an integer series beside a float one) in floats."""
+    _, port_tsdb = both
+    start, end = _times("1356998400", "1356998400+3600")
+    res = port_tsdb.new_query_runner().run(
+        _query(TSQuery, parse_m_subquery, "sum:mix.val{dc=*}", start, end))
+    kinds = {r.tags["dc"]: {type(v) for _, v in r.dps} for r in res}
+    assert kinds == {"dc0": {int}, "dc1": {float}, "dc2": {float}}
+    assert max(v for r in res if r.tags["dc"] == "dc0"
+               for _, v in r.dps) > 2**54
+
+
 @pytest.mark.parametrize("m", [
-    "sum:sys.cpu.user",                       # no downsample: union path
+    "median:sys.cpu.user",                    # union path, rank aggregator
     "median:1m-avg:cpu.load",                 # rank aggregator
     "sum:1m-p99:cpu.load",                    # rank downsample
     "sum:1m-first:cpu.load",                  # order downsample
