@@ -17,19 +17,28 @@ days), 1h windows.  Phases:
    the headline batch, each case against the plain version on the same
    inputs: values within rtol 1e-9 (plus atol 1e-9 for exact zeros),
    masks exact.  Times are the median of 7 CUDA-event timed runs.
+   Then K4 window_order (every order and rank downsample function, the
+   fills for p99 and first, and "0all" p99 and median: 65,536-point
+   runs), K5 group_order (every order and rank aggregator over the 100
+   groups, median and ep99r7 over all 1024 rows as one group) and MA
+   moving_average after K1's and K3's sums.
 3. end to end, grouped: a TSDB on the card ingests the batch through
-   MemStore.add_batch and answers three grouped queries; the count query
-   must count every point written, and each answer on a filtered query
-   must match a TSDB on the CPU holding the same state (load_state).
-   Kernel launch counts are reset before this phase and read after it.
+   MemStore.add_batch and answers seven grouped queries (moments, order
+   and rank functions in either position, movingAverage5); the count
+   query must count every point written, and each answer on a filtered
+   query must match a TSDB on the CPU holding the same state
+   (load_state).  Kernel launch counts are reset before this phase and
+   read after it.
 4. union kernels: U1 union_merge and U2 union_reduce (a) on the headline
    batch as it is, under all eleven aggregators; (b) on all 1024 rows as
    one group over the last 6 h (the fan-in of `sum:metric` over a fleet);
    (c) on an integer copy of 64 rows in 8 groups near 2^53 (int mode,
    exact but for dev, a truncated float); R point_rate (d) on the headline
-   batch under every rate option set, float and all-integer.
+   batch under every rate option set, float and all-integer.  Then U3
+   union_order (first last diff mult median p99 ep99r3 ep99r7) and MA
+   after U2's sums, in the same cases (a) to (c), (c) exact.
 5. end to end, union: the same TSDB plus an integer metric `mi` (64
-   series x 65,536 points in 8 groups) answers five queries without a
+   series x 65,536 points in 8 groups) answers ten queries without a
    downsample over the last 6 h of the range (the union path emits a point
    per distinct timestamp, so the full range would be ~6.7e7 points of
    Python extraction a query); each filtered answer must match the CPU
@@ -82,7 +91,17 @@ REPLACES = {
     "union_merge": "opentsdb_tpu/ops/union_agg.py:65",
     "union_reduce": "opentsdb_tpu/ops/union_agg.py:143",
     "point_rate": "opentsdb_tpu/ops/rate.py:58",
+    "window_order": "opentsdb_tpu/ops/downsample.py:1218",
+    "group_order": "opentsdb_tpu/ops/group_agg.py:558",
+    "union_order": "opentsdb_tpu/ops/union_agg.py:209",
+    "moving_average": "opentsdb_tpu/ops/aggregators.py:177",
 }
+PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
+               for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
+ORDER_DS = ["first", "last", "diff", "mult", "median"] + PERCENTILES
+ORDER_AGGS = ORDER_DS + ["none"]
+UNION_ORDER = ["first", "last", "diff", "mult", "median", "p99", "ep99r3",
+               "ep99r7"]
 SIX_HOURS_MS = 6 * 3_600_000
 INT_ROWS, INT_GROUPS = 64, 8   # the integer metric `mi`
 
@@ -304,6 +323,134 @@ def kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     return times
 
 
+def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """K4 window_order, K5 group_order and MA moving_average (downsample
+    and grid positions) on the headline batch, each against its plain
+    version."""
+    from opentsdb_tpu_torch.ops import aggregators as ag
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
+    d_h = torch.from_numpy(h).to(dev)
+    c_mask = d_mask & (d_h % 97 != 0)
+    c_val = torch.where(d_h % 211 == 0, torch.nan, d_val)
+    del d_h
+    edges = ds.FixedWindows.for_range(START, END, INTERVAL_MS) \
+        .window_edges(dev)
+    everything = ds.AllWindow(START, END).window_edges(dev)
+    w = edges.numel() - 1
+    cases = [("fixed", edges, f, "none") for f in ORDER_DS]
+    cases += [("fixed", edges, f, fill) for f in ("p99", "first")
+              for fill in FILLS if fill != "none"]
+    # 65,536-point runs: the selection reads device memory, no staging
+    cases += [("all", everything, f, "none") for f in ("p99", "median")]
+    for kind, e, func, fill in cases:
+        got = ds.window_order(d_ts, c_val, c_mask, e, func, fill, -1.5)
+        want = ds.window_order_plain(d_ts, c_val, c_mask, e, func, fill,
+                                     -1.5)
+        case = "%s %s fill=%s" % (kind, func, fill)
+        checks.exact("window_order", case, got[1], want[1])
+        checks.values("window_order", case, got[0], want[0])
+    del c_val, c_mask
+
+    # K4's library yardstick: torch.segment_reduce "prod" over the same
+    # window runs (lengths from the plain edge search, outside the timed
+    # call; every point lies inside the windows)
+    pos = torch.searchsorted(d_ts, edges.expand(S, -1).contiguous())
+    lengths = (pos[:, 1:] - pos[:, :-1]).reshape(-1)
+    flat = d_val.reshape(-1)
+    del pos
+    k4_bytes = (S * N * (8 + 1) + S * (w + 1) * 8 + (w + 1) * 8
+                + S * w * (8 + 1))
+    k4 = {
+        "ms": time_ms(lambda: ds.window_order(d_ts, d_val, d_mask, edges,
+                                              "mult")),
+        "plain_ms": time_ms(lambda: ds.window_order_plain(
+            d_ts, d_val, d_mask, edges, "mult")),
+        "bound_ms": bound_ms(k4_bytes, 1.0 * S * N),
+        "library_ms": time_ms(lambda: torch.segment_reduce(
+            flat, "prod", lengths=lengths)),
+    }
+    del lengths, flat
+    extra = {f: time_ms(lambda f=f: ds.window_order(d_ts, d_val, d_mask,
+                                                    edges, f))
+             for f in ("first", "median", "p95", "ep99r7")}
+    extra["0all p99"] = time_ms(lambda: ds.window_order(
+        d_ts, d_val, d_mask, everything, "p99"))
+    print("time window_order by function: %s ms"
+          % ", ".join("%s %.4f" % kv for kv in extra.items()))
+
+    # MA at the downsample position: K1's window sums over their mask
+    sums, sum_mask = ds.window_moments(d_ts, d_val, d_mask, edges, "sum")
+    offsets_r = torch.arange(S + 1, dtype=torch.int64, device=dev) * w
+    for nw in (5, 10):
+        got = ag.moving_average(sums.reshape(-1), sum_mask.reshape(-1),
+                                offsets_r, nw)
+        want = ag.moving_average_plain(sums.reshape(-1).cpu(),
+                                       sum_mask.reshape(-1).cpu(),
+                                       offsets_r.cpu(), nw)
+        checks.values("moving_average", "downsample movingAverage%d" % nw,
+                      got, want)
+    v, m = ds.window_moments(d_ts, d_val, d_mask, edges, "avg")
+    wts = edges[:w]
+    del d_ts, d_val, d_mask
+
+    # K5 over the main path's contributions: 100 groups, then all 1024
+    # rows as one group
+    contrib, part, present = ga.grid_fill_rate(wts, v, m, "lerp")
+    offsets = ga.group_offsets(gid, GROUPS).to(dev)
+    one = torch.tensor([0, S], dtype=torch.int64, device=dev)
+    for agg in ORDER_AGGS:
+        got = ga.group_order(agg, contrib, part, present, offsets)
+        want = ga.group_order_plain(agg, contrib, part, present, offsets)
+        checks.exact("group_order", agg, got[1], want[1])
+        checks.values("group_order", agg, got[0], want[0])
+    for agg in ("median", "ep99r7"):
+        got = ga.group_order(agg, contrib, part, present, one)
+        want = ga.group_order_plain(agg, contrib, part, present, one)
+        checks.exact("group_order", "1024 rows one group " + agg, got[1],
+                     want[1])
+        checks.values("group_order", "1024 rows one group " + agg, got[0],
+                      want[0])
+    # the library call: nanquantile is R-7 over the non-NaN cells K2
+    # leaves, which are exactly the participating ones here
+    lib = torch.nanquantile(contrib, 0.99, dim=0)
+    checks.values("group_order", "1024 rows ep99r7 vs nanquantile",
+                  ga.group_order("ep99r7", contrib, part, present, one)[0][0],
+                  lib)
+    k5 = {
+        "ms": time_ms(lambda: ga.group_order("ep99r7", contrib, part,
+                                             present, one)),
+        "plain_ms": time_ms(lambda: ga.group_order_plain(
+            "ep99r7", contrib, part, present, one)),
+        "bound_ms": bound_ms(S * w * (8 + 1 + 1) + 2 * 8 + w * (8 + 1),
+                             0.0),
+        "library_ms": time_ms(lambda: torch.nanquantile(contrib, 0.99,
+                                                        dim=0)),
+    }
+    print("time group_order p99 over %d groups %.4f ms"
+          % (GROUPS, time_ms(lambda: ga.group_order("p99", contrib, part,
+                                                    present, offsets))))
+
+    # MA at the grid position: K3's group sums over the windows with data
+    gsum, _ = ga.group_moments("sum", contrib, part, present, offsets)
+    gcnt, _ = ga.group_moments("count", contrib, part, present, offsets)
+    for nw in (5, 10):
+        got = ag.moving_average_rows(gsum, gcnt > 0, nw)
+        want = ag.moving_average_plain(gsum.reshape(-1).cpu(),
+                                       (gcnt > 0).reshape(-1).cpu(),
+                                       torch.arange(GROUPS + 1) * w,
+                                       nw).reshape(GROUPS, w)
+        checks.values("moving_average", "grid movingAverage%d" % nw, got,
+                      want)
+    times = {"window_order": k4, "group_order": k5}
+    print_times(times)
+    return times
+
+
 def print_times(times: dict) -> None:
     for name, t in times.items():
         print("time %-15s kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)  "
@@ -320,8 +467,21 @@ def _query(m: str, start: int = START):
     return q
 
 
+def _cpu_copy(tsdb):
+    """The TSDB's whole state on the CPU (load_state), every series in the
+    card's order: first, last, diff and none take a group's members in the
+    order its metric's series come out of the store, so a copy of only the
+    filtered groups could order them otherwise."""
+    from opentsdb_tpu_torch.core import load_state
+    uid_maps = {kind: tsdb.uid_table(kind).snapshot()
+                for kind in ("metric", "tagk", "tagv")}
+    series = [(s.key.metric, dict(s.key.tags), *s.arrays())
+              for s in tsdb.store.all_series()]
+    return load_state(uid_maps, series, device="cpu")
+
+
 def e2e_phase(dev, ts, val, checks: Checks):
-    from opentsdb_tpu_torch.core import TSDB, load_state
+    from opentsdb_tpu_torch.core import TSDB
     from opentsdb_tpu_torch.ops import kernels
     from opentsdb_tpu_torch.query.planner import PHASES
     from opentsdb_tpu_torch.storage.memstore import SeriesKey
@@ -345,7 +505,9 @@ def e2e_phase(dev, ts, val, checks: Checks):
         checks.failures.append("ingest stored %d points" % points)
 
     queries = ["sum:1h-avg:m{group=*}", "sum:1h-count:m{group=*}",
-               "sum:1h-max:rate:m{group=*}"]
+               "sum:1h-max:rate:m{group=*}", "p99:1h-avg:m{group=*}",
+               "sum:1h-p95:m{group=*}", "last:1h-first:m{group=*}",
+               "movingAverage5:1h-sum:m{group=*}"]
     subset = "{group=g000|g001|g002|g003}"
     kernels.reset_launches()
     answers, filtered = {}, {}
@@ -372,7 +534,8 @@ def e2e_phase(dev, ts, val, checks: Checks):
             _query(m.replace("{group=*}", subset)))
     launches = dict(kernels.LAUNCHES)
     print("e2e launches %s" % json.dumps(launches))
-    for name in ("window_moments", "grid_fill_rate", "group_moments"):
+    for name in ("window_moments", "grid_fill_rate", "group_moments",
+                 "window_order", "group_order", "moving_average"):
         if launches[name] < 1:
             checks.failures.append("kernel %s never launched on the main "
                                    "path" % name)
@@ -391,13 +554,7 @@ def e2e_phase(dev, ts, val, checks: Checks):
                                % (total, S * N))
 
     # the same state on the CPU, through load_state, on the filtered query
-    uid_maps = {kind: tsdb.uid_table(kind).snapshot()
-                for kind in ("metric", "tagk", "tagv")}
-    wanted = {tsdb.tag_values.get_id("g%03d" % g) for g in range(4)}
-    series = [(s.key.metric, dict(s.key.tags), *s.arrays())
-              for s in tsdb.store.all_series()
-              if dict(s.key.tags)[k_group] in wanted]
-    cpu = load_state(uid_maps, series, device="cpu")
+    cpu = _cpu_copy(tsdb)
     for m in queries:
         fm = m.replace("{group=*}", subset)
         want = cpu.new_query_runner().run(_query(fm))
@@ -551,8 +708,123 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     return times
 
 
+def _union_order_cases(name, d_ts, d_val, d_mask, offsets, checks: Checks,
+                       exact_ints: bool):
+    """U1, then U3 under each of UNION_ORDER (each with its own
+    interpolation policy) and MA after U2's sums (movingAverage,
+    movingAverage10), each against its plain version; returns (u, uoff)."""
+    from opentsdb_tpu_torch.ops import aggregators as ag
+    from opentsdb_tpu_torch.ops import union_agg as ua
+
+    u, uoff = ua.union_merge(d_ts, d_mask, offsets)
+    for agg in UNION_ORDER:
+        policy = ag.get_agg(agg).interpolation
+        got = ua.union_order(d_ts, d_val, d_mask, offsets, u, uoff, agg,
+                             policy)
+        if exact_ints:
+            # the plain version on the CPU: torch's division by a scalar on
+            # the card multiplies by the reciprocal, which a truncated
+            # int-mode percentile can see
+            want = ua.union_order_plain(d_ts.cpu(), d_val.cpu(),
+                                        d_mask.cpu(), offsets.cpu(),
+                                        u.cpu(), uoff.cpu(), agg, policy)
+        else:
+            want = ua.union_order_plain(d_ts, d_val, d_mask, offsets, u,
+                                        uoff, agg, policy)
+        case = "%s %s policy=%s" % (name, agg, policy)
+        if exact_ints:
+            got = got.cpu()
+            checks.exact("union_order", case, got, want, "int64 values")
+            print("%-15s %-44s exact %s" % (
+                "union_order", case,
+                "ok" if torch.equal(got, want) else "FAIL"))
+        else:
+            checks.values("union_order", case, got, want)
+    sums = ua.union_reduce(d_ts, d_val, d_mask, offsets, u, uoff, "sum",
+                           "lerp")
+    for nw in (5, 10):
+        got = ag.moving_average(sums, None, uoff, nw)
+        # the plain version on the CPU: its cumsum runs in order there, as
+        # the kernel's running sums do, and a window sum is a difference
+        # of running sums that cancellation magnifies
+        want = ag.moving_average_plain(sums.cpu(), None, uoff.cpu(), nw)
+        case = "%s union movingAverage%d" % (name, nw)
+        if exact_ints:
+            checks.exact("moving_average", case, got, want, "int64 values")
+        else:
+            checks.values("moving_average", case, got, want)
+    return u, uoff
+
+
+def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """U3 union_order and MA at the union position: (a) the headline batch
+    in its 100 groups, (b) all 1024 rows as one group over the last 6 h,
+    (c) 64 integer rows near 2^53 in 8 groups, exact."""
+    from opentsdb_tpu_torch.ops import aggregators as ag
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import union_agg as ua
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
+    offsets = ga.group_offsets(gid, GROUPS).to(dev)
+    u, uoff = _union_order_cases("(a) headline", d_ts, d_val, d_mask,
+                                 offsets, checks, False)
+    n_slots = u.numel()
+    s_g = S / GROUPS
+    u3_bytes = S * N * 17 + n_slots * 16 + (GROUPS + 1) * 16
+    u3_ops = n_slots * s_g
+    u3 = {
+        "ms": time_ms(lambda: ua.union_order(d_ts, d_val, d_mask, offsets,
+                                             u, uoff, "median", "lerp")),
+        "plain_ms": time_ms(lambda: ua.union_order_plain(
+            d_ts, d_val, d_mask, offsets, u, uoff, "median", "lerp"), 3),
+        "bound_ms": bound_ms(u3_bytes, u3_ops),
+        "bound_by": "bytes" if u3_bytes > u3_ops / F64_FLOPS * HBM_BYTES_S
+        else "operations",
+        "library_ms": None,
+    }
+    extra = {f: time_ms(lambda f=f: ua.union_order(
+        d_ts, d_val, d_mask, offsets, u, uoff, f, "zim"))
+        for f in ("first", "p99")}
+    print("time union_order (a) first %.4f ms, p99 %.4f ms"
+          % (extra["first"], extra["p99"]))
+    sums = ua.union_reduce(d_ts, d_val, d_mask, offsets, u, uoff, "sum",
+                           "lerp")
+    ma = {
+        "ms": time_ms(lambda: ag.moving_average(sums, None, uoff, 5)),
+        "plain_ms": time_ms(lambda: ag.moving_average_plain(sums, None,
+                                                            uoff, 5)),
+        # sums read once, out written once, the run offsets read once
+        "bound_ms": bound_ms(n_slots * 16 + (GROUPS + 1) * 8,
+                             2.0 * n_slots),
+        "library_ms": None,
+    }
+    del u, uoff, sums
+
+    b_ts, b_val, b_mask = _last_hours(ts, val, END - SIX_HOURS_MS)
+    bd = [torch.from_numpy(x).to(dev) for x in (b_ts, b_val, b_mask)]
+    one = torch.tensor([0, S], dtype=torch.int64, device=dev)
+    u, uoff = _union_order_cases("(b) ungrouped 6h", *bd, one, checks,
+                                 False)
+    print("time (b) ungrouped 6h: union_order median %.4f ms, U=%d"
+          % (time_ms(lambda: ua.union_order(*bd, one, u, uoff, "median",
+                                            "lerp")), u.numel()))
+    del bd, u, uoff
+
+    c_val = (h[:INT_ROWS] % 1_000).astype(np.int64) + 2**53 - 500
+    c_gid = (np.arange(INT_ROWS, dtype=np.int64) * INT_GROUPS) // INT_ROWS
+    _union_order_cases("(c) int64 near 2^53",
+                       d_ts[:INT_ROWS], torch.from_numpy(c_val).to(dev),
+                       d_mask[:INT_ROWS],
+                       ga.group_offsets(c_gid, INT_GROUPS).to(dev), checks,
+                       True)
+    times = {"union_order": u3, "moving_average": ma}
+    print_times(times)
+    return times
+
+
 def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
-    from opentsdb_tpu_torch.core import load_state
     from opentsdb_tpu_torch.ops import kernels
     from opentsdb_tpu_torch.query.planner import PHASES
     from opentsdb_tpu_torch.storage.memstore import SeriesKey
@@ -573,7 +845,13 @@ def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
     queries = {"sum:m{group=*}": GROUPS, "avg:m": 1,
                "sum:rate:m{group=*}": GROUPS,
                "sum:rate{counter}:mi{group=*}": INT_GROUPS,
-               "sum:mi{group=*}": INT_GROUPS}
+               "sum:mi{group=*}": INT_GROUPS,
+               "p99:m{group=*}": GROUPS, "diff:rate:m{group=*}": GROUPS,
+               "median:mi{group=*}": INT_GROUPS,
+               "first:mi{group=*}": INT_GROUPS,
+               "movingAverage5:m{group=*}": GROUPS}
+    int_answers = ("sum:mi{group=*}", "median:mi{group=*}",
+                   "first:mi{group=*}")
     subset = "{group=g000|g001|g002|g003}"
     kernels.reset_launches()
     answers, filtered = {}, {}
@@ -602,7 +880,8 @@ def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
             m.replace("{group=*}", "") + subset, start))
     launches = dict(kernels.LAUNCHES)
     print("e2e union launches %s" % json.dumps(launches))
-    for name in ("union_merge", "union_reduce", "point_rate"):
+    for name in ("union_merge", "union_reduce", "point_rate",
+                 "union_order", "moving_average"):
         if launches[name] < 1:
             checks.failures.append("kernel %s never launched on the union "
                                    "path" % name)
@@ -613,17 +892,11 @@ def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
         vals = np.array([v for r in res for _, v in r.dps], np.float64)
         if vals.size == 0 or not np.isfinite(vals).all():
             checks.failures.append("%s: empty or non-finite values" % m)
-    if not all(isinstance(v, int) for r in answers["sum:mi{group=*}"]
-               for _, v in r.dps):
-        checks.failures.append("sum:mi{group=*}: values are not integers")
+    for m in int_answers:
+        if not all(isinstance(v, int) for r in answers[m] for _, v in r.dps):
+            checks.failures.append("%s: values are not integers" % m)
 
-    uid_maps = {kind: tsdb.uid_table(kind).snapshot()
-                for kind in ("metric", "tagk", "tagv")}
-    wanted = {tsdb.tag_values.get_id("g%03d" % g) for g in range(4)}
-    series = [(s.key.metric, dict(s.key.tags), *s.arrays())
-              for s in tsdb.store.all_series()
-              if dict(s.key.tags)[k_group] in wanted]
-    cpu = load_state(uid_maps, series, device="cpu")
+    cpu = _cpu_copy(tsdb)
     for m in queries:
         fm = m.replace("{group=*}", "") + subset
         want = cpu.new_query_runner().run(_query(fm, start))
@@ -636,7 +909,7 @@ def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
             continue
         gv = [v for a in got for _, v in a.dps]
         wv = [v for b in want for _, v in b.dps]
-        if m == "sum:mi{group=*}":
+        if m in int_answers:
             checks.exact("e2e union", fm, torch.tensor(gv), torch.tensor(wv),
                          "int64 values")
             print("%-15s %-44s exact %s" % ("e2e union", fm,
@@ -672,16 +945,20 @@ def main() -> int:
     ts, val, gid, h = headline_batch()
     times = kernel_phase(dev, ts, val, gid, h, checks)
     torch.cuda.empty_cache()
+    times.update(order_kernel_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
     tsdb, launches = e2e_phase(dev, ts, val, checks)
     torch.cuda.empty_cache()
     times.update(union_kernel_phase(dev, ts, val, gid, h, checks))
     torch.cuda.empty_cache()
+    times.update(union_order_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
     union_launches = union_e2e_phase(dev, tsdb, ts, h, checks)
 
-    # Each kernel's launches on its own path's e2e phase (counts reset
-    # just before each).
-    for name in ("union_merge", "union_reduce", "point_rate"):
-        launches[name] = union_launches[name]
+    # Each kernel's launches on the main path: the grouped and the union
+    # e2e phases, their counts reset just before each.
+    for name in launches:
+        launches[name] += union_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name,

@@ -31,65 +31,19 @@
 // matrix of the reference is never formed, so nothing is tiled.  Each slot
 // has one writer: no atomics, the same result on every run.
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "union_contrib.cuh"
+
 namespace {
+
+using namespace union_contrib;
 
 constexpr int THREADS = 128;
 constexpr int CH = 8;  // union slots a thread owns
 
 enum Agg { SUM = 0, COUNT = 1, AVG = 2, MIN = 3, MAX = 4, DEV = 5, SQUARESUM = 6 };
-enum Policy { LERP = 0, ZIM = 1, MAX_IF_MISSING = 2, MIN_IF_MISSING = 3, PREV = 4 };
-
-// Valid points of a row whose mask is a prefix of ones, one thread a row.
-__global__ void row_counts_kernel(const uint8_t* __restrict__ mask, int64_t s,
-                                  int64_t n, int64_t* __restrict__ counts) {
-  const int64_t r = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (r >= s) return;
-  const uint8_t* m = mask + r * n;
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (m[mid]) lo = mid + 1; else hi = mid;
-  }
-  counts[r] = lo;
-}
-
-__device__ double interpolate(int policy, int64_t x, int64_t x0, double y0, int64_t x1,
-                              double y1) {
-  switch (policy) {
-    case LERP: {
-      double dx = (double)(x1 - x0);
-      if (dx == 0.0) dx = 1.0;
-      return y0 + (double)(x - x0) * (y1 - y0) / dx;
-    }
-    case ZIM: return 0.0;
-    case MAX_IF_MISSING: return DBL_MAX;
-    case MIN_IF_MISSING: return -DBL_MAX;
-    default: return y0;  // PREV
-  }
-}
-
-__device__ int64_t interpolate(int policy, int64_t x, int64_t x0, int64_t y0, int64_t x1,
-                               int64_t y1) {
-  switch (policy) {
-    case LERP: {
-      const int64_t dx = x1 - x0 > 1 ? x1 - x0 : 1;
-      const int64_t num =
-          (int64_t)((uint64_t)(x - x0) * ((uint64_t)y1 - (uint64_t)y0));
-      return (int64_t)((uint64_t)y0 + (uint64_t)(num / dx));
-    }
-    case ZIM: return 0;
-    case MAX_IF_MISSING: return INT64_MAX;
-    case MIN_IF_MISSING: return INT64_MIN;
-    default: return y0;  // PREV
-  }
-}
-
-__device__ bool skipped(double v) { return isnan(v); }
-__device__ bool skipped(int64_t) { return false; }
 
 // The float64 sums round each product and each sum on its own (no fused
 // multiply-add), as the reference does: an int-mode dev truncates a float
@@ -131,22 +85,14 @@ __device__ __forceinline__ void visit(const int64_t* __restrict__ ts,
     const V* vr = val + r * n;
     const int64_t lo_ts = tr[0], hi_ts = tr[c - 1];
     if (x_last < lo_ts || x[0] > hi_ts) continue;
-    int64_t lo = 0, hi = c;  // first point at or after x[0]
-    while (lo < hi) {
-      const int64_t mid = lo + (hi - lo) / 2;
-      if (tr[mid] < x[0]) lo = mid + 1; else hi = mid;
-    }
-    int64_t pos = lo;
+    int64_t pos = first_at_or_after(tr, c, x[0]);
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
       if (j < len) {
         const int64_t xj = x[j];
         while (pos < c && tr[pos] < xj) ++pos;
         if (xj >= lo_ts && xj <= hi_ts) {
-          const V v = (tr[pos] == xj)
-                          ? vr[pos]
-                          : interpolate(policy, xj, tr[pos - 1], vr[pos - 1], tr[pos],
-                                        vr[pos]);
+          const V v = contribution(tr, vr, pos, xj, policy);
           if (!skipped(v)) f(j, v);
         }
       }
@@ -248,9 +194,7 @@ extern "C" int union_reduce(const void* ts, const void* val, const void* mask,
                             void* out, void* stream) {
   if (s <= 0 || n <= 0 || g <= 0 || total <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  row_counts_kernel<<<(unsigned)((s + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      (const uint8_t*)mask, s, n, (int64_t*)counts);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = row_counts(mask, s, n, counts, st);
   if (err != cudaSuccess) return (int)err;
   const int64_t threads = (total + CH - 1) / CH;
   const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);

@@ -1,16 +1,25 @@
-"""Windowed downsampling of a [series, time] batch: kernel K1.
+"""Windowed downsampling of a [series, time] batch: kernels K1 and K4.
 
-Port of opentsdb_tpu/ops/downsample.py for the moment family (OpenTSDB
-Downsampler.java ValuesInInterval :292, interval start as the output
-timestamp, epoch-aligned windows; FillingDownsampler.java for the fill
-policies).  Downsampled values are always float64 (Downsampler.java:257).
+Port of opentsdb_tpu/ops/downsample.py (OpenTSDB Downsampler.java
+ValuesInInterval :292, interval start as the output timestamp,
+epoch-aligned windows; FillingDownsampler.java for the fill policies).
+Downsampled values are always float64 (Downsampler.java:257).
 
 The host plans the windows (``FixedWindows``, ``EdgeWindows``,
 ``AllWindow``) as one int64 edge vector e[W+1] holding exactly the query's
 windows: window w spans [e[w], e[w+1]), and its timestamp is e[w].
-``window_moments`` (K1, csrc/window_moments.cu) reduces each window's run
-of the time-sorted row and applies the fill policy;
-``window_moments_plain`` is its plain PyTorch version.
+``downsample`` dispatches by the function's family:
+
+* moments: ``window_moments`` (K1, csrc/window_moments.cu) reduces each
+  window's run of the time-sorted row and applies the fill policy;
+* order and rank functions: ``window_order`` (K4, csrc/window_order.cu),
+  first, last, diff, mult, the median and the percentiles, then the fill;
+* movingAverage<N>: K1 ``sum``, then the Java window loop across each
+  series' data-bearing windows (aggregators.moving_average, kernel MA),
+  then the fill.
+
+``window_moments_plain`` and ``window_order_plain`` are the kernels' plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -21,7 +30,10 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.ops import kernels
-from opentsdb_tpu_torch.ops.aggregators import MOMENT_CODES
+from opentsdb_tpu_torch.ops.aggregators import (
+    MOMENT_CODES, ORDER_AGGS, ma_window, moving_average_rows, order_args)
+from opentsdb_tpu_torch.ops.percentile import (
+    parse_percentile_name, row_run_percentile)
 
 # Fill policies (FillPolicy.java:22-27).
 FILL_NONE = "none"
@@ -127,9 +139,8 @@ def window_moments(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     if agg_name not in MOMENT_CODES:
-        raise NotImplementedError(
-            "downsample function %r is not ported yet (ROADMAP queue B5)"
-            % agg_name)
+        raise KeyError("window_moments computes the moments, not %r"
+                       % agg_name)
     _check_batch(ts, val, mask, edges)
     if ts.device.type == "cpu":
         return window_moments_plain(ts, val, mask, edges, agg_name,
@@ -198,9 +209,108 @@ def window_moments_plain(ts: torch.Tensor, val: torch.Tensor,
         out = acc.scatter_reduce_(0, cell, src, "amin" if is_min else "amax",
                                   include_self=True)[:-1].reshape(s, w)
     else:
-        raise NotImplementedError(
-            "downsample function %r is not ported yet (ROADMAP queue B5)"
-            % agg_name)
+        raise KeyError("window_moments computes the moments, not %r"
+                       % agg_name)
+    return apply_fill(out, count > 0, fill_policy, fill_value)
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
+# shape: -> ([S,W] f64, [S,W] bool)
+def window_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
+                 edges: torch.Tensor, agg_name: str,
+                 fill_policy: str = FILL_NONE, fill_value: float = 0.0):
+    """K4: per-(series, window) order or rank function `agg_name` (first,
+    last, diff, mult, median, a percentile) over time-sorted rows, then
+    the fill policy -> (values[S, W] f64, mask[S, W] bool), under the
+    masking and fill rules of window_moments.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    if agg_name not in ORDER_AGGS or agg_name == "none":
+        raise KeyError("No such downsampling function: " + agg_name)
+    _check_batch(ts, val, mask, edges)
+    if ts.device.type == "cpu":
+        return window_order_plain(ts, val, mask, edges, agg_name,
+                                  fill_policy, fill_value)
+    dev = kernels.require_cuda(ts, val, mask, edges)
+    s, n = ts.shape
+    w = edges.numel() - 1
+    mode, fv = _fill(fill_policy, fill_value)
+    code, q, est = order_args(agg_name)
+    out = torch.empty((s, w), dtype=torch.float64, device=dev)
+    out_mask = torch.empty((s, w), dtype=torch.bool, device=dev)
+    if s == 0:
+        return out, out_mask
+    kernels.launch(
+        "window_order", dev, kernels.ptr(ts), kernels.ptr(val),
+        kernels.ptr(mask), kernels.ptr(edges), s, n, w, code, q, est, mode,
+        fv, int(val.dtype == torch.int64), kernels.ptr(out),
+        kernels.ptr(out_mask))
+    return out, out_mask
+
+
+def window_order_plain(ts: torch.Tensor, val: torch.Tensor,
+                       mask: torch.Tensor, edges: torch.Tensor,
+                       agg_name: str, fill_policy: str = FILL_NONE,
+                       fill_value: float = 0.0):
+    """Plain PyTorch version of K4, the reference's algorithm: window ids
+    by searchsorted; first/last by the least and greatest position of a
+    cell, mult by scatter_reduce_; median and percentiles over each row
+    sorted by (window, value) (two stable sorts) with each cell's run
+    from the count grid."""
+    s, n = ts.shape
+    w = edges.numel() - 1
+    dev = ts.device
+    if n == 0:
+        return apply_fill(torch.full((s, w), torch.nan, dtype=torch.float64,
+                                     device=dev),
+                          torch.zeros((s, w), dtype=torch.bool, device=dev),
+                          fill_policy, fill_value)
+    vf = val.to(torch.float64)
+    win = torch.searchsorted(edges, ts, right=True) - 1
+    ok = mask & ~torch.isnan(vf) & (win >= 0) & (win < w)
+    rows = torch.arange(s, dtype=torch.int64, device=dev)[:, None]
+    cell = torch.where(ok, rows * w + win, s * w).reshape(-1)
+    count = torch.zeros(s * w + 1, dtype=torch.int64, device=dev).index_add_(
+        0, cell, ok.reshape(-1).to(torch.int64))[:-1].reshape(s, w)
+    flat = vf.reshape(-1)
+
+    def cellreduce(src, how, ident):
+        acc = torch.full((s * w + 1,), ident, dtype=src.dtype, device=dev)
+        return acc.scatter_reduce_(0, cell, src, how,
+                                   include_self=True)[:-1].reshape(s, w)
+
+    if agg_name == "mult":
+        out = cellreduce(torch.where(ok.reshape(-1), flat, 1.0), "prod", 1.0)
+    elif agg_name in ("first", "last", "diff"):
+        pos = torch.arange(s * n, dtype=torch.int64, device=dev)
+        okf = ok.reshape(-1)
+        first_i = cellreduce(torch.where(okf, pos, s * n), "amin", s * n)
+        last_i = cellreduce(torch.where(okf, pos, -1), "amax", -1)
+        first = flat[first_i.clamp(0, s * n - 1)]
+        last = flat[last_i.clamp(0, s * n - 1)]
+        if agg_name == "first":
+            out = first
+        elif agg_name == "last":
+            out = last
+        else:
+            out = torch.where(count >= 2, last - first, 0.0)
+    else:
+        # each row by (window, value): the values first, then a stable
+        # sort by window; slots that take no part go past every window
+        by_val = torch.sort(torch.where(ok, vf, torch.inf), dim=1,
+                            stable=True).indices
+        wkey = torch.gather(torch.where(ok, win, w), 1, by_val)
+        order = torch.gather(by_val, 1, torch.sort(wkey, dim=1,
+                                                   stable=True).indices)
+        sorted_rows = torch.gather(vf, 1, order)
+        starts = torch.cumsum(count, dim=1) - count
+        if agg_name == "median":
+            idx = (starts + count // 2).clamp(0, n - 1)
+            out = torch.gather(sorted_rows, 1, idx)
+        else:
+            q, est = parse_percentile_name(agg_name)
+            out = row_run_percentile(sorted_rows, starts, count, q, est)
     return apply_fill(out, count > 0, fill_policy, fill_value)
 
 
@@ -226,7 +336,19 @@ def downsample(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                fill_policy: str = FILL_NONE, fill_value: float = 0.0):
     """Downsample a [S, N] batch over the windows of `edges`[W+1] ->
     (window_ts[W], values[S, W], mask[S, W]), as
-    opentsdb_tpu.ops.downsample.downsample does for the moment family."""
-    out, out_mask = window_moments(ts, val, mask, edges, agg_name,
-                                   fill_policy, fill_value)
+    opentsdb_tpu.ops.downsample.downsample does: K1 for a moment, K4 for
+    an order or rank function, and for movingAverage<N> K1's window sums
+    then MA across each series' data-bearing windows (:1121-1136), the
+    fill applied to MA's output over the sums' mask."""
+    nw = ma_window(agg_name)
+    if nw is not None:
+        sums, sum_mask = window_moments(ts, val, mask, edges, "sum")
+        out = moving_average_rows(sums, sum_mask, nw)
+        out, out_mask = apply_fill(out, sum_mask, fill_policy, fill_value)
+    elif agg_name in MOMENT_CODES:
+        out, out_mask = window_moments(ts, val, mask, edges, agg_name,
+                                       fill_policy, fill_value)
+    else:
+        out, out_mask = window_order(ts, val, mask, edges, agg_name,
+                                     fill_policy, fill_value)
     return window_timestamps(edges), out, out_mask

@@ -1,6 +1,6 @@
-"""Grouped cross-series aggregation on a shared downsample grid: K2 and K3.
+"""Grouped cross-series aggregation on a shared downsample grid: K2, K3, K5.
 
-Port of opentsdb_tpu/ops/group_agg.py for the moment aggregators (OpenTSDB
+Port of opentsdb_tpu/ops/group_agg.py (OpenTSDB
 TsdbQuery.GroupByAndAggregateCB :981-1114 and AggregationIterator's
 missing-point policies :682/:735).  All groups travel in one [S, W] grid
 with a group id per row; groups are contiguous row runs (the planner emits
@@ -10,10 +10,13 @@ them that way), so the host turns gid into row offsets[G + 1]
 * ``grid_fill_rate`` (K2, csrc/grid_fill_rate.cu): the optional rate, then
   each row's contribution and participation at every window.
 * ``group_moments`` (K3, csrc/group_moments.cu): the per-(group, window)
-  reduce and the presence mask.
+  moment reduce and the presence mask.
+* ``group_order`` (K5, csrc/group_order.cu): the per-(group, window) order
+  and rank reduces (first, last, diff and none in row order, mult, the
+  median, the percentiles) and the presence mask.
 
 Each has its plain PyTorch version beside it (``grid_fill_rate_plain``,
-``group_moments_plain``), which CPU tensors run.
+``group_moments_plain``, ``group_order_plain``), which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch
 
 from opentsdb_tpu_torch.ops import kernels
 from opentsdb_tpu_torch.ops.aggregators import (
-    MOMENT_AGGS, MOMENT_CODES, POLICY_CODES)
+    MOMENT_AGGS, MOMENT_CODES, ORDER_AGGS, POLICY_CODES, order_args)
+from opentsdb_tpu_torch.ops.percentile import (
+    column_run_percentile, parse_percentile_name)
 from opentsdb_tpu_torch.ops.rate import (
     RateOptions, rate, prev_valid_index, next_valid_index)
 from opentsdb_tpu_torch.ops.union_agg import interpolate
@@ -33,6 +38,16 @@ def _check_grid(*pairs) -> None:
     for t, dtype in pairs:
         if t.dtype != dtype:
             raise TypeError("expected %s, got %s" % (dtype, t.dtype))
+
+
+def _check_group_inputs(contrib, participate, present, offsets) -> None:
+    s, w = contrib.shape
+    if participate.shape != (s, w) or present.shape != (s, w) \
+            or offsets.dim() != 1 or offsets.numel() < 1:
+        raise ValueError("the group reduces take contrib, participate and "
+                         "present of one [S, W] shape and offsets[G + 1]")
+    _check_grid((contrib, torch.float64), (participate, torch.bool),
+                (present, torch.bool), (offsets, torch.int64))
 
 
 # shape: wts[W] i64, v[S,W] f64, m[S,W] bool
@@ -119,19 +134,14 @@ def group_moments(agg_name: str, contrib: torch.Tensor,
     out_mask marks cells where some member is `present`.
     """
     if agg_name not in MOMENT_AGGS:
-        raise NotImplementedError(
-            "aggregator %r is not ported yet (ROADMAP queue B6)" % agg_name)
-    s, w = contrib.shape
-    if participate.shape != (s, w) or present.shape != (s, w) \
-            or offsets.dim() != 1 or offsets.numel() < 1:
-        raise ValueError("group_moments takes contrib, participate and "
-                         "present of one [S, W] shape and offsets[G + 1]")
-    _check_grid((contrib, torch.float64), (participate, torch.bool),
-                (present, torch.bool), (offsets, torch.int64))
+        raise KeyError("group_moments computes the moments, not %r"
+                       % agg_name)
+    _check_group_inputs(contrib, participate, present, offsets)
     if contrib.device.type == "cpu":
         return group_moments_plain(agg_name, contrib, participate, present,
                                    offsets)
     dev = kernels.require_cuda(contrib, participate, present, offsets)
+    w = contrib.shape[1]
     g = offsets.numel() - 1
     out = torch.empty((g, w), dtype=torch.float64, device=dev)
     out_mask = torch.empty((g, w), dtype=torch.bool, device=dev)
@@ -189,4 +199,103 @@ def group_moments_plain(agg_name: str, contrib: torch.Tensor,
     if agg_name != "count":
         out = torch.where(cnt > 0, out, torch.nan)
     out_mask = gsum(present[lo:hi].to(torch.float64)) > 0
+    return out, out_mask
+
+
+# shape: contrib[S,W] f64, participate[S,W] bool, present[S,W] bool
+# shape: offsets[G+1] i64 -> ([G,W] f64, [G,W] bool)
+def group_order(agg_name: str, contrib: torch.Tensor,
+                participate: torch.Tensor, present: torch.Tensor,
+                offsets: torch.Tensor):
+    """K5 -> (out[G, W] f64, out_mask[G, W] bool).
+
+    Per (group, window): the order or rank function `agg_name` over the
+    participating, non-NaN member cells, first/last/diff/none in row order
+    (the order series entered the group); NaN where none participates;
+    out_mask marks cells where some member is `present`.
+    """
+    if agg_name not in ORDER_AGGS:
+        raise KeyError("group_order computes the order and rank functions, "
+                       "not %r" % agg_name)
+    _check_group_inputs(contrib, participate, present, offsets)
+    if contrib.device.type == "cpu":
+        return group_order_plain(agg_name, contrib, participate, present,
+                                 offsets)
+    dev = kernels.require_cuda(contrib, participate, present, offsets)
+    w = contrib.shape[1]
+    g = offsets.numel() - 1
+    code, q, est = order_args(agg_name)
+    out = torch.empty((g, w), dtype=torch.float64, device=dev)
+    out_mask = torch.empty((g, w), dtype=torch.bool, device=dev)
+    if g == 0 or w == 0:
+        return out, out_mask
+    kernels.launch(
+        "group_order", dev, kernels.ptr(contrib), kernels.ptr(participate),
+        kernels.ptr(present), kernels.ptr(offsets), g, w, code, q, est,
+        kernels.ptr(out), kernels.ptr(out_mask))
+    return out, out_mask
+
+
+def group_order_plain(agg_name: str, contrib: torch.Tensor,
+                      participate: torch.Tensor, present: torch.Tensor,
+                      offsets: torch.Tensor):
+    """Plain PyTorch version of K5, the reference's algorithm: the first
+    and last participating row of each cell by scatter_reduce_, mult by a
+    product scatter, median and percentiles over each column sorted by
+    (group, value) (two stable sorts) with each cell's run from the
+    counts."""
+    dev = contrib.device
+    w = contrib.shape[1]
+    g = offsets.numel() - 1
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    s = hi - lo
+    if s == 0:
+        return (torch.full((g, w), torch.nan, dtype=torch.float64,
+                           device=dev),
+                torch.zeros((g, w), dtype=torch.bool, device=dev))
+    sizes = offsets[1:] - offsets[:-1]
+    gid = torch.repeat_interleave(torch.arange(g, device=dev), sizes)
+    x = contrib[lo:hi]
+    ok = participate[lo:hi] & ~torch.isnan(x)
+    gidw = gid[:, None].expand(-1, w)
+    cnt = torch.zeros((g, w), dtype=torch.int64, device=dev).index_add_(
+        0, gid, ok.to(torch.int64))
+
+    def greduce(src, how, ident):
+        acc = torch.full((g, w), ident, dtype=src.dtype, device=dev)
+        return acc.scatter_reduce_(0, gidw, src, how, include_self=True)
+
+    if agg_name == "mult":
+        out = greduce(torch.where(ok, x, 1.0), "prod", 1.0)
+    elif agg_name in ("first", "last", "diff", "none"):
+        rows = torch.arange(s, device=dev)[:, None].expand(-1, w)
+        first_r = greduce(torch.where(ok, rows, s), "amin", s)
+        last_r = greduce(torch.where(ok, rows, -1), "amax", -1)
+        first = torch.gather(x, 0, first_r.clamp(0, s - 1))
+        last = torch.gather(x, 0, last_r.clamp(0, s - 1))
+        if agg_name in ("first", "none"):
+            out = first
+        elif agg_name == "last":
+            out = last
+        else:
+            out = torch.where(cnt >= 2, last - first, 0.0)
+    else:
+        # each column by (group, value): the values first, then a stable
+        # sort by group; cells that take no part go past every group
+        by_val = torch.sort(torch.where(ok, x, torch.inf), dim=0,
+                            stable=True).indices
+        gkey = torch.gather(torch.where(ok, gidw, g), 0, by_val)
+        order = torch.gather(by_val, 0, torch.sort(gkey, dim=0,
+                                                   stable=True).indices)
+        sorted_cols = torch.gather(x, 0, order)
+        starts = torch.cumsum(cnt, dim=0) - cnt
+        if agg_name == "median":
+            idx = (starts + cnt // 2).clamp(0, s - 1)
+            out = torch.gather(sorted_cols, 0, idx)
+        else:
+            q, est = parse_percentile_name(agg_name)
+            out = column_run_percentile(sorted_cols, starts, cnt, q, est)
+    out = torch.where(cnt > 0, out, torch.nan)
+    out_mask = torch.zeros((g, w), dtype=torch.int64, device=dev).index_add_(
+        0, gid, present[lo:hi].to(torch.int64)) > 0
     return out, out_mask

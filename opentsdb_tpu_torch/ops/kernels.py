@@ -3,17 +3,19 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/kernels/lib<name>-<hash>.so`` under the repository root,
 compiled by ``nvcc`` for ``sm_90a`` at first use.  The hash covers the
-source and the flags, so an edited source builds anew and an unchanged one
-is loaded as it is.  All sources are compiled at once, one ``nvcc``
-process each.  The libraries are loaded with ctypes; every pointer and the
-stream pass as ``c_void_p``.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is loaded as it is.
+All sources are compiled at once, one ``nvcc`` process each.  The
+libraries are loaded with ctypes; every pointer and the stream pass as
+``c_void_p``.
 
 A kernel launches on torch's current stream, synchronises nothing and
 allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
-ops.union_agg) allocates the outputs and any scratch with ``torch.empty``,
-checks device, dtype, shape and contiguity, calls ``launch``, and raises
-when the C entry returns a CUDA error.  A build or launch failure always raises: nothing here falls back
-to a plain version.
+ops.union_agg, ops.aggregators) allocates the outputs and any scratch
+with ``torch.empty``, checks device, dtype, shape and contiguity, calls
+``launch``, and raises when the C entry returns a CUDA error.  A build
+or launch failure always raises: nothing here falls back to a plain
+version.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.
@@ -68,6 +70,20 @@ SIGNATURES: dict[str, tuple] = {
     # val_is_int, counts, out, stream
     "union_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                      _I32, _I32, _P, _P, _P),
+    # ts, val, mask, edges, s, n, w, code, q, est, fill_mode, fill_value,
+    # val_is_int, out, out_mask, stream
+    "window_order": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64, _I32, _I32,
+                     _F64, _I32, _P, _P, _P),
+    # contrib, participate, present, offsets, g, w, code, q, est, out,
+    # out_mask, stream
+    "group_order": (_P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P, _P, _P),
+    # ts, val, mask, offsets, u, uoff, s, n, g, total, code, q, est, policy,
+    # val_is_int, maxm, tile, counts, scratch, flags, out, stream
+    "union_order": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                    _F64, _I32, _I32, _I32, _I64, _I64, _P, _P, _P, _P, _P),
+    # sums, live (may be null), offsets, r, n_window, val_is_int, total,
+    # pre, at, out, stream
+    "moving_average": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P, _P, _P),
 }
 
 # Launch counts per kernel, bumped only by launch().
@@ -95,10 +111,15 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    """Where the build of csrc/<name>.cu lives, keyed by source + flags."""
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read())
+def library_path(name: str, csrc: str = _CSRC) -> str:
+    """Where the build of <csrc>/<name>.cu lives, keyed by the source, every
+    shared header of <csrc> (*.cuh, which a source may include) and the
+    flags."""
+    digest = hashlib.sha256()
+    for part in [name + ".cu"] + sorted(
+            f for f in os.listdir(csrc) if f.endswith(".cuh")):
+        with open(os.path.join(csrc, part), "rb") as fh:
+            digest.update(part.encode() + b"\0" + fh.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name,
                                                     digest.hexdigest()[:16]))

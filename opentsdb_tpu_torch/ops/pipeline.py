@@ -6,9 +6,12 @@ Port of opentsdb_tpu/ops/pipeline.py: ``run_group_pipeline`` (over
 union arm of ``_pipeline`` behind ``run_pipeline`` and
 ``run_union_batch_pipeline``), in the reference's iterator-chain order
 (AggregationIterator.create :253-380: Span -> Downsampler -> RateSpan ->
-merge).  On the device the grouped pipeline is three kernel launches, K1
-window_moments, K2 grid_fill_rate and K3 group_moments; the union pipeline
-is R point_rate (under a rate), U1 union_merge and U2 union_reduce.  Both
+merge).  On the device the grouped pipeline is K1 window_moments or K4
+window_order (by the downsample function's family, with MA after K1 for
+movingAverage<N>), K2 grid_fill_rate, and K3 group_moments or K5
+group_order (by the aggregator's family, K3 and MA for movingAverage<N>);
+the union pipeline is R point_rate (under a rate), U1 union_merge, and U2
+union_reduce, U3 union_order or U2 and MA by the aggregator's family.  Both
 take every group of a sub query in one [S, N] batch whose groups are
 contiguous row runs.  The batch builders run on the host and produce the
 [S, N] numpy batch that the caller moves to the device; N is the longest
@@ -23,10 +26,10 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.ops.aggregators import (
-    get_agg, ma_window, MOMENT_AGGS, PREV)
+    family, get_agg, ma_window, moving_average_rows, PREV)
 from opentsdb_tpu_torch.ops.downsample import downsample, FILL_NONE
 from opentsdb_tpu_torch.ops.group_agg import (
-    grid_fill_rate, group_moments, group_offsets)
+    grid_fill_rate, group_moments, group_offsets, group_order)
 from opentsdb_tpu_torch.ops.rate import RateOptions, point_rate
 from opentsdb_tpu_torch.ops.union_agg import union_aggregate
 
@@ -51,20 +54,40 @@ class PipelineSpec:
 
 
 def check_ported(spec: PipelineSpec) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a pipeline
-    this port does not compute yet."""
-    names = [("aggregator", spec.aggregator, "B6")]
+    """Raise KeyError for an aggregator or downsample function outside the
+    registry (and for "none" as a downsample function, which the reference
+    refuses too): every other pipeline is computed."""
+    family(spec.aggregator)
     if spec.downsample is not None:
-        names.append(("downsample function", spec.downsample.function, "B5"))
-    for what, name, item in names:
-        if ma_window(name) is not None:
-            raise NotImplementedError(
-                "%s %r is not ported yet (ROADMAP queue B4: "
-                "movingAverage<N>)" % (what, name))
-        if name not in MOMENT_AGGS:
-            raise NotImplementedError(
-                "%s %r is not ported yet (ROADMAP queue %s: order and rank "
-                "functions)" % (what, name, item))
+        function = spec.downsample.function
+        if function == "none":
+            raise KeyError("No such downsampling function: none")
+        family(function)
+
+
+# shape: contrib[S,W] f64, participate[S,W] bool, present[S,W] bool
+# shape: offsets[G+1] i64 -> ([G,W] f64, [G,W] bool)
+def group_reduce(agg_name: str, contrib: torch.Tensor,
+                 participate: torch.Tensor, present: torch.Tensor,
+                 offsets: torch.Tensor):
+    """The grouped cross-series reduce by the aggregator's family, as
+    grid_group_aggregate picks it (group_agg.py:656-661): K3 for a moment,
+    K5 for an order or rank function, and for movingAverage<N> K3's group
+    sums and counts, then MA over the windows with data, NaN where none
+    (moment_group_reduce :540-551)."""
+    kind = family(agg_name)
+    if kind == "moment":
+        return group_moments(agg_name, contrib, participate, present,
+                             offsets)
+    if kind == "order":
+        return group_order(agg_name, contrib, participate, present, offsets)
+    sums, out_mask = group_moments("sum", contrib, participate, present,
+                                   offsets)
+    count, _ = group_moments("count", contrib, participate, present,
+                             offsets)
+    live = count > 0
+    out = moving_average_rows(sums, live, ma_window(agg_name))
+    return torch.where(live, out, torch.nan), out_mask
 
 
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, gid[S] any,
@@ -93,8 +116,8 @@ def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
         else get_agg(spec.aggregator).interpolation
     contrib, participate, present = grid_fill_rate(wts, v, m, policy,
                                                    spec.rate)
-    out, out_mask = group_moments(spec.aggregator, contrib, participate,
-                                  present, offsets)
+    out, out_mask = group_reduce(spec.aggregator, contrib, participate,
+                                 present, offsets)
     return wts, out, out_mask
 
 

@@ -1,4 +1,4 @@
-"""Cross-series aggregation at the union of timestamps: kernels U1 and U2.
+"""Cross-series aggregation at the union of timestamps: kernels U1, U2, U3.
 
 Port of opentsdb_tpu/ops/union_agg.py (OpenTSDB AggregationIterator.java:
 one aggregated value at every timestamp any member series holds, next()
@@ -17,14 +17,19 @@ group_offsets).  Every row's valid points form a time-sorted prefix
   union of its members' timestamps, all groups in one flat u[U] with group
   offsets uoff[G + 1].
 * ``union_reduce`` (U2, csrc/union_reduce.cu): per group and union slot,
-  each member's exact or interpolated value, reduced over the members.
+  each member's exact or interpolated value, reduced over the members by a
+  moment function.
+* ``union_order`` (U3, csrc/union_order.cu): the same contributions
+  (csrc/union_contrib.cuh, shared with U2), reduced by an order or rank
+  function, first/last/diff/none in row order.
 
 Unlike the reference, whose union has S*N slots with masked duplicates
 between them, u holds only the union's slots, every one a real timestamp
-of some member, so no output mask is needed.  ``union_merge_plain`` and
-``union_reduce_plain`` are the plain PyTorch versions; the latter keeps the
-reference's tiling of the union axis (_UNION_TILE_CELLS) so that its
-[members, slots] contribution matrix fits in memory.
+of some member, so no output mask is needed.  ``union_merge_plain``,
+``union_reduce_plain`` and ``union_order_plain`` are the plain PyTorch
+versions; the last two keep the reference's tiling of the union axis
+(_UNION_TILE_CELLS) so that their [members, slots] contribution matrix fits
+in memory, as U3's scratch does.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 from opentsdb_tpu_torch.ops import kernels
 from opentsdb_tpu_torch.ops.aggregators import (
     LERP, ZIM, MAX_IF_MISSING, MIN_IF_MISSING, PREV, F64_MAX, I64_MAX,
-    I64_MIN, MOMENT_CODES, POLICY_CODES, moment_reduce)
+    I64_MIN, MOMENT_CODES, ORDER_AGGS, POLICY_CODES, family, ma_window,
+    moment_reduce, moving_average, order_args, order_reduce)
 from opentsdb_tpu_torch.ops.rate import PAD_TS
 
 # Cells of [members, slots] a tile of the plain version materialises
@@ -126,6 +132,19 @@ def union_merge_plain(ts: torch.Tensor, mask: torch.Tensor,
     return u, torch.cumsum(sizes, 0).to(ts.device)
 
 
+def _check_union_inputs(ts, val, mask, offsets, u, uoff, policy) -> None:
+    if policy not in POLICY_CODES:
+        raise ValueError("Invalid interpolation: " + policy)
+    _check_rows(ts, mask, offsets)
+    if val.shape != ts.shape or val.dtype not in (torch.float64, torch.int64):
+        raise TypeError("the union reduces take val float64 or int64 of "
+                        "ts's shape")
+    if u.dim() != 1 or u.dtype != torch.int64 or uoff.dtype != torch.int64 \
+            or uoff.shape != offsets.shape:
+        raise ValueError("the union reduces take u[U] and uoff[G + 1], "
+                         "int64")
+
+
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, offsets[G+1] i64
 # shape: u[U] i64, uoff[G+1] i64 -> [U] f64|i64
 def union_reduce(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
@@ -142,17 +161,9 @@ def union_reduce(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     version; CUDA tensors launch the kernel.
     """
     if agg_name not in MOMENT_CODES:
-        raise NotImplementedError(
-            "aggregator %r is not ported yet (ROADMAP queue B6)" % agg_name)
-    if policy not in POLICY_CODES:
-        raise ValueError("Invalid interpolation: " + policy)
-    _check_rows(ts, mask, offsets)
-    if val.shape != ts.shape or val.dtype not in (torch.float64, torch.int64):
-        raise TypeError("union_reduce takes val float64 or int64 of ts's "
-                        "shape")
-    if u.dim() != 1 or u.dtype != torch.int64 or uoff.dtype != torch.int64 \
-            or uoff.shape != offsets.shape:
-        raise ValueError("union_reduce takes u[U] and uoff[G + 1], int64")
+        raise KeyError("union_reduce computes the moments, not %r"
+                       % agg_name)
+    _check_union_inputs(ts, val, mask, offsets, u, uoff, policy)
     if ts.device.type == "cpu":
         return union_reduce_plain(ts, val, mask, offsets, u, uoff, agg_name,
                                   policy)
@@ -175,11 +186,17 @@ def union_reduce_plain(ts: torch.Tensor, val: torch.Tensor,
                        mask: torch.Tensor, offsets: torch.Tensor,
                        u: torch.Tensor, uoff: torch.Tensor, agg_name: str,
                        policy: str) -> torch.Tensor:
-    """Plain PyTorch version of U2, the reference's algorithm group by
-    group: each member's searchsorted position of every slot, its
-    bracketing points, the interpolation, then moment_reduce over the
-    members, in tiles of at most _UNION_TILE_CELLS [members, slots]
-    cells."""
+    """Plain PyTorch version of U2: _union_plain with moment_reduce."""
+    return _union_plain(ts, val, mask, offsets, u, uoff, policy,
+                        lambda c, p: moment_reduce(agg_name, c, p))
+
+
+def _union_plain(ts, val, mask, offsets, u, uoff, policy,
+                 reduce) -> torch.Tensor:
+    """The reference's algorithm group by group: each member's
+    searchsorted position of every slot, its bracketing points, the
+    interpolation, then `reduce`(contrib, participate) over the members, in
+    tiles of at most _UNION_TILE_CELLS [members, slots] cells."""
     int_mode = val.dtype == torch.int64
     n = ts.shape[1]
     offs, uoffs = offsets.tolist(), uoff.tolist()
@@ -208,16 +225,97 @@ def union_reduce_plain(ts: torch.Tensor, val: torch.Tensor,
                                  torch.gather(v_g, 1, prev_i), x1, y1, y1)
             contrib = torch.where(exact, y1, interp)
             in_range = (count > 0) & (x >= first) & (x <= last)
-            out[k0:k1] = moment_reduce(agg_name, contrib, in_range)
+            out[k0:k1] = reduce(contrib, in_range)
     return out
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, offsets[G+1] i64
+# shape: u[U] i64, uoff[G+1] i64 -> [U] f64|i64
+def union_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
+                offsets: torch.Tensor, u: torch.Tensor, uoff: torch.Tensor,
+                agg_name: str, policy: str) -> torch.Tensor:
+    """U3 -> out[U]: at every union slot of group g, the order or rank
+    function `agg_name` over the group's participating members in row
+    order, each contributing as in union_reduce.
+
+    float64 `val` skips NaN contributions and gives NaN where none
+    participates.  int64 `val` is int mode: mult and diff wrap, the median
+    is the exact long and a percentile is the truncated float64 one.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel, its
+    scratch sized by the largest group (one read of the offsets).
+    """
+    if agg_name not in ORDER_AGGS:
+        raise KeyError("union_order computes the order and rank functions, "
+                       "not %r" % agg_name)
+    _check_union_inputs(ts, val, mask, offsets, u, uoff, policy)
+    if ts.device.type == "cpu":
+        return union_order_plain(ts, val, mask, offsets, u, uoff, agg_name,
+                                 policy)
+    dev = kernels.require_cuda(ts, val, mask, offsets, u, uoff)
+    s, n = ts.shape
+    out = torch.empty(u.numel(), dtype=val.dtype, device=dev)
+    maxm = int((offsets[1:] - offsets[:-1]).max()) if offsets.numel() > 1 \
+        else 0
+    if u.numel() == 0 or maxm == 0:
+        return out
+    tile = min(max(_UNION_TILE_CELLS // maxm, 1), u.numel())
+    counts = torch.empty(s, dtype=torch.int64, device=dev)
+    scratch = torch.empty(maxm * tile, dtype=val.dtype, device=dev)
+    flags = torch.empty(maxm * tile, dtype=torch.uint8, device=dev)
+    code, q, est = order_args(agg_name)
+    kernels.launch(
+        "union_order", dev, kernels.ptr(ts), kernels.ptr(val),
+        kernels.ptr(mask), kernels.ptr(offsets), kernels.ptr(u),
+        kernels.ptr(uoff), s, n, offsets.numel() - 1, u.numel(), code, q,
+        est, POLICY_CODES[policy], int(val.dtype == torch.int64), maxm, tile,
+        kernels.ptr(counts), kernels.ptr(scratch), kernels.ptr(flags),
+        kernels.ptr(out))
+    return out
+
+
+def union_order_plain(ts: torch.Tensor, val: torch.Tensor,
+                      mask: torch.Tensor, offsets: torch.Tensor,
+                      u: torch.Tensor, uoff: torch.Tensor, agg_name: str,
+                      policy: str) -> torch.Tensor:
+    """Plain PyTorch version of U3: _union_plain with order_reduce."""
+    return _union_plain(ts, val, mask, offsets, u, uoff, policy,
+                        lambda c, p: order_reduce(agg_name, c, p))
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, offsets[G+1] i64
+# shape: u[U] i64, uoff[G+1] i64 -> [U] f64|i64
+def union_moving_average(ts: torch.Tensor, val: torch.Tensor,
+                         mask: torch.Tensor, offsets: torch.Tensor,
+                         u: torch.Tensor, uoff: torch.Tensor, n_window: int,
+                         policy: str) -> torch.Tensor:
+    """movingAverage<N> at the union slots (union_agg.py:179-207): U2's
+    cross-series sum at every slot (0 where no member takes part, as the
+    reference sums), then MA over each group's run of slots, every slot an
+    evaluation; the window state never crosses a group."""
+    sums = union_reduce(ts, val, mask, offsets, u, uoff, "sum", policy)
+    if sums.is_floating_point():
+        # U2 gives NaN where nothing participates; the reference's sum of
+        # no contributions is 0
+        count = union_reduce(ts, val, mask, offsets, u, uoff, "count",
+                             policy)
+        sums = torch.where(count == 0, 0.0, sums)
+    return moving_average(sums, None, uoff, n_window)
 
 
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, offsets[G+1] i64
 # shape: -> ([U] i64, [U] f64|i64, [G+1] i64)
 def union_aggregate(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                     offsets: torch.Tensor, agg_name: str, policy: str):
-    """U1 then U2 -> (u[U], out[U], uoff[G + 1]), as
+    """U1, then U2 for a moment, U3 for an order or rank function, U2 and
+    MA for movingAverage<N> -> (u[U], out[U], uoff[G + 1]), as
     opentsdb_tpu.ops.union_agg.union_aggregate computes for each group."""
     u, uoff = union_merge(ts, mask, offsets)
-    return u, union_reduce(ts, val, mask, offsets, u, uoff, agg_name,
-                           policy), uoff
+    kind = family(agg_name)
+    if kind == "moment":
+        out = union_reduce(ts, val, mask, offsets, u, uoff, agg_name, policy)
+    elif kind == "order":
+        out = union_order(ts, val, mask, offsets, u, uoff, agg_name, policy)
+    else:
+        out = union_moving_average(ts, val, mask, offsets, u, uoff,
+                                   ma_window(agg_name), policy)
+    return u, out, uoff

@@ -13,9 +13,10 @@ the device once and reduced there.  The union arm builds one batch for its
 all-integer groups and one for the rest, since a group's int mode (Java
 long arithmetic) follows its own members.
 
-Aggregators and downsample functions of the moment family are answered,
-with or without a rate.  Anything else raises NotImplementedError naming
-its ROADMAP item.
+Every aggregator and downsample function of the registry is answered
+(moments, order and rank functions, movingAverage<N>), with or without a
+rate.  Histogram sub queries raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations

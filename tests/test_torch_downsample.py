@@ -129,12 +129,21 @@ def test_dev_large_magnitude_matches_reference():
 
 
 def test_unported_function_raises():
+    """K1 computes the moments only; downsample sends the median to K4
+    and refuses a name outside the registry."""
     rng = np.random.default_rng(1)
     ts, val, mask = sorted_batch(rng, 2, 8)
     edges = tds.FixedWindows.for_range(T0, T0 + 60_000, 10_000) \
         .window_edges("cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
-        tds.downsample(t(ts), t(val), t(mask), "median", edges)
+    with pytest.raises(KeyError):
+        tds.window_moments(t(ts), t(val), t(mask), edges, "median")
+    with pytest.raises(KeyError):
+        tds.downsample(t(ts), t(val), t(mask), "p42x", edges)
+    _, out, out_mask = tds.downsample(t(ts), t(val), t(mask), "median",
+                                      edges)
+    want = tds.window_order(t(ts), t(val), t(mask), edges, "median")
+    assert_exact(out_mask.numpy(), want[1].numpy())
+    assert_values(out.numpy(), want[0].numpy())
 
 
 def test_cuda_request_without_card_raises():

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from opentsdb_tpu_torch.core import load_state
+from opentsdb_tpu_torch.ops import aggregators as tagg
 from opentsdb_tpu_torch.ops import downsample as tds
 from opentsdb_tpu_torch.ops import group_agg as tga
 from opentsdb_tpu_torch.ops import kernels
@@ -261,3 +262,204 @@ def test_union_query_on_card_matches_cpu(cuda_device):
                 assert va == vb
             else:
                 np.testing.assert_allclose(va, vb, rtol=1e-9)
+
+
+# -- slice 3: K4 window_order, K5 group_order, U3 union_order, MA ----------
+
+ORDER_DS = ["first", "last", "diff", "mult", "median", "p999", "p99", "p95",
+            "p90", "p75", "p50", "ep999r3", "ep99r3", "ep95r3", "ep90r3",
+            "ep75r3", "ep50r3", "ep999r7", "ep99r7", "ep95r7", "ep90r7",
+            "ep75r7", "ep50r7"]
+ORDER_AGGS = ORDER_DS + ["none"]
+
+
+# The order kernels are held to their plain versions on the CPU: torch's
+# product scatter on the card multiplies in no fixed order (with an
+# overflow to inf and a zero in one run the order decides between NaN and
+# 0), and its division by a scalar multiplies by the reciprocal, which an
+# int-mode percentile's truncation can see.
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("kind", list(PLANS))
+def test_window_order_kernel_matches_plain(cuda_device, kind, int_values):
+    batch = sorted_batch(np.random.default_rng(4), 64, 512,
+                         int_values=int_values)
+    args = _on(cuda_device, *batch)
+    edges = PLANS[kind].window_edges(cuda_device)
+    cpu_edges = PLANS[kind].window_edges("cpu")
+    for func in ORDER_DS:
+        for fill in FILLS:
+            got = tds.window_order(*args, edges, func, fill, 2.5)
+            want = tds.window_order_plain(*[t(x) for x in batch], cpu_edges,
+                                          func, fill, 2.5)
+            assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+            assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def test_group_order_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(20)
+    dv = _on(cuda_device, *_grid(rng, 300, 48, True))
+    contrib, participate, present = tga.grid_fill_rate(*dv, "lerp")
+    gid = np.sort(rng.integers(0, 40, 300))
+    gid[gid == 7] = 8                        # group 7 empty
+    offsets = tga.group_offsets(gid, 64)
+    for agg in ORDER_AGGS:
+        got = tga.group_order(agg, contrib, participate, present,
+                              offsets.to(cuda_device))
+        want = tga.group_order_plain(agg, contrib.cpu(), participate.cpu(),
+                                     present.cpu(), offsets)
+        assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def test_group_order_kernel_long_group(cuda_device):
+    """One group of 40,000 rows x 2 windows: far longer than a block's
+    shared memory could stage, exact all the same."""
+    rng = np.random.default_rng(22)
+    contrib = np.round(rng.normal(0, 50, (40_000, 2)), 1)
+    participate = rng.random((40_000, 2)) < 0.9
+    c, p = _on(cuda_device, contrib, participate)
+    offsets = torch.tensor([0, 40_000], device=cuda_device)
+    for agg in ("median", "ep99r7", "p50", "ep50r3", "first", "mult"):
+        got = tga.group_order(agg, c, p, p, offsets)
+        want = tga.group_order_plain(agg, t(contrib), t(participate),
+                                     t(participate), offsets.cpu())
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+    med = tga.group_order("median", c, p, p, offsets)[0].cpu().numpy()[0]
+    for col in range(2):
+        vals = np.sort(contrib[participate[:, col], col])
+        assert med[col] == vals[len(vals) // 2]
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+def test_union_order_kernel_matches_plain(cuda_device, int_values):
+    ts, val, mask, offsets = _union_batch(7, int_values)
+    d_ts, d_val, d_mask, d_off = _on(cuda_device, ts, val, mask, offsets)
+    u, uoff = tua.union_merge(d_ts, d_mask, d_off)
+    for func in ORDER_AGGS:
+        for policy in ("lerp", "zim", "prev"):
+            got = tua.union_order(d_ts, d_val, d_mask, d_off, u, uoff, func,
+                                  policy)
+            want = tua.union_order_plain(t(ts), t(val), t(mask), offsets,
+                                         u.cpu(), uoff.cpu(), func, policy)
+            if int_values:
+                assert_exact(got.cpu().numpy(), want.cpu().numpy())
+            else:
+                assert_values(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_union_order_int_median_above_2_53(cuda_device):
+    """Longs above 2^53 that share a float64: the median is the exact long,
+    on the card as on the CPU."""
+    base = 2**60
+    ts = np.tile(np.arange(4, dtype=np.int64) * 1000 + T0, (5, 1))
+    val = base + np.arange(20, dtype=np.int64).reshape(5, 4) * 3
+    mask = np.ones_like(ts, bool)
+    d = _on(cuda_device, ts, val, mask, np.array([0, 5], np.int64))
+    u, out, _ = tua.union_aggregate(*d, "median", "lerp")
+    assert out.dtype == torch.int64
+    assert out.cpu().tolist() == [int(np.sort(val[:, j])[2])
+                                  for j in range(4)]
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+def test_moving_average_kernel_matches_plain(cuda_device, int_values):
+    """Runs of uneven length, one empty, one whose live slots are sparse
+    (every 37th), and windows of 1, 5 and longer than a run."""
+    rng = np.random.default_rng(30)
+    sums = rng.normal(100.0, 40.0, 5_000)
+    if int_values:
+        sums = (sums * 1e6).astype(np.int64) + 2**55
+    live = rng.random(5_000) < 0.8
+    live[1000:3000] = np.arange(2000) % 37 == 0
+    offsets = np.array([0, 10, 10, 1000, 3000, 5000], np.int64)
+    ds_, dl, do = _on(cuda_device, sums, live, offsets)
+    for n_window in (1, 5, 300):
+        for lv in (dl, None):
+            got = tagg.moving_average(ds_, lv, do, n_window)
+            want = tagg.moving_average_plain(ds_, lv, do, n_window)
+            if int_values:
+                assert_exact(got.cpu().numpy(), want.cpu().numpy())
+            else:
+                assert_values(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_order_pipelines_launch_their_kernels(cuda_device):
+    gid = np.array([0, 0, 0, 1, 1, 3, 3, 3], np.int64)
+    batch = sorted_batch(np.random.default_rng(23), len(gid), 128)
+    edges = PLANS["fixed"].window_edges(cuda_device)
+    cases = {
+        ("p99", "first"): {"window_order": 1, "grid_fill_rate": 1,
+                           "group_order": 1},
+        ("movingAverage3", "sum"): {"window_moments": 1,
+                                    "grid_fill_rate": 1,
+                                    "group_moments": 2, "moving_average": 1},
+        ("sum", "movingAverage"): {"window_moments": 1, "moving_average": 1,
+                                   "grid_fill_rate": 1, "group_moments": 1},
+    }
+    for (agg, ds_fn), launches in cases.items():
+        spec = tpipe.PipelineSpec(agg, tpipe.DownsampleStep(ds_fn))
+        kernels.reset_launches()
+        out = tpipe.run_group_pipeline(spec, *_on(cuda_device, *batch), gid,
+                                       4, edges)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in kernels.LAUNCHES.items() if n} == launches
+        plain = tpipe.run_group_pipeline(spec, *[t(x) for x in batch], gid,
+                                         4, PLANS["fixed"].window_edges("cpu"))
+        assert_exact(out[2].cpu().numpy(), plain[2].numpy())
+        assert_values(out[1].cpu().numpy(), plain[1].numpy())
+    ts, val, mask, offsets = _union_batch(8, False)
+    for agg, launches in (("median", {"union_merge": 1, "union_order": 1}),
+                          ("movingAverage", {"union_merge": 1,
+                                             "union_reduce": 2,
+                                             "moving_average": 1})):
+        kernels.reset_launches()
+        out = tpipe.run_union_pipeline(tpipe.PipelineSpec(agg), *_on(
+            cuda_device, ts, val, mask, offsets), False)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in kernels.LAUNCHES.items() if n} == launches
+        plain = tpipe.run_union_pipeline(tpipe.PipelineSpec(agg), t(ts),
+                                         t(val), t(mask), offsets, False)
+        assert_values(out[1].cpu().numpy(), plain[1].numpy())
+
+
+def test_order_queries_on_card_match_cpu(cuda_device):
+    """Order, rank and movingAverage queries on both paths answer on the
+    card as on the CPU, integer answers as integers."""
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    rng = np.random.default_rng(11)
+    uid_maps = {"metric": {"m": 1, "mi": 2}, "tagk": {"host": 1, "g": 2},
+                "tagv": {"h%d" % i: i + 1 for i in range(30)}}
+    uid_maps["tagv"].update({"g0": 41, "g1": 42, "g2": 43})
+    series = []
+    for i in range(30):
+        ts = np.sort(rng.choice(3_600_000, 400, replace=False)) + T0
+        ival = np.cumsum(rng.integers(0, 1000, 400)) + 2**53
+        series.append((1, {1: i + 1, 2: 41 + i % 3}, ts,
+                       rng.normal(10, 2, 400), np.zeros(400, np.int64),
+                       np.zeros(400, bool)))
+        series.append((2, {1: i + 1, 2: 41 + i % 3}, ts,
+                       ival.astype(np.float64), ival, np.ones(400, bool)))
+    for m in ("p99:5m-avg:m{g=*}", "sum:5m-p95:m{g=*}",
+              "last:5m-first:m{g=*}", "movingAverage5:5m-sum:m{g=*}",
+              "p99:m{g=*}", "diff:rate:m{g=*}", "median:mi{g=*}",
+              "first:mi{g=*}", "ep99r7:mi", "movingAverage5:m{g=*}",
+              "movingAverage3:mi{g=*}"):
+        answers = []
+        for dev in ("cpu", cuda_device):
+            tsdb = load_state(uid_maps, series, device=dev)
+            q = TSQuery(start="1356998400", end="1357002000",
+                        queries=[parse_m_subquery(m)])
+            q.validate()
+            answers.append([r.to_json()
+                            for r in tsdb.new_query_runner().run(q)])
+        assert len(answers[0]) == len(answers[1]) > 0, m
+        for a, b in zip(*answers):
+            assert a["tags"] == b["tags"] and list(a["dps"]) == list(b["dps"])
+            va, vb = list(a["dps"].values()), list(b["dps"].values())
+            assert [type(x) for x in va] == [type(x) for x in vb], m
+            if isinstance(va[0], int):
+                assert va == vb, m
+            else:
+                np.testing.assert_allclose(va, vb, rtol=1e-9, atol=1e-9)

@@ -145,11 +145,23 @@ def test_group_offsets_refuse_unsorted_gid():
 
 
 def test_group_moments_unported_aggregator_raises():
+    """K3 computes the moments only and refuses the median; K5
+    (group_order) answers it, as the reference's ordered_group_reduce
+    does."""
     contrib = np.zeros((2, 2))
     ok = np.ones((2, 2), bool)
-    with pytest.raises(NotImplementedError, match="B6"):
+    with pytest.raises(KeyError):
         tga.group_moments("median", t(contrib), t(ok), t(ok),
                           tga.group_offsets(np.array([0, 0]), 1))
+    rng = np.random.default_rng(9)
+    contrib, participate, present, gid = _k3_inputs(rng)
+    ref, _ = jax.jit(jga.ordered_group_reduce,
+                     static_argnames=("agg_name", "num_groups"))(
+        agg_name="median", contrib=contrib, participate=participate, gid=gid,
+        num_groups=8)
+    out, _ = tga.group_order("median", t(contrib), t(participate),
+                             t(present), tga.group_offsets(gid, 8))
+    assert_values(out.numpy(), np.asarray(ref))
 
 
 def test_cuda_request_without_card_raises():

@@ -122,11 +122,18 @@ def test_union_pipeline_matches_reference(case):
 
 
 def test_unported_pipeline_raises():
-    with pytest.raises(NotImplementedError, match="B6"):
-        tpipe.check_ported(tpipe.PipelineSpec("median"))
-    with pytest.raises(NotImplementedError, match="movingAverage"):
+    """check_ported refuses only names outside the registry (and "none"
+    as a downsample function, as the reference does); order, rank and
+    movingAverage names pass."""
+    with pytest.raises(KeyError):
+        tpipe.check_ported(tpipe.PipelineSpec("p42x"))
+    with pytest.raises(KeyError):
         tpipe.check_ported(tpipe.PipelineSpec(
-            "movingAverage", tpipe.DownsampleStep("sum")))
+            "sum", tpipe.DownsampleStep("none")))
+    for name in ("median", "ep99r7", "first", "movingAverage7"):
+        tpipe.check_ported(tpipe.PipelineSpec(
+            name, tpipe.DownsampleStep(name if name != "first" else "last")))
+        tpipe.check_ported(tpipe.PipelineSpec(name))
 
 
 def test_build_batch_layouts_agree():

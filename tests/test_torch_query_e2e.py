@@ -141,6 +141,39 @@ CASES = [
      "1356998400+3600"),
     ("sum:explicit_tags:1m-avg:cpu.load{host=h1,dc=dc1}", "1356998400",
      "1356998400+3600"),
+    # order and rank functions and movingAverage<N>, in either position
+    ("median:1m-avg:cpu.load", "1356998400", "1356999000"),
+    ("sum:1m-p99:cpu.load", "1356998400", "1356999000"),
+    ("sum:1m-first:cpu.load", "1356998400", "1356999000"),
+    ("movingAverage:1m-avg:cpu.load", "1356998400", "1356999000"),
+    ("p95:1m-avg:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("ep99r7:2m-max:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("ep50r3:1m-avg:rate:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("last:1m-first:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("diff:1m-last:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("first:1m-diff:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("mult:5m-avg:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("none:1m-avg:cpu.load", "1356998400", "1356998400+3600"),
+    ("sum:5m-mult:sys.cpu.user{host=*}", "1356998400", "1356998500"),
+    ("first:1m-median-zero:cpu.load{dc=*}", "1356998400",
+     "1356998400+3600"),
+    ("sum:1m-ep90r7-null:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("sum:1m-p999-scalar:cpu.load{host=h1|h4}", "1356998400",
+     "1356998400+3600"),
+    ("max:10mc-p50:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("sum:0all-p99:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("avg:0all-median:cpu.load", "1356998400", "1356998400+3600"),
+    ("ep75r3:0all-ep75r7:cpu.load{host=*}", "1356998400",
+     "1356998400+3600"),
+    ("median:1m-avg:rate{counter}:net.bytes{dc=*}", "1356998400",
+     "1356998400+3600"),
+    ("movingAverage3:1m-sum:cpu.load{dc=*}", "1356998400",
+     "1356998400+3600"),
+    ("sum:1m-movingAverage:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("sum:2m-movingAverage4-zero:cpu.load{dc=*}", "1356998400",
+     "1356998400+3600"),
+    ("movingAverage2:1m-avg:rate:net.bytes{dc=*}", "1356998400",
+     "1356998400+3600"),
 ]
 
 
@@ -209,6 +242,30 @@ UNION_CASES = [
     ("sum:rate:mix.val{dc=*}", "1356998400", "1356998400+3600"),
     ("sum:explicit_tags:cpu.load{host=h1,dc=dc1}", "1356998400",
      "1356998400+3600"),
+    # order and rank functions and movingAverage<N>, float and int mode
+    ("median:sys.cpu.user", "1356998400", "1356999000"),
+    ("p99:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("ep95r3:cpu.load", "1356998400", "1356998400+3600"),
+    ("ep75r7:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("first:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("last:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("diff:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("mult:sys.cpu.user", "1356998400", "1356998500"),
+    ("none:cpu.load", "1356998400", "1356998400+3600"),
+    ("median:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("p90:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("first:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("last:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("diff:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("median:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("ep99r7:mix.val", "1356998400", "1356998400+3600"),
+    ("mult:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("diff:rate:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("p99:rate{counter}:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("movingAverage:cpu.load{dc=*}", "1356998400", "1356998400+3600"),
+    ("movingAverage3:net.bytes{dc=*}", "1356998400", "1356998400+3600"),
+    ("movingAverage2:mix.val{dc=*}", "1356998400", "1356998400+3600"),
+    ("movingAverage:rate:net.bytes", "1356998400", "1356998400+3600"),
 ]
 
 
@@ -246,12 +303,8 @@ def test_union_query_mixes_int_and_float_groups(both):
 
 
 @pytest.mark.parametrize("m", [
-    "median:sys.cpu.user",                    # union path, rank aggregator
-    "median:1m-avg:cpu.load",                 # rank aggregator
-    "sum:1m-p99:cpu.load",                    # rank downsample
-    "sum:1m-first:cpu.load",                  # order downsample
-    "movingAverage:1m-avg:cpu.load",
     "sum:percentiles[99]:cpu.load",           # histograms
+    "sum:1m-avg:percentiles[50,99]:cpu.load",
 ])
 def test_unported_queries_raise(both, m):
     _, port_tsdb = both

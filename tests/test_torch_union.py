@@ -144,11 +144,13 @@ def test_union_merge_matches_reference_timestamps():
 
 def test_union_groups_of_different_sizes():
     """Groups as uneven row runs, an empty group and rows outside every
-    group, against the reference group by group."""
+    group, against the reference group by group; moments (U2), order and
+    rank functions (U3) and movingAverage<N> (U2 and MA)."""
     ts, val, mask = _batch(35)
     gid = np.array([0, 0, 0, 0, 0, 2, 3, 3, 3, 3, 3, 3], np.int64)
     offsets = group_offsets(gid, 4)
-    for agg_name in ("sum", "dev", "mimmax"):
+    for agg_name in ("sum", "dev", "mimmax", "median", "ep99r7", "last",
+                     "movingAverage2"):
         pu, pout, puoff = tua.union_aggregate(
             t(ts), t(val), t(mask), offsets, agg_name,
             jget_agg(agg_name).interpolation)
@@ -224,9 +226,17 @@ def test_union_golden_cases(case):
 
 
 def test_union_reduce_refuses_unported_aggregators():
+    """U2 computes the moments only and refuses the median; U3
+    (union_order) answers it, as the reference's union_aggregate does."""
     ts, val, mask = _batch(36)
     offsets = torch.tensor([0, GROUPS * ROWS], dtype=torch.int64)
     u, uoff = tua.union_merge(t(ts), t(mask), offsets)
-    with pytest.raises(NotImplementedError, match="B6"):
+    with pytest.raises(KeyError):
         tua.union_reduce(t(ts), t(val), t(mask), offsets, u, uoff, "median",
                          "lerp")
+    got = tua.union_order(t(ts), t(val), t(mask), offsets, u, uoff, "median",
+                          "lerp")
+    ru, rout, rmask = (np.asarray(x) for x in jua.union_aggregate(
+        ts, val, mask, jget_agg("median")))
+    assert_exact(u.numpy(), ru[rmask])
+    assert_values(got.numpy(), rout[rmask])
