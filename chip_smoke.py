@@ -22,14 +22,32 @@ days), 1h windows.  Phases:
    runs), K5 group_order (every order and rank aggregator over the 100
    groups, median and ep99r7 over all 1024 rows as one group) and MA
    moving_average after K1's and K3's sums.
-3. end to end, grouped: a TSDB on the card ingests the batch through
+3. G1 gather_windows, the device cache's gather, against its plain
+   version on the headline batch's columns as one packed buffer: (a) the
+   full range, 1024 rows x 65,536 points; (b) the last 6 h; (c) the rows
+   of four groups, shuffled, over one day.  Timestamps, values and masks
+   must be equal.
+4. end to end, grouped: a TSDB on the card ingests the batch through
    MemStore.add_batch and answers seven grouped queries (moments, order
-   and rank functions in either position, movingAverage5); the count
-   query must count every point written, and each answer on a filtered
-   query must match a TSDB on the CPU holding the same state
-   (load_state).  Kernel launch counts are reset before this phase and
-   read after it.
-4. union kernels: U1 union_merge and U2 union_reduce (a) on the headline
+   and rank functions in either position, movingAverage5).  The first
+   query builds the device cache's entry inline (the cold line); then
+   every query is timed as a cache hit, and again with the cache detached
+   (a miss: the host batch build and copy).  The count query must count
+   every point written, and each answer on a filtered query must match a
+   TSDB on the CPU holding the same state (load_state, cache off).  Then
+   staleness: one point appended to one series makes the next query miss
+   and match the CPU copy; `refresh()` rebuilds the entry and the query
+   after it hits with the same answer.  The cold build's steps are timed
+   apart (snapshot uploads, device concatenation), beside the host route
+   (numpy snapshots, host concatenation, one upload).  Then writes at the
+   store's cadence (a point a series every 15.5 s, spread across the
+   period or aligned at its start, two periods each) interleave with
+   `sum:1h-avg:m{group=*}` run back to back while the maintenance thread
+   rebuilds the stale entry: each arm prints its hit share and its hit
+   and miss walls; afterwards a hit must equal a miss and the count must
+   hold every write.  Kernel launch counts are reset before this phase
+   and read after it.
+5. union kernels: U1 union_merge and U2 union_reduce (a) on the headline
    batch as it is, under all eleven aggregators; (b) on all 1024 rows as
    one group over the last 6 h (the fan-in of `sum:metric` over a fleet);
    (c) on an integer copy of 64 rows in 8 groups near 2^53 (int mode,
@@ -37,7 +55,7 @@ days), 1h windows.  Phases:
    batch under every rate option set, float and all-integer.  Then U3
    union_order (first last diff mult median p99 ep99r3 ep99r7) and MA
    after U2's sums, in the same cases (a) to (c), (c) exact.
-5. end to end, union: the same TSDB plus an integer metric `mi` (64
+6. end to end, union: the same TSDB plus an integer metric `mi` (64
    series x 65,536 points in 8 groups) answers ten queries without a
    downsample over the last 6 h of the range (the union path emits a point
    per distinct timestamp, so the full range would be ~6.7e7 points of
@@ -95,6 +113,7 @@ REPLACES = {
     "group_order": "opentsdb_tpu/ops/group_agg.py:558",
     "union_order": "opentsdb_tpu/ops/union_agg.py:209",
     "moving_average": "opentsdb_tpu/ops/aggregators.py:177",
+    "gather_windows": "opentsdb_tpu/storage/device_cache.py:443",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -451,6 +470,71 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     return times
 
 
+def gather_phase(dev, ts, val, gid, checks: Checks) -> dict:
+    """G1 gather_windows against its plain version on the headline
+    batch's columns packed as the device cache packs a metric: (a) every
+    row's full range, (b) the last 6 h, (c) the rows of groups 0-3 in a
+    shuffled order over one day."""
+    from opentsdb_tpu_torch.storage import device_cache as dc
+
+    ts_buf = torch.from_numpy(ts.reshape(-1)).to(dev)
+    val_buf = torch.from_numpy(val.reshape(-1)).to(dev)
+    row0 = np.arange(S, dtype=np.int64) * N
+    day0 = START + 5 * 86_400_000
+    sub = np.random.default_rng(4).permutation(np.flatnonzero(gid < 4))
+    lo6 = np.array([np.searchsorted(ts[i], END - SIX_HOURS_MS) for i in
+                    range(S)], np.int64)
+    lo_d = np.array([np.searchsorted(ts[i], day0) for i in sub], np.int64)
+    hi_d = np.array([np.searchsorted(ts[i], day0 + 86_400_000, "right")
+                     for i in sub], np.int64)
+    cases = {
+        "(a) full range": (row0, np.full(S, N, np.int64)),
+        "(b) last 6h": (row0 + lo6, N - lo6),
+        "(c) groups 0-3 shuffled, 1 day": (row0[sub] + lo_d, hi_d - lo_d),
+    }
+    times = {}
+    for name, (starts, lengths) in cases.items():
+        n = int(lengths.max())
+        d_st = torch.from_numpy(starts).to(dev)
+        d_len = torch.from_numpy(lengths).to(dev)
+        got = dc.gather_windows(ts_buf, val_buf, d_st, d_len, n)
+        want = dc.gather_windows_plain(ts_buf, val_buf, d_st, d_len, n)
+        for what, a, b in zip(("timestamps", "values", "masks"), got, want):
+            checks.exact("gather_windows", name, a, b, what)
+        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        print("%-15s %-44s %d rows x %d, %d points exact %s"
+              % ("gather_windows", name, len(starts), n, int(lengths.sum()),
+                 "ok" if ok else "FAIL"))
+        del got, want
+        points = int(lengths.sum())
+        times[name] = {
+            "ms": time_ms(lambda: dc.gather_windows(ts_buf, val_buf, d_st,
+                                                    d_len, n)),
+            "plain_ms": time_ms(lambda: dc.gather_windows_plain(
+                ts_buf, val_buf, d_st, d_len, n), 3),
+            # each requested point read once from both buffers, each
+            # [S, N] slot written once (ts, val, mask), starts and lengths
+            "bound_ms": bound_ms(points * 16 + len(starts) * n * 17
+                                 + len(starts) * 16, 0.0),
+            "library_ms": None,
+        }
+    # (a) is the headline batch itself
+    full = dc.gather_windows(ts_buf, val_buf, torch.from_numpy(row0).to(dev),
+                             torch.full((S,), N, dtype=torch.int64,
+                                        device=dev), N)
+    checks.exact("gather_windows", "(a) against the batch", full[0].cpu(),
+                 torch.from_numpy(ts), "timestamps")
+    checks.exact("gather_windows", "(a) against the batch", full[1].cpu(),
+                 torch.from_numpy(val), "values")
+    del full
+    for name, t in times.items():
+        print("time gather_windows %-32s kernel %.4f ms  plain %.4f ms  "
+              "bound %.4f ms (bytes)" % (name, t["ms"], t["plain_ms"],
+                                         t["bound_ms"]))
+    # no single torch call gathers runs into a padded, masked batch
+    return {"gather_windows": times["(a) full range"]}
+
+
 def print_times(times: dict) -> None:
     for name, t in times.items():
         print("time %-15s kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)  "
@@ -460,24 +544,184 @@ def print_times(times: dict) -> None:
                               if t["library_ms"] is not None else "none"))
 
 
-def _query(m: str, start: int = START):
+def _query(m: str, start: int = START, end: int = END):
     from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
-    q = TSQuery(start=str(start), end=str(END), queries=[parse_m_subquery(m)])
+    q = TSQuery(start=str(start), end=str(end), queries=[parse_m_subquery(m)])
     q.validate()
     return q
 
 
 def _cpu_copy(tsdb):
-    """The TSDB's whole state on the CPU (load_state), every series in the
-    card's order: first, last, diff and none take a group's members in the
-    order its metric's series come out of the store, so a copy of only the
-    filtered groups could order them otherwise."""
+    """The TSDB's whole state on the CPU (load_state, the device cache
+    off: the oracle is the host path), every series in the card's order:
+    first, last, diff and none take a group's members in the order its
+    metric's series come out of the store, so a copy of only the filtered
+    groups could order them otherwise."""
     from opentsdb_tpu_torch.core import load_state
+    from opentsdb_tpu_torch.utils.config import Config
     uid_maps = {kind: tsdb.uid_table(kind).snapshot()
                 for kind in ("metric", "tagk", "tagv")}
     series = [(s.key.metric, dict(s.key.tags), *s.arrays())
               for s in tsdb.store.all_series()]
-    return load_state(uid_maps, series, device="cpu")
+    return load_state(uid_maps, series, config=Config(
+        {"tsd.query.device_cache.enable": False}), device="cpu")
+
+
+def cold_split(tsdb, metric: int, dev) -> None:
+    """The device cache's inline build (_build_guarded) step by step on
+    the host clock: each series' columns uploaded inside its snapshot's
+    lock hold, then one device-side concatenation.  Beside it, on the same
+    store, the host route (numpy snapshots, a host concatenation, one
+    pageable upload of the packed buffers)."""
+    series = tsdb.store.series_for_metric(metric)
+    fix = tsdb.config.fix_duplicates
+
+    def upload(column):
+        return torch.from_numpy(column).to(dev, copy=True)
+
+    t0 = time.perf_counter()
+    parts = [s.snapshot(fix, upload) for s in series]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    packed = (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nbytes = sum(x.nbytes for x in packed)
+    del parts, packed
+    print("e2e cold split (the build): %d snapshot uploads %.1f ms, device "
+          "concatenation %.1f ms, %.3f GB"
+          % (len(series), (t1 - t0) * 1e3, (t2 - t1) * 1e3, nbytes / 1e9))
+    t0 = time.perf_counter()
+    parts = [s.snapshot(fix) for s in series]
+    t1 = time.perf_counter()
+    ts_buf = np.concatenate([p[0] for p in parts])
+    val_buf = np.concatenate([p[1] for p in parts])
+    t2 = time.perf_counter()
+    del parts
+    up = (torch.from_numpy(ts_buf).to(dev), torch.from_numpy(val_buf).to(dev))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print("e2e cold split (the host route): snapshots %.1f ms, "
+          "concatenation %.1f ms, upload %.1f ms"
+          % ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    del up, ts_buf, val_buf
+
+
+def ingest_arm(tsdb, m: str, median_wall: dict, checks: Checks) -> None:
+    """Writes at the store's cadence, a point a series every STEP_MS,
+    interleaved with a dashboard's grouped query `m` run back to back,
+    while the maintenance thread (TSDB.start_maintenance) rebuilds the
+    device cache's stale entry.  Two arms of two periods each: "spread",
+    the series' points one at a time across the period, as independent
+    hosts' collectors send them; "aligned", every series' point at once
+    at the start of each period, as a relay flushing a fleet's points
+    each interval sends them.  Each arm prints its queries, the share
+    that hit, the hit and miss walls beside the miss arm's, and the
+    rebuilds.  Then, the writes over, a hit must equal a miss on the same
+    TSDB, and the count query must count every point written."""
+    import threading
+
+    periods = 2
+    cache = tsdb.device_cache
+    # past every point this phase writes: period k of arm a writes at
+    # END + (a * periods + k) * STEP_MS + a slot of its own
+    end = END + (2 * periods + 1) * STEP_MS
+    tags = [{"host": "h%04d" % i, "group": "g%03d" % (i * GROUPS // S)}
+            for i in range(S)]
+    written = [0]
+    tsdb.start_maintenance()
+    try:
+        for a, arm in enumerate(("spread", "aligned")):
+            done = threading.Event()
+            errors = []
+
+            def writer():
+                try:
+                    t_start = time.perf_counter()
+                    for k in range(periods):
+                        for i in range(S):
+                            slot = k * S + i if arm == "spread" else k * S
+                            delay = (t_start + slot * STEP_MS / 1e3 / S
+                                     - time.perf_counter())
+                            if delay > 0:
+                                time.sleep(delay)
+                            tsdb.add_point(
+                                "m", END + (a * periods + k) * STEP_MS
+                                + i * (STEP_MS // S),
+                                100.0 + (i * 7 + k) % 1_000 * 0.05, tags[i])
+                            written[0] += 1
+                    delay = t_start + periods * STEP_MS / 1e3 \
+                        - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                except Exception as e:      # reported in the main thread
+                    errors.append(e)
+                finally:
+                    done.set()
+
+            builds0, hits0, misses0 = cache.builds, cache.hits, cache.misses
+            walls = {True: [], False: []}
+            th = threading.Thread(target=writer)
+            t_arm = time.perf_counter()
+            th.start()
+            while not done.is_set():
+                runner = tsdb.new_query_runner()
+                t0 = time.perf_counter()
+                runner.run(_query(m, end=end))
+                walls[runner.exec_stats.get("deviceCacheHit") == 1.0].append(
+                    (time.perf_counter() - t0) * 1e3)
+            th.join()
+            span = time.perf_counter() - t_arm
+            if errors:
+                checks.failures.append("ingest %s: %r" % (arm, errors[0]))
+            n = len(walls[True]) + len(walls[False])
+            print("e2e ingest %-7s %d writes in %.1f s (a point a series "
+                  "each %.1f s), %d queries: %d hits, share %.3f (of the "
+                  "arm's time in hits %.3f) | hit wall %s ms, miss wall %s "
+                  "ms (the miss arm's %.1f ms) | rebuilds %d; cache hits "
+                  "%d misses %d"
+                  % (arm, periods * S, span, STEP_MS / 1e3, n,
+                     len(walls[True]), len(walls[True]) / max(n, 1),
+                     sum(walls[True]) / 1e3 / span,
+                     "%.1f" % statistics.median(walls[True])
+                     if walls[True] else "none",
+                     "%.1f" % statistics.median(walls[False])
+                     if walls[False] else "none",
+                     median_wall["miss", m], cache.builds - builds0,
+                     cache.hits - hits0, cache.misses - misses0))
+        # the writes over, the thread's next rebuild makes the query hit
+        deadline = time.perf_counter() + 30.0
+        hit = None
+        while time.perf_counter() < deadline:
+            runner = tsdb.new_query_runner()
+            res = runner.run(_query(m, end=end))
+            if runner.exec_stats.get("deviceCacheHit") == 1.0:
+                hit = res
+                break
+            time.sleep(0.5)
+        count_q = m.replace(":1h-avg:", ":1h-count:")
+        runner = tsdb.new_query_runner()
+        counted = sum(v for r in runner.run(_query(count_q, end=end))
+                      for _, v in r.dps)
+        count_hit = runner.exec_stats.get("deviceCacheHit")
+        refreshes = tsdb.maintenance.device_cache_refreshes
+    finally:
+        tsdb.shutdown()
+    tsdb.device_cache = None
+    miss = tsdb.new_query_runner().run(_query(m, end=end))
+    tsdb.device_cache = cache
+    same = hit is not None and [(r.tags, r.dps) for r in hit] \
+        == [(r.tags, r.dps) for r in miss]
+    want = S * N + 1 + written[0]
+    print("e2e ingest after the writes: the query %s, answer %s the miss's; "
+          "count %s total %d (written %d); maintenance rebuilt %d entries"
+          % ("hit" if hit is not None else "NEVER HIT",
+             "the same as" if same else "DIFFERENT from",
+             "hit" if count_hit == 1.0 else "missed", counted, want,
+             refreshes))
+    if not same or counted != want or written[0] != 2 * periods * S:
+        checks.failures.append("ingest arm: no hit after the writes, a hit "
+                               "that differs from a miss, or a lost write")
 
 
 def e2e_phase(dev, ts, val, checks: Checks):
@@ -509,9 +753,27 @@ def e2e_phase(dev, ts, val, checks: Checks):
                "sum:1h-p95:m{group=*}", "last:1h-first:m{group=*}",
                "movingAverage5:1h-sum:m{group=*}"]
     subset = "{group=g000|g001|g002|g003}"
+    cache = tsdb.device_cache
     kernels.reset_launches()
-    answers, filtered = {}, {}
-    for m in queries:
+
+    # cold: the first query builds the device cache's entry inline
+    # (snapshot of every series of m, then one upload) and gathers from it
+    runner = tsdb.new_query_runner()
+    t0 = time.perf_counter()
+    runner.run(_query(queries[0]))
+    cold = (time.perf_counter() - t0) * 1e3
+    st = runner.exec_stats
+    print("e2e cold %-30s wall %.1f ms | build %.1f gather %.1f (inline "
+          "entry build + gather) h2d %.1f kernels %.1f extract %.1f ms | "
+          "deviceCacheHit %s | builds %d, entry %.3f GB on the card"
+          % (queries[0], cold, st["buildMs"], st["gatherMs"], st["h2dMs"],
+             st["kernelsMs"], st["extractMs"], st.get("deviceCacheHit"),
+             cache.builds, cache.bytes_used / 1e9))
+    if cache.builds != 1 or st.get("deviceCacheHit") != 1.0:
+        checks.failures.append("the cold query did not build and hit")
+    cold_split(tsdb, metric, dev)
+
+    def timed(m, arm):
         runner = tsdb.new_query_runner()
         runner.run(_query(m))                    # warm-up
         walls, splits = [], []
@@ -520,25 +782,36 @@ def e2e_phase(dev, ts, val, checks: Checks):
             res = runner.run(_query(m))
             walls.append((time.perf_counter() - t0) * 1e3)
             splits.append(dict(runner.exec_stats))
-        answers[m] = res
         wall = statistics.median(walls)
         split = {p: statistics.median(s[p + "Ms"] for s in splits)
                  for p in PHASES}
-        print("e2e %-30s wall %.1f ms (median of 5) | build %.1f h2d %.1f "
-              "kernels %.1f extract %.1f ms | kernel share %.4f | %.3e "
-              "points/s | %d results"
-              % (m, wall, split["build"], split["h2d"], split["kernels"],
-                 split["extract"], split["kernels"] / wall,
-                 points / (wall / 1e3), len(res)))
+        hit = [s.get("deviceCacheHit", 0.0) for s in splits]
+        print("e2e %-4s %-30s wall %.1f ms (median of 5) | build %.1f h2d "
+              "%.1f gather %.1f kernels %.1f extract %.1f ms | kernel share "
+              "%.4f | %.3e points/s | deviceCacheHit %s | %d results"
+              % (arm, m, wall, split["build"], split["h2d"], split["gather"],
+                 split["kernels"], split["extract"], split["kernels"] / wall,
+                 points / (wall / 1e3), min(hit), len(res)))
+        if min(hit) != (1.0 if arm == "hit" else 0.0):
+            checks.failures.append("%s: expected a cache %s" % (m, arm))
+        median_wall[arm, m] = wall
+        return res
+
+    median_wall = {}
+    answers, filtered = {}, {}
+    for m in queries:
+        answers[m] = timed(m, "hit")
         filtered[m] = tsdb.new_query_runner().run(
             _query(m.replace("{group=*}", subset)))
-    launches = dict(kernels.LAUNCHES)
-    print("e2e launches %s" % json.dumps(launches))
-    for name in ("window_moments", "grid_fill_rate", "group_moments",
-                 "window_order", "group_order", "moving_average"):
-        if launches[name] < 1:
-            checks.failures.append("kernel %s never launched on the main "
-                                   "path" % name)
+    # the same queries with the cache detached from the same TSDB (the
+    # host holds one copy of the store): the host batch build and copy
+    tsdb.device_cache = None
+    misses = {m: timed(m, "miss") for m in queries}
+    tsdb.device_cache = cache
+    for m in queries:
+        if [(r.tags, r.dps) for r in misses[m]] \
+                != [(r.tags, r.dps) for r in answers[m]]:
+            checks.failures.append("%s: hit and miss answers differ" % m)
 
     for m, res in answers.items():
         if len(res) != GROUPS:
@@ -555,19 +828,61 @@ def e2e_phase(dev, ts, val, checks: Checks):
 
     # the same state on the CPU, through load_state, on the filtered query
     cpu = _cpu_copy(tsdb)
-    for m in queries:
-        fm = m.replace("{group=*}", subset)
+
+    def same_as_cpu(fm, got, note=""):
         want = cpu.new_query_runner().run(_query(fm))
-        got = filtered[m]
         same = [(a.tags, [t for t, _ in a.dps]) for a in got] \
             == [(b.tags, [t for t, _ in b.dps]) for b in want]
         if not same:
-            checks.failures.append("%s: card and CPU differ in groups or "
-                                   "timestamps" % fm)
-            continue
-        checks.values("e2e", fm,
+            checks.failures.append("%s%s: card and CPU differ in groups or "
+                                   "timestamps" % (fm, note))
+            return
+        checks.values("e2e", fm + note,
                       torch.tensor([v for a in got for _, v in a.dps]),
                       torch.tensor([v for b in want for _, v in b.dps]))
+
+    for m in queries:
+        same_as_cpu(m.replace("{group=*}", subset), filtered[m])
+
+    # staleness: one point appended to one series of group g000, on the
+    # card's TSDB and the CPU copy alike
+    fm = queries[0].replace("{group=*}", subset)
+    key = SeriesKey.make(metric, {
+        k_host: tsdb.tag_values.get_id("h0000"),
+        k_group: tsdb.tag_values.get_id("g000")})
+    for t in (tsdb, cpu):
+        t.store.add_batch(key, np.array([END - 1], np.int64),
+                          np.array([1e6]), False)
+    runner = tsdb.new_query_runner()
+    stale = runner.run(_query(fm))
+    stale_hit = runner.exec_stats.get("deviceCacheHit")
+    same_as_cpu(fm, stale, " after an append")
+    rebuilt = cache.refresh()
+    runner = tsdb.new_query_runner()
+    fresh = runner.run(_query(fm))
+    fresh_hit = runner.exec_stats.get("deviceCacheHit")
+    print("e2e staleness: after an append the query %s; refresh() rebuilt "
+          "%d; the query after it %s, answer %s"
+          % ("missed" if stale_hit is None else "HIT", rebuilt,
+             "hit" if fresh_hit == 1.0 else "MISSED",
+             "the same" if [(r.tags, r.dps) for r in fresh]
+             == [(r.tags, r.dps) for r in stale] else "DIFFERENT"))
+    if stale_hit is not None or rebuilt != 1 or fresh_hit != 1.0 \
+            or [(r.tags, r.dps) for r in fresh] \
+            != [(r.tags, r.dps) for r in stale]:
+        checks.failures.append("staleness sequence failed")
+    ingest_arm(tsdb, queries[0], median_wall, checks)
+    launches = dict(kernels.LAUNCHES)
+    print("e2e launches %s" % json.dumps(launches))
+    for name in ("window_moments", "grid_fill_rate", "group_moments",
+                 "window_order", "group_order", "moving_average",
+                 "gather_windows"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the main "
+                                   "path" % name)
+    print("e2e device cache %s" % json.dumps(cache.collect_stats()))
+    cache.invalidate()      # the union phases run without the entry
+    del cpu
     return tsdb, launches
 
 
@@ -946,6 +1261,8 @@ def main() -> int:
     times = kernel_phase(dev, ts, val, gid, h, checks)
     torch.cuda.empty_cache()
     times.update(order_kernel_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
+    times.update(gather_phase(dev, ts, val, gid, checks))
     torch.cuda.empty_cache()
     tsdb, launches = e2e_phase(dev, ts, val, checks)
     torch.cuda.empty_cache()

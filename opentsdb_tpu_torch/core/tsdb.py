@@ -4,8 +4,10 @@ A slim port of opentsdb_tpu/core/tsdb.py (OpenTSDB TSDB.java :87 — the
 three UID dictionaries :297-302, ``addPoint`` :1051-1136 with timestamp/tag
 validation :1313, and the second/millisecond timestamp heuristic).  The
 store lives on the host; queries run on ``device``, which is ``cuda``
-unless the caller passes another (device.resolve_device).  No WAL, no
-replication, no plugins, no caches.
+unless the caller passes another (device.resolve_device).  One cache, the
+device series cache (storage/device_cache.py), refreshed by the maintenance
+thread that ``start_maintenance`` starts.  No WAL, no replication, no
+plugins.
 
 ``load_state`` builds a TSDB from another TSDB's UID dictionaries and
 series columns, so the two hold the same data under the same UIDs.
@@ -18,6 +20,7 @@ import math
 import numpy as np
 
 from opentsdb_tpu_torch.device import resolve_device
+from opentsdb_tpu_torch.storage.device_cache import DeviceSeriesCache
 from opentsdb_tpu_torch.storage.memstore import (
     MemStore, SeriesKey, MAX_NUM_TAGS)
 from opentsdb_tpu_torch.uid import UniqueId, UniqueIdType
@@ -89,6 +92,19 @@ class TSDB:
             width=self.config.get_int("tsd.storage.uid.width.tagv"))
         self.store = MemStore(salt_buckets=self.config.salt_buckets,
                               fix_duplicates=self.config.fix_duplicates)
+        # created as the reference does at core/tsdb.py:76-85
+        self.device_cache = (
+            DeviceSeriesCache(
+                self.config.get_int("tsd.query.device_cache.mb") * 2**20,
+                self.config.get_int(
+                    "tsd.query.device_cache.build_max_points"),
+                fix_duplicates=self.config.fix_duplicates,
+                batch_max_bytes=self.config.get_int(
+                    "tsd.query.device_cache.batch_mb") * 2**20,
+                device=self.device)
+            if self.config.get_bool("tsd.query.device_cache.enable")
+            else None)
+        self.maintenance = None
 
     # -- write path ------------------------------------------------------ #
 
@@ -189,6 +205,36 @@ class TSDB:
         """Hex TSUID honoring the configured UID byte widths."""
         return key.tsuid(self.metrics.width, self.tag_names.width,
                          self.tag_values.width)
+
+    def collect_stats(self) -> dict:
+        """The stored point count and, when the device cache is on, its
+        tallies (a slim TSDB.collectStats, reference core/tsdb.py:1056)."""
+        out: dict = {"tsd.storage.datapoints": self.store.total_datapoints}
+        if self.device_cache is not None:
+            out.update(self.device_cache.collect_stats())
+        if self.maintenance is not None:
+            out.update(self.maintenance.collect_stats())
+        return out
+
+    # -- maintenance ----------------------------------------------------- #
+
+    def start_maintenance(self):
+        """Start the background maintenance thread, which rebuilds stale
+        device-cache entries every MaintenanceThread.TICK_SECONDS.  A
+        long-lived TSDB that takes writes starts it, as the reference's
+        daemon does (tools/tsd_main.py:126); a bare TSDB stays free of
+        threads.  Returns the thread."""
+        if self.maintenance is None:
+            from opentsdb_tpu_torch.core.maintenance import MaintenanceThread
+            self.maintenance = MaintenanceThread(self)
+            self.maintenance.start()
+        return self.maintenance
+
+    def shutdown(self) -> None:
+        """Stop the maintenance thread, if one runs."""
+        if self.maintenance is not None:
+            self.maintenance.stop()
+            self.maintenance = None
 
     def new_query_runner(self):
         from opentsdb_tpu_torch.query.planner import QueryRunner

@@ -11,11 +11,11 @@ libraries are loaded with ctypes; every pointer and the stream pass as
 
 A kernel launches on torch's current stream, synchronises nothing and
 allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
-ops.union_agg, ops.aggregators) allocates the outputs and any scratch
-with ``torch.empty``, checks device, dtype, shape and contiguity, calls
-``launch``, and raises when the C entry returns a CUDA error.  A build
-or launch failure always raises: nothing here falls back to a plain
-version.
+ops.union_agg, ops.aggregators, storage.device_cache) allocates the
+outputs and any scratch with ``torch.empty``, checks device, dtype,
+shape and contiguity, calls ``launch``, and raises when the C entry
+returns a CUDA error.  A build or launch failure always raises: nothing
+here falls back to a plain version.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.
@@ -84,6 +84,9 @@ SIGNATURES: dict[str, tuple] = {
     # sums, live (may be null), offsets, r, n_window, val_is_int, total,
     # pre, at, out, stream
     "moving_average": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P, _P, _P),
+    # ts_buf, val_buf, p, starts, lengths, s, n, out_ts, out_val, out_mask,
+    # stream
+    "gather_windows": (_P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P),
 }
 
 # Launch counts per kernel, bumped only by launch().

@@ -9,7 +9,11 @@ _run_segment_grouped), one without through the union pipeline
 (ops.pipeline.run_union_pipeline, the reference's _run_segment_union).
 Every group-by bucket of a sub query travels in one [S, N] batch whose
 groups are contiguous row runs; the batch is built on the host, moved to
-the device once and reduced there.  The union arm builds one batch for its
+the device once and reduced there.  The grouped arm first asks the device
+series cache (storage/device_cache.py) for the batch, as the reference's
+plan decision does (query/plandecision.py:366-378): on a hit the batch is
+gathered on the device from columns already there, and nothing is built
+or copied on the host.  The union arm builds one batch for its
 all-integer groups and one for the rest, since a group's int mode (Java
 long arithmetic) follows its own members.
 
@@ -40,9 +44,11 @@ from opentsdb_tpu_torch.utils import datetime_util as DT
 
 _NO_MATCH = object()  # sentinel: a literal filter can never match
 
-# Host-clock phases of one dispatch, in order; exec_stats carries each as
-# "<phase>Ms" summed over the run's dispatches.
-PHASES = ("build", "h2d", "kernels", "extract")
+# Host-clock phases of one dispatch; exec_stats carries each as
+# "<phase>Ms" summed over the run's dispatches.  "gather" is the grouped
+# arm's device-cache consult: validation and, on a hit, the gather (a cold
+# entry built inline lands there too).
+PHASES = ("build", "gather", "h2d", "kernels", "extract")
 
 
 def compute_tags(tag_maps: list[dict]) -> tuple[dict, list]:
@@ -106,11 +112,14 @@ class QueryResult:
 
 class _PhaseClock:
     """Host-clock phase split of one dispatch.  On a CUDA device each
-    boundary synchronises, so a phase holds its own device work."""
+    boundary synchronises, so a phase holds its own device work.  Every
+    phase of PHASES is reported, 0 where the dispatch has none."""
 
     def __init__(self, device: torch.device, stats: dict):
         self._cuda = device.type == "cuda"
         self._stats = stats
+        for phase in PHASES:
+            stats.setdefault(phase + "Ms", 0.0)
         self._t = time.perf_counter()
 
     def mark(self, phase: str) -> None:
@@ -265,7 +274,9 @@ class QueryRunner:
 
     def _run_grouped(self, query: TSQuery, sub: TSSubQuery, groups,
                      global_notes: list) -> dict[tuple, QueryResult]:
-        """All group-by buckets in ONE batch through the three kernels."""
+        """All group-by buckets in ONE batch through the grouped pipeline,
+        the batch gathered from the device cache on a hit and built on the
+        host otherwise."""
         tsdb = self.tsdb
         start_ms, end_ms = query.start_time, query.end_time
         fix = tsdb.config.fix_duplicates
@@ -285,17 +296,30 @@ class QueryRunner:
         series_list = [s for _, members in kept for s, _t in members]
         gid = np.concatenate([np.full(len(members), i, np.int64)
                               for i, (_, members) in enumerate(kept)])
-        ts, val, mask, _ = build_batch_direct(series_list, start_ms, end_ms,
-                                              fix)
         self._bump("pointsScanned", float(points))
         self._bump("seriesScanned", float(len(series_list)))
         clock.mark("build")
 
         dev = tsdb.device
+        cached = None
+        if tsdb.device_cache is not None:
+            # a cold entry builds inline: the port has no streaming path
+            # that would make that the dearer choice
+            cached = tsdb.device_cache.batch_for(
+                tsdb.store, series_list[0].key.metric, series_list, start_ms,
+                end_ms)
+            clock.mark("gather")
+        if cached is not None:
+            self.exec_stats["deviceCacheHit"] = 1.0
+            d_ts, d_val, d_mask = cached
+        else:
+            ts, val, mask, _ = build_batch_direct(series_list, start_ms,
+                                                  end_ms, fix)
+            clock.mark("build")
+            d_ts = torch.from_numpy(ts).to(dev)
+            d_val = torch.from_numpy(val).to(dev)
+            d_mask = torch.from_numpy(mask).to(dev)
         edges = self._windows_for(sub, query).window_edges(dev)
-        d_ts = torch.from_numpy(ts).to(dev)
-        d_val = torch.from_numpy(val).to(dev)
-        d_mask = torch.from_numpy(mask).to(dev)
         clock.mark("h2d")
 
         out_ts, out_val, out_mask = run_group_pipeline(

@@ -7,7 +7,10 @@ int-ness bitmask in growable numpy buffers.  Out-of-order and duplicate
 points are normalized lazily at read time (sort + last-write-wins dedup),
 as the reference does.  The store lives on the host: a query copies its
 window into one padded [S, N] batch and moves that to the device
-(ops/pipeline.build_batch_direct).  No WAL and no persistence.
+(ops/pipeline.build_batch_direct), unless the device series cache
+(storage/device_cache.py) holds the metric's columns already.  Each
+series carries a content version that every visible mutation bumps; the
+cache validates its snapshots by it.  No WAL and no persistence.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ class Series:
     """
 
     __slots__ = ("key", "_ts", "_val", "_ival", "_isint", "_n", "_sorted",
-                 "_lock", "shard")
+                 "_lock", "shard", "_version")
 
     INITIAL_CAPACITY = 64
 
@@ -71,9 +74,18 @@ class Series:
         self._n = 0  # guarded-by: _lock
         self._sorted = True  # guarded-by: _lock
         self._lock = threading.Lock()
+        # Monotone content version: bumped by every mutation that changes
+        # visible data (appends, restore, dedup, deletes).  The device
+        # series cache snapshots (data, version) together and treats a
+        # later mismatch as staleness (storage/device_cache.py).
+        self._version = 0  # guarded-by: _lock
 
     def __len__(self) -> int:
         return self._n
+
+    @property
+    def version(self) -> int:
+        return self._version
 
     def _grow_locked(self, need: int) -> None:
         new_cap = max(need, len(self._ts) * 2, self.INITIAL_CAPACITY)
@@ -93,6 +105,7 @@ class Series:
             self._ival[self._n] = int(value) if is_int else 0
             self._isint[self._n] = is_int
             self._n += 1
+            self._version += 1
 
     def append_batch(self, ts_ms: np.ndarray, values: np.ndarray,
                      is_int: np.ndarray | bool,
@@ -135,6 +148,13 @@ class Series:
                                  (self._n and ts_ms[0] <= self._ts[self._n - 1])):
                 self._sorted = False
             self._n = need
+            self._version += 1
+
+    def normalize(self, fix_duplicates: bool = True) -> None:
+        """Sort by timestamp, resolving duplicates last-write-wins; with
+        fix_duplicates off, duplicate timestamps raise ValueError."""
+        with self._lock:
+            self._normalize_locked(fix_duplicates)
 
     # effects: canonicalize
     def _normalize_locked(self, fix_duplicates: bool) -> None:
@@ -180,6 +200,7 @@ class Series:
         self._ival[:m] = self._ival[:n][keep]
         self._isint[:m] = self._isint[:n][keep]
         self._n = m
+        self._version += 1
 
     def window(self, start_ms: int, end_ms: int, fix_duplicates: bool = True
                ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -208,6 +229,28 @@ class Series:
         lo = int(np.searchsorted(self._ts[:n], start_ms, side="left"))
         hi = int(np.searchsorted(self._ts[:n], end_ms, side="right"))
         return lo, hi
+
+    def window_bounds(self, start_ms: int, end_ms: int,
+                      fix_duplicates: bool = True) -> tuple[int, int, int]:
+        """(lo, hi, version) for [start_ms, end_ms] under one lock hold:
+        the version says that (lo, hi) index exactly the content a
+        snapshot of that version holds."""
+        with self._lock:
+            lo, hi = self._window_bounds_locked(start_ms, end_ms,
+                                                fix_duplicates)
+            return lo, hi, self._version
+
+    def snapshot(self, fix_duplicates: bool = True, copy=np.copy
+                 ) -> tuple[object, object, int]:
+        """Normalized (ts, float_vals, version) copies under one lock
+        hold; any later mutation bumps the version.  `copy` makes each
+        column's copy from a view of the live buffer, inside the hold:
+        numpy copies by default, the device cache its upload."""
+        with self._lock:
+            self._normalize_locked(fix_duplicates)
+            n = self._n
+            return (copy(self._ts[:n]), copy(self._val[:n]),
+                    self._version)
 
     def window_count(self, start_ms: int, end_ms: int,
                      fix_duplicates: bool = True) -> int:
@@ -277,6 +320,7 @@ class Series:
             self._isint[:n] = isint
             self._n = n
             self._sorted = sorted_flag
+            self._version += 1
 
     def arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Copies of the full (ts, float_vals, int_vals, is_int) columns."""
@@ -284,6 +328,26 @@ class Series:
             n = self._n
             return (self._ts[:n].copy(), self._val[:n].copy(),
                     self._ival[:n].copy(), self._isint[:n].copy())
+
+    def delete_range(self, start_ms: int, end_ms: int,
+                     fix_duplicates: bool = True) -> int:
+        """Remove the points with start_ms <= ts <= end_ms; returns how
+        many were removed."""
+        with self._lock:
+            lo, hi = self._window_bounds_locked(start_ms, end_ms,
+                                                fix_duplicates)
+            n = self._n
+            removed = hi - lo
+            if removed <= 0:
+                return 0
+            keep = n - hi
+            self._ts[lo:lo + keep] = self._ts[hi:n]
+            self._val[lo:lo + keep] = self._val[hi:n]
+            self._ival[lo:lo + keep] = self._ival[hi:n]
+            self._isint[lo:lo + keep] = self._isint[hi:n]
+            self._n = n - removed
+            self._version += 1
+            return removed
 
 
 @dataclass
@@ -353,9 +417,27 @@ class MemStore:
             keys = self._by_metric.get(metric, set())
             return [self._series[k] for k in keys]
 
+    def get_series(self, key: SeriesKey) -> Series | None:
+        with self._lock:
+            return self._series.get(key)
+
     def all_series(self) -> list[Series]:
         with self._lock:
             return list(self._series.values())
+
+    def delete_series(self, key: SeriesKey) -> bool:
+        """Drop a series and its data; a series later made under the same
+        key is a new object whose version starts again from 0."""
+        with self._lock:
+            series = self._series.pop(key, None)
+            if series is None:
+                return False
+            keys = self._by_metric.get(key.metric)
+            if keys is not None:
+                keys.discard(key)
+                if not keys:
+                    self._by_metric.pop(key.metric, None)
+            return True
 
     # -- annotations --
 

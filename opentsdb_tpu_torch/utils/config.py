@@ -17,6 +17,11 @@ DEFAULTS: dict[str, str] = {
     "tsd.core.auto_create_tagks": "true",
     "tsd.core.auto_create_tagvs": "true",
     "tsd.core.uid.random_metrics": "false",
+    # the device series cache (storage/device_cache.py)
+    "tsd.query.device_cache.enable": "true",
+    "tsd.query.device_cache.mb": "4096",
+    "tsd.query.device_cache.build_max_points": "200000000",
+    "tsd.query.device_cache.batch_mb": "6144",
     "tsd.storage.fix_duplicates": "false",
     "tsd.storage.salt.buckets": "20",
     "tsd.storage.uid.width.metric": "3",

@@ -23,6 +23,7 @@ from opentsdb_tpu_torch.ops import pipeline as tpipe
 from opentsdb_tpu_torch.ops import rate as trate
 from opentsdb_tpu_torch.ops import union_agg as tua
 from opentsdb_tpu_torch.ops.rate import RateOptions
+from opentsdb_tpu_torch.storage import device_cache as tdc
 
 from torch_parity import (assert_exact, assert_values, cuda_device,  # noqa: F401
                           sorted_batch, t)
@@ -463,3 +464,72 @@ def test_order_queries_on_card_match_cpu(cuda_device):
                 assert va == vb, m
             else:
                 np.testing.assert_allclose(va, vb, rtol=1e-9, atol=1e-9)
+
+
+def test_gather_windows_kernel_matches_plain(cuda_device):
+    """G1 against its plain version: rows of every length, empty rows, a
+    row at the buffer's end, and more rows than grid.y holds (the rows
+    past it are walked by a stride)."""
+    rng = np.random.default_rng(31)
+    p = 100_000
+    ts_buf = np.cumsum(rng.integers(1, 5000, p)) + T0
+    val_buf = rng.normal(0.0, 1e3, p)
+    cases = []
+    lengths = rng.integers(0, 2000, 300)
+    lengths[::17] = 0
+    starts = rng.integers(0, p - 2000, 300)
+    starts[7] = p - lengths[7]
+    cases.append((starts, lengths, int(lengths.max()) + 5))
+    cases.append((rng.integers(0, p - 4, 70_000), rng.integers(0, 4, 70_000),
+                  4))
+    for starts, lengths, n in cases:
+        args = _on(cuda_device, ts_buf, val_buf, starts, lengths)
+        kernels.reset_launches()
+        got = tdc.gather_windows(*args, n)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["gather_windows"] == 1
+        want = tdc.gather_windows_plain(*args, n)
+        for a, b in zip(got, want):
+            assert_exact(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_warm_query_on_card_matches_cold(cuda_device):
+    """A grouped query answers alike cold (the entry built inline, then
+    gathered), warm (gathered from the entry) and with the cache off (the
+    host batch); only the cached TSDB launches G1, once a query."""
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.utils.config import Config
+    rng = np.random.default_rng(9)
+    uid_maps = {"metric": {"m": 1}, "tagk": {"host": 1, "g": 2},
+                "tagv": {"h%d" % i: i + 1 for i in range(40)}}
+    uid_maps["tagv"].update({"g0": 41, "g1": 42, "g2": 43})
+    series = []
+    for i in range(40):
+        k = int(rng.integers(300, 600))
+        ts = np.sort(rng.choice(3_600_000, k, replace=False)) + T0
+        series.append((1, {1: i + 1, 2: 41 + i % 3}, ts,
+                       rng.normal(10, 2, k), np.zeros(k, np.int64),
+                       np.zeros(k, bool)))
+    cached = load_state(uid_maps, series, device=cuda_device)
+    host = load_state(uid_maps, series, config=Config(
+        {"tsd.query.device_cache.enable": False}), device=cuda_device)
+    for m in ("sum:5m-avg:rate:m{g=*}", "p99:5m-median:m{g=*}"):
+        q = TSQuery(start="1356998400", end="1357002000",
+                    queries=[parse_m_subquery(m)])
+        q.validate()
+        runs = []
+        for tsdb in (cached, cached, host):
+            kernels.reset_launches()
+            runner = tsdb.new_query_runner()
+            res = runner.run(q)
+            runs.append((repr([r.to_json() for r in res]),
+                         runner.exec_stats.get("deviceCacheHit"),
+                         kernels.LAUNCHES["gather_windows"]))
+        cold, warm, miss = runs
+        assert (cold[1], warm[1], miss[1]) == (1.0, 1.0, None), m
+        assert (cold[2], warm[2], miss[2]) == (1, 1, 0), m
+        assert cold[0] == warm[0] == miss[0], m
+    assert cached.device_cache.builds == 1
+    (entry,) = cached.device_cache._entries.values()
+    assert entry.ts_dev.device.type == "cuda"
+    assert entry.val_dev.device.type == "cuda"
