@@ -61,6 +61,31 @@ days), 1h windows.  Phases:
    per distinct timestamp, so the full range would be ~6.7e7 points of
    Python extraction a query); each filtered answer must match the CPU
    copy.  Launch counts are reset before this phase and read after it.
+7. histogram kernels: H1 histogram_accumulate and H2 histogram_percentile
+   against their plain versions on the card, exactly (int64 grids equal,
+   percentile values equal): (a) the batch the planner assembles for
+   `sum:percentiles[50,90,99,99.9]:h{group=*}` over the latency fleet
+   below (R = 23,040 rows, B = 32, nnz 11.8e6); (b) a synthetic batch made
+   on the card, 4,096 series x 1,440 points x 32 buckets in 64 groups (nnz
+   1.89e8, R = 92,160); (c) case (b) under a 1h downsample (R = 1,536,
+   ~3,840 entries a cell).  Each case prints the kernel, bound, plain and
+   `index_add_` (the library call for H1) times.
+8. the daemon on the card: a TSDServer on 127.0.0.1 (an ephemeral port)
+   over the same TSDB, configured for histograms.  The latency fleet,
+   metric `h`: 256 series in 16 groups, a histogram of 32 fixed,
+   exponentially spaced buckets per series every 60 s for a day (368,640
+   points), counts from the seed.  The last hour goes in through the
+   daemon, 1,024 points as telnet `histogram` lines (base64) and the rest
+   over POST /api/histogram in batches of 512; the first 23 hours in
+   process through add_histogram_point_json, the function the RPC calls.
+   10,240 scalar points of `m` go over POST /api/put and telnet `put`.
+   (Phase 7 runs after this ingest: its case (a) needs the fleet.)  Then
+   five queries over HTTP, GET and POST: the four-percentile query, a 1h
+   downsample, show-histogram-buckets on two groups, all 256 series as one
+   group, and `sum:1h-avg:m{group=*}`.  Each body must equal the
+   in-process answer, and each histogram answer a CPU TSDB's built by
+   load_state from the same histogram state.  Launch counts are reset
+   before the queries and read after them.
 
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `kernels` JSON line, the card's name
@@ -114,6 +139,8 @@ REPLACES = {
     "union_order": "opentsdb_tpu/ops/union_agg.py:209",
     "moving_average": "opentsdb_tpu/ops/aggregators.py:177",
     "gather_windows": "opentsdb_tpu/storage/device_cache.py:443",
+    "histogram_accumulate": "opentsdb_tpu/histogram/kernels.py:24",
+    "histogram_percentile": "opentsdb_tpu/histogram/kernels.py:35",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -123,6 +150,15 @@ UNION_ORDER = ["first", "last", "diff", "mult", "median", "p99", "ep99r3",
                "ep99r7"]
 SIX_HOURS_MS = 6 * 3_600_000
 INT_ROWS, INT_GROUPS = 64, 8   # the integer metric `mi`
+HIST_CONFIG = '{"SimpleHistogramDecoder": 0}'
+# the latency fleet `h`: a histogram a series every 60 s for a day
+H_SERIES, H_GROUPS, H_POINTS, H_STEP_S = 256, 16, 1_440, 60
+H_START_S = START // 1000
+H_END_S = H_START_S + H_POINTS * H_STEP_S
+# 33 edges, 50 us to ~2.4 s, integers (exact in the binary codec's float32)
+H_EDGES = [round(50 * 1.4 ** k) for k in range(33)]
+H_PERCS = [50.0, 90.0, 99.0, 99.9]
+HB_SERIES, HB_GROUPS = 4_096, 64   # the synthetic histogram batch (b)
 
 
 class Checks:
@@ -732,7 +768,9 @@ def e2e_phase(dev, ts, val, checks: Checks):
     from opentsdb_tpu_torch.utils.config import Config
 
     t0 = time.perf_counter()
-    tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True}), device=dev)
+    tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True,
+                        "tsd.core.histograms.config": HIST_CONFIG}),
+                device=dev)
     metric = tsdb.metrics.get_or_create_id("m")
     k_host = tsdb.tag_names.get_or_create_id("host")
     k_group = tsdb.tag_names.get_or_create_id("group")
@@ -1235,6 +1273,396 @@ def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
     return launches
 
 
+def histogram_fleet():
+    """The latency fleet's bucket counts, [H_SERIES, H_POINTS, 32] int64:
+    each series' mass centred on a bucket of its own, Poisson counts."""
+    rng = np.random.default_rng(11)
+    k = np.arange(len(H_EDGES) - 1)
+    counts = np.empty((H_SERIES, H_POINTS, k.size), np.int64)
+    for s in range(H_SERIES):
+        lam = 200.0 * np.exp(-((k - (8 + s % 12)) / 3.0) ** 2) + 0.5
+        counts[s] = rng.poisson(lam, (H_POINTS, k.size))
+    return counts
+
+
+def _h_tags(s: int) -> dict:
+    return {"group": "g%02d" % (s * H_GROUPS // H_SERIES), "host": "h%03d" % s}
+
+
+def _h_json(counts, s: int, t: int, keys) -> dict:
+    return {"metric": "h", "timestamp": H_START_S + t * H_STEP_S,
+            "buckets": dict(zip(keys, counts[s, t].tolist())),
+            "tags": _h_tags(s)}
+
+
+class Serving:
+    """A TSDServer on 127.0.0.1:<ephemeral> with its event loop in a
+    thread; leaving the block stops it (the pool drains, then the TSDB
+    shuts down) and joins the thread."""
+
+    def __init__(self, tsdb):
+        import asyncio
+        import threading
+        from opentsdb_tpu_torch.tsd.server import TSDServer
+        self.server = TSDServer(tsdb, port=0, bind="127.0.0.1",
+                                worker_threads=4)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever)
+
+    def __enter__(self):
+        import asyncio
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self.server.start(),
+                                         self.loop).result(timeout=30)
+        return self.server
+
+    def __exit__(self, *exc):
+        import asyncio
+        try:
+            asyncio.run_coroutine_threadsafe(self.server.stop(),
+                                             self.loop).result(timeout=60)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+            self.loop.close()
+
+
+def _telnet(port: int, lines: list[str]) -> tuple[str, float]:
+    """Send `lines` on one telnet connection, then `version`; returns what
+    came back before the version reply and the seconds until it did."""
+    import socket
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port)) as sock:
+        sock.settimeout(120)
+        sock.sendall(("".join(l + "\n" for l in lines) + "version\nexit\n")
+                     .encode())
+        out = b""
+        while b"exiting\n" not in out:
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            out += chunk
+    text = out.decode()
+    return text[:text.find("opentsdb_tpu_torch ")], time.perf_counter() - t0
+
+
+def daemon_ingest(tsdb, port: int, counts, checks: Checks) -> None:
+    """The fleet into the TSDB: the first 23 hours in process, the last
+    hour through the daemon (telnet, then HTTP); then 10,240 scalar points
+    of `m` over HTTP and telnet."""
+    import http.client
+    from opentsdb_tpu_torch.histogram import SimpleHistogram
+
+    keys = ["%d,%d" % (lo, hi) for lo, hi in zip(H_EDGES, H_EDGES[1:])]
+    last_hour = H_POINTS - 60
+    t0 = time.perf_counter()
+    for s in range(H_SERIES):
+        tags = _h_tags(s)
+        for t in range(last_hour):
+            dp = _h_json(counts, s, t, keys)
+            tsdb.add_histogram_point_json("h", dp["timestamp"], dp, tags)
+    in_proc = time.perf_counter() - t0
+    n_in = H_SERIES * last_hour
+
+    # 1,024 points as telnet `histogram` lines (base64), the first four
+    # minutes of the last hour
+    lines = []
+    for t in range(last_hour, last_hour + 4):
+        for s in range(H_SERIES):
+            h = SimpleHistogram(0)
+            for lo, hi, c in zip(H_EDGES, H_EDGES[1:], counts[s, t].tolist()):
+                h.add_bucket(lo, hi, c)
+            lines.append("histogram 0 h %d %s %s" % (
+                H_START_S + t * H_STEP_S, h.to_base64(include_id=False),
+                " ".join("%s=%s" % kv for kv in _h_tags(s).items())))
+    reply, tel_s = _telnet(port, lines)
+    if reply:
+        checks.failures.append("telnet histogram replied %r" % reply[:200])
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    dps = [_h_json(counts, s, t, keys) for t in range(last_hour + 4, H_POINTS)
+           for s in range(H_SERIES)]
+    t0 = time.perf_counter()
+    for i in range(0, len(dps), 512):
+        body = json.dumps(dps[i:i + 512])
+        conn.request("POST", "/api/histogram", body,
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        answer = r.read()
+        if r.status != 204:
+            checks.failures.append("POST /api/histogram: %d %r"
+                                   % (r.status, answer[:200]))
+    http_s = time.perf_counter() - t0
+    print("daemon ingest h: %d points in process %.1f s (%.0f/s); %d "
+          "telnet histogram lines %.2f s (%.0f/s); %d points over POST "
+          "/api/histogram in %d batches %.2f s (%.0f/s)"
+          % (n_in, in_proc, n_in / in_proc, len(lines), tel_s,
+             len(lines) / tel_s, len(dps), (len(dps) + 511) // 512, http_s,
+             len(dps) / http_s))
+
+    # 10,240 scalar points of m: 8 rounds over HTTP, 2 over telnet
+    tags = [{"host": "h%04d" % i, "group": "g%03d" % (i * GROUPS // S)}
+            for i in range(S)]
+    scalar = [{"metric": "m",
+               "timestamp": END + (5 + k) * STEP_MS + i * (STEP_MS // S),
+               "value": 100.0 + (i * 7 + k) % 1_000 * 0.05, "tags": tags[i]}
+              for k in range(10) for i in range(S)]
+    t0 = time.perf_counter()
+    for i in range(0, 8 * S, 512):
+        conn.request("POST", "/api/put", json.dumps(scalar[i:i + 512]),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        answer = r.read()
+        if r.status != 204:
+            checks.failures.append("POST /api/put: %d %r"
+                                   % (r.status, answer[:200]))
+    put_s = time.perf_counter() - t0
+    conn.close()
+    reply, tput_s = _telnet(port, [
+        "put m %d %r %s" % (dp["timestamp"], dp["value"], " ".join(
+            "%s=%s" % kv for kv in dp["tags"].items()))
+        for dp in scalar[8 * S:]])
+    if reply:
+        checks.failures.append("telnet put replied %r" % reply[:200])
+    print("daemon ingest m: %d points over POST /api/put %.2f s (%.0f/s); "
+          "%d telnet put lines %.2f s (%.0f/s)"
+          % (8 * S, put_s, 8 * S / put_s, 2 * S, tput_s, 2 * S / tput_s))
+    stored = sum(len(x) for x in tsdb.histogram_store.all_series())
+    if stored != H_SERIES * H_POINTS:
+        checks.failures.append("the fleet stored %d histogram points"
+                               % stored)
+
+
+def _h_groups(tsdb):
+    """[(group_key, [HistogramSeries])] of `h` by group, as the planner
+    orders them."""
+    by_group = {}
+    for series in tsdb.histogram_store.series_for_metric(
+            tsdb.metrics.get_id("h")):
+        g = tsdb.resolve_key_tags(series.key)["group"]
+        by_group.setdefault((g,), []).append(series)
+    return [(g, by_group[g]) for g in sorted(by_group)]
+
+
+def _hist_times(fn, plain, library, nbytes) -> dict:
+    return {"ms": time_ms(fn), "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms(nbytes, 0.0), "bound_by": "bytes",
+            "library_ms": None if library is None else time_ms(library)}
+
+
+def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
+    """H1 and H2 against their plain versions on the card, exactly, in
+    cases (a) to (c), with their times."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+    from opentsdb_tpu_torch.histogram.store import assemble_columnar
+
+    batch = assemble_columnar(_h_groups(tsdb), H_START_S * 1000,
+                              H_END_S * 1000, 0)
+    seg = torch.from_numpy(batch["seg"]).to(dev)
+    cnt = torch.from_numpy(batch["cnt"]).to(dev)
+    mid = torch.from_numpy(batch["mid"]).to(dev)
+    percs = torch.tensor(H_PERCS, dtype=torch.float64, device=dev)
+    r, b = batch["n_rows"], batch["n_buckets"]
+    print("histogram (a) planner batch: R=%d B=%d nnz=%d" % (r, b,
+                                                             seg.numel()))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n_s, n_g, n_t, n_b = HB_SERIES, HB_GROUPS, H_POINTS, 32
+    e = torch.arange(n_s * n_t * n_b, dtype=torch.int64, device=dev)
+    s_of, t_of, k_of = e // (n_t * n_b), (e // n_b) % n_t, e % n_b
+    g_of = s_of // (n_s // n_g)
+    seg_b = (g_of * n_t + t_of) * n_b + k_of
+    seg_c = (g_of * (n_t // 60) + t_of // 60) * n_b + k_of
+    del e, s_of, t_of, k_of, g_of
+    cnt_b = torch.randint(0, 100, (seg_b.numel(),), generator=gen,
+                          dtype=torch.int64, device=dev)
+    mid_b = torch.arange(1, n_b + 1, dtype=torch.float64, device=dev) * 1.5
+    cases = {"(a) planner batch": (seg, cnt, r, b, mid),
+             "(b) synthetic %dx%d" % (n_s, n_t): (seg_b, cnt_b, n_g * n_t, n_b, mid_b),
+             "(c) synthetic, 1h downsample": (seg_c, cnt_b, n_g * n_t // 60,
+                                              n_b, mid_b)}
+    out = {}
+    for name, (sg, ct, rows, buckets, md) in cases.items():
+        grid = hk.accumulate_rows(sg, ct, rows, buckets)
+        want = hk.accumulate_rows_plain(sg, ct, rows, buckets)
+        checks.exact("histogram_accumulate", name, grid, want, "int64 grids")
+        pv = hk.percentile_rows(grid, md, percs)
+        pwant = hk.percentile_rows_plain(grid, md, percs)
+        checks.exact("histogram_percentile", name, pv, pwant,
+                     "percentile values")
+        print("%-20s %-44s R=%d B=%d nnz=%d grid and percentiles exact %s"
+              % ("histogram", name, rows, buckets, sg.numel(),
+                 "ok" if torch.equal(grid, want) and torch.equal(pv, pwant)
+                 else "FAIL"))
+        cells = rows * buckets
+        h1 = _hist_times(
+            lambda: hk.accumulate_rows(sg, ct, rows, buckets),
+            lambda: hk.accumulate_rows_plain(sg, ct, rows, buckets),
+            lambda: torch.zeros(cells, dtype=torch.int64,
+                                device=dev).index_add_(0, sg, ct),
+            # each entry read once (seg and count), each cell written once
+            sg.numel() * 16 + cells * 8)
+        h2 = _hist_times(
+            lambda: hk.percentile_rows(grid, md, percs),
+            lambda: hk.percentile_rows_plain(grid, md, percs), None,
+            # each count read once, each answer written once
+            cells * 8 + buckets * 8 + percs.numel() * (8 + rows * 8))
+        for kname, t in (("histogram_accumulate", h1),
+                         ("histogram_percentile", h2)):
+            print("time %-20s %-30s kernel %.4f ms  plain %.4f ms  bound "
+                  "%.4f ms (bytes)  library %s"
+                  % (kname, name, t["ms"], t["plain_ms"], t["bound_ms"],
+                     "%.4f ms (index_add_)" % t["library_ms"]
+                     if t["library_ms"] is not None else "none"))
+        out[name] = (h1, h2)
+        del grid, want, pv, pwant
+    del seg_b, seg_c, cnt_b
+    h1, h2 = out["(a) planner batch"]
+    return {"histogram_accumulate": h1, "histogram_percentile": h2}
+
+
+H_QUERIES = [
+    ("sum:percentiles[50,90,99,99.9]:h{group=*}",
+     {"aggregator": "sum", "metric": "h", "percentiles": H_PERCS,
+      "filters": [{"type": "wildcard", "tagk": "group", "filter": "*",
+                   "groupBy": True}]}),
+    ("sum:1h-sum:percentiles[50,99]:h{group=*}",
+     {"aggregator": "sum", "metric": "h", "percentiles": [50, 99],
+      "downsample": "1h-sum", "filters": [
+          {"type": "wildcard", "tagk": "group", "filter": "*",
+           "groupBy": True}]}),
+    ("sum:show-histogram-buckets:h{group=g00|g01}",
+     {"aggregator": "sum", "metric": "h", "showHistogramBuckets": True,
+      "filters": [{"type": "literal_or", "tagk": "group",
+                   "filter": "g00|g01", "groupBy": True}]}),
+    ("sum:percentiles[99]:h",
+     {"aggregator": "sum", "metric": "h", "percentiles": [99]}),
+]
+
+
+def daemon_query_phase(dev, tsdb, server, checks: Checks) -> dict:
+    """The five queries over HTTP, GET and POST, each body against the
+    in-process answer; the histogram ones also against a CPU TSDB (the
+    same histogram state through load_state).  Each query is also timed
+    in process on a fresh thread, and through the server's RpcManager
+    without the socket, to place the HTTP wall's time.  Returns the
+    launches."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+    from urllib.parse import quote
+    from opentsdb_tpu_torch.core import load_state
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.query.planner import PHASES
+    from opentsdb_tpu_torch.tsd.http import HttpRequest
+    from opentsdb_tpu_torch.tsd.serializers import HttpJsonSerializer
+    from opentsdb_tpu_torch.utils.config import Config
+
+    m_end = END + 16 * STEP_MS
+    queries = [(m, body, H_START_S * 1000, H_END_S * 1000)
+               for m, body in H_QUERIES]
+    queries.append(("sum:1h-avg:m{group=*}",
+                    {"aggregator": "sum", "metric": "m", "downsample":
+                     "1h-avg", "filters": [{"type": "wildcard",
+                                            "tagk": "group", "filter": "*",
+                                            "groupBy": True}]},
+                    START, m_end))
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+
+    def over_http(method, uri, body=None):
+        t0 = time.perf_counter()
+        conn.request(method, uri, body,
+                     {"Content-Type": "application/json"} if body else {})
+        r = conn.getresponse()
+        raw = r.read()
+        wall = (time.perf_counter() - t0) * 1e3
+        if r.status != 200:
+            checks.failures.append("%s %s: %d %r" % (method, uri[:80],
+                                                     r.status, raw[:300]))
+            return None, wall
+        return json.loads(raw), wall
+
+    kernels.reset_launches()
+    answers = {}
+    for m, sub, start, end in queries:
+        uri = "/api/query?start=%d&end=%d&m=%s" % (start, end, quote(m))
+        got_get, get_ms = over_http("GET", uri)
+        got_post, post_ms = over_http("POST", "/api/query", json.dumps(
+            {"start": start, "end": end, "queries": [sub]}))
+        q = _query(m, start, end)
+        runner = tsdb.new_query_runner()
+        t0 = time.perf_counter()
+        res = runner.run(q)
+        run_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = HttpJsonSerializer().format_query_v1(q, res)
+        text = json.dumps(want)
+        ser_ms = (time.perf_counter() - t0) * 1e3
+        st = runner.exec_stats
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            pool.submit(tsdb.new_query_runner().run, q).result()
+        thread_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        handled = server.rpc_manager.handle_http(HttpRequest("GET", uri))
+        handler_ms = (time.perf_counter() - t0) * 1e3
+        print("daemon %-44s GET %.1f ms POST %.1f ms | in process %.1f ms: "
+              "%s | serialize %.1f ms | on a fresh thread %.1f ms | the "
+              "GET's handler without the socket %.1f ms | %d results, %d "
+              "points, %.1f MB"
+              % (m, get_ms, post_ms, run_ms, " ".join(
+                  "%s %.1f" % (p, st.get(p + "Ms", 0.0)) for p in PHASES),
+                 ser_ms, thread_ms, handler_ms, len(res),
+                 sum(len(r.dps) for r in res), len(text) / 1e6))
+        if handled.response.status != 200:
+            checks.failures.append("%s: the handler answered %d"
+                                   % (m, handled.response.status))
+        want = json.loads(text)
+        if got_get != want or got_post != want:
+            checks.failures.append("%s: the HTTP answer differs from the "
+                                   "in-process one" % m)
+        if not want:
+            checks.failures.append("%s: no results" % m)
+        answers[m] = (q, want)
+    conn.close()
+    launches = dict(kernels.LAUNCHES)
+    print("daemon launches %s" % json.dumps(launches))
+    for name in ("histogram_accumulate", "histogram_percentile"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the "
+                                   "histogram path" % name)
+
+    # shapes and values of the four-percentile answer
+    pct = answers[H_QUERIES[0][0]][1]
+    vals = np.array([v for r in pct for v in r["dps"].values()], np.float64)
+    if len(pct) != len(H_PERCS) * H_GROUPS \
+            or any(len(r["dps"]) != H_POINTS for r in pct) \
+            or not np.isfinite(vals).all() or vals.min() <= 0:
+        checks.failures.append("four-percentile answer: %d results, "
+                               "values %s" % (len(pct), vals[:4]))
+
+    # the same histogram state on the CPU
+    t0 = time.perf_counter()
+    uid_maps = {kind: tsdb.uid_table(kind).snapshot()
+                for kind in ("metric", "tagk", "tagv")}
+    cpu = load_state(uid_maps, [], config=Config(
+        {"tsd.core.histograms.config": HIST_CONFIG}), device="cpu",
+        histograms=[(s.key.metric, dict(s.key.tags), *s.arrays())
+                    for s in tsdb.histogram_store.all_series()])
+    print("daemon CPU copy of the histograms (load_state) %.1f s"
+          % (time.perf_counter() - t0))
+    for m, _sub in H_QUERIES:
+        q, want = answers[m]
+        got = json.loads(json.dumps(HttpJsonSerializer().format_query_v1(
+            q, cpu.new_query_runner().run(q))))
+        same = got == want
+        print("%-20s %-44s card and CPU answers %s" % (
+            "daemon", m, "equal" if same else "DIFFER"))
+        if not same:
+            checks.failures.append("%s: card and CPU answers differ" % m)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1271,11 +1699,20 @@ def main() -> int:
     times.update(union_order_phase(dev, ts, val, gid, h, checks))
     torch.cuda.empty_cache()
     union_launches = union_e2e_phase(dev, tsdb, ts, h, checks)
+    torch.cuda.empty_cache()
+    del ts, val, gid, h
+    fleet = histogram_fleet()
+    with Serving(tsdb) as server:
+        daemon_ingest(tsdb, server.port, fleet, checks)
+        del fleet
+        times.update(histogram_kernel_phase(dev, tsdb, checks))
+        torch.cuda.empty_cache()
+        daemon_launches = daemon_query_phase(dev, tsdb, server, checks)
 
-    # Each kernel's launches on the main path: the grouped and the union
-    # e2e phases, their counts reset just before each.
+    # Each kernel's launches on the main path: the grouped, union and
+    # daemon phases, their counts reset just before each.
     for name in launches:
-        launches[name] += union_launches[name]
+        launches[name] += union_launches[name] + daemon_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name,

@@ -15,11 +15,15 @@ series columns, so the two hold the same data under the same UIDs.
 
 from __future__ import annotations
 
+import base64
 import math
+import threading
 
 import numpy as np
 
 from opentsdb_tpu_torch.device import resolve_device
+from opentsdb_tpu_torch.histogram import (HistogramCodecManager,
+                                          HistogramStore, SimpleHistogram)
 from opentsdb_tpu_torch.storage.device_cache import DeviceSeriesCache
 from opentsdb_tpu_torch.storage.memstore import (
     MemStore, SeriesKey, MAX_NUM_TAGS)
@@ -104,6 +108,14 @@ class TSDB:
                 device=self.device)
             if self.config.get_bool("tsd.query.device_cache.enable")
             else None)
+        # built from the config as the reference does at core/tsdb.py:182-187
+        self.histogram_manager = HistogramCodecManager.from_config(
+            self.config)
+        self.histogram_store = (HistogramStore()
+                                if self.histogram_manager else None)
+        self.mode = self.config.get_string("tsd.mode")  # rw / ro / wo
+        self._stats_lock = threading.Lock()
+        self.datapoints_added = 0  # guarded-by: _stats_lock
         self.maintenance = None
 
     # -- write path ------------------------------------------------------ #
@@ -121,14 +133,26 @@ class TSDB:
         if int(timestamp) < 0:
             raise ValueError("Invalid timestamp: %s" % timestamp)
 
+    def _check_writable(self) -> None:
+        """The read-only gate, applied after validation as the reference
+        does, so a malformed point reports the same error in every mode."""
+        if self.mode == "ro":
+            raise RuntimeError("TSD is in read-only mode, writes rejected")
+
+    def _count_added(self, n: int) -> None:
+        with self._stats_lock:
+            self.datapoints_added += n
+
     def add_point(self, metric: str, timestamp: int | float, value,
                   tags: dict[str, str]) -> None:
         """Store one datapoint; value may be int, float, or numeric string."""
         is_int, num = parse_value(value)
         self.check_timestamp_and_tags(metric, timestamp, num, tags)
+        self._check_writable()
         key = self._series_key(metric, tags, create=True)
         self.store.add_point(key, normalize_timestamp_ms(timestamp), num,
                              is_int)
+        self._count_added(1)
 
     def add_points_bulk(self, dps: list[dict]
                         ) -> tuple[int, list[tuple[int, Exception]]]:
@@ -150,6 +174,7 @@ class TSDB:
                                      % dp["value"])
                 self.check_timestamp_and_tags(metric, dp["timestamp"], num,
                                               tags)
+                self._check_writable()
                 ts_ms = normalize_timestamp_ms(dp["timestamp"])
                 ck = (metric, tuple(sorted(tags.items())))
                 key = key_cache.get(ck)
@@ -161,7 +186,7 @@ class TSDB:
                 bucket[1].append(float(num))
                 bucket[2].append(int(num) if is_int else 0)
                 bucket[3].append(is_int)
-            except (ValueError, TypeError, LookupError) as e:
+            except (ValueError, TypeError, LookupError, RuntimeError) as e:
                 errors.append((i, e))
         success = 0
         for key, (tss, fvals, ivals, isints) in groups.items():
@@ -170,7 +195,53 @@ class TSDB:
                                  np.asarray(isints, bool),
                                  ival=np.asarray(ivals, np.int64))
             success += len(tss)
+        self._count_added(success)
         return success, errors
+
+    # -- histogram write path (TSDB.addHistogramPoint :1171) ------------- #
+
+    def _require_histograms(self) -> None:
+        if self.histogram_manager is None:
+            raise ValueError("histograms are not configured "
+                             "(tsd.core.histograms.config)")
+
+    def add_histogram_point_raw(self, metric: str, timestamp: int | float,
+                                codec_id: int, payload: str,
+                                tags: dict[str, str]) -> None:
+        """Base64 binary histogram ingest (telnet `histogram`,
+        HistogramPojo.getBytes)."""
+        self._require_histograms()
+        codec = self.histogram_manager.get_codec(codec_id)
+        hist = codec.decode(base64.b64decode(payload), includes_id=False)
+        self._store_histogram(metric, timestamp, hist, tags)
+
+    def add_histogram_point_json(self, metric: str, timestamp: int | float,
+                                 dp: dict, tags: dict[str, str]) -> None:
+        """JSON histogram ingest (POST /api/histogram, HistogramPojo):
+        either base64 `value` or explicit `buckets` {"lo,hi": count}."""
+        self._require_histograms()
+        codec_id = int(dp.get("id", 0))
+        self.histogram_manager.get_codec(codec_id)  # validate the id
+        if dp.get("value"):
+            hist = SimpleHistogram.from_base64(str(dp["value"]),
+                                               include_id=False)
+            hist.id = codec_id
+        elif "buckets" in dp:
+            # Empty bucket maps are valid: the mass may sit entirely in
+            # underflow/overflow.
+            hist = SimpleHistogram.from_pojo(dp, codec_id)
+        else:
+            raise ValueError("Missing histogram value or buckets")
+        self._store_histogram(metric, timestamp, hist, tags)
+
+    def _store_histogram(self, metric: str, timestamp: int | float, hist,
+                         tags: dict[str, str]) -> None:
+        self.check_timestamp_and_tags(metric, timestamp, None, tags)
+        self._check_writable()
+        ts_ms = normalize_timestamp_ms(timestamp)
+        key = self._series_key(metric, tags, create=True)
+        self.histogram_store.add_point(key, ts_ms, hist)
+        self._count_added(1)
 
     def _series_key(self, metric: str, tags: dict[str, str],
                     create: bool) -> SeriesKey:
@@ -209,7 +280,8 @@ class TSDB:
     def collect_stats(self) -> dict:
         """The stored point count and, when the device cache is on, its
         tallies (a slim TSDB.collectStats, reference core/tsdb.py:1056)."""
-        out: dict = {"tsd.storage.datapoints": self.store.total_datapoints}
+        out: dict = {"tsd.storage.datapoints": self.store.total_datapoints,
+                     "tsd.datapoints.added": self.datapoints_added}
         if self.device_cache is not None:
             out.update(self.device_cache.collect_stats())
         if self.maintenance is not None:
@@ -250,27 +322,38 @@ class TSDB:
 
 
 def load_state(uid_maps: dict, series, config: Config | None = None,
-               device=None) -> TSDB:
+               device=None, histograms=()) -> TSDB:
     """A TSDB holding the given state under the same UIDs.
 
     `uid_maps` is {kind: {name: uid}} for the kinds "metric", "tagk" and
     "tagv"; `series` yields (metric_uid, {tagk_uid: tagv_uid}, ts, fval,
     ival, isint) with the four numpy columns of one series (as
-    Series.arrays() gives them).  TSUIDs of the new TSDB match the
-    source's.
+    Series.arrays() gives them); `histograms` yields (metric_uid,
+    {tagk_uid: tagv_uid}, ts, points) with each point as (bounds[k, 2],
+    counts[k], underflow, overflow) (as HistogramSeries.arrays() gives
+    them), and needs `config` to configure histograms.  TSUIDs of the new
+    TSDB match the source's.
     """
     tsdb = TSDB(config, device=device)
     for kind, mapping in uid_maps.items():
         tsdb.uid_table(kind).restore(mapping)
-    for metric_uid, tags, ts, fval, ival, isint in series:
+
+    def key_of(metric_uid, tags) -> SeriesKey:
         for kind, uid in [("metric", metric_uid), *(
                 ("tagk", k) for k in tags), *(("tagv", v)
                                               for v in tags.values())]:
             tsdb.uid_table(kind).get_name(uid)   # raises on an unknown UID
-        key = SeriesKey.make(int(metric_uid),
-                             {int(k): int(v) for k, v in tags.items()})
-        tsdb.store.get_or_create_series(key).restore_arrays(
-            np.asarray(ts, np.int64), np.asarray(fval, np.float64),
-            np.asarray(ival, np.int64), np.asarray(isint, bool))
+        return SeriesKey.make(int(metric_uid),
+                              {int(k): int(v) for k, v in tags.items()})
+
+    for metric_uid, tags, ts, fval, ival, isint in series:
+        tsdb.store.get_or_create_series(key_of(metric_uid, tags)) \
+            .restore_arrays(
+                np.asarray(ts, np.int64), np.asarray(fval, np.float64),
+                np.asarray(ival, np.int64), np.asarray(isint, bool))
+    for metric_uid, tags, ts, points in histograms:
+        tsdb._require_histograms()
+        tsdb.histogram_store.get_or_create_series(
+            key_of(metric_uid, tags)).restore_arrays(ts, points)
     return tsdb
 

@@ -357,3 +357,8 @@ def moving_average_rows(sums: torch.Tensor, live: torch.Tensor,
     return moving_average(sums.contiguous().reshape(-1),
                           live.contiguous().reshape(-1), offsets,
                           n_window).reshape(r, t)
+
+
+def agg_names() -> list[str]:
+    """The /api/aggregators listing: the static registry, sorted."""
+    return sorted(AGGREGATORS)

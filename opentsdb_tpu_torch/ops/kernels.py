@@ -11,11 +11,11 @@ libraries are loaded with ctypes; every pointer and the stream pass as
 
 A kernel launches on torch's current stream, synchronises nothing and
 allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
-ops.union_agg, ops.aggregators, storage.device_cache) allocates the
-outputs and any scratch with ``torch.empty``, checks device, dtype,
-shape and contiguity, calls ``launch``, and raises when the C entry
-returns a CUDA error.  A build or launch failure always raises: nothing
-here falls back to a plain version.
+ops.union_agg, ops.aggregators, storage.device_cache, histogram.kernels)
+allocates the outputs and any scratch with ``torch.empty``, checks
+device, dtype, shape and contiguity, calls ``launch``, and raises when
+the C entry returns a CUDA error.  A build or launch failure always
+raises: nothing here falls back to a plain version.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.
@@ -87,6 +87,10 @@ SIGNATURES: dict[str, tuple] = {
     # ts_buf, val_buf, p, starts, lengths, s, n, out_ts, out_val, out_mask,
     # stream
     "gather_windows": (_P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P),
+    # seg, cnt, nnz, cells, grid, flag, stream
+    "histogram_accumulate": (_P, _P, _I64, _I64, _P, _P, _P),
+    # counts, mid, percs, r, b, np, out, stream
+    "histogram_percentile": (_P, _P, _P, _I64, _I32, _I32, _P, _P),
 }
 
 # Launch counts per kernel, bumped only by launch().

@@ -19,8 +19,10 @@ long arithmetic) follows its own members.
 
 Every aggregator and downsample function of the registry is answered
 (moments, order and rank functions, movingAverage<N>), with or without a
-rate.  Histogram sub queries raise NotImplementedError naming their
-ROADMAP item.
+rate.  A histogram sub query (percentiles or show-histogram-buckets, the
+reference's _run_histogram_sub, TsdbQuery.isHistogramQuery :806-812)
+scatters every group's bucket entries onto one [rows, B] grid on the
+device (H1) and picks the percentiles there (H2).
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.histogram.kernels import (accumulate_rows,
+                                                  percentile_rows)
+from opentsdb_tpu_torch.histogram.store import assemble_columnar
 from opentsdb_tpu_torch.models.tsquery import TSQuery, TSSubQuery
 from opentsdb_tpu_torch.ops.downsample import (
     FixedWindows, EdgeWindows, AllWindow)
@@ -38,6 +43,7 @@ from opentsdb_tpu_torch.ops.group_agg import group_offsets
 from opentsdb_tpu_torch.ops.pipeline import (
     PipelineSpec, DownsampleStep, build_batch_direct, check_ported,
     run_group_pipeline, run_union_pipeline)
+from opentsdb_tpu_torch.query.limits import grid_budget
 from opentsdb_tpu_torch.storage.memstore import Series
 from opentsdb_tpu_torch.uid import NoSuchUniqueName
 from opentsdb_tpu_torch.utils import datetime_util as DT
@@ -265,13 +271,6 @@ class QueryRunner:
                 ds.function, ds.fill_policy, ds.fill_value),
             rate=sub.rate_options if sub.rate else None)
 
-    def _check_sub(self, sub: TSSubQuery) -> None:
-        if sub.percentiles or sub.show_histogram_buckets:
-            raise NotImplementedError(
-                "histogram queries are not ported yet (ROADMAP queue A6, "
-                "B13)")
-        check_ported(self._spec_for(sub))
-
     def _run_grouped(self, query: TSQuery, sub: TSSubQuery, groups,
                      global_notes: list) -> dict[tuple, QueryResult]:
         """All group-by buckets in ONE batch through the grouped pipeline,
@@ -401,8 +400,91 @@ class QueryRunner:
                 query, sub, members, dps, global_notes)
         clock.mark("extract")
 
+    def _run_histogram_sub(self, query: TSQuery,
+                           sub: TSSubQuery) -> list[QueryResult]:
+        """A percentile or show-buckets sub query: every group's bucket
+        entries in one batch, H1 onto the [rows, B] grid, then H2 for
+        all percentiles at once."""
+        tsdb = self.tsdb
+        if tsdb.histogram_store is None:
+            raise ValueError("histograms are not configured "
+                             "(tsd.core.histograms.config)")
+        clock = _PhaseClock(tsdb.device, self.exec_stats)
+        metric_uid = tsdb.metrics.get_id(sub.metric)
+        filter_tagks = {f.tagk for f in sub.filters}
+        matched = []
+        for series in tsdb.histogram_store.series_for_metric(metric_uid):
+            tags = tsdb.resolve_key_tags(series.key)
+            if sub.explicit_tags and set(tags) != filter_tagks:
+                continue
+            if all(f.match(tags) for f in sub.filters):
+                matched.append((series, tags))
+        groups = self._group(matched, sub)
+        interval_ms = (sub.downsample_spec.interval_ms
+                       if sub.downsample_spec is not None else 0)
+        ordered = [(gk, [s for s, _ in groups[gk]]) for gk in
+                   sorted(groups, key=lambda k: tuple(map(str, k)))]
+        results: list[QueryResult] = []
+        batch = assemble_columnar(ordered, query.start_time, query.end_time,
+                                  interval_ms)
+        if batch is None:
+            return results
+        r, b = batch["n_rows"], batch["n_buckets"]
+        gbd = grid_budget(
+            "histogram", tsdb.config.get_int("tsd.query.streaming.state_mb"),
+            r * b * 8, r, b)
+        if gbd.over:
+            raise gbd.exception()
+        clock.mark("build")
+
+        dev = tsdb.device
+        percs = [float(p) for p in (sub.percentiles or [])]
+        seg = torch.from_numpy(batch["seg"]).to(dev)
+        cnt = torch.from_numpy(batch["cnt"]).to(dev)
+        mid = torch.from_numpy(batch["mid"]).to(dev)
+        d_percs = torch.tensor(percs, dtype=torch.float64, device=dev)
+        clock.mark("h2d")
+
+        grid = accumulate_rows(seg, cnt, r, b)
+        pvals = percentile_rows(grid, mid, d_percs) if percs else None
+        clock.mark("kernels")
+
+        counts_all = (grid.cpu().numpy() if sub.show_histogram_buckets
+                      else None)
+        pvals = None if pvals is None else pvals.cpu().numpy()
+        for group_key, row_lo, row_hi, ts, used, _pts in batch["groups"]:
+            members = groups[group_key]
+            group_tags, agg_tags = compute_tags([t for _, t in members])
+            tsuids = [tsdb.tsuid(s.key) for s, _ in members]
+            ts_list = ts.tolist()
+            for i, p in enumerate(sub.percentiles or []):
+                # metric_pct_<p> naming per the DataPoints adaptor
+                # (HistogramDataPointsToDataPointsAdaptor.java:42-44)
+                results.append(QueryResult(
+                    metric="%s_pct_%s" % (sub.metric, float(p)),
+                    tags=dict(group_tags),
+                    aggregate_tags=list(agg_tags),
+                    tsuids=list(tsuids),
+                    dps=list(zip(ts_list, pvals[i, row_lo:row_hi].tolist())),
+                    index=sub.index))
+            if sub.show_histogram_buckets:
+                for bucket in used.tolist():
+                    lo, hi = batch["bounds"][bucket]
+                    results.append(QueryResult(
+                        metric="%s_bucket_%g_%g" % (sub.metric, lo, hi),
+                        tags=dict(group_tags),
+                        aggregate_tags=list(agg_tags),
+                        tsuids=list(tsuids),
+                        dps=list(zip(ts_list, counts_all[
+                            row_lo:row_hi, bucket].tolist())),
+                        index=sub.index))
+        clock.mark("extract")
+        return results
+
     def run_sub(self, query: TSQuery, sub: TSSubQuery) -> list[QueryResult]:
-        self._check_sub(sub)
+        if sub.percentiles or sub.show_histogram_buckets:
+            return self._run_histogram_sub(query, sub)
+        check_ported(self._spec_for(sub))
         global_notes = (self.tsdb.store.get_annotations(
             "", query.start_time, query.end_time)
             if query.global_annotations else [])

@@ -1,0 +1,94 @@
+"""RPC route table: command/path -> handler, per operation mode.
+
+Port of opentsdb_tpu/tsd/rpc_manager.py (OpenTSDB
+src/tsd/RpcManager.java :251-364 initializeBuiltinRpcs, the route list per
+READWRITE / READONLY / WRITEONLY mode behind tsd.core.enable_api, and
+RpcHandler.java dispatch) for the routes the port serves, with the
+uniform error envelope and the 404 "Page not found".  Not ported (ROADMAP
+A4): admission, tracing, latency stamps, deadlines, authentication,
+CORS, plugins, the query-stats registry, the flight recorder and the UI
+routes.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from opentsdb_tpu_torch.query.limits import QueryException
+from opentsdb_tpu_torch.tsd import admin_rpcs, rpcs
+from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
+                                         HttpRequest, error_status)
+from opentsdb_tpu_torch.tsd.serializers import serializer_for
+
+LOG = logging.getLogger("tsd.rpc")
+
+
+class RpcManager:
+    """Builds and owns the telnet + HTTP route tables."""
+
+    def __init__(self, tsdb):
+        self.tsdb = tsdb
+        self.telnet_commands: dict[str, rpcs.TelnetRpc] = {}
+        self.http_commands: dict[str, rpcs.HttpRpc] = {}
+        self._initialize_builtin_rpcs()
+
+    def _initialize_builtin_rpcs(self) -> None:
+        cfg = self.tsdb.config
+        mode = self.tsdb.mode             # rw / ro / wo
+        enable_api = cfg.get_bool("tsd.core.enable_api")
+        telnet = self.telnet_commands
+        http = self.http_commands
+
+        version = admin_rpcs.VersionRpc()
+        telnet["version"] = version
+        telnet["exit"] = admin_rpcs.ExitRpc()
+        telnet["help"] = admin_rpcs.HelpRpc(lambda: self.telnet_commands)
+        if enable_api:
+            http["api/aggregators"] = admin_rpcs.ListAggregators()
+            http["api/version"] = version
+
+        if mode in ("rw", "wo"):
+            put = rpcs.PutDataPointRpc()
+            histos = rpcs.HistogramDataPointRpc()
+            telnet["put"] = put
+            telnet["histogram"] = histos
+            if enable_api:
+                http["api/put"] = put
+                http["api/histogram"] = histos
+        if mode in ("rw", "ro") and enable_api:
+            http["api/query"] = rpcs.QueryRpc()
+
+    # -- dispatch (RpcHandler.messageReceived :125) --
+
+    def handle_telnet(self, conn, line: str) -> str | None:
+        words = line.split()
+        if not words:
+            return None
+        handler = self.telnet_commands.get(words[0])
+        if handler is None:
+            return "unknown command: %s.  Try `help'.\n" % words[0]
+        return handler.execute_telnet(self.tsdb, conn, words)
+
+    def handle_http(self, request: HttpRequest,
+                    remote: str = "unknown") -> HttpQuery:
+        """Route one request; every failure becomes the error envelope."""
+        query = HttpQuery(self.tsdb, request, remote)
+        try:
+            query.serializer = serializer_for(query)
+            handler = self.http_commands.get(query.base_route())
+            if handler is None:
+                raise BadRequestError(
+                    "Page not found", status=404,
+                    details="The requested page [%s] was not found"
+                            % request.path)
+            handler.execute_http(self.tsdb, query)
+            if query.response is None:
+                raise RuntimeError("handler sent no response")
+        except Exception as e:  # uniform error envelope
+            if error_status(e) >= 500 and not isinstance(e, QueryException):
+                # an internal failure gets the full trace in the log;
+                # client mistakes and deliberate verdicts stay quiet
+                LOG.exception("handler for [%s] from %s failed with an "
+                              "internal error", request.path, remote)
+            query.send_error(e)
+        return query

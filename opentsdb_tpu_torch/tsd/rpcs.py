@@ -1,0 +1,251 @@
+"""The ingest and query RPC handlers: put, histogram, query.
+
+Port of the put, histogram and query handlers of
+opentsdb_tpu/tsd/rpcs.py (OpenTSDB src/tsd/PutDataPointRpc.java: telnet
+`put` :129, POST /api/put :272, processDataPoint :309 with its details
+and summary modes; HistogramDataPointRpc; QueryRpc.java :89: the GET
+query-string grammar and the POST JSON body).  Telnet puts are handled
+one line at a time; the reference's batched native put is a speed mode
+over its C++ engine, with the same answers, and is not ported.  The
+/api/query sub-endpoints last, exp, gexp and explain, and deleting data
+through a query, answer 501 naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from opentsdb_tpu_torch.models.tsquery import (
+    TSQuery, parse_m_subquery, parse_tsuid_subquery)
+from opentsdb_tpu_torch.tsd.http import BadRequestError, HttpQuery
+from opentsdb_tpu_torch.uid import NoSuchUniqueName
+
+
+class TelnetRpc:
+    def execute_telnet(self, tsdb, conn, words: list[str]) -> str | None:
+        raise NotImplementedError
+
+
+class HttpRpc:
+    def execute_http(self, tsdb, query: HttpQuery) -> None:
+        raise NotImplementedError
+
+
+def allowed_methods(query: HttpQuery, *methods: str) -> None:
+    if query.method not in methods:
+        raise BadRequestError(
+            "Method not allowed", status=405,
+            details="The HTTP method [%s] is not permitted for this endpoint"
+                    % query.method)
+
+
+def parse_tags(words: list[str]) -> dict[str, str]:
+    """`tag=value` words -> dict (Tags.parse)."""
+    tags: dict[str, str] = {}
+    for w in words:
+        if not w:
+            continue
+        if "=" not in w:
+            raise ValueError("invalid tag: %s" % w)
+        k, v = w.split("=", 1)
+        if not k or not v:
+            raise ValueError("invalid tag: %s" % w)
+        if tags.get(k, v) != v:
+            raise ValueError("duplicate tag: %s, tags so far: %s" % (w, tags))
+        tags[k] = v
+    return tags
+
+
+def parse_telnet_timestamp(text: str) -> float:
+    if not text:
+        raise ValueError("empty timestamp")
+    ts = float(text) if "." in text else int(text)
+    if ts <= 0:
+        raise ValueError("invalid timestamp: %s" % text)
+    return ts
+
+
+class PutDataPointRpc(TelnetRpc, HttpRpc):
+    """Telnet `put` + POST /api/put.  The reference's per-RPC counters
+    feed /api/stats, which is not ported."""
+
+    # -- telnet: put <metric> <ts> <value> <tag=v> [...] --
+
+    def execute_telnet(self, tsdb, conn, words: list[str]) -> str | None:
+        try:
+            self.import_telnet_point(tsdb, words)
+            return None
+        except NoSuchUniqueName as e:
+            return "put: unknown metric: %s\n" % e
+        except ValueError as e:
+            return "put: %s\n" % e
+        except Exception as e:
+            return "put: %s: %s\n" % (type(e).__name__, e)
+
+    def import_telnet_point(self, tsdb, words: list[str]) -> None:
+        if len(words) < 5:
+            raise ValueError("not enough arguments (need least 4, got %d)"
+                             % (len(words) - 1))
+        metric = words[1]
+        if not metric:
+            raise ValueError("empty metric name")
+        timestamp = parse_telnet_timestamp(words[2])
+        value = words[3]
+        if not value:
+            raise ValueError("empty value")
+        tags = parse_tags(words[4:])
+        tsdb.add_point(metric, timestamp, value, tags)
+
+    # -- HTTP --
+
+    def execute_http(self, tsdb, query: HttpQuery) -> None:
+        allowed_methods(query, "POST")
+        dps = query.serializer.parse_put_v1()
+        if not dps:
+            raise BadRequestError("No datapoints found in content")
+        success, errors = self.ingest_points(tsdb, dps)
+        self._respond_put(query, success, errors, dps)
+
+    def ingest_points(self, tsdb, dps: list[dict]
+                      ) -> tuple[int, list[tuple[int, Exception]]]:
+        """(success, [(index, exception)]): points validate one by one
+        and land as one columnar batch per series."""
+        return tsdb.add_points_bulk(dps)
+
+    def _respond_put(self, query: HttpQuery, success: int, errors: list,
+                     dps: list[dict]) -> None:
+        """The 204 / details / summary answer."""
+        show_details = query.has_query_string_param("details")
+        show_summary = query.has_query_string_param("summary")
+        details: list[dict] = []
+        for i, e in errors:
+            if isinstance(e, NoSuchUniqueName):
+                details.append({"error": "Unknown metric",
+                                "datapoint": dps[i]})
+            elif isinstance(e, (ValueError, TypeError)):
+                details.append({"error": str(e), "datapoint": dps[i]})
+            else:
+                details.append({"error": "Storage exception: %s" % e,
+                                "datapoint": dps[i]})
+        if not show_details and not show_summary:
+            if errors:
+                raise BadRequestError(
+                    "One or more data points had errors",
+                    details="Please see the TSD logs or append \"details\" "
+                            "to the put request")
+            query.send_status_only(204)
+            return
+        summary = {"success": success, "failed": len(errors)}
+        if show_details:
+            summary["errors"] = details
+        query.send_reply(query.serializer.format_put_v1(summary),
+                         status=200 if not errors else 400)
+
+
+class HistogramDataPointRpc(PutDataPointRpc):
+    """Telnet `histogram` + POST /api/histogram."""
+
+    def ingest_points(self, tsdb, dps):
+        success = 0
+        errors: list[tuple[int, Exception]] = []
+        for i, dp in enumerate(dps):
+            try:
+                self.store_point(tsdb, dp)
+                success += 1
+            except Exception as e:
+                errors.append((i, e))
+        return success, errors
+
+    def import_telnet_point(self, tsdb, words: list[str]) -> None:
+        # histogram <codec_id> <metric> <ts> <base64 or json value> tag=v...
+        if len(words) < 6:
+            raise ValueError("not enough arguments (need least 5, got %d)"
+                             % (len(words) - 1))
+        if tsdb.histogram_manager is None:
+            raise ValueError("histograms are not configured "
+                             "(tsd.core.histograms.config)")
+        codec_id = int(words[1])
+        metric = words[2]
+        timestamp = parse_telnet_timestamp(words[3])
+        tags = parse_tags(words[5:])
+        tsdb.add_histogram_point_raw(metric, timestamp, codec_id, words[4],
+                                     tags)
+
+    def store_point(self, tsdb, dp: dict) -> None:
+        if tsdb.histogram_manager is None:
+            raise ValueError("histograms are not configured "
+                             "(tsd.core.histograms.config)")
+        for field in ("metric", "timestamp", "tags"):
+            if field not in dp or dp[field] in (None, "", {}):
+                raise ValueError("Missing required field: %s" % field)
+        tsdb.add_histogram_point_json(dp["metric"], dp["timestamp"], dp,
+                                      dict(dp["tags"]))
+
+
+# /api/query sub-endpoints the port does not serve yet: ROADMAP items
+_NOT_PORTED = {"last": "A4", "exp": "A6", "gexp": "A6", "explain": "A9"}
+
+
+class QueryRpc(HttpRpc):
+    """/api/query, GET and POST."""
+
+    def execute_http(self, tsdb, query: HttpQuery) -> None:
+        sub = query.api_subpath()
+        endpoint = sub[0] if sub else ""
+        if endpoint in _NOT_PORTED:
+            raise BadRequestError(
+                "The requested API endpoint has not been implemented",
+                status=501,
+                details="/api/query/%s is not ported yet (ROADMAP %s)"
+                        % (endpoint, _NOT_PORTED[endpoint]))
+        self.handle_query(tsdb, query)
+
+    def handle_query(self, tsdb, query: HttpQuery) -> None:
+        allowed_methods(query, "GET", "POST", "DELETE")
+        if query.method == "POST":
+            ts_query = query.serializer.parse_query_v1()
+        else:
+            ts_query = self.parse_query_string(query)
+        if query.method == "DELETE" or ts_query.delete:
+            if not tsdb.config.get_bool("tsd.http.query.allow_delete"):
+                raise BadRequestError(
+                    "Deleting data is not enabled",
+                    details="Set tsd.http.query.allow_delete=true")
+            raise BadRequestError(
+                "The requested API endpoint has not been implemented",
+                status=501,
+                details="deleting data through /api/query is not ported "
+                        "yet (ROADMAP A4)")
+        ts_query.validate()
+        results = tsdb.new_query_runner().run(ts_query)
+        payload = query.serializer.format_query_v1(ts_query, results)
+        if ts_query.show_summary or ts_query.show_stats:
+            payload.append({"statsSummary": {
+                "datapoints": sum(len(r.dps) for r in results),
+                "queryTime": round(query.elapsed_ms(), 3),
+            }})
+        query.send_reply(payload)
+
+    @staticmethod
+    def parse_query_string(query: HttpQuery) -> TSQuery:
+        """GET grammar (QueryRpc.parseQuery :521-535)."""
+        ts_query = TSQuery(
+            start=query.required_query_string_param("start"),
+            end=query.get_query_string_param("end"),
+            timezone=query.get_query_string_param("tz"),
+            ms_resolution=query.has_query_string_param("ms"),
+            show_tsuids=query.has_query_string_param("show_tsuids"),
+            no_annotations=query.has_query_string_param("no_annotations"),
+            global_annotations=query.has_query_string_param(
+                "global_annotations"),
+            show_summary=query.has_query_string_param("show_summary"),
+            show_stats=query.has_query_string_param("show_stats"),
+            show_query=query.has_query_string_param("show_query"),
+            padding=query.has_query_string_param("padding"),
+            use_calendar=query.has_query_string_param("use_calendar"),
+        )
+        for m in query.get_query_string_params("m"):
+            ts_query.queries.append(parse_m_subquery(m))
+        for t in query.get_query_string_params("tsuid"):
+            ts_query.queries.append(parse_tsuid_subquery(t))
+        if not ts_query.queries:
+            raise BadRequestError.missing_parameter("m or tsuid")
+        return ts_query

@@ -13,6 +13,18 @@ from typing import Any
 # Every key the port reads, with the reference's default (as the untyped
 # properties string).
 DEFAULTS: dict[str, str] = {
+    # the daemon (tsd/, tools/tsd_main.py)
+    "tsd.mode": "rw",
+    "tsd.network.bind": "0.0.0.0",
+    "tsd.network.port": "",
+    "tsd.network.keep_alive_timeout": "300",
+    "tsd.core.connections.limit": "0",
+    "tsd.core.enable_api": "true",
+    "tsd.http.show_stack_trace": "true",
+    "tsd.http.query.allow_delete": "false",
+    # histograms (histogram/, the planner's histogram arm)
+    "tsd.core.histograms.config": "",
+    "tsd.query.streaming.state_mb": "6144",
     "tsd.core.auto_create_metrics": "false",
     "tsd.core.auto_create_tagks": "true",
     "tsd.core.auto_create_tagvs": "true",
@@ -44,6 +56,21 @@ class Config:
         if isinstance(value, bool):
             return "true" if value else "false"
         return str(value)
+
+    def load_file(self, path: str) -> None:
+        """Java properties lines (`key = value`; `#` and `!` comment)."""
+        with open(path, "r") as fh:
+            for line in fh:
+                line = line.strip()
+                if not line or line.startswith("#") or line.startswith("!"):
+                    continue
+                if "=" not in line:
+                    continue
+                key, _, value = line.partition("=")
+                self._map[key.strip()] = value.strip()
+
+    def override_config(self, key: str, value: Any) -> None:
+        self._map[key] = self._stringify(value)
 
     def get_string(self, key: str) -> str:
         if key not in self._map:

@@ -58,3 +58,17 @@ def test_every_kernel_has_its_source_and_entry(name):
     for header in re.findall(r'#include "([^"]+)"', src):
         assert os.path.isfile(os.path.join(kernels._CSRC, header))
     assert kernels.LAUNCHES[name] >= 0
+
+
+@pytest.mark.parametrize("name", ["histogram_accumulate",
+                                  "histogram_percentile"])
+def test_histogram_kernels_build_with_the_rest(name, tmp_path):
+    """H1 and H2 are built like every other kernel: their own library,
+    keyed by their source, the headers and the flags."""
+    assert name in kernels.SIGNATURES and kernels.LAUNCHES[name] == 0
+    csrc = _copy_csrc(tmp_path)
+    before = kernels.library_path(name, csrc)
+    assert os.path.dirname(before) == kernels.BUILD_DIR
+    with open(os.path.join(csrc, name + ".cu"), "ab") as fh:
+        fh.write(b"\n")
+    assert kernels.library_path(name, csrc) != before

@@ -533,3 +533,83 @@ def test_warm_query_on_card_matches_cold(cuda_device):
     (entry,) = cached.device_cache._entries.values()
     assert entry.ts_dev.device.type == "cuda"
     assert entry.val_dev.device.type == "cuda"
+
+
+def test_histogram_accumulate_kernel_matches_plain(cuda_device):
+    """H1: the int64 grid equals index_add_'s exactly, for spread entries
+    and for entries piled onto a few cells; bad entries raise."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+    rng = np.random.default_rng(21)
+    r, b = 300, 32
+    for nnz, cells in ((200_000, r * b), (200_000, 40)):
+        seg = rng.integers(0, cells, nnz).astype(np.int64)
+        cnt = rng.integers(0, 1 << 40, nnz).astype(np.int64)
+        cnt[::5] = 0
+        args = _on(cuda_device, seg, cnt)
+        kernels.reset_launches()
+        got = hk.accumulate_rows(*args, r, b)
+        assert kernels.LAUNCHES["histogram_accumulate"] == 1
+        want = hk.accumulate_rows_plain(*args, r, b)
+        assert_exact(got.cpu().numpy(), want.cpu().numpy())
+    with pytest.raises(ValueError, match="non-negative"):
+        hk.accumulate_rows(*_on(cuda_device, np.array([0, 1]),
+                                np.array([1, -1])), 2, 2)
+    with pytest.raises(ValueError, match="outside the grid"):
+        hk.accumulate_rows(*_on(cuda_device, np.array([0, 4]),
+                                np.array([1, 1])), 2, 2)
+
+
+@pytest.mark.parametrize("b", [7, 32, 45])
+def test_histogram_percentile_kernel_matches_plain(cuda_device, b):
+    """H2 against the plain version, exactly: empty rows, p outside
+    [1, 100], ties, and totals near 2^50 whose share of the last bucket
+    rounds under 100 (the answer is then bucket 0's midpoint)."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+    rng = np.random.default_rng(b)
+    r = 1000
+    counts = rng.integers(0, 40, (r, b)).astype(np.int64)
+    counts[rng.random((r, b)) < 0.5] = 0
+    counts[:10] = 0
+    big = rng.integers(1 << 50, 1 << 51, 200)
+    counts[10:210, -1] = big
+    mid = np.sort(rng.uniform(0, 1000, b))
+    percs = np.array([50.0, 90.0, 99.0, 99.9, 100.0, 1.0, 0.5, 101.0])
+    args = _on(cuda_device, counts, mid, percs)
+    kernels.reset_launches()
+    got = hk.percentile_rows(*args)
+    assert kernels.LAUNCHES["histogram_percentile"] == 1
+    want = hk.percentile_rows_plain(*(a.cpu() for a in args))
+    assert_exact(got.cpu().numpy(), want.numpy())
+    assert (got[4, 10:210] == float(mid[0])).any()
+
+
+def test_histogram_query_on_card_matches_cpu(cuda_device):
+    """A percentile and show-buckets query answers alike on the card and
+    on the CPU (load_state), through one H1 and one H2 launch."""
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.utils.config import Config
+    rng = np.random.default_rng(23)
+    uid_maps = {"metric": {"h": 1}, "tagk": {"host": 1, "g": 2},
+                "tagv": {"h%d" % i: i + 1 for i in range(30)}}
+    uid_maps["tagv"].update({"g0": 41, "g1": 42, "g2": 43})
+    bounds = np.array([[2.0 ** k, 2.0 ** (k + 1)] for k in range(16)])
+    histograms = []
+    for i in range(30):
+        ts = T0 + np.arange(120, dtype=np.int64) * 30_000
+        points = [(bounds, rng.integers(0, 100, 16).astype(np.int64), 0, 0)
+                  for _ in ts]
+        histograms.append((1, {1: i + 1, 2: 41 + i % 3}, ts, points))
+    config = {"tsd.core.histograms.config": '{"SimpleHistogramDecoder": 0}'}
+    answers = []
+    for dev in ("cpu", cuda_device):
+        tsdb = load_state(uid_maps, [], config=Config(config), device=dev,
+                          histograms=histograms)
+        q = TSQuery(start="1356998400", end="1357002000", queries=[
+            parse_m_subquery("sum:5m-sum:percentiles[50,99,100]:"
+                             "show-histogram-buckets:h{g=*}")])
+        q.validate()
+        kernels.reset_launches()
+        answers.append([r.to_json() for r in tsdb.new_query_runner().run(q)])
+    assert kernels.LAUNCHES["histogram_accumulate"] == 1
+    assert kernels.LAUNCHES["histogram_percentile"] == 1
+    assert answers[0] == answers[1] and len(answers[0]) == 3 * (3 + 16)

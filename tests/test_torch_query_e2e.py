@@ -307,10 +307,14 @@ def test_union_query_mixes_int_and_float_groups(both):
     "sum:1m-avg:percentiles[50,99]:cpu.load",
 ])
 def test_unported_queries_raise(both, m):
-    _, port_tsdb = both
-    q = _query(TSQuery, parse_m_subquery, m, "1356998400", "1356999000")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tsdb.new_query_runner().run(q)
+    """Histogram sub queries on a TSDB without a histogram codec config
+    raise the reference's "not configured" error in both packages."""
+    ref_tsdb, port_tsdb = both
+    for tsdb, tsq, parse in ((ref_tsdb, RefTSQuery, ref_parse),
+                             (port_tsdb, TSQuery, parse_m_subquery)):
+        q = _query(tsq, parse, m, "1356998400", "1356999000")
+        with pytest.raises(ValueError, match="histograms are not configured"):
+            tsdb.new_query_runner().run(q)
 
 
 def test_load_state_round_trip():
