@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip check of opentsdb_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then answer queries end to
-end through the port's TSDB: grouped downsample queries and queries
-without a downsample (the union path).
+end through the port's TSDB: grouped downsample queries, queries without
+a downsample (the union path), histograms through the daemon, and
+rollups.
 
     python3 chip_smoke.py
 
@@ -86,10 +87,45 @@ days), 1h windows.  Phases:
    in-process answer, and each histogram answer a CPU TSDB's built by
    load_state from the same histogram state.  Launch counts are reset
    before the queries and read after them.
+9. lane kernels (run after phase 6, on the headline batch): L1
+   lane_partials under 1h windows (W = 283, the rollup job's 1h batch)
+   and 1m windows (W = 16,931), with masked slots and NaN values, against
+   its plain version: counts, minima and maxima exact, sums within rtol
+   1e-9; on an integer metric (h % 1000, whose sums are exact in any
+   order) every cell equals K1's sum, count, min and max of its window
+   bit for bit.  L2 rollup_avg over the 1m sum and count lanes of the
+   batch under 1h windows (int64 and float64 counts, fill none and zero,
+   and thin lanes whose cells differ) against its plain version.  Each
+   prints the kernel, bound, plain and library times (L1: three
+   torch.segment_reduce calls, sum, min and max; L2: two segment_reduce
+   sums and a divide).
+10. rollups end to end (after phase 8), on a TSDB of their own holding
+   `m` and an integer metric `mi` (h % 1000 over 64 series in 8 groups),
+   with written rollups (the default 1m/1h/1d table, each interval's SLA
+   halfway through the data) and maintenance-built 1h lanes.  (a) The
+   rollup job writes the 1h and 1m lanes of both metrics through L1 (its
+   wall and the cells written); five queries a metric with the default
+   ROLLUP_NOFALLBACK (1h avg through L2, 1h sum, max and count, and a 4h
+   avg re-reduced from the 1h lanes) are each held to the raw answer on
+   the card (rollup_raw) and, on four groups, to a CPU TSDB's raw answer
+   (load_state): rtol 1e-9 on `m`, bitwise on `mi`; one split query
+   (tsd.rollups.split_query.enable: the lanes up to the SLA boundary, raw
+   points after it) is held to the CPU's raw answer; 10,240 points go in
+   over POST /api/rollup and 1,020 telnet `rollup` lines through the
+   daemon, and the lane they land in sums to what was sent.  (b) One
+   refresh() builds the demanded 1h blocks (its wall beside the cost
+   model's prediction); four derivable queries a metric (rollup_raw keeps
+   the written rollups out) are timed lane-served, as a device-cache hit
+   (lanes detached) and as a miss (cache detached too), the lane answer
+   held to the exact one: rtol 1e-9 on `m`, bitwise on `mi`.  One
+   appended point makes the next query take the exact path with the
+   point counted; refresh() rebuilds and the lane serves the same answer.
+   Launch counts are reset before this phase and read after it; then the
+   constants of ops/costmodel.py's `cuda` table from this run.
 
 Prints a line per case (worst absolute and relative error, and the worst
-error as a share of its limit), the `kernels` JSON line, the card's name
-and power limit, and last the result line.  Any failed check exits 1 before
+error as a share of its limit), the `costmodel cuda` line, the `kernels`
+JSON line, the card's name and power limit, and last the result line.  Any failed check exits 1 before
 the result line.
 """
 
@@ -141,6 +177,8 @@ REPLACES = {
     "gather_windows": "opentsdb_tpu/storage/device_cache.py:443",
     "histogram_accumulate": "opentsdb_tpu/histogram/kernels.py:24",
     "histogram_percentile": "opentsdb_tpu/histogram/kernels.py:35",
+    "lane_partials": "opentsdb_tpu/ops/pipeline.py:190",
+    "rollup_avg": "opentsdb_tpu/ops/pipeline.py:109",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -1663,6 +1701,434 @@ def daemon_query_phase(dev, tsdb, server, checks: Checks) -> dict:
     return launches
 
 
+def lane_kernel_phase(dev, ts, val, h, checks: Checks) -> dict:
+    """Phase 9: L1 lane_partials and L2 rollup_avg against their plain
+    versions on the card, at the rollup job's shapes."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import lanes
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
+    d_h = torch.from_numpy(h).to(dev)
+    c_mask = d_mask & (d_h % 97 != 0)
+    c_val = torch.where(d_h % 211 == 0, torch.nan, d_val)
+    # the integer metric of the rollup phase: small integers, whose f64
+    # sums are exact in any order
+    mi = d_h % 1_000
+    del d_h
+    plans = {name: ds.FixedWindows.for_range(START, END, ms)
+             for name, ms in (("1h", INTERVAL_MS), ("1m", 60_000))}
+    times = {}
+    for name, plan in plans.items():
+        edges = plan.window_edges(dev)
+        w = plan.count
+        got = lanes.lane_partials(d_ts, c_val, c_mask, edges)
+        want = lanes.lane_partials_plain(d_ts, c_val, c_mask, edges)
+        case = "%s (W=%d)" % (name, w)
+        checks.values("lane_partials", case + " sums", got[0], want[0])
+        for part, g, wv in zip(("counts", "mins", "maxs"), got[1:],
+                               want[1:]):
+            checks.exact("lane_partials", case + " " + part, g, wv, part)
+        # on integers every cell is K1's sum, count, min and max, bitwise
+        got = lanes.lane_partials(d_ts, mi, c_mask, edges)
+        for agg, part in zip(("sum", "count", "min", "max"), got):
+            v, m = ds.window_moments(d_ts, mi, c_mask, edges, agg)
+            label = "%s mi vs K1 %s" % (case, agg)
+            checks.exact("lane_partials", label, v[m], part.double()[m],
+                         "cells")
+            print("%-15s %-44s bitwise %s" % (
+                "lane_partials", label,
+                "ok" if torch.equal(v[m], part.double()[m]) else "FAIL"))
+        # the main path's call (the rollup job's batch): clean f64 values.
+        # It reads val and mask once (9 B a point), ts only where an edge
+        # falls, and writes 28 B a cell.
+        pos = torch.searchsorted(d_ts, edges.expand(S, -1).contiguous())
+        lengths = (pos[:, 1:] - pos[:, :-1]).reshape(-1)
+        flat = d_val.reshape(-1)
+        if int(lengths.sum()) != S * N:
+            checks.failures.append("segment_reduce lengths miss points")
+        del pos
+        t = {
+            "ms": time_ms(lambda: lanes.lane_partials(d_ts, d_val, d_mask,
+                                                      edges)),
+            "plain_ms": time_ms(lambda: lanes.lane_partials_plain(
+                d_ts, d_val, d_mask, edges)),
+            "bound_ms": bound_ms(S * N * (8 + 1) + S * (w + 1) * 8
+                                 + (w + 1) * 8 + S * w * 28, 4.0 * S * N),
+            # the library yardstick: torch.segment_reduce sum, min and max
+            # over the same runs (three calls; the count is the lengths)
+            "library_ms": time_ms(lambda: [torch.segment_reduce(
+                flat, red, lengths=lengths) for red in ("sum", "min",
+                                                         "max")]),
+        }
+        print("time lane_partials %s kernel %.4f ms  plain %.4f ms  bound "
+              "%.4f ms (bytes)  library %.4f ms (segment_reduce sum, min, "
+              "max)" % (case, t["ms"], t["plain_ms"], t["bound_ms"],
+                        t["library_ms"]))
+        times[name] = t
+        del lengths, flat
+
+    # L2 over the 1m sum and count lanes of the batch, under 1h windows
+    e1m = plans["1m"].window_edges(dev)
+    w1m = plans["1m"].count
+    # the lanes as a rollup read takes them: a point a cell at the cell's
+    # start, the cells that hold no point masked
+    val_s, counts, _mins, _maxs = lanes.lane_partials(d_ts, d_val, d_mask,
+                                                      e1m)
+    ts_l = e1m[:-1].expand(S, -1).contiguous()
+    mask_l = counts > 0
+    val_c = counts.long()
+    e1h = plans["1h"].window_edges(dev)
+    w1h = plans["1h"].count
+    for fill, counts_as in (("none", "int64"), ("zero", "int64"),
+                            ("none", "float64")):
+        vc = val_c if counts_as == "int64" else val_c.double()
+        got = lanes.rollup_avg(ts_l, val_s, mask_l, ts_l, vc, mask_l, e1h,
+                               fill, -1.0)
+        want = lanes.rollup_avg_plain(ts_l, val_s, mask_l, ts_l, vc, mask_l,
+                                      e1h, fill, -1.0)
+        case = "1m lanes under 1h fill=%s counts %s" % (fill, counts_as)
+        checks.exact("rollup_avg", case, got[1], want[1])
+        checks.values("rollup_avg", case, got[0], want[0])
+    # thin lanes: a cell in three, the count lane's cells elsewhere
+    thin_s = mask_l & (torch.arange(w1m, device=dev) % 3 == 0)
+    thin_c = mask_l & (torch.arange(w1m, device=dev) % 2 == 0)
+    got = lanes.rollup_avg(ts_l, val_s, thin_s, ts_l, val_c, thin_c, e1h)
+    want = lanes.rollup_avg_plain(ts_l, val_s, thin_s, ts_l, val_c, thin_c,
+                                  e1h)
+    checks.exact("rollup_avg", "thin lanes", got[1], want[1])
+    checks.values("rollup_avg", "thin lanes", got[0], want[0])
+    pos = torch.searchsorted(ts_l, e1h.expand(S, -1).contiguous())
+    lengths = (pos[:, 1:] - pos[:, :-1]).reshape(-1)
+    del pos
+    flat_s, flat_c = val_s.reshape(-1), val_c.double().reshape(-1)
+    times["rollup_avg"] = {
+        "ms": time_ms(lambda: lanes.rollup_avg(ts_l, val_s, mask_l, ts_l,
+                                               val_c, mask_l, e1h)),
+        "plain_ms": time_ms(lambda: lanes.rollup_avg_plain(
+            ts_l, val_s, mask_l, ts_l, val_c, mask_l, e1h)),
+        # each lane's val and mask read once, 9 B a cell each, ts only at
+        # the edges; 9 B written a window cell
+        "bound_ms": bound_ms(2 * S * w1m * (8 + 1) + 2 * S * (w1h + 1) * 8
+                             + (w1h + 1) * 8 + S * w1h * (8 + 1),
+                             3.0 * S * w1m),
+        # two segment_reduce sums and a divide
+        "library_ms": time_ms(lambda: torch.segment_reduce(
+            flat_s, "sum", lengths=lengths) / torch.segment_reduce(
+                flat_c, "sum", lengths=lengths)),
+    }
+    print_times({"rollup_avg": times["rollup_avg"]})
+    return {"lane_partials": times["1h"], "rollup_avg": times["rollup_avg"]}
+
+
+def _rollup_tsdb(dev, ts, val, h):
+    """A TSDB on the card with written rollups (the default 1m/1h/1d
+    table, each interval with an SLA that puts its boundary halfway
+    through the data) and maintenance-built 1h lanes, holding `m` and the
+    integer metric `mi` (h % 1000 over the first INT_ROWS series)."""
+    from opentsdb_tpu_torch.core import TSDB
+    from opentsdb_tpu_torch.storage.memstore import SeriesKey
+    from opentsdb_tpu_torch.utils.config import Config
+
+    sla = int(time.time() * 1e3) - (START + (END - START) // 2)
+    table = {"aggregationIds": {"sum": 0, "count": 1, "min": 2, "max": 3},
+             "intervals": [{"interval": i, "table": "tsdb-rollup-" + i,
+                            "preAggregationTable": "tsdb-rollup-agg-" + i,
+                            "delaySla": sla} for i in ("1m", "1h", "1d")]}
+    tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True,
+                        "tsd.rollups.enable": True,
+                        "tsd.rollups.config": json.dumps(table),
+                        "tsd.rollup.enable": True,
+                        "tsd.rollup.intervals": "1h",
+                        "tsd.rollup.interval": 0}), device=dev)
+    for name, rows, values in (("m", S, val), ("mi", INT_ROWS, h % 1_000)):
+        metric = tsdb.metrics.get_or_create_id(name)
+        for i in range(rows):
+            key = SeriesKey.make(metric, {
+                tsdb.tag_names.get_or_create_id("host"):
+                    tsdb.tag_values.get_or_create_id("h%04d" % i),
+                tsdb.tag_names.get_or_create_id("group"):
+                    tsdb.tag_values.get_or_create_id(
+                        "g%03d" % (i * GROUPS // S))})
+            tsdb.store.add_batch(key, ts[i], values[i], name == "mi")
+    return tsdb
+
+
+def _same(checks, label, got, want, exact):
+    """Card answer against the exact one: groups and timestamps equal,
+    values at rtol 1e-9 or bitwise."""
+    if [(a.tags, [t for t, _ in a.dps]) for a in got] \
+            != [(b.tags, [t for t, _ in b.dps]) for b in want] or not got:
+        checks.failures.append("%s: groups or timestamps differ" % label)
+        print("%-15s %-44s groups or timestamps FAIL" % ("e2e rollup",
+                                                         label))
+        return
+    gv = torch.tensor([float(v) for a in got for _, v in a.dps])
+    wv = torch.tensor([float(v) for b in want for _, v in b.dps])
+    if exact:
+        checks.exact("e2e rollup", label, gv, wv, "values")
+        print("%-15s %-44s bitwise %s" % ("e2e rollup", label,
+                                          "ok" if torch.equal(gv, wv)
+                                          else "FAIL"))
+    else:
+        checks.values("e2e rollup", label, gv, wv)
+
+
+def _timed_run(tsdb, m, reps=3):
+    """(answer, median wall ms, exec_stats with each phase's median)."""
+    from opentsdb_tpu_torch.query.planner import PHASES
+    runner = tsdb.new_query_runner()
+    runner.run(_query(m))                                 # warm-up
+    walls, stats = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = runner.run(_query(m))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stats.append(dict(runner.exec_stats))
+    split = dict(stats[-1])
+    for p in PHASES:
+        split[p + "Ms"] = statistics.median(st[p + "Ms"] for st in stats)
+    return res, statistics.median(walls), split
+
+
+def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple[dict, dict]:
+    """Phase 10: written rollups (a) and maintenance-built lanes (b) end to
+    end on the card.  Returns (launches, measured cost constants)."""
+    from opentsdb_tpu_torch.core import load_state
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.ops.costmodel import (LANE_CELL_BYTES,
+                                                  predict_lane,
+                                                  predict_lane_build)
+    from opentsdb_tpu_torch.rollup.job import run_rollup_job
+    from opentsdb_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    tsdb = _rollup_tsdb(dev, ts, val, h)
+    print("e2e rollup ingest %.3f s: m %d series, mi %d series, %d points"
+          % (time.perf_counter() - t0, S, INT_ROWS,
+             tsdb.store.total_datapoints))
+    kernels.reset_launches()
+
+    # (a) written rollups: the job through L1 into the 1h and 1m lanes
+    for interval in ("1h", "1m"):
+        t0 = time.perf_counter()
+        written = run_rollup_job(tsdb, intervals=[interval])
+        wall = time.perf_counter() - t0
+        print("e2e rollup job %s: %d cells a lane written in %.3f s (%d "
+              "series, %d points read, %.3e points/s)"
+              % (interval, written[interval], wall, S + INT_ROWS,
+                 S * N + INT_ROWS * N, (S + INT_ROWS) * N / wall))
+        if written[interval] <= 0:
+            checks.failures.append("rollup job %s wrote nothing" % interval)
+    store = tsdb.store
+    subset = "{group=g000|g001|g002|g003}"
+    # the CPU oracle: the raw state without rollups, the host path
+    uid_maps = {kind: tsdb.uid_table(kind).snapshot()
+                for kind in ("metric", "tagk", "tagv")}
+    cpu = load_state(uid_maps, [(s.key.metric, dict(s.key.tags), *s.arrays())
+                                for s in store.all_series()],
+                     config=Config({"tsd.query.device_cache.enable": False}),
+                     device="cpu")
+    written_q = ["sum:1h-avg:%s{group=*}", "sum:1h-sum:%s{group=*}",
+                 "max:1h-max:%s{group=*}", "sum:1h-count:%s{group=*}",
+                 "sum:4h-avg:%s{group=*}"]
+    for metric in ("m", "mi"):
+        for q in written_q:
+            m = q % metric
+            res, wall, st = _timed_run(tsdb, m)
+            raw = tsdb.new_query_runner().run(_query(
+                m.replace(":%s" % metric, ":rollup_raw:%s" % metric)))
+            print("e2e rollup %-28s wall %.1f ms (median of 3) | build %.1f "
+                  "h2d %.1f kernels %.1f extract %.1f ms | %d results"
+                  % (m, wall, st["buildMs"], st["h2dMs"], st["kernelsMs"],
+                     st["extractMs"], len(res)))
+            _same(checks, m + " vs raw on the card", res, raw,
+                  metric == "mi")
+            fm = m.replace("{group=*}", subset)
+            _same(checks, fm + " vs the CPU raw",
+                  tsdb.new_query_runner().run(_query(fm)),
+                  cpu.new_query_runner().run(_query(
+                      fm.replace(":%s" % metric, ":rollup_raw:%s" % metric))),
+                  metric == "mi")
+    # the split: rollups up to the SLA boundary, raw points after it
+    tsdb.config.override_config("tsd.rollups.split_query.enable", "true")
+    m = "sum:1h-avg:m%s" % subset
+    t0 = time.perf_counter()
+    split = tsdb.new_query_runner().run(_query(m))
+    wall = (time.perf_counter() - t0) * 1e3
+    tsdb.config.override_config("tsd.rollups.split_query.enable", "false")
+    boundary = int(time.time() * 1e3) - tsdb.rollup_config.intervals[0] \
+        .delay_sla_ms
+    print("e2e rollup split %s wall %.1f ms, boundary %.1f h into the data"
+          % (m, wall, (boundary - START) / 3.6e6))
+    _same(checks, m + " split vs the CPU raw", split,
+          cpu.new_query_runner().run(_query(
+              m.replace(":m", ":rollup_raw:m"))), False)
+    if not START < boundary < END:
+        checks.failures.append("the split boundary is outside the data")
+    del cpu
+
+    # /api/rollup and telnet rollup through the daemon
+    import http.client
+    dps = [{"metric": "rw", "timestamp": START // 1000 + 3600 * k,
+            "value": i + k, "tags": {"host": "h%04d" % i},
+            "interval": "1h", "aggregator": "sum"}
+           for k in range(10) for i in range(S)]
+    with Serving(tsdb) as server:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=120)
+        t0 = time.perf_counter()
+        for i in range(0, len(dps), 512):
+            conn.request("POST", "/api/rollup", json.dumps(dps[i:i + 512]),
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            answer = r.read()
+            if r.status != 204:
+                checks.failures.append("POST /api/rollup: %d %r"
+                                       % (r.status, answer[:200]))
+        http_s = time.perf_counter() - t0
+        conn.close()
+        reply, tel_s = _telnet(server.port, [
+            "rollup 1h-count rw %d 1 host=h%04d" % (
+                START // 1000 + 3600 * k, i)
+            for k in range(10) for i in range(S // 10)])
+        if reply:
+            checks.failures.append("telnet rollup replied %r" % reply[:200])
+    print("e2e rollup ingest rw: %d points over POST /api/rollup %.2f s "
+          "(%.0f/s); %d telnet rollup lines %.2f s (%.0f/s)"
+          % (len(dps), http_s, len(dps) / http_s, 10 * (S // 10), tel_s,
+             10 * (S // 10) / tel_s))
+    got = tsdb.new_query_runner().run(_query("sum:1h-sum:rw"))
+    want = sum(d["value"] for d in dps)
+    total = sum(v for r in got for _, v in r.dps)
+    if total != want:
+        checks.failures.append("rw: the rollup lane sums to %r, not %r"
+                               % (total, want))
+
+    # (b) maintenance-built lanes: rollup_raw keeps the written rollups out
+    derivable = ["sum:1h-sum:rollup_raw:%s{group=*}",
+                 "sum:1h-avg:rollup_raw:%s{group=*}",
+                 "max:1h-max:rollup_raw:%s{group=*}",
+                 "sum:1h-count:rollup_raw:%s{group=*}"]
+    lanes = tsdb.rollup_lanes
+    cache = tsdb.device_cache
+    for q in derivable:
+        for metric in ("m", "mi"):
+            tsdb.new_query_runner().run(_query(q % metric))   # demand
+    t0 = time.perf_counter()
+    built = lanes.refresh(store, max_blocks=256)
+    build_s = time.perf_counter() - t0
+    stats = lanes.collect_stats()
+    cells = lanes.block_windows * built
+    print("e2e lanes refresh: %d blocks (%d cells x up to %d series) built "
+          "in %.3f s, %.3f MB resident"
+          % (built, cells, S, build_s, stats["tsd.query.rollup.bytes"] / 1e6))
+    if built <= 0:
+        checks.failures.append("refresh() built no lane block")
+    series_cells = stats["tsd.query.rollup.bytes"] / LANE_CELL_BYTES
+    print("e2e lanes refresh predicted %.3f s (ops/costmodel "
+          "predict_lane_build over %d series-cells)"
+          % (predict_lane_build(1, int(series_cells)), series_cells))
+    costs = {"lane_build_cell": build_s / max(series_cells, 1)}
+    walls = {}
+    for q in derivable:
+        for metric in ("m", "mi"):
+            m = q % metric
+            served, wall, st = _timed_run(tsdb, m, reps=5)
+            if st.get("rollupLane") != 1.0:
+                checks.failures.append("%s: not served by the lanes" % m)
+            walls["lane", m] = wall
+            tsdb.rollup_lanes = None
+            hit, walls["hit", m], _ = _timed_run(tsdb, m, reps=5)
+            tsdb.device_cache = None
+            _, walls["miss", m], mst = _timed_run(tsdb, m, reps=5)
+            tsdb.rollup_lanes, tsdb.device_cache = lanes, cache
+            print("e2e lane %-36s lane %.1f ms (build %.1f kernels %.1f "
+                  "extract %.1f) | device-cache hit %.1f ms | miss %.1f ms "
+                  "(build %.1f)" % (m, wall, st["buildMs"], st["kernelsMs"],
+                                    st["extractMs"], walls["hit", m],
+                                    walls["miss", m], mst["buildMs"]))
+            _same(checks, m + " lane vs exact", served, hit, metric == "mi")
+            if m == derivable[0] % "m":
+                w = len(served[0].dps)
+                mb = S * w * LANE_CELL_BYTES / 2.0 ** 20
+                costs["lane_assemble_mb"] = st["buildMs"] / 1e3 / mb
+                costs["host_build_point"] = mst["buildMs"] / 1e3 / (S * N)
+                print("e2e lane %s: the lane-serve host work predicted "
+                      "%.1f ms (ops/costmodel predict_lane), measured %.1f"
+                      % (m, predict_lane(S, w, 1) * 1e3, st["buildMs"]))
+    # one appended point: the next query takes the exact path with it
+    m = derivable[0] % "m"
+    tsdb.add_point("m", START // 1000 + 7200, 1e6,
+                   {"host": "h0000", "group": "g000"})
+    runner = tsdb.new_query_runner()
+    after = runner.run(_query(m))
+    stale = runner.exec_stats.get("rollupLane")
+    tsdb.rollup_lanes = None
+    exact = tsdb.new_query_runner().run(_query(m))
+    tsdb.rollup_lanes = lanes
+    _same(checks, m + " after an append", after, exact, False)
+    rebuilt = lanes.refresh(store, max_blocks=256)
+    runner = tsdb.new_query_runner()
+    again = runner.run(_query(m))
+    served_again = runner.exec_stats.get("rollupLane")
+    _same(checks, m + " rebuilt lane vs exact", again, exact, False)
+    print("e2e lane staleness: after an append the query %s; refresh() "
+          "rebuilt %d blocks; the query after it %s"
+          % ("took the exact path" if stale is None else "WAS LANE-SERVED",
+             rebuilt, "was lane-served" if served_again == 1.0
+             else "DID NOT USE THE LANE"))
+    if stale is not None or rebuilt < 1 or served_again != 1.0:
+        checks.failures.append("lane staleness sequence failed")
+    launches = dict(kernels.LAUNCHES)
+    print("e2e rollup launches %s" % json.dumps(launches))
+    print("e2e rollup lanes %s" % json.dumps(lanes.collect_stats()))
+    for name in ("lane_partials", "rollup_avg"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the "
+                                   "rollup path" % name)
+    return launches, costs
+
+
+def cost_constants(dev, times: dict, lane_costs: dict) -> dict:
+    """The `cuda` table of ops/costmodel.py from this run: per-point and
+    per-cell kernel times at the headline batch, the host launch floor,
+    and the lane costs phase 10 measured."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops.rate import RateOptions
+
+    w = ds.FixedWindows.for_range(START, END, INTERVAL_MS).count
+    tiny = [torch.zeros((1, 8), dtype=torch.int64, device=dev),
+            torch.zeros((1, 8), dtype=torch.float64, device=dev),
+            torch.ones((1, 8), dtype=torch.bool, device=dev)]
+    edges = torch.tensor([0, 10], dtype=torch.int64, device=dev)
+    ds.window_moments(*tiny, edges, "sum")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ds.window_moments(*tiny, edges, "sum")
+    torch.cuda.synchronize()
+    launch = (time.perf_counter() - t0) / 200
+    v = torch.rand((S, w), dtype=torch.float64, device=dev)
+    m = torch.ones((S, w), dtype=torch.bool, device=dev)
+    wts = torch.arange(w, dtype=torch.int64, device=dev) * INTERVAL_MS
+    k2_rate = time_ms(lambda: ga.grid_fill_rate(wts, v, m, "prev",
+                                                RateOptions()))
+    out = {
+        "launch": launch,
+        "downsample_point": times["window_moments"]["ms"] / 1e3 / (S * N),
+        "order_point": times["window_order"]["ms"] / 1e3 / (S * N),
+        "rate_cell": max(k2_rate - times["grid_fill_rate"]["ms"], 0.0)
+        / 1e3 / (S * w),
+        "group_cell": times["grid_fill_rate"]["ms"] / 1e3 / (S * w),
+        "aggregate_cell": times["group_moments"]["ms"] / 1e3 / (GROUPS * w),
+        **lane_costs,
+    }
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1700,7 +2166,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     union_launches = union_e2e_phase(dev, tsdb, ts, h, checks)
     torch.cuda.empty_cache()
-    del ts, val, gid, h
+    times.update(lane_kernel_phase(dev, ts, val, h, checks))
+    torch.cuda.empty_cache()
     fleet = histogram_fleet()
     with Serving(tsdb) as server:
         daemon_ingest(tsdb, server.port, fleet, checks)
@@ -1708,11 +2175,19 @@ def main() -> int:
         times.update(histogram_kernel_phase(dev, tsdb, checks))
         torch.cuda.empty_cache()
         daemon_launches = daemon_query_phase(dev, tsdb, server, checks)
+    del tsdb
+    torch.cuda.empty_cache()
+    rollup_launches, lane_costs = rollup_e2e_phase(dev, ts, val, h, checks)
+    del ts, val, gid, h
+    torch.cuda.empty_cache()
+    print("costmodel cuda %s" % json.dumps(cost_constants(dev, times,
+                                                          lane_costs)))
 
-    # Each kernel's launches on the main path: the grouped, union and
-    # daemon phases, their counts reset just before each.
+    # Each kernel's launches on the main path: the grouped, union, daemon
+    # and rollup phases, their counts reset just before each.
     for name in launches:
-        launches[name] += union_launches[name] + daemon_launches[name]
+        launches[name] += (union_launches[name] + daemon_launches[name]
+                           + rollup_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name,

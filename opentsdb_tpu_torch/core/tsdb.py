@@ -6,8 +6,11 @@ validation :1313, and the second/millisecond timestamp heuristic).  The
 store lives on the host; queries run on ``device``, which is ``cuda``
 unless the caller passes another (device.resolve_device).  One cache, the
 device series cache (storage/device_cache.py), refreshed by the maintenance
-thread that ``start_maintenance`` starts.  No WAL, no replication, no
-plugins.
+thread that ``start_maintenance`` starts.  With ``tsd.rollups.enable`` the
+TSDB takes written rollups (``add_aggregate_point``, TSDB.java:1359-1457)
+into its RollupStore; with ``tsd.rollup.enable`` the maintenance thread
+builds rollup lanes (storage/rollup.py) that hear of every write through
+the store's mutation listener.  No WAL, no replication, no plugins.
 
 ``load_state`` builds a TSDB from another TSDB's UID dictionaries and
 series columns, so the two hold the same data under the same UIDs.
@@ -24,11 +27,14 @@ import numpy as np
 from opentsdb_tpu_torch.device import resolve_device
 from opentsdb_tpu_torch.histogram import (HistogramCodecManager,
                                           HistogramStore, SimpleHistogram)
+from opentsdb_tpu_torch.ops.aggregators import AGGREGATORS
+from opentsdb_tpu_torch.rollup import RollupConfig, RollupStore
 from opentsdb_tpu_torch.storage.device_cache import DeviceSeriesCache
 from opentsdb_tpu_torch.storage.memstore import (
     MemStore, SeriesKey, MAX_NUM_TAGS)
+from opentsdb_tpu_torch.storage.rollup import RollupLanes
 from opentsdb_tpu_torch.uid import UniqueId, UniqueIdType
-from opentsdb_tpu_torch.utils.config import Config
+from opentsdb_tpu_torch.utils.config import Config, refuse_unported
 
 SECOND_MASK = 0xFFFFFFFF00000000  # Const.java:19 — set bits mean milliseconds
 
@@ -83,6 +89,7 @@ class TSDB:
 
     def __init__(self, config: Config | None = None, device=None):
         self.config = config or Config()
+        refuse_unported(self.config)
         self.device = resolve_device(device)
         self.metrics = UniqueId(
             UniqueIdType.METRIC,
@@ -113,6 +120,25 @@ class TSDB:
             self.config)
         self.histogram_store = (HistogramStore()
                                 if self.histogram_manager else None)
+        # written rollups, as the reference builds them at
+        # core/tsdb.py:171-181
+        self.rollup_config = RollupConfig.from_config(self.config)
+        self.rollup_store = (
+            RollupStore(self.rollup_config, self.config.salt_buckets)
+            if self.rollup_config is not None else None)
+        self.agg_tag_key = self.config.get_string("tsd.rollups.agg_tag_key")
+        self.raw_agg_tag_value = self.config.get_string(
+            "tsd.rollups.raw_agg_tag_value")
+        self.tag_raw_data = self.config.get_bool("tsd.rollups.tag_raw")
+        self.rollups_block_derived = self.config.get_bool(
+            "tsd.rollups.block_derived")
+        # maintenance-built rollup lanes, told of every write after it
+        # lands (reference core/tsdb.py:114-128)
+        self.rollup_lanes = (RollupLanes(self.config, self.device)
+                             if self.config.get_bool("tsd.rollup.enable")
+                             else None)
+        if self.rollup_lanes is not None:
+            self.store.add_mutation_listener(self.rollup_lanes.note_mutation)
         self.mode = self.config.get_string("tsd.mode")  # rw / ro / wo
         self._stats_lock = threading.Lock()
         self.datapoints_added = 0  # guarded-by: _stats_lock
@@ -149,10 +175,18 @@ class TSDB:
         is_int, num = parse_value(value)
         self.check_timestamp_and_tags(metric, timestamp, num, tags)
         self._check_writable()
-        key = self._series_key(metric, tags, create=True)
+        key = self._series_key(metric, self._raw_tags(tags), create=True)
         self.store.add_point(key, normalize_timestamp_ms(timestamp), num,
                              is_int)
         self._count_added(1)
+
+    def _raw_tags(self, tags: dict[str, str]) -> dict[str, str]:
+        """tsd.rollups.tag_raw: raw series carry the aggregate tag, so
+        that they coexist with pre-aggregates (TSDB.addPointInternal
+        :1471-1480)."""
+        if self.rollup_store is not None and self.tag_raw_data:
+            return {**tags, self.agg_tag_key: self.raw_agg_tag_value}
+        return tags
 
     def add_points_bulk(self, dps: list[dict]
                         ) -> tuple[int, list[tuple[int, Exception]]]:
@@ -176,6 +210,7 @@ class TSDB:
                                               tags)
                 self._check_writable()
                 ts_ms = normalize_timestamp_ms(dp["timestamp"])
+                tags = self._raw_tags(tags)
                 ck = (metric, tuple(sorted(tags.items())))
                 key = key_cache.get(ck)
                 if key is None:
@@ -197,6 +232,63 @@ class TSDB:
             success += len(tss)
         self._count_added(success)
         return success, errors
+
+    # -- rollup write path (TSDB.addAggregatePoint :1359-1457) ----------- #
+
+    def add_aggregate_point(self, metric: str, timestamp: int | float, value,
+                            tags: dict[str, str], is_groupby: bool,
+                            interval: str | None,
+                            rollup_aggregator: str | None,
+                            groupby_aggregator: str | None = None) -> None:
+        """Store one rolled-up and/or pre-aggregated point
+        (TSDB.addAggregatePointInternal).  With `interval` the value goes
+        to that interval's lane of `rollup_aggregator`; with `is_groupby`
+        it goes to a pre-aggregate lane and the aggregate tag
+        (tsd.rollups.agg_tag_key) is set to the upper-cased group-by
+        aggregator."""
+        if self.rollup_store is None:
+            raise RuntimeError("Rollups are not enabled "
+                               "(tsd.rollups.enable=false)")
+        is_int, num = parse_value(value)
+        if interval:
+            # raises NoSuchRollupForInterval for an unconfigured interval
+            self.rollup_config.get_rollup_interval(interval)
+            if not rollup_aggregator:
+                raise ValueError("Missing rollup aggregator for interval %s"
+                                 % interval)
+            if (self.rollups_block_derived
+                    and rollup_aggregator.upper() in ("AVG", "DEV")):
+                # tsd.rollups.block_derived (TSDB.java:1562-1569)
+                raise ValueError(
+                    "Derived rollup aggregations are not allowed: %s"
+                    % rollup_aggregator)
+            self.rollup_config.get_id_for_aggregator(rollup_aggregator)
+        elif not is_groupby:
+            raise ValueError(
+                "Either an interval or the groupby flag is required")
+        tags = dict(tags)
+        if is_groupby:
+            if not groupby_aggregator:
+                raise ValueError("Missing group-by aggregator")
+            if groupby_aggregator.lower() not in AGGREGATORS:
+                raise ValueError("Invalid group by aggregator: %s"
+                                 % groupby_aggregator)
+            if (self.rollups_block_derived
+                    and groupby_aggregator.upper() in ("AVG", "DEV")):
+                # TSDB.java:1543-1550
+                raise ValueError(
+                    "Derived group by aggregations are not allowed: %s"
+                    % groupby_aggregator)
+            tags[self.agg_tag_key] = groupby_aggregator.upper()
+        self.check_timestamp_and_tags(metric, timestamp, num, tags)
+        self._check_writable()
+        key = self._series_key(metric, tags, create=True)
+        lane_agg = rollup_aggregator if interval else groupby_aggregator
+        self.rollup_store.add_point(
+            key, interval or "", lane_agg.lower(),
+            normalize_timestamp_ms(timestamp), num, is_int,
+            pre_agg=is_groupby)
+        self._count_added(1)
 
     # -- histogram write path (TSDB.addHistogramPoint :1171) ------------- #
 
@@ -278,12 +370,15 @@ class TSDB:
                          self.tag_values.width)
 
     def collect_stats(self) -> dict:
-        """The stored point count and, when the device cache is on, its
-        tallies (a slim TSDB.collectStats, reference core/tsdb.py:1056)."""
+        """The stored point count and the tallies of the device cache and
+        the rollup lanes, where they are on (a slim TSDB.collectStats,
+        reference core/tsdb.py:1056)."""
         out: dict = {"tsd.storage.datapoints": self.store.total_datapoints,
                      "tsd.datapoints.added": self.datapoints_added}
         if self.device_cache is not None:
             out.update(self.device_cache.collect_stats())
+        if self.rollup_lanes is not None:
+            out.update(self.rollup_lanes.collect_stats())
         if self.maintenance is not None:
             out.update(self.maintenance.collect_stats())
         return out
@@ -292,7 +387,8 @@ class TSDB:
 
     def start_maintenance(self):
         """Start the background maintenance thread, which rebuilds stale
-        device-cache entries every MaintenanceThread.TICK_SECONDS.  A
+        device-cache entries every MaintenanceThread.TICK_SECONDS and
+        builds rollup lanes every ``tsd.rollup.interval`` seconds.  A
         long-lived TSDB that takes writes starts it, as the reference's
         daemon does (tools/tsd_main.py:126); a bare TSDB stays free of
         threads.  Returns the thread."""

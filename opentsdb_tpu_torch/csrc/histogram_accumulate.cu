@@ -18,9 +18,11 @@
 // Integer addition is associative, so the grid is the same on every run
 // whatever order the atomics land in: the plain version (index_add_) and
 // this kernel agree exactly.  Zero counts add nothing and are skipped.
-// An entry with a negative count or a cell outside [0, R * B) is not
-// added; it sets bit 1 or bit 2 of the flag, which the wrapper reads and
-// raises on.
+// A negative count (a JSON bucket map may carry one) is added as the
+// reference's segment sum adds it: its two's complement wraps the
+// unsigned atomic to the signed int64 sum.  An entry whose cell lies
+// outside [0, R * B) is not added; it sets the flag, which the wrapper
+// reads and raises on.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,10 +52,8 @@ scatter_kernel(const int64_t* __restrict__ seg,
        i += stride) {
     const int64_t s = seg[i];
     const int64_t c = cnt[i];
-    if (c < 0) {
-      bad |= 1;
-    } else if (s < 0 || s >= cells) {
-      bad |= 2;
+    if (s < 0 || s >= cells) {
+      bad = 1;
     } else if (c != 0) {
       atomicAdd(grid + s, (unsigned long long)c);
     }

@@ -29,6 +29,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "window_runs.cuh"
+
 namespace {
 
 constexpr int TILE_W = 64;          // windows per block
@@ -36,37 +38,6 @@ constexpr int THREADS = 256;        // 8 warps
 constexpr int WARPS = THREADS / 32;
 
 enum Agg { SUM = 0, COUNT = 1, AVG = 2, MIN = 3, MAX = 4, DEV = 5, SQUARESUM = 6 };
-
-// Number of row entries strictly below `key` (searchsorted side="left").
-__device__ __forceinline__ int64_t lower_bound(const int64_t* row, int64_t n,
-                                               int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (row[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ double warp_sum(double x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ int warp_sum_int(int x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ double warp_min(double x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmin(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ double warp_max(double x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmax(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
 
 template <typename V>
 __global__ void __launch_bounds__(THREADS)

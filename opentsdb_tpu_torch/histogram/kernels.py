@@ -21,13 +21,7 @@ import torch
 
 from opentsdb_tpu_torch.ops import kernels
 
-_NEGATIVE = 1     # the H1 flag bits (csrc/histogram_accumulate.cu)
-_OUTSIDE = 2
-
-
-def _entry_error(bits: int, cells: int) -> ValueError:
-    if bits & _NEGATIVE:
-        return ValueError("histogram bucket counts must be non-negative")
+def _entry_error(cells: int) -> ValueError:
     return ValueError("histogram scatter entry outside the grid of %d cells"
                       % cells)
 
@@ -47,8 +41,9 @@ def _check_accumulate(seg, cnt, num_rows: int, num_buckets: int) -> int:
 def accumulate_rows(seg: torch.Tensor, cnt: torch.Tensor, num_rows: int,
                     num_buckets: int) -> torch.Tensor:
     """H1 -> grid[num_rows, num_buckets] int64: every entry's count added
-    at cell seg[i] = row * num_buckets + bucket.  Raises ValueError on a
-    negative count or a cell outside the grid (on the card after the
+    at cell seg[i] = row * num_buckets + bucket, a negative count too, as
+    the reference's segment sum adds it (a JSON bucket map may carry one).
+    Raises ValueError on a cell outside the grid (on the card after the
     launch, reading the kernel's flag)."""
     cells = _check_accumulate(seg, cnt, num_rows, num_buckets)
     if seg.device.type == "cpu":
@@ -59,14 +54,13 @@ def accumulate_rows(seg: torch.Tensor, cnt: torch.Tensor, num_rows: int,
     flag = torch.empty(1, dtype=torch.int32, device=dev)
     if cells == 0:
         if seg.numel():
-            raise _entry_error(_OUTSIDE, cells)
+            raise _entry_error(cells)
         return grid
     kernels.launch("histogram_accumulate", dev, kernels.ptr(seg),
                    kernels.ptr(cnt), seg.numel(), cells, kernels.ptr(grid),
                    kernels.ptr(flag))
-    bits = int(flag.item())
-    if bits:
-        raise _entry_error(bits, cells)
+    if int(flag.item()):
+        raise _entry_error(cells)
     return grid
 
 
@@ -74,11 +68,8 @@ def accumulate_rows_plain(seg: torch.Tensor, cnt: torch.Tensor,
                           num_rows: int, num_buckets: int) -> torch.Tensor:
     """Plain PyTorch version of H1: index_add_ into a zeroed grid."""
     cells = _check_accumulate(seg, cnt, num_rows, num_buckets)
-    if seg.numel():
-        if bool((cnt < 0).any()):
-            raise _entry_error(_NEGATIVE, cells)
-        if int(seg.min()) < 0 or int(seg.max()) >= cells:
-            raise _entry_error(_OUTSIDE, cells)
+    if seg.numel() and (int(seg.min()) < 0 or int(seg.max()) >= cells):
+        raise _entry_error(cells)
     grid = torch.zeros(cells, dtype=torch.int64, device=seg.device)
     grid.index_add_(0, seg, cnt)
     return grid.reshape(num_rows, num_buckets)

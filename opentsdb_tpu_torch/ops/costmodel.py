@@ -1,0 +1,87 @@
+"""Predicted seconds of the port's grouped query stages and of the rollup
+lanes, for lane placement.
+
+Port of the terms of opentsdb_tpu/ops/costmodel.py and
+obs/jaxprof.stage_breakdown (:286) that the rollup lanes read
+(storage/rollup.py): ``stage_breakdown`` prices a grouped dispatch by
+stage (downsample, rate, groupby, aggregate), ``predict_lane`` (:638) the
+host assembly of a lane-served grid and ``predict_lane_build`` (:651) a
+lane block build.  The lanes rank their demand by the saving per byte
+that these predictions give.  The reference's mode-selection half has no
+counterpart: the port has one kernel per function.
+
+The one table, ``CUDA_COSTS``, holds constants measured on an NVIDIA
+H100 80GB HBM3 at 700 W by ``chip_smoke.py`` (it prints them as the
+``costmodel cuda`` line; PERF.md names the run).  The reference's tpu and
+cpu tables are not carried over.
+"""
+
+from __future__ import annotations
+
+from opentsdb_tpu_torch.ops.aggregators import family
+
+# bytes per lane cell: sum f64 + count i32 + min f64 + max f64
+LANE_CELL_BYTES = 28
+
+# seconds a unit: chip_smoke.py's `costmodel cuda` line on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, PR 6, run 1)
+CUDA_COSTS: dict[str, float] = {
+    # a kernel launch through its wrapper, on the host clock
+    "launch": 3.0439964999970924e-05,
+    # K1 per raw point at the headline batch (1024 x 65,536, 1h)
+    "downsample_point": 5.994319707269824e-12,
+    # K4 per raw point (mult at the same batch)
+    "order_point": 3.478622545571852e-11,
+    # what a rate adds to K2, per [S, W] cell
+    "rate_cell": 2.1090990593887263e-10,
+    # K2 per [S, W] cell
+    "group_cell": 7.950529898763651e-10,
+    # K3 per [G, W] output cell
+    "aggregate_cell": 1.5298940583589643e-09,
+    # the host batch build of a grouped miss, per raw point
+    "host_build_point": 2.9250691682103608e-09,
+    # derive_grid and the edge windows' batches on the host, per MB
+    # of lane cells read
+    "lane_assemble_mb": 0.00409800212417827,
+    # one lane block build (host batch, L1, copy back), per
+    # (series, cell)
+    "lane_build_cell": 1.551000023935337e-06,
+}
+
+
+def stage_breakdown(s: int, n: int, w: int, g: int,
+                    ds_function: str | None,
+                    has_rate: bool) -> dict[str, float]:
+    """Predicted seconds per stage of one grouped dispatch over s series
+    of at most n points, w windows and g groups: K1 or K4 (downsample),
+    what a rate adds to K2, K2 (groupby) and K3 (aggregate)."""
+    c = CUDA_COSTS
+    s, n, w, g = (max(int(x), 1) for x in (s, n, w, g))
+    per_point = c["order_point"] \
+        if ds_function is not None and family(ds_function) == "order" \
+        else c["downsample_point"]
+    out = {"downsample": c["launch"] + s * n * per_point}
+    if has_rate:
+        out["rate"] = s * w * c["rate_cell"]
+    out["groupby"] = 2 * c["launch"] + s * w * c["group_cell"]
+    out["aggregate"] = g * w * c["aggregate_cell"]
+    return out
+
+
+def predict_host_build(points: int) -> float:
+    """Predicted seconds of the host batch build of `points` raw points:
+    what a lane-served plan never pays."""
+    return max(int(points), 0) * CUDA_COSTS["host_build_point"]
+
+
+def predict_lane(s: int, w: int, k: int) -> float:
+    """Predicted seconds of the lane-serve assembly (derive_grid) of an
+    [s, w] grid at k lane cells a window: it reads s * w * k cells."""
+    mb = s * w * max(k, 1) * LANE_CELL_BYTES / 2.0 ** 20
+    return mb * CUDA_COSTS["lane_assemble_mb"]
+
+
+def predict_lane_build(s: int, cells: int) -> float:
+    """Predicted seconds of one lane block build over s series x `cells`
+    lane cells."""
+    return s * max(cells, 1) * CUDA_COSTS["lane_build_cell"]

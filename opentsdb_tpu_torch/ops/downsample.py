@@ -99,7 +99,7 @@ def window_timestamps(edges: torch.Tensor) -> torch.Tensor:
     return edges[:-1]
 
 
-def _fill(fill_policy: str, fill_value: float) -> tuple[int, float]:
+def fill_args(fill_policy: str, fill_value: float) -> tuple[int, float]:
     """(fill_mode, value) as the kernels take them: mode 0 keeps empty
     windows masked (FILL_NONE), mode 1 exposes every window, the empty
     ones holding `value`."""
@@ -114,13 +114,13 @@ def _fill(fill_policy: str, fill_value: float) -> tuple[int, float]:
     raise ValueError("Unrecognized fill policy: " + fill_policy)
 
 
-def _check_batch(ts, val, mask, edges) -> None:
+def check_batch(ts, val, mask, edges) -> None:
     if ts.dim() != 2 or val.shape != ts.shape or mask.shape != ts.shape:
         raise ValueError("ts, val and mask must share one [S, N] shape")
     if ts.dtype != torch.int64 or mask.dtype != torch.bool \
             or val.dtype not in (torch.float64, torch.int64):
-        raise TypeError("window_moments takes ts int64, val float64 or "
-                        "int64, mask bool")
+        raise TypeError("the windowed kernels take ts int64, val float64 "
+                        "or int64, mask bool")
     if edges.dim() != 1 or edges.dtype != torch.int64 or edges.numel() < 2:
         raise ValueError("edges must be int64 [W+1] with W >= 1")
 
@@ -141,14 +141,14 @@ def window_moments(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     if agg_name not in MOMENT_CODES:
         raise KeyError("window_moments computes the moments, not %r"
                        % agg_name)
-    _check_batch(ts, val, mask, edges)
+    check_batch(ts, val, mask, edges)
     if ts.device.type == "cpu":
         return window_moments_plain(ts, val, mask, edges, agg_name,
                                     fill_policy, fill_value)
     dev = kernels.require_cuda(ts, val, mask, edges)
     s, n = ts.shape
     w = edges.numel() - 1
-    mode, fv = _fill(fill_policy, fill_value)
+    mode, fv = fill_args(fill_policy, fill_value)
     out = torch.empty((s, w), dtype=torch.float64, device=dev)
     out_mask = torch.empty((s, w), dtype=torch.bool, device=dev)
     if s == 0:
@@ -228,14 +228,14 @@ def window_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     """
     if agg_name not in ORDER_AGGS or agg_name == "none":
         raise KeyError("No such downsampling function: " + agg_name)
-    _check_batch(ts, val, mask, edges)
+    check_batch(ts, val, mask, edges)
     if ts.device.type == "cpu":
         return window_order_plain(ts, val, mask, edges, agg_name,
                                   fill_policy, fill_value)
     dev = kernels.require_cuda(ts, val, mask, edges)
     s, n = ts.shape
     w = edges.numel() - 1
-    mode, fv = _fill(fill_policy, fill_value)
+    mode, fv = fill_args(fill_policy, fill_value)
     code, q, est = order_args(agg_name)
     out = torch.empty((s, w), dtype=torch.float64, device=dev)
     out_mask = torch.empty((s, w), dtype=torch.bool, device=dev)
@@ -322,7 +322,7 @@ def apply_fill(out: torch.Tensor, out_mask: torch.Tensor, fill_policy: str,
     stay masked out (NaN); other policies substitute the fill value and
     expose every window.
     """
-    mode, fv = _fill(fill_policy, fill_value)
+    mode, fv = fill_args(fill_policy, fill_value)
     out = torch.where(out_mask, out, fv)
     if mode == 0:
         return out, out_mask

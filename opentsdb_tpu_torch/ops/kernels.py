@@ -11,7 +11,8 @@ libraries are loaded with ctypes; every pointer and the stream pass as
 
 A kernel launches on torch's current stream, synchronises nothing and
 allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
-ops.union_agg, ops.aggregators, storage.device_cache, histogram.kernels)
+ops.union_agg, ops.aggregators, storage.device_cache, histogram.kernels,
+ops.lanes)
 allocates the outputs and any scratch with ``torch.empty``, checks
 device, dtype, shape and contiguity, calls ``launch``, and raises when
 the C entry returns a CUDA error.  A build or launch failure always
@@ -91,6 +92,14 @@ SIGNATURES: dict[str, tuple] = {
     "histogram_accumulate": (_P, _P, _I64, _I64, _P, _P, _P),
     # counts, mid, percs, r, b, np, out, stream
     "histogram_percentile": (_P, _P, _P, _I64, _I32, _I32, _P, _P),
+    # ts, val, mask, edges, s, n, w, val_is_int, sums, counts, mins, maxs,
+    # stream
+    "lane_partials": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P, _P, _P, _P,
+                      _P),
+    # ts_s, val_s, mask_s, n_s, ts_c, val_c, mask_c, n_c, edges, s, w,
+    # fill_mode, fill_value, sum_is_int, cnt_is_int, out, out_mask, stream
+    "rollup_avg": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _I64, _I32, _I32,
+                   _F64, _I32, _I32, _P, _P, _P),
 }
 
 # Launch counts per kernel, bumped only by launch().

@@ -1,10 +1,12 @@
-"""The query pipelines: grouped (downsample -> rate -> group reduce) and
-union (rate -> union merge -> union reduce).
+"""The query pipelines: grouped (downsample -> rate -> group reduce),
+union (rate -> union merge -> union reduce) and the rollup programs.
 
 Port of opentsdb_tpu/ops/pipeline.py: ``run_group_pipeline`` (over
-``_group_pipeline`` and ``_grid_tail``) and ``run_union_pipeline`` (the
-union arm of ``_pipeline`` behind ``run_pipeline`` and
-``run_union_batch_pipeline``), in the reference's iterator-chain order
+``_group_pipeline``), the composition of ``run_downsample_grid``
+(``_downsample_grid``) and ``run_grid_tail`` (``_grid_tail``), and
+``run_union_pipeline`` (the union arm of ``_pipeline`` behind
+``run_pipeline`` and ``run_union_batch_pipeline``), in the reference's
+iterator-chain order
 (AggregationIterator.create :253-380: Span -> Downsampler -> RateSpan ->
 merge).  On the device the grouped pipeline is K1 window_moments or K4
 window_order (by the downsample function's family, with MA after K1 for
@@ -13,7 +15,10 @@ group_order (by the aggregator's family, K3 and MA for movingAverage<N>);
 the union pipeline is R point_rate (under a rate), U1 union_merge, and U2
 union_reduce, U3 union_order or U2 and MA by the aggregator's family.  Both
 take every group of a sub query in one [S, N] batch whose groups are
-contiguous row runs.  The batch builders run on the host and produce the
+contiguous row runs.  The rollup programs are ``run_lane_partials`` (L1
+lane_partials, the rollup lanes' block builder and the rollup job) and
+``run_group_rollup_avg_pipeline`` / ``run_rollup_avg_pipeline`` (L2
+rollup_avg over a sum lane and a count lane, then the grid tail).  The batch builders run on the host and produce the
 [S, N] numpy batch that the caller moves to the device; N is the longest
 row's point count, shorter rows are padded at int64 max.
 """
@@ -27,9 +32,11 @@ import torch
 
 from opentsdb_tpu_torch.ops.aggregators import (
     family, get_agg, ma_window, moving_average_rows, PREV)
-from opentsdb_tpu_torch.ops.downsample import downsample, FILL_NONE
+from opentsdb_tpu_torch.ops.downsample import (
+    FILL_NONE, downsample, window_timestamps)
 from opentsdb_tpu_torch.ops.group_agg import (
     grid_fill_rate, group_moments, group_offsets, group_order)
+from opentsdb_tpu_torch.ops.lanes import lane_partials, rollup_avg
 from opentsdb_tpu_torch.ops.rate import RateOptions, point_rate
 from opentsdb_tpu_torch.ops.union_agg import union_aggregate
 
@@ -90,26 +97,30 @@ def group_reduce(agg_name: str, contrib: torch.Tensor,
     return torch.where(live, out, torch.nan), out_mask
 
 
-# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, gid[S] any,
-# shape: edges[W+1] i64 -> ([W] i64, [G,W] f64, [G,W] bool)
-def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
-                       val: torch.Tensor, mask: torch.Tensor, gid,
-                       num_groups: int, edges: torch.Tensor):
-    """Execute the grouped pipeline -> (wts[W], out[G, W], out_mask[G, W]).
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
+# shape: -> ([W] i64, [S,W] f64, [S,W] bool)
+def run_downsample_grid(step: DownsampleStep, ts: torch.Tensor,
+                        val: torch.Tensor, mask: torch.Tensor,
+                        edges: torch.Tensor):
+    """The downsample alone -> (wts[W], v[S, W], m[S, W]): K1 or K4 (K1
+    and MA for movingAverage<N>) with the fill, as the reference's
+    ``_downsample_grid`` (:181) computes it.  The rollup lanes' edge
+    windows come from here."""
+    return downsample(ts, val, mask, step.function, edges, step.fill_policy,
+                      step.fill_value)
 
-    `ts`, `val`, `mask` and the window `edges` lie on the device the
-    pipeline runs on; `gid` (host array or tensor) maps rows to groups and
-    must be non-decreasing (groups as contiguous row runs, as the planner
-    emits them).
-    """
+
+# shape: wts[W] i64, v[S,W] f64, m[S,W] bool, gid[S] any
+# shape: -> ([W] i64, [G,W] f64, [G,W] bool)
+def run_grid_tail(spec: PipelineSpec, wts: torch.Tensor, v: torch.Tensor,
+                  m: torch.Tensor, gid, num_groups: int):
+    """The tail on a finished [S, W] grid -> (wts[W], out[G, W],
+    out_mask[G, W]): gap fill and rate (K2), then the grouped reduce (K3,
+    K5, or K3 and MA), as the reference's ``_grid_tail`` (:165) computes
+    it.  `gid` (host array or tensor) maps rows to groups and must be
+    non-decreasing."""
     check_ported(spec)
-    if spec.downsample is None:
-        raise ValueError("run_group_pipeline takes a spec with a downsample "
-                         "(run_union_pipeline answers the others)")
-    offsets = group_offsets(gid, num_groups).to(ts.device)
-    step = spec.downsample
-    wts, v, m = downsample(ts, val, mask, step.function, edges,
-                           step.fill_policy, step.fill_value)
+    offsets = group_offsets(gid, num_groups).to(v.device)
     # Rates never LERP across series: a missing rate contributes the
     # previous rate value (AggregationIterator.java:744-752).
     policy = PREV if spec.rate is not None \
@@ -119,6 +130,73 @@ def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
     out, out_mask = group_reduce(spec.aggregator, contrib, participate,
                                  present, offsets)
     return wts, out, out_mask
+
+
+def _require_downsample(spec: PipelineSpec, name: str) -> DownsampleStep:
+    check_ported(spec)
+    if spec.downsample is None:
+        raise ValueError("%s takes a spec with a downsample "
+                         "(run_union_pipeline answers the others)" % name)
+    return spec.downsample
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, gid[S] any,
+# shape: edges[W+1] i64 -> ([W] i64, [G,W] f64, [G,W] bool)
+def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
+                       val: torch.Tensor, mask: torch.Tensor, gid,
+                       num_groups: int, edges: torch.Tensor):
+    """Execute the grouped pipeline -> (wts[W], out[G, W], out_mask[G, W]):
+    run_downsample_grid, then run_grid_tail.
+
+    `ts`, `val`, `mask` and the window `edges` lie on the device the
+    pipeline runs on; `gid` (host array or tensor) maps rows to groups and
+    must be non-decreasing (groups as contiguous row runs, as the planner
+    emits them).
+    """
+    step = _require_downsample(spec, "run_group_pipeline")
+    wts, v, m = run_downsample_grid(step, ts, val, mask, edges)
+    return run_grid_tail(spec, wts, v, m, gid, num_groups)
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
+# shape: -> ([S,W] f64, [S,W] i32, [S,W] f64, [S,W] f64)
+def run_lane_partials(ts: torch.Tensor, val: torch.Tensor,
+                      mask: torch.Tensor, edges: torch.Tensor):
+    """One lane-partials dispatch (L1) -> (sum, count, min, max) [S, W]:
+    the rollup-lane block builder and the rollup job (the reference's
+    ``run_lane_partials``, :190)."""
+    return lane_partials(ts, val, mask, edges)
+
+
+# shape: ts_s[S,Ns] i64, val_s[S,Ns] f64|i64, mask_s[S,Ns] bool,
+# shape: ts_c[S,Nc] i64, val_c[S,Nc] f64|i64, mask_c[S,Nc] bool, gid[S] any,
+# shape: edges[W+1] i64 -> ([W] i64, [G,W] f64, [G,W] bool)
+def run_group_rollup_avg_pipeline(spec: PipelineSpec, ts_s, val_s, mask_s,
+                                  ts_c, val_c, mask_c, gid,
+                                  num_groups: int, edges: torch.Tensor):
+    """The grouped rollup-avg read (the reference's ``_group_rollup_avg``,
+    :299) -> (wts[W], out[G, W], out_mask[G, W]): L2 divides each window's
+    sum-lane sum by its count-lane sum and fills, then run_grid_tail.
+    Row i of the sum batch and of the count batch is the same series."""
+    step = _require_downsample(spec, "run_group_rollup_avg_pipeline")
+    v, m = rollup_avg(ts_s, val_s, mask_s, ts_c, val_c, mask_c, edges,
+                      step.fill_policy, step.fill_value)
+    return run_grid_tail(spec, window_timestamps(edges), v, m, gid,
+                         num_groups)
+
+
+# shape: ts_s[S,Ns] i64, val_s[S,Ns] f64|i64, mask_s[S,Ns] bool,
+# shape: ts_c[S,Nc] i64, val_c[S,Nc] f64|i64, mask_c[S,Nc] bool,
+# shape: edges[W+1] i64 -> ([W] i64, [W] f64, [W] bool)
+def run_rollup_avg_pipeline(spec: PipelineSpec, ts_s, val_s, mask_s, ts_c,
+                            val_c, mask_c, edges: torch.Tensor):
+    """The rollup-avg read of one group (the reference's
+    ``_rollup_avg_pipeline``, :109): every row of the batch in one group
+    -> (wts[W], out[W], out_mask[W])."""
+    gid = torch.zeros(ts_s.shape[0], dtype=torch.int64)
+    wts, out, out_mask = run_group_rollup_avg_pipeline(
+        spec, ts_s, val_s, mask_s, ts_c, val_c, mask_c, gid, 1, edges)
+    return wts, out[0], out_mask[0]
 
 
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, offsets[G+1] i64

@@ -17,6 +17,18 @@ or copied on the host.  The union arm builds one batch for its
 all-integer groups and one for the rest, since a group's int mode (Java
 long arithmetic) follows its own members.
 
+A sub query first picks its data sources (``_plan_segments``, the
+reference's TsdbQuery.transformDownSamplerToRollupQuery :1733 with
+ROLLUP_USAGE and SplitRollupQuery): with written rollups enabled, a fixed
+downsample whose interval a configured rollup interval divides reads that
+interval's lane (``rollup``), an avg reads its sum and count lanes through
+L2 (``rollup_avg``), and with ``tsd.rollups.split_query.enable`` the
+lane serves up to its SLA boundary and the raw store the rest, the two
+answers stitched per group.  On the raw store the grouped arm consults
+the maintenance-built rollup lanes (storage/rollup.py) before the device
+cache: a plan they cover takes its full windows from lane cells, its edge
+windows from the raw points, then the grid tail.
+
 Every aggregator and downsample function of the registry is answered
 (moments, order and rank functions, movingAverage<N>), with or without a
 rate.  A histogram sub query (percentiles or show-histogram-buckets, the
@@ -41,14 +53,34 @@ from opentsdb_tpu_torch.ops.downsample import (
     FixedWindows, EdgeWindows, AllWindow)
 from opentsdb_tpu_torch.ops.group_agg import group_offsets
 from opentsdb_tpu_torch.ops.pipeline import (
-    PipelineSpec, DownsampleStep, build_batch_direct, check_ported,
-    run_group_pipeline, run_union_pipeline)
+    PipelineSpec, DownsampleStep, build_batch, build_batch_direct,
+    check_ported, run_downsample_grid, run_grid_tail, run_group_pipeline,
+    run_group_rollup_avg_pipeline, run_union_pipeline)
 from opentsdb_tpu_torch.query.limits import grid_budget
+from opentsdb_tpu_torch.rollup.config import (NoSuchRollupForInterval,
+                                              RollupQuery)
 from opentsdb_tpu_torch.storage.memstore import Series
 from opentsdb_tpu_torch.uid import NoSuchUniqueName
 from opentsdb_tpu_torch.utils import datetime_util as DT
 
 _NO_MATCH = object()  # sentinel: a literal filter can never match
+
+# Downsample function -> (written rollup lane, function over its cells):
+# counts re-reduce by sum, sums and extremes by themselves (a rollup
+# table holds one aggregator's cells per lane, RollupUtils qualifiers).
+_ROLLUP_LANES = {
+    "sum": ("sum", "sum"),
+    "zimsum": ("sum", "zimsum"),
+    "count": ("count", "sum"),
+    "min": ("min", "min"),
+    "mimmin": ("min", "mimmin"),
+    "max": ("max", "max"),
+    "mimmax": ("max", "mimmax"),
+}
+
+# bytes a cell of an [S, W] grid holds on the device through the tail
+# (values, contributions, masks), the reference's lane residency estimate
+_GRID_CELL_BYTES = 24
 
 # Host-clock phases of one dispatch; exec_stats carries each as
 # "<phase>Ms" summed over the run's dispatches.  "gather" is the grouped
@@ -72,6 +104,21 @@ def compute_tags(tag_maps: list[dict]) -> tuple[dict, list]:
                 discards.add(k)
                 tag_set.pop(k)
     return tag_set, sorted(discards)
+
+
+@dataclass
+class Segment:
+    """One data source over a slice of a sub query's range (the
+    reference's Segment, SplitRollupQuery.java reduced to data): a rollup
+    lane serves [start, boundary) within its SLA, the raw store the
+    blackout tail.  kind: "raw", "rollup" or "rollup_avg"."""
+    kind: str
+    start_ms: int
+    end_ms: int
+    lane: object = None        # MemStore: the rollup lane (sum lane of avg)
+    count_lane: object = None  # MemStore: the count lane of rollup_avg
+    ds_function: str | None = None   # the function over the lane's cells
+    rollup_query: RollupQuery | None = None
 
 
 @dataclass
@@ -151,10 +198,11 @@ class QueryRunner:
 
     # -- series selection ------------------------------------------------
 
-    def _resolve_series(self, sub: TSSubQuery) -> list[tuple[Series, dict]]:
-        """All series matching the sub query, with resolved tag maps."""
+    def _resolve_series(self, sub: TSSubQuery,
+                        store) -> list[tuple[Series, dict]]:
+        """All series of `store` matching the sub query, with resolved tag
+        maps."""
         tsdb = self.tsdb
-        store = tsdb.store
         if sub.tsuids:
             wanted = {t.upper() for t in sub.tsuids}
             out = []
@@ -240,6 +288,95 @@ class QueryRunner:
         return FixedWindows.for_range(query.start_time, query.end_time,
                                       spec.interval_ms)
 
+    # -- rollup source selection (TsdbQuery.transformDownSamplerToRollupQuery
+    #    :1733, ROLLUP_USAGE :197, SplitRollupQuery) -----------------------
+
+    def _rollup_candidates(self, sub: TSSubQuery):
+        """Rollup intervals able to serve this sub query, best first, and
+        the usage mode."""
+        tsdb = self.tsdb
+        ds = sub.downsample_spec
+        usage = (sub.rollup_usage or "ROLLUP_NOFALLBACK").upper()
+        if (tsdb.rollup_store is None or ds is None or ds.run_all
+                or ds.use_calendar or ds.interval_ms <= 0
+                or usage == "ROLLUP_RAW" or sub.tsuids):
+            return [], usage
+        if ds.function != "avg" and ds.function not in _ROLLUP_LANES:
+            return [], usage
+        try:
+            matches = tsdb.rollup_config.get_best_matches_ms(ds.interval_ms)
+        except (NoSuchRollupForInterval, ValueError):
+            return [], usage
+        matches = [m for m in matches if not m.default_interval]
+        if usage == "ROLLUP_NOFALLBACK":
+            matches = matches[:1]
+        return matches, usage
+
+    def _segment_for_interval(self, sub: TSSubQuery, interval,
+                              start_ms: int, end_ms: int) -> Segment | None:
+        """A rollup Segment over [start, end] if the lanes hold data of
+        the metric."""
+        tsdb = self.tsdb
+        ds = sub.downsample_spec
+        try:
+            metric_uid = tsdb.metrics.get_id(sub.metric)
+        except NoSuchUniqueName:
+            return None
+        pre = sub.pre_aggregate
+        lanes = tsdb.rollup_store
+        if ds.function == "avg":
+            sum_lane = lanes.peek_lane(interval.interval, "sum", pre)
+            cnt_lane = lanes.peek_lane(interval.interval, "count", pre)
+            if (sum_lane is None or cnt_lane is None
+                    or not sum_lane.series_for_metric(metric_uid)
+                    or not cnt_lane.series_for_metric(metric_uid)):
+                return None
+            rq = RollupQuery(interval, "avg", ds.interval_ms, sub.aggregator)
+            return Segment("rollup_avg", start_ms, end_ms, lane=sum_lane,
+                           count_lane=cnt_lane, ds_function="sum",
+                           rollup_query=rq)
+        lane_agg, ds_fn = _ROLLUP_LANES[ds.function]
+        lane = lanes.peek_lane(interval.interval, lane_agg, pre)
+        if lane is None or not lane.series_for_metric(metric_uid):
+            return None
+        rq = RollupQuery(interval, ds.function, ds.interval_ms,
+                         sub.aggregator)
+        return Segment("rollup", start_ms, end_ms, lane=lane,
+                       ds_function=ds_fn, rollup_query=rq)
+
+    def _plan_segments(self, query: TSQuery,
+                       sub: TSSubQuery) -> list[Segment]:
+        """The data sources of a sub query: the raw store, a rollup lane,
+        or with tsd.rollups.split_query.enable a rollup lane up to its SLA
+        boundary and the raw store after it.  ROLLUP_NOFALLBACK and
+        ROLLUP_FALLBACK over empty lanes answer nothing, never a silent
+        raw scan (ROLLUP_USAGE :197-201)."""
+        start_ms, end_ms = query.start_time, query.end_time
+        raw = Segment("raw", start_ms, end_ms)
+        candidates, usage = self._rollup_candidates(sub)
+        chosen = None
+        for interval in candidates:
+            chosen = self._segment_for_interval(sub, interval, start_ms,
+                                                end_ms)
+            if chosen is not None:
+                break
+        if chosen is None:
+            if not candidates or usage == "ROLLUP_FALLBACK_RAW":
+                return [raw]
+            return []
+        rq = chosen.rollup_query
+        if (self.tsdb.config.get_bool("tsd.rollups.split_query.enable")
+                and rq.rollup_interval.delay_sla_ms > 0):
+            boundary = rq.last_guaranteed_ms(DT.current_time_millis())
+            # aligned down to the downsample grid: no window spans sources
+            boundary -= boundary % sub.downsample_spec.interval_ms
+            if boundary <= start_ms:
+                return [raw]            # the whole range is blacked out
+            if boundary <= end_ms:
+                chosen.end_ms = boundary - 1
+                return [chosen, Segment("raw", boundary, end_ms)]
+        return [chosen]
+
     def _assemble_result(self, query: TSQuery, sub: TSSubQuery, members,
                          dps, global_notes) -> QueryResult:
         tsdb = self.tsdb
@@ -263,33 +400,42 @@ class QueryRunner:
             index=sub.index,
         )
 
-    def _spec_for(self, sub: TSSubQuery) -> PipelineSpec:
+    def _spec_for(self, sub: TSSubQuery,
+                  ds_function: str | None = None) -> PipelineSpec:
+        """The sub query's pipeline; `ds_function` replaces its downsample
+        function (a rollup lane's function over its cells)."""
         ds = sub.downsample_spec
         return PipelineSpec(
             aggregator=sub.aggregator,
             downsample=None if ds is None else DownsampleStep(
-                ds.function, ds.fill_policy, ds.fill_value),
+                ds_function or ds.function, ds.fill_policy, ds.fill_value),
             rate=sub.rate_options if sub.rate else None)
 
-    def _run_grouped(self, query: TSQuery, sub: TSSubQuery, groups,
-                     global_notes: list) -> dict[tuple, QueryResult]:
-        """All group-by buckets in ONE batch through the grouped pipeline,
-        the batch gathered from the device cache on a hit and built on the
-        host otherwise."""
+    def _run_grouped(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
+                     groups, global_notes: list,
+                     store) -> dict[tuple, QueryResult]:
+        """All group-by buckets of a segment in ONE batch through the
+        grouped pipeline.  The rollup-avg arm reads the segment's sum and
+        count lanes through L2.  On the raw store the rollup lanes are
+        consulted first, then the device cache; a lane plan serves the
+        grid from lane cells, a cache hit gathers the batch on the device,
+        and otherwise the batch is built on the host."""
         tsdb = self.tsdb
-        start_ms, end_ms = query.start_time, query.end_time
+        start_ms, end_ms = seg.start_ms, seg.end_ms
         fix = tsdb.config.fix_duplicates
         clock = _PhaseClock(tsdb.device, self.exec_stats)
         kept = []  # (group_key, members)
-        points = 0
+        points = n_max = 0
         for group_key in sorted(groups, key=lambda k: tuple(map(str, k))):
             members = groups[group_key]
-            n = sum(s.window_count(start_ms, end_ms, fix) for s, _ in members)
+            counts = [s.window_count(start_ms, end_ms, fix)
+                      for s, _ in members]
             # no datapoints in range -> no SpanGroup at all
             # (TsdbQuery.findSpans -> empty group map)
-            if n:
+            if sum(counts):
                 kept.append((group_key, members))
-                points += n
+                points += sum(counts)
+                n_max = max(n_max, max(counts))
         if not kept:
             return {}
         series_list = [s for _, members in kept for s, _t in members]
@@ -300,30 +446,64 @@ class QueryRunner:
         clock.mark("build")
 
         dev = tsdb.device
-        cached = None
-        if tsdb.device_cache is not None:
-            # a cold entry builds inline: the port has no streaming path
-            # that would make that the dearer choice
-            cached = tsdb.device_cache.batch_for(
-                tsdb.store, series_list[0].key.metric, series_list, start_ms,
-                end_ms)
-            clock.mark("gather")
-        if cached is not None:
-            self.exec_stats["deviceCacheHit"] = 1.0
-            d_ts, d_val, d_mask = cached
-        else:
+        spec = self._spec_for(sub, seg.ds_function)
+        windows = self._windows_for(sub, query)
+        lane_plan = None
+        if (seg.kind == "raw" and store is tsdb.store
+                and tsdb.rollup_lanes is not None
+                and isinstance(windows, FixedWindows)):
+            lane_plan = self._lane_plan(spec, series_list, len(kept),
+                                        windows, seg, n_max, points)
+        if lane_plan is not None:
+            self.exec_stats["rollupLane"] = 1.0
+            out_ts, out_val, out_mask = self._run_lane_serve(
+                spec, seg, lane_plan, series_list, gid, len(kept), windows,
+                clock)
+        elif seg.kind == "rollup_avg":
             ts, val, mask, _ = build_batch_direct(series_list, start_ms,
                                                   end_ms, fix)
+            empty = (np.empty(0, np.int64), np.empty(0, np.float64),
+                     np.empty(0, np.int64), np.empty(0, bool))
+            count_rows = []
+            for s in series_list:
+                cs = seg.count_lane.get_series(s.key)
+                count_rows.append(empty if cs is None
+                                  else cs.window(start_ms, end_ms, fix))
+            tc, vc, mc, _ = build_batch(count_rows)
             clock.mark("build")
-            d_ts = torch.from_numpy(ts).to(dev)
-            d_val = torch.from_numpy(val).to(dev)
-            d_mask = torch.from_numpy(mask).to(dev)
-        edges = self._windows_for(sub, query).window_edges(dev)
-        clock.mark("h2d")
-
-        out_ts, out_val, out_mask = run_group_pipeline(
-            self._spec_for(sub), d_ts, d_val, d_mask, gid, len(kept), edges)
-        clock.mark("kernels")
+            batches = [torch.from_numpy(x).to(dev)
+                       for x in (ts, val, mask, tc, vc, mc)]
+            edges = windows.window_edges(dev)
+            clock.mark("h2d")
+            out_ts, out_val, out_mask = run_group_rollup_avg_pipeline(
+                spec, *batches, gid, len(kept), edges)
+            clock.mark("kernels")
+        else:
+            cached = None
+            # the device cache holds raw columns only (the reference's
+            # store_is_raw gate)
+            if tsdb.device_cache is not None and store is tsdb.store:
+                # a cold entry builds inline: the port has no streaming
+                # path that would make that the dearer choice
+                cached = tsdb.device_cache.batch_for(
+                    tsdb.store, series_list[0].key.metric, series_list,
+                    start_ms, end_ms)
+                clock.mark("gather")
+            if cached is not None:
+                self.exec_stats["deviceCacheHit"] = 1.0
+                d_ts, d_val, d_mask = cached
+            else:
+                ts, val, mask, _ = build_batch_direct(series_list, start_ms,
+                                                      end_ms, fix)
+                clock.mark("build")
+                d_ts = torch.from_numpy(ts).to(dev)
+                d_val = torch.from_numpy(val).to(dev)
+                d_mask = torch.from_numpy(mask).to(dev)
+            edges = windows.window_edges(dev)
+            clock.mark("h2d")
+            out_ts, out_val, out_mask = run_group_pipeline(
+                spec, d_ts, d_val, d_mask, gid, len(kept), edges)
+            clock.mark("kernels")
 
         out_ts = out_ts.cpu().numpy()
         out_val = out_val.cpu().numpy()
@@ -338,12 +518,86 @@ class QueryRunner:
         clock.mark("extract")
         return results
 
-    def _run_union(self, query: TSQuery, sub: TSSubQuery, groups,
-                   global_notes: list) -> dict[tuple, QueryResult]:
+    def _lane_plan(self, spec: PipelineSpec, series_list, num_groups: int,
+                   windows: FixedWindows, seg: Segment, n_max: int,
+                   points: int):
+        """The rollup lanes' verdict on a raw fixed-grid segment: a plan
+        whose [S, W] grid fits ``tsd.query.streaming.state_mb`` on the
+        device, else None.  A plan over that budget would need the
+        reference's striped serving (ops/tiling.py, slice 7); the port
+        answers it on the exact path and counts a miss."""
+        lanes = self.tsdb.rollup_lanes
+        plan = lanes.plan(
+            series_list[0].key.metric, series_list, windows, seg.start_ms,
+            seg.end_ms, spec.downsample.function, n_max, num_groups,
+            spec.rate is not None, total_points=points)
+        if plan is None:
+            return None
+        state_mb = self.tsdb.config.get_int("tsd.query.streaming.state_mb")
+        if state_mb > 0 and len(series_list) * windows.count \
+                * _GRID_CELL_BYTES > state_mb * 2 ** 20:
+            lanes.note_fallback()
+            return None
+        lanes.note_served(plan)
+        return plan
+
+    def _run_lane_serve(self, spec: PipelineSpec, seg: Segment, plan,
+                        series_list, gid, num_groups: int,
+                        windows: FixedWindows, clock: "_PhaseClock"):
+        """Serve a lane-derivable plan (the reference's _run_lane_serve,
+        :996, for grids under budget): the full interior windows come from
+        the lane cells (RollupLanes.derive_grid, on the host), the two or
+        fewer edge windows from the raw points through run_downsample_grid,
+        and the assembled [S, W] grid goes through run_grid_tail."""
+        tsdb = self.tsdb
+        dev = tsdb.device
+        fix = tsdb.config.fix_duplicates
+        step = spec.downsample
+        interval = windows.interval_ms
+        first = windows.first_window_ms
+        w = windows.count
+        s = len(series_list)
+        iv, im = tsdb.rollup_lanes.derive_grid(plan, step.function,
+                                               step.fill_policy,
+                                               step.fill_value)
+        v = np.empty((s, w), np.float64)
+        m = np.empty((s, w), bool)
+        v[:, plan.wf_lo:plan.wf_hi + 1] = iv
+        m[:, plan.wf_lo:plan.wf_hi + 1] = im
+        # the windows the lane cannot serve hold part of their range: they
+        # are computed from the raw points, as the exact path computes them
+        edge_windows = []
+        if plan.wf_lo > 0:
+            edge_windows.append((0, seg.start_ms,
+                                 min(first + interval - 1, seg.end_ms)))
+        if plan.wf_hi < w - 1:
+            edge_windows.append((w - 1, first + (w - 1) * interval,
+                                 seg.end_ms))
+        batches = [(w_i, build_batch_direct(series_list, lo_ms, hi_ms, fix))
+                   for w_i, lo_ms, hi_ms in edge_windows]
+        clock.mark("build")
+        d_v = torch.from_numpy(v).to(dev)
+        d_m = torch.from_numpy(m).to(dev)
+        batches = [(w_i, [torch.from_numpy(x).to(dev) for x in batch[:3]])
+                   for w_i, batch in batches]
+        wts = windows.window_edges(dev)[:-1]
+        clock.mark("h2d")
+        for w_i, batch in batches:
+            edge = FixedWindows(interval, first + w_i * interval,
+                                1).window_edges(dev)
+            _, ev, em = run_downsample_grid(step, *batch, edge)
+            d_v[:, w_i] = ev[:, 0]
+            d_m[:, w_i] = em[:, 0]
+        out = run_grid_tail(spec, wts, d_v, d_m, gid, num_groups)
+        clock.mark("kernels")
+        return out
+
+    def _run_union(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
+                   groups, global_notes: list) -> dict[tuple, QueryResult]:
         """All group-by buckets through the union pipeline: the integer
         groups in one batch, the others in another."""
         tsdb = self.tsdb
-        start_ms, end_ms = query.start_time, query.end_time
+        start_ms, end_ms = seg.start_ms, seg.end_ms
         fix = tsdb.config.fix_duplicates
         clock = _PhaseClock(tsdb.device, self.exec_stats)
         parts: dict[bool, list] = {False: [], True: []}
@@ -359,16 +613,16 @@ class QueryRunner:
         results: dict[tuple, QueryResult] = {}
         for kept in parts.values():
             if kept:
-                self._union_batch(query, sub, kept, clock, global_notes,
-                                  results)
+                self._union_batch(query, sub, seg, kept, clock,
+                                  global_notes, results)
         return results
 
-    def _union_batch(self, query: TSQuery, sub: TSSubQuery, kept,
-                     clock: "_PhaseClock", global_notes: list,
+    def _union_batch(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
+                     kept, clock: "_PhaseClock", global_notes: list,
                      results: dict) -> None:
         """One batch of groups through R (under a rate), U1 and U2."""
         tsdb = self.tsdb
-        start_ms, end_ms = query.start_time, query.end_time
+        start_ms, end_ms = seg.start_ms, seg.end_ms
         series_list = [s for _, members in kept for s, _t in members]
         gid = np.concatenate([np.full(len(members), i, np.int64)
                               for i, (_, members) in enumerate(kept)])
@@ -481,6 +735,25 @@ class QueryRunner:
         clock.mark("extract")
         return results
 
+    def _run_segment(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
+                     global_notes: list) -> dict[tuple, QueryResult]:
+        """One segment: its store's matching series, grouped, through the
+        grouped or the union arm.  A raw segment of a pre-aggregate query
+        reads the pre-aggregate lane of its aggregator when one exists
+        (the reference's planner.py:331-333)."""
+        tsdb = self.tsdb
+        store = seg.lane
+        if seg.kind == "raw":
+            store = tsdb.store
+            if sub.pre_aggregate and tsdb.rollup_store is not None:
+                pre = tsdb.rollup_store.peek_lane("", sub.aggregator, True)
+                store = pre if pre is not None else store
+        groups = self._group(self._resolve_series(sub, store), sub)
+        if sub.downsample_spec is not None:
+            return self._run_grouped(query, sub, seg, groups, global_notes,
+                                     store)
+        return self._run_union(query, sub, seg, groups, global_notes)
+
     def run_sub(self, query: TSQuery, sub: TSSubQuery) -> list[QueryResult]:
         if sub.percentiles or sub.show_histogram_buckets:
             return self._run_histogram_sub(query, sub)
@@ -488,11 +761,27 @@ class QueryRunner:
         global_notes = (self.tsdb.store.get_annotations(
             "", query.start_time, query.end_time)
             if query.global_annotations else [])
-        series_tags = self._resolve_series(sub)
-        groups = self._group(series_tags, sub)
-        run = self._run_grouped if sub.downsample_spec is not None \
-            else self._run_union
-        merged = run(query, sub, groups, global_notes)
+        merged: dict[tuple, QueryResult] = {}
+        for seg in self._plan_segments(query, sub):
+            for gk, qr in self._run_segment(query, sub, seg,
+                                            global_notes).items():
+                cur = merged.get(gk)
+                if cur is None:
+                    merged[gk] = qr
+                    continue
+                # the split stitch (SplitRollupSpanGroup, the reference's
+                # planner.py:1626-1644): segments are disjoint in time, so
+                # concatenating in segment order keeps the points sorted
+                cur.dps = cur.dps + qr.dps
+                cur.tsuids.extend([t for t in qr.tsuids
+                                   if t not in cur.tsuids])
+                seen_notes = {id(a) for a in cur.annotations}
+                cur.annotations.extend(
+                    a for a in qr.annotations if id(a) not in seen_notes)
+                cur.tags = {k: v for k, v in cur.tags.items()
+                            if qr.tags.get(k) == v}
+                cur.aggregate_tags = sorted(
+                    set(cur.aggregate_tags) | set(qr.aggregate_tags))
         return [merged[k] for k in sorted(merged)]
 
     def run(self, query: TSQuery) -> list[QueryResult]:

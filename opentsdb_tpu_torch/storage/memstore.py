@@ -10,7 +10,9 @@ window into one padded [S, N] batch and moves that to the device
 (ops/pipeline.build_batch_direct), unless the device series cache
 (storage/device_cache.py) holds the metric's columns already.  Each
 series carries a content version that every visible mutation bumps; the
-cache validates its snapshots by it.  No WAL and no persistence.
+cache validates its snapshots by it; the rollup lanes hear of every
+write through the store's mutation listeners.  No WAL and no
+persistence.
 """
 
 from __future__ import annotations
@@ -385,8 +387,33 @@ class MemStore:
         self._lock = threading.RLock()
         # tsuid-keyed and global ("") annotation lists  # guarded-by: _lock
         self._annotations: dict[str, list[Annotation]] = {}
+        # data-mutation listeners, (metric, lo_ms, hi_ms) per write: the
+        # rollup lanes' invalidation hook (storage/rollup.py).  Notified
+        # AFTER the write lands (write-then-mark): by the time a write is
+        # acked its mark exists, so an artifact built from a read before
+        # the write fails its generation check and no acked write is
+        # served stale.  A mark before the write would let a read between
+        # the mark and the write carry the mark's generation.
+        self._mutation_listeners: list = []  # guarded-by: _lock
 
     # -- write path --
+
+    def add_mutation_listener(self, fn) -> None:
+        """Register fn(metric_uid, lo_ms | None, hi_ms | None), called
+        after every data mutation lands (None bounds: the whole
+        metric)."""
+        with self._lock:
+            self._mutation_listeners.append(fn)
+
+    def notify_mutation(self, metric: int, lo_ms: int | None,
+                        hi_ms: int | None) -> None:
+        """Tell the listeners that (metric, [lo_ms, hi_ms]) has changed;
+        call after the mutation lands.  Also the entry for a caller that
+        mutates a Series directly (Series.delete_range)."""
+        with self._lock:
+            listeners = tuple(self._mutation_listeners)
+        for fn in listeners:
+            fn(metric, lo_ms, hi_ms)
 
     def get_or_create_series(self, key: SeriesKey) -> Series:
         with self._lock:
@@ -403,12 +430,16 @@ class MemStore:
     def add_point(self, key: SeriesKey, ts_ms: int, value: float,
                   is_int: bool) -> None:
         self.get_or_create_series(key).append(ts_ms, value, is_int)
+        self.notify_mutation(key.metric, ts_ms, ts_ms)
 
     def add_batch(self, key: SeriesKey, ts_ms: np.ndarray, values: np.ndarray,
                   is_int: np.ndarray | bool,
                   ival: np.ndarray | None = None) -> None:
         self.get_or_create_series(key).append_batch(ts_ms, values, is_int,
                                                     ival)
+        if len(ts_ms):
+            self.notify_mutation(key.metric, int(np.min(ts_ms)),
+                                 int(np.max(ts_ms)))
 
     # -- read path --
 
@@ -437,7 +468,8 @@ class MemStore:
                 keys.discard(key)
                 if not keys:
                     self._by_metric.pop(key.metric, None)
-            return True
+        self.notify_mutation(key.metric, None, None)
+        return True
 
     # -- annotations --
 

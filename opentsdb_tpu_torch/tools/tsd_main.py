@@ -40,7 +40,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def make_config_from_args(args):
-    from opentsdb_tpu_torch.utils.config import Config
+    from opentsdb_tpu_torch.utils.config import Config, refuse_unported
     config = Config()
     if args.config:
         config.load_file(args.config)
@@ -52,6 +52,7 @@ def make_config_from_args(args):
         config.override_config("tsd.network.port", str(args.port))
     if args.bind:
         config.override_config("tsd.network.bind", args.bind)
+    refuse_unported(config)
     return config
 
 
@@ -61,7 +62,11 @@ def main(argv: list[str] | None = None) -> int:
         level=logging.INFO,
         format="%(asctime)s %(levelname)s [%(threadName)s] "
                "%(name)s: %(message)s")
-    config = make_config_from_args(args)
+    try:
+        config = make_config_from_args(args)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
     port_cfg = config.get_string("tsd.network.port")
     if not port_cfg:
         print("Missing network port (--port or tsd.network.port)",

@@ -42,6 +42,16 @@ class BadRequestError(Exception):
         return BadRequestError("Missing parameter <code>%s</code>" % name)
 
 
+class NotPortedError(BadRequestError):
+    """The 501 of an endpoint or option the port does not serve yet: a
+    deliberate verdict naming the ROADMAP item that ports it, not an
+    internal failure."""
+
+    def __init__(self, details: str):
+        super().__init__("The requested API endpoint has not been "
+                         "implemented", status=501, details=details)
+
+
 @dataclass
 class HttpRequest:
     """One parsed HTTP/1.1 request."""

@@ -17,7 +17,8 @@ import logging
 from opentsdb_tpu_torch.query.limits import QueryException
 from opentsdb_tpu_torch.tsd import admin_rpcs, rpcs
 from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
-                                         HttpRequest, error_status)
+                                         HttpRequest, NotPortedError,
+                                         error_status)
 from opentsdb_tpu_torch.tsd.serializers import serializer_for
 
 LOG = logging.getLogger("tsd.rpc")
@@ -49,11 +50,14 @@ class RpcManager:
 
         if mode in ("rw", "wo"):
             put = rpcs.PutDataPointRpc()
+            rollups = rpcs.RollupDataPointRpc()
             histos = rpcs.HistogramDataPointRpc()
             telnet["put"] = put
+            telnet["rollup"] = rollups
             telnet["histogram"] = histos
             if enable_api:
                 http["api/put"] = put
+                http["api/rollup"] = rollups
                 http["api/histogram"] = histos
         if mode in ("rw", "ro") and enable_api:
             http["api/query"] = rpcs.QueryRpc()
@@ -85,9 +89,11 @@ class RpcManager:
             if query.response is None:
                 raise RuntimeError("handler sent no response")
         except Exception as e:  # uniform error envelope
-            if error_status(e) >= 500 and not isinstance(e, QueryException):
+            if error_status(e) >= 500 and not isinstance(
+                    e, (QueryException, NotPortedError)):
                 # an internal failure gets the full trace in the log;
-                # client mistakes and deliberate verdicts stay quiet
+                # client mistakes and deliberate verdicts (a 413, the
+                # port's "not ported yet" 501s) stay quiet
                 LOG.exception("handler for [%s] from %s failed with an "
                               "internal error", request.path, remote)
             query.send_error(e)

@@ -1,9 +1,10 @@
-"""The ingest and query RPC handlers: put, histogram, query.
+"""The ingest and query RPC handlers: put, rollup, histogram, query.
 
-Port of the put, histogram and query handlers of
+Port of the put, rollup, histogram and query handlers of
 opentsdb_tpu/tsd/rpcs.py (OpenTSDB src/tsd/PutDataPointRpc.java: telnet
 `put` :129, POST /api/put :272, processDataPoint :309 with its details
-and summary modes; HistogramDataPointRpc; QueryRpc.java :89: the GET
+and summary modes; RollupDataPointRpc (:340); HistogramDataPointRpc;
+QueryRpc.java :89: the GET
 query-string grammar and the POST JSON body).  Telnet puts are handled
 one line at a time; the reference's batched native put is a speed mode
 over its C++ engine, with the same answers, and is not ported.  The
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 from opentsdb_tpu_torch.models.tsquery import (
     TSQuery, parse_m_subquery, parse_tsuid_subquery)
-from opentsdb_tpu_torch.tsd.http import BadRequestError, HttpQuery
+from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
+                                         NotPortedError)
 from opentsdb_tpu_torch.uid import NoSuchUniqueName
 
 
@@ -140,8 +142,9 @@ class PutDataPointRpc(TelnetRpc, HttpRpc):
                          status=200 if not errors else 400)
 
 
-class HistogramDataPointRpc(PutDataPointRpc):
-    """Telnet `histogram` + POST /api/histogram."""
+class _OneByOneRpc(PutDataPointRpc):
+    """An ingest RPC whose points land one at a time through
+    ``store_point`` (the reference's _ingest_one_by_one, rpcs.py:257)."""
 
     def ingest_points(self, tsdb, dps):
         success = 0
@@ -153,6 +156,70 @@ class HistogramDataPointRpc(PutDataPointRpc):
             except Exception as e:
                 errors.append((i, e))
         return success, errors
+
+    def store_point(self, tsdb, dp: dict) -> None:
+        raise NotImplementedError
+
+
+class RollupDataPointRpc(_OneByOneRpc):
+    """Telnet `rollup` + POST /api/rollup (RollupDataPointRpc.java).
+
+    Telnet grammar (:95-150): ``rollup <interval>-<agg>[:<spatial_agg>]
+    metric ts value tag=v...``, or ``rollup <spatial_agg> ...`` for an
+    interval-less pre-aggregate."""
+
+    def import_telnet_point(self, tsdb, words: list[str]) -> None:
+        if len(words) < 6:
+            raise ValueError("not enough arguments (need least 5, got %d)"
+                             % (len(words) - 1))
+        interval_agg = words[1]
+        if not interval_agg:
+            raise ValueError("Missing interval or aggregator")
+        interval, temporal_agg, spatial_agg = parse_interval_agg(interval_agg)
+        metric = words[2]
+        if not metric:
+            raise ValueError("empty metric name")
+        timestamp = parse_telnet_timestamp(words[3])
+        value = words[4]
+        if not value:
+            raise ValueError("empty value")
+        tags = parse_tags(words[5:])
+        tsdb.add_aggregate_point(metric, timestamp, value, tags,
+                                 spatial_agg is not None, interval,
+                                 temporal_agg, spatial_agg)
+
+    def store_point(self, tsdb, dp: dict) -> None:
+        for field in ("metric", "timestamp", "value", "tags"):
+            if field not in dp or dp[field] in (None, "", {}):
+                raise ValueError("Missing required field: %s" % field)
+        interval = dp.get("interval")
+        agg = dp.get("aggregator") or dp.get("aggregate")
+        groupby = dp.get("groupbyAggregator") or dp.get("groupby_aggregator")
+        is_groupby = bool(dp.get("groupby", groupby is not None))
+        tsdb.add_aggregate_point(dp["metric"], dp["timestamp"], dp["value"],
+                                 dict(dp["tags"]), is_groupby, interval,
+                                 agg, groupby or agg)
+
+
+def parse_interval_agg(interval_agg: str
+                       ) -> tuple[str | None, str | None, str | None]:
+    """"1h-sum", "1h-sum:count", or a bare "sum"
+    (RollupDataPointRpc.java:108-123) -> (interval, temporal, spatial)."""
+    parts = interval_agg.split(":")
+    interval = temporal = spatial = None
+    dash = parts[0].find("-")
+    if dash > -1:
+        interval = parts[0][:dash]
+        temporal = parts[0][dash + 1:]
+    elif len(parts) == 1:
+        spatial = parts[0]
+    if len(parts) > 1:
+        spatial = parts[1]
+    return interval, temporal, spatial
+
+
+class HistogramDataPointRpc(_OneByOneRpc):
+    """Telnet `histogram` + POST /api/histogram."""
 
     def import_telnet_point(self, tsdb, words: list[str]) -> None:
         # histogram <codec_id> <metric> <ts> <base64 or json value> tag=v...
@@ -191,11 +258,9 @@ class QueryRpc(HttpRpc):
         sub = query.api_subpath()
         endpoint = sub[0] if sub else ""
         if endpoint in _NOT_PORTED:
-            raise BadRequestError(
-                "The requested API endpoint has not been implemented",
-                status=501,
-                details="/api/query/%s is not ported yet (ROADMAP %s)"
-                        % (endpoint, _NOT_PORTED[endpoint]))
+            raise NotPortedError("/api/query/%s is not ported yet "
+                                 "(ROADMAP %s)"
+                                 % (endpoint, _NOT_PORTED[endpoint]))
         self.handle_query(tsdb, query)
 
     def handle_query(self, tsdb, query: HttpQuery) -> None:
@@ -209,11 +274,8 @@ class QueryRpc(HttpRpc):
                 raise BadRequestError(
                     "Deleting data is not enabled",
                     details="Set tsd.http.query.allow_delete=true")
-            raise BadRequestError(
-                "The requested API endpoint has not been implemented",
-                status=501,
-                details="deleting data through /api/query is not ported "
-                        "yet (ROADMAP A4)")
+            raise NotPortedError("deleting data through /api/query is "
+                                 "not ported yet (ROADMAP A4)")
         ts_query.validate()
         results = tsdb.new_query_runner().run(ts_query)
         payload = query.serializer.format_query_v1(ts_query, results)

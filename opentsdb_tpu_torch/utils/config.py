@@ -3,7 +3,13 @@
 A slim copy of opentsdb_tpu's utils/config.py (OpenTSDB
 src/utils/Config.java): the same ``Config`` accessors and the same key
 names and defaults, declared only for the keys this package reads.  A
-properties dict may carry other keys; they are stored and ignored.
+properties dict may carry other keys.  Those of a reference subsystem
+that the port does not have yet, and that would change an answer or
+durability (``UNPORTED``), are refused with a non-default value by
+``refuse_unported``, which the TSDB and the daemon call: the error names
+the ROADMAP item that ports them.  Every other key is stored and ignored:
+the reference's TPU strategy keys (``tsd.query.mesh.*``, the kernel
+modes) and its aggregate cache's ``tsd.query.cache.*`` change no answer.
 """
 
 from __future__ import annotations
@@ -39,7 +45,80 @@ DEFAULTS: dict[str, str] = {
     "tsd.storage.uid.width.metric": "3",
     "tsd.storage.uid.width.tagk": "3",
     "tsd.storage.uid.width.tagv": "3",
+    # written rollups (rollup/, the planner's segment arm)
+    "tsd.rollups.enable": "false",
+    "tsd.rollups.config": "",
+    "tsd.rollups.tag_raw": "false",
+    "tsd.rollups.agg_tag_key": "_aggregate",
+    "tsd.rollups.raw_agg_tag_value": "RAW",
+    "tsd.rollups.block_derived": "true",
+    "tsd.rollups.split_query.enable": "false",
+    # maintenance-built rollup lanes (storage/rollup.py)
+    "tsd.rollup.enable": "false",
+    "tsd.rollup.intervals": "1m,1h,1d",
+    "tsd.rollup.mb": "256",
+    "tsd.rollup.block_windows": "64",
+    "tsd.rollup.interval": "5",
+    "tsd.rollup.refresh_blocks": "32",
+    "tsd.rollup.delay_ms": "0",
 }
+
+# Reference keys of subsystems the port does not have yet, each of which
+# changes an answer or durability when it leaves its default: key ->
+# (the reference's default, the ROADMAP item that ports it).  A key that
+# ends in "." names every key under it; those not listed here have no
+# default the port knows and are refused whenever they are set.
+_SLICE7_BUDGETS = "A, slice 7 (query budgets)"
+_SLICE7_DURABILITY = "A, slice 7 (durability)"
+_SLICE9_CLUSTER = "A, slice 9 (the cluster)"
+UNPORTED: dict[str, tuple[str, str]] = {
+    "tsd.storage.directory": ("", _SLICE7_DURABILITY),
+    "tsd.query.timeout": ("0", _SLICE7_BUDGETS),
+    "tsd.query.limits.": ("", _SLICE7_BUDGETS),
+    "tsd.query.limits.bytes.default": ("0", _SLICE7_BUDGETS),
+    "tsd.query.limits.bytes.allow_override": ("false", _SLICE7_BUDGETS),
+    "tsd.query.limits.data_points.default": ("0", _SLICE7_BUDGETS),
+    "tsd.query.limits.data_points.allow_override": ("false",
+                                                    _SLICE7_BUDGETS),
+    "tsd.query.limits.overrides.config": ("", _SLICE7_BUDGETS),
+    "tsd.query.limits.overrides.interval": ("60000", _SLICE7_BUDGETS),
+    "tsd.network.cluster.": ("", _SLICE9_CLUSTER),
+    "tsd.network.cluster.peers": ("", _SLICE9_CLUSTER),
+    "tsd.network.cluster.self": ("", _SLICE9_CLUSTER),
+    "tsd.network.cluster.shard.enable": ("false", _SLICE9_CLUSTER),
+}
+
+
+def _same(value: str, default: str) -> bool:
+    """A properties value equal to the default as the reference reads it:
+    booleans by truth, integers by value, strings stripped."""
+    value = value.strip()
+    if value == default:
+        return True
+    if default in ("true", "false"):
+        return (value.lower() in ("1", "true", "yes")) == (default == "true")
+    try:
+        return int(value) == int(default)
+    except ValueError:
+        return False
+
+
+def refuse_unported(config: "Config") -> None:
+    """Raise ValueError for the first key of UNPORTED that `config` sets
+    away from the reference's default, naming its ROADMAP item."""
+    for key in sorted(config.keys()):
+        entry = UNPORTED.get(key)
+        if entry is None:
+            prefix = next((p for p in UNPORTED
+                           if p.endswith(".") and key.startswith(p)), None)
+            if prefix is None:
+                continue
+            entry = UNPORTED[prefix]
+        default, item = entry
+        if not _same(config.get_string(key), default):
+            raise ValueError(
+                "%s is not supported by opentsdb_tpu_torch yet: its "
+                "subsystem is ported by ROADMAP %s" % (key, item))
 
 
 class Config:
@@ -71,6 +150,9 @@ class Config:
 
     def override_config(self, key: str, value: Any) -> None:
         self._map[key] = self._stringify(value)
+
+    def keys(self) -> list[str]:
+        return list(self._map)
 
     def get_string(self, key: str) -> str:
         if key not in self._map:

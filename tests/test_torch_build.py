@@ -72,3 +72,33 @@ def test_histogram_kernels_build_with_the_rest(name, tmp_path):
     with open(os.path.join(csrc, name + ".cu"), "ab") as fh:
         fh.write(b"\n")
     assert kernels.library_path(name, csrc) != before
+
+
+@pytest.mark.parametrize("name", ["lane_partials", "rollup_avg"])
+def test_rollup_kernels_build_with_the_rest(name, tmp_path):
+    """L1 and L2 are built like every other kernel: their own library,
+    keyed by their source, the headers and the flags, with a launch
+    counter."""
+    assert name in kernels.SIGNATURES and kernels.LAUNCHES[name] == 0
+    csrc = _copy_csrc(tmp_path)
+    before = kernels.library_path(name, csrc)
+    assert os.path.dirname(before) == kernels.BUILD_DIR
+    with open(os.path.join(csrc, name + ".cu"), "ab") as fh:
+        fh.write(b"\n")
+    assert kernels.library_path(name, csrc) != before
+
+
+def test_window_runs_header_is_shared_by_k1_l1_and_l2(tmp_path):
+    """K1, L1 and L2 take their window-run search and warp reductions
+    from csrc/window_runs.cuh: an edit of the header builds all three
+    anew."""
+    for name in ("window_moments", "lane_partials", "rollup_avg"):
+        with open(os.path.join(kernels._CSRC, name + ".cu")) as fh:
+            assert '#include "window_runs.cuh"' in fh.read()
+    csrc = _copy_csrc(tmp_path)
+    before = {name: kernels.library_path(name, csrc)
+              for name in kernels.SIGNATURES}
+    with open(os.path.join(csrc, "window_runs.cuh"), "ab") as fh:
+        fh.write(b"// edited\n")
+    for name in ("window_moments", "lane_partials", "rollup_avg"):
+        assert kernels.library_path(name, csrc) != before[name]

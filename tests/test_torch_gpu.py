@@ -537,7 +537,8 @@ def test_warm_query_on_card_matches_cold(cuda_device):
 
 def test_histogram_accumulate_kernel_matches_plain(cuda_device):
     """H1: the int64 grid equals index_add_'s exactly, for spread entries
-    and for entries piled onto a few cells; bad entries raise."""
+    and for entries piled onto a few cells; negative counts add; entries
+    outside the grid raise."""
     from opentsdb_tpu_torch.histogram import kernels as hk
     rng = np.random.default_rng(21)
     r, b = 300, 32
@@ -551,9 +552,10 @@ def test_histogram_accumulate_kernel_matches_plain(cuda_device):
         assert kernels.LAUNCHES["histogram_accumulate"] == 1
         want = hk.accumulate_rows_plain(*args, r, b)
         assert_exact(got.cpu().numpy(), want.cpu().numpy())
-    with pytest.raises(ValueError, match="non-negative"):
-        hk.accumulate_rows(*_on(cuda_device, np.array([0, 1]),
-                                np.array([1, -1])), 2, 2)
+    # a negative count is added, as the reference's segment sum adds it
+    neg = _on(cuda_device, np.array([0, 1, 1]), np.array([1, -1, -3]))
+    assert_exact(hk.accumulate_rows(*neg, 2, 2).cpu().numpy(),
+                 hk.accumulate_rows_plain(*neg, 2, 2).cpu().numpy())
     with pytest.raises(ValueError, match="outside the grid"):
         hk.accumulate_rows(*_on(cuda_device, np.array([0, 4]),
                                 np.array([1, 1])), 2, 2)
@@ -613,3 +615,115 @@ def test_histogram_query_on_card_matches_cpu(cuda_device):
     assert kernels.LAUNCHES["histogram_accumulate"] == 1
     assert kernels.LAUNCHES["histogram_percentile"] == 1
     assert answers[0] == answers[1] and len(answers[0]) == 3 * (3 + 16)
+
+
+# -- the rollup kernels: L1 lane_partials and L2 rollup_avg ----------------
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("interval_ms", [60_000, 900_000])
+def test_lane_partials_kernel_matches_plain(cuda_device, interval_ms,
+                                            int_values):
+    """L1 against its plain version: counts, minima and maxima exactly,
+    sums at rtol 1e-9 (exactly on integers), in both of its modes (short
+    runs a thread a window at 1m, long runs a warp a window at 15m); and
+    on integers each cell equals K1's sum, count, min and max of its
+    window bit for bit."""
+    from opentsdb_tpu_torch.ops import lanes
+    batch = sorted_batch(np.random.default_rng(interval_ms), 64, 2048,
+                         int_values=int_values)
+    args = _on(cuda_device, *batch)
+    edges = tds.FixedWindows.for_range(T0, T0 + 3_600_000,
+                                       interval_ms).window_edges(cuda_device)
+    kernels.reset_launches()
+    got = lanes.lane_partials(*args, edges)
+    assert kernels.LAUNCHES["lane_partials"] == 1
+    want = lanes.lane_partials_plain(*args, edges)
+    if int_values:
+        assert_exact(got[0].cpu().numpy(), want[0].cpu().numpy())
+    else:
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+    for g, w in zip(got[1:], want[1:]):
+        assert_exact(g.cpu().numpy(), w.cpu().numpy())
+    if int_values:
+        for agg, part in (("sum", got[0]), ("count", got[1]),
+                          ("min", got[2]), ("max", got[3])):
+            v, m = tds.window_moments(*args, edges, agg)
+            assert_exact(v[m].cpu().numpy(), part.double()[m].cpu().numpy())
+
+
+@pytest.mark.parametrize("fill", ["none", "zero", "scalar"])
+@pytest.mark.parametrize("int_counts", [False, True])
+@pytest.mark.parametrize("interval_ms", [300_000, 3_600_000])
+def test_rollup_avg_kernel_matches_plain(cuda_device, interval_ms,
+                                         int_counts, fill):
+    """L2 against its plain version over a sum lane and a count lane with
+    their own timestamps, float or int64 counts, in both of its modes:
+    masks equal, values at rtol 1e-9."""
+    from opentsdb_tpu_torch.ops import lanes
+    rng = np.random.default_rng(interval_ms + int_counts)
+    ts_s, val_s, mask_s = sorted_batch(rng, 48, 1500)
+    ts_c, val_c, mask_c = sorted_batch(rng, 48, 1200, int_values=True)
+    val_c = np.abs(val_c) % 9
+    if not int_counts:
+        val_c = val_c.astype(np.float64)
+    args = _on(cuda_device, ts_s, val_s, mask_s, ts_c, val_c, mask_c)
+    edges = tds.FixedWindows.for_range(T0, T0 + 3_600_000,
+                                       interval_ms).window_edges(cuda_device)
+    kernels.reset_launches()
+    got = lanes.rollup_avg(*args, edges, fill, -4.0)
+    assert kernels.LAUNCHES["rollup_avg"] == 1
+    want = lanes.rollup_avg_plain(*args, edges, fill, -4.0)
+    assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+    assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def test_rollups_on_card_match_cpu(cuda_device):
+    """The rollup job (L1), written-rollup avg reads (L2 and the tail) and
+    a lane-served query (blocks built through L1) answer on the card as
+    on the CPU: groups and timestamps exactly, values at rtol 1e-9 (the
+    group sums of K3 add in another order)."""
+    from opentsdb_tpu_torch.core import TSDB
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.rollup.job import run_rollup_job
+    from opentsdb_tpu_torch.utils.config import Config
+    props = {"tsd.core.auto_create_metrics": True,
+             "tsd.rollups.enable": True, "tsd.rollup.enable": True,
+             "tsd.rollup.intervals": "1m", "tsd.rollup.block_windows": 16}
+    vals = np.random.default_rng(8).integers(0, 500, (12, 720))
+    queries = ("sum:1h-avg:r.m{g=*}", "sum:10m-avg:r.m{g=*}",
+               "sum:2m-sum:rollup_raw:r.m{g=*}")
+    answers = []
+    for dev in ("cpu", cuda_device):
+        tsdb = TSDB(Config(props), device=dev)
+        for i in range(12):
+            key = tsdb._series_key("r.m", {"host": "h%d" % i,
+                                           "g": "g%d" % (i % 3)}, True)
+            ts = T0 + np.arange(720, dtype=np.int64) * 10_000
+            tsdb.store.add_batch(key, ts, vals[i], True)
+        kernels.reset_launches()
+        run_rollup_job(tsdb, intervals=["1m", "1h"])
+
+        def run(m):
+            q = TSQuery(start=str(T0 // 1000 + 5),
+                        end=str(T0 // 1000 + 7195),
+                        queries=[parse_m_subquery(m)])
+            q.validate()
+            runner = tsdb.new_query_runner()
+            return [r.to_json() for r in runner.run(q)], runner.exec_stats
+
+        out = [run(m)[0] for m in queries]
+        while tsdb.rollup_lanes.refresh(tsdb.store, max_blocks=64):
+            pass
+        served, stats = run(queries[-1])
+        assert stats.get("rollupLane") == 1.0
+        out.append(served)
+        if dev != "cpu":
+            assert kernels.LAUNCHES["lane_partials"] >= 3
+            assert kernels.LAUNCHES["rollup_avg"] == 2
+        answers.append(out)
+    for cpu, card in zip(*answers):
+        assert [(r["tags"], list(r["dps"])) for r in card] \
+            == [(r["tags"], list(r["dps"])) for r in cpu]
+        assert_values([v for r in card for v in r["dps"].values()],
+                      [v for r in cpu for v in r["dps"].values()])

@@ -198,13 +198,18 @@ def test_accumulate_rows_matches_the_reference():
 
 
 def test_accumulate_rows_refuses_negative_counts_and_stray_cells():
-    seg = torch.tensor([0, 5], dtype=torch.int64)
-    with pytest.raises(ValueError, match="non-negative"):
-        hk.accumulate_rows(seg, torch.tensor([1, -1]), 2, 3)
+    """A negative count is added as the reference's segment sum adds it;
+    an entry outside the grid is refused."""
+    seg = torch.tensor([0, 5, 5], dtype=torch.int64)
+    cnt = torch.tensor([1, -1, -4], dtype=torch.int64)
+    want = np.asarray(ref_kernels.accumulate_rows(seg.numpy(), cnt.numpy(),
+                                                  2, 3))
+    np.testing.assert_array_equal(hk.accumulate_rows(seg, cnt, 2, 3).numpy(),
+                                  want)
     with pytest.raises(ValueError, match="outside the grid"):
         hk.accumulate_rows(torch.tensor([0, 6]), torch.tensor([1, 1]), 2, 3)
     with pytest.raises(TypeError):
-        hk.accumulate_rows(seg.int(), torch.tensor([1, 1]), 2, 3)
+        hk.accumulate_rows(seg[:2].int(), torch.tensor([1, 1]), 2, 3)
     empty = hk.accumulate_rows(torch.zeros(0, dtype=torch.int64),
                                torch.zeros(0, dtype=torch.int64), 2, 3)
     assert empty.shape == (2, 3) and not empty.any()
@@ -365,16 +370,19 @@ def test_grid_guard_refuses_as_the_reference():
 
 def test_negative_count_is_refused_at_query_time():
     """A JSON bucket count below zero is stored (SimpleHistogram.from_pojo
-    does not check it); H1 refuses to add it, where the reference's
-    segment sum would subtract it (ROADMAP C)."""
-    _, port = _tsdbs()
-    port.add_histogram_point_json("neg.h", BASE, {"buckets": {"0,1": -4}},
-                                  {"host": "a"})
-    q = TSQuery(start=str(BASE), end=str(BASE + 60),
-                queries=[parse_m_subquery("sum:percentiles[50]:neg.h")])
-    q.validate()
-    with pytest.raises(ValueError, match="non-negative"):
-        port.new_query_runner().run(q)
+    does not check it in either package).  H1 adds it, as the reference's
+    segment sum does, so the query answers as the reference's: alone in
+    its row, the negative mass answers 0.0; beside other counts, it takes
+    part in the share."""
+    points = [("neg.h", BASE, {"buckets": {"0,1": -4}}, {"host": "a"}),
+              ("neg.h", BASE + 120, {"buckets": {"0,1": -1, "1,5": 3,
+                                                 "5,10": 2}},
+               {"host": "a"})]
+    tsdbs = _ingest(_tsdbs(), points)
+    for m in ("sum:percentiles[50,99]:neg.h",
+              "sum:1m-sum:percentiles[10,50,99]:neg.h{host=*}"):
+        ref, port = _answers(tsdbs, m, BASE, BASE + 600)
+        assert port == ref and port
 
 
 def test_phases_are_reported():
