@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Chip check of opentsdb_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then answer queries end to
-end through the port's TSDB: grouped downsample queries, queries without
-a downsample (the union path), histograms through the daemon, and
-rollups.
+end through the port's TSDB: grouped downsample queries, materialized and
+streamed, queries without a downsample (the union path), histograms
+through the daemon, and rollups.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
+--seed (default 0, bench_configs' own data) is mixed into the chunks of
+phases 11-13.
 The shape is the repository's headline query batch (bench.py): 1024
 series in 100 tag groups, 65,536 points each at a ~15.5 s cadence (~11.8
 days), 1h windows.  Phases:
@@ -30,7 +32,10 @@ days), 1h windows.  Phases:
    must be equal.
 4. end to end, grouped: a TSDB on the card ingests the batch through
    MemStore.add_batch and answers seven grouped queries (moments, order
-   and rank functions in either position, movingAverage5).  The first
+   and rank functions in either position, movingAverage5) on the
+   materialized route, which builds the [S, N] batch on a miss
+   (tsd.query.streaming.point_threshold raised past every query, as in
+   phases 8 and 10 and their CPU copies; phase 12 streams them).  The first
    query builds the device cache's entry inline (the cold line); then
    every query is timed as a cache hit, and again with the cache detached
    (a miss: the host batch build and copy).  The count query must count
@@ -122,6 +127,40 @@ days), 1h windows.  Phases:
    point counted; refresh() rebuilds and the lane serves the same answer.
    Launch counts are reset before this phase and read after it; then the
    constants of ops/costmodel.py's `cuda` table from this run.
+11. stream kernels (after phase 10): S1 stream_fold on two headline
+   chunks ([1024, 4096] with masked slots and NaN, sliced as the
+   planner slices, sum lanes and every lane) and on config 2's chunks
+   ([128, 65,536] into the [128, 720,897] 10 s state, sliced), its audit
+   of a wrong slice; S2 sketch_fold on the headline chunks under 1h
+   windows; S3 stream_finish on the p95 sketch and on a full config-2
+   grid (every function of the config, fills none and zero), each
+   against its plain version (the sketch at float32 tolerance, rtol 1e-6
+   and atol 1e-4).  S1's library yardstick: torch.segment_reduce sum,
+   min and max over the chunk's window runs and the elementwise merge.
+12. streamed queries (after phase 8, on its TSDB, the default
+   threshold): the cold `sum:1h-avg` (cache entry dropped) must stream
+   and queue its entry's build, refresh() build it and the next query
+   hit.  With the cache detached the seven queries of phase 4 stream
+   (16 chunks of [1024, 4096]): each prints its wall, chunk count and
+   split (pack on the host, copy and fold from CUDA events, finish and
+   tail, extract) and the host bytes its chunks hold against the
+   batch's; then each runs materialized (threshold raised) beside it.
+   Every moment answer equals the hit's (rtol 1e-9; count, max and first
+   exactly); `sum:1h-p95` streams through the sketch and each of its
+   answers lies between the exact per-member quantiles at p -/+ (C/(2K)
+   + 1/K), C the most chunk merges a cell took; with
+   sketch_percentiles=false it takes the materialized route and equals
+   the hit exactly.  Launch counts are reset before this phase and read
+   after its streamed runs.
+13. BASELINE configs 2 (128 series x 720,896 points at 10 s, sum, min,
+   max and count under 10 s windows, 92M points) and 4 (512 x 917,504,
+   avg under 1 min windows, then rate and p99; 470M points) at full
+   size: bench_configs' closed-form chunks made on the host into a
+   ChunkFeed's pinned buffers, copied while the previous chunk folds,
+   through a sliced StreamAccumulator; points/s and the per-chunk copy
+   and fold times; each grid held to a one-shot K1 over the same data
+   assembled on the card (rtol 1e-9; min, max and count exactly), and
+   for config 4 the rate + p99 tail on both grids; oob_count() == 0.
 
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
@@ -179,6 +218,9 @@ REPLACES = {
     "histogram_percentile": "opentsdb_tpu/histogram/kernels.py:35",
     "lane_partials": "opentsdb_tpu/ops/pipeline.py:190",
     "rollup_avg": "opentsdb_tpu/ops/pipeline.py:109",
+    "stream_fold": "opentsdb_tpu/ops/streaming.py:513",
+    "sketch_fold": "opentsdb_tpu/ops/streaming.py:406",
+    "stream_finish": "opentsdb_tpu/ops/streaming.py:596",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -197,6 +239,22 @@ H_END_S = H_START_S + H_POINTS * H_STEP_S
 H_EDGES = [round(50 * 1.4 ** k) for k in range(33)]
 H_PERCS = [50.0, 90.0, 99.0, 99.9]
 HB_SERIES, HB_GROUPS = 4_096, 64   # the synthetic histogram batch (b)
+# Phases 4-10 keep the materialized route (their misses build
+# the [S, N] batch): the streaming threshold raised past every query.
+MATERIALIZE = {"tsd.query.streaming.point_threshold": str(2 ** 62)}
+SKETCH_RTOL, SKETCH_ATOL = 1e-6, 1e-4    # the float32 sketch
+# BASELINE configs 2 and 4 (bench_configs.py:406, :452): bench_configs'
+# closed-form chunks at a 10 s cadence, 65,536 points a series a chunk
+C_START, C_STEP, C_CHUNK = 1_356_998_400_000, 10_000, 65_536
+CONFIGS = {
+    2: {"s": 128, "chunks": 11, "interval": 10_000,
+        "fns": ["sum", "min", "max", "count"]},
+    4: {"s": 512, "chunks": 14, "interval": 60_000, "fns": ["avg"]},
+}
+STREAM_QUERIES = ["sum:1h-avg:m{group=*}", "sum:1h-count:m{group=*}",
+                  "sum:1h-max:rate:m{group=*}", "p99:1h-avg:m{group=*}",
+                  "sum:1h-p95:m{group=*}", "last:1h-first:m{group=*}",
+                  "movingAverage5:1h-sum:m{group=*}"]
 
 
 class Checks:
@@ -214,7 +272,8 @@ class Checks:
         for key, x in errs.items():
             worst[key] = max(worst[key], math.inf if math.isnan(x) else x)
 
-    def values(self, kernel: str, case: str, got, want) -> None:
+    def values(self, kernel: str, case: str, got, want,
+               rtol: float = RTOL, atol: float = ATOL) -> None:
         got = got.double().cpu()
         want = want.double().cpu()
         both_nan = torch.isnan(got) & torch.isnan(want)
@@ -225,8 +284,10 @@ class Checks:
         abs_err = float(diff.max()) if diff.numel() else 0.0
         nz = want.abs() > 0
         rel_err = float((diff[nz] / want.abs()[nz]).max()) if nz.any() else 0.0
-        limit = ATOL + RTOL * want.abs().nan_to_num(0.0)
-        to_limit = float((diff / limit).max()) if diff.numel() else 0.0
+        limit = atol + rtol * want.abs().nan_to_num(0.0)
+        # an exact case (limit 0) is 0 of its limit where it holds
+        ratio = torch.where(diff == 0, 0.0, diff / limit)
+        to_limit = float(ratio.max()) if diff.numel() else 0.0
         ok = bool((diff <= limit).all())
         self._note(kernel, abs=abs_err, rel=rel_err, to_limit=to_limit)
         print("%-15s %-44s max_abs=%.3e max_rel=%.3e of_limit=%.3e %s"
@@ -638,7 +699,8 @@ def _cpu_copy(tsdb):
     series = [(s.key.metric, dict(s.key.tags), *s.arrays())
               for s in tsdb.store.all_series()]
     return load_state(uid_maps, series, config=Config(
-        {"tsd.query.device_cache.enable": False}), device="cpu")
+        {"tsd.query.device_cache.enable": False, **MATERIALIZE}),
+        device="cpu")
 
 
 def cold_split(tsdb, metric: int, dev) -> None:
@@ -807,7 +869,8 @@ def e2e_phase(dev, ts, val, checks: Checks):
 
     t0 = time.perf_counter()
     tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True,
-                        "tsd.core.histograms.config": HIST_CONFIG}),
+                        "tsd.core.histograms.config": HIST_CONFIG,
+                        **MATERIALIZE}),
                 device=dev)
     metric = tsdb.metrics.get_or_create_id("m")
     k_host = tsdb.tag_names.get_or_create_id("host")
@@ -1841,7 +1904,8 @@ def _rollup_tsdb(dev, ts, val, h):
                         "tsd.rollups.config": json.dumps(table),
                         "tsd.rollup.enable": True,
                         "tsd.rollup.intervals": "1h",
-                        "tsd.rollup.interval": 0}), device=dev)
+                        "tsd.rollup.interval": 0, **MATERIALIZE}),
+                device=dev)
     for name, rows, values in (("m", S, val), ("mi", INT_ROWS, h % 1_000)):
         metric = tsdb.metrics.get_or_create_id(name)
         for i in range(rows):
@@ -1928,7 +1992,8 @@ def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple[dict, dict]:
                 for kind in ("metric", "tagk", "tagv")}
     cpu = load_state(uid_maps, [(s.key.metric, dict(s.key.tags), *s.arrays())
                                 for s in store.all_series()],
-                     config=Config({"tsd.query.device_cache.enable": False}),
+                     config=Config({"tsd.query.device_cache.enable": False,
+                                    **MATERIALIZE}),
                      device="cpu")
     written_q = ["sum:1h-avg:%s{group=*}", "sum:1h-sum:%s{group=*}",
                  "max:1h-max:%s{group=*}", "sum:1h-count:%s{group=*}",
@@ -2091,6 +2156,554 @@ def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple[dict, dict]:
     return launches, costs
 
 
+def _headline_chunks(dev, ts, val, h, n_chunk: int, clean: bool):
+    """The headline batch's first two [S, n_chunk] chunks on the card:
+    (ts, val, mask) each, with masked slots and NaN values unless
+    `clean`."""
+    out = []
+    for k in range(2):
+        sl = slice(k * n_chunk, (k + 1) * n_chunk)
+        c_ts = torch.from_numpy(np.ascontiguousarray(ts[:, sl])).to(dev)
+        c_val = torch.from_numpy(np.ascontiguousarray(val[:, sl])).to(dev)
+        c_mask = torch.ones_like(c_ts, dtype=torch.bool)
+        if not clean:
+            c_h = torch.from_numpy(np.ascontiguousarray(h[:, sl])).to(dev)
+            c_mask = c_h % 97 != 0
+            c_val = torch.where(c_h % 211 == 0, torch.nan, c_val)
+        out.append((c_ts, c_val, c_mask))
+    return out
+
+
+def _slice_of(c_ts, windows, wc: int) -> int:
+    """w0 of a chunk's slice: its first point's window, clipped as
+    StreamAccumulator.update clips it."""
+    tmin = int(c_ts.min())
+    w0 = (tmin - windows.first_window_ms) // windows.interval_ms
+    return min(max(w0, 0), windows.count - wc)
+
+
+def _fold_both(st, states, chunks, windows, wc, sketch=False):
+    """Fold the chunks in order into the kernel's state and the plain
+    version's (states[0], states[1]), sliced as the planner slices."""
+    for c_ts, c_val, c_mask in chunks:
+        w0 = _slice_of(c_ts, windows, wc)
+        edges = windows.window_edges(c_ts.device)[w0:w0 + wc + 1]
+        first = windows.first_window_ms
+        audit = (first, first + windows.count * windows.interval_ms)
+        if sketch:
+            st.sketch_fold(states[0], c_ts, c_val, c_mask, edges, w0)
+            st.sketch_fold_plain(states[1], c_ts, c_val, c_mask, edges, w0)
+        st.stream_fold(states[0], c_ts, c_val, c_mask, edges, w0, audit)
+        st.stream_fold_plain(states[1], c_ts, c_val, c_mask, edges, w0,
+                             audit)
+
+
+def _compare_states(checks, kernel, case, states, rtol=RTOL, atol=ATOL):
+    got, want = states
+    for k in want:
+        if k in ("n", "oob"):
+            checks.exact(kernel, "%s %s" % (case, k), got[k], want[k],
+                         "counts")
+        else:
+            checks.values(kernel, "%s %s" % (case, k), got[k], want[k],
+                          rtol, atol)
+
+
+def _segment_fold(state, c_ts, c_val, edges, w0: int):
+    """S1's library yardstick on a chunk: torch.segment_reduce sum, min
+    and max over the chunk's window runs (a leading and a trailing run
+    take what lies outside the slice's windows), then the elementwise
+    merge into the state's slice (n, total, lo, hi).  Returns the call."""
+    s, n = c_ts.shape
+    wc = edges.numel() - 1
+    dev = c_ts.device
+    pos = torch.searchsorted(c_ts, edges.expand(s, -1).contiguous())
+    bounds = torch.cat([torch.zeros((s, 1), dtype=torch.int64, device=dev),
+                        pos, torch.full((s, 1), n, dtype=torch.int64,
+                                        device=dev)], dim=1)
+    lengths = (bounds[:, 1:] - bounds[:, :-1]).reshape(-1)
+    cnt = lengths.reshape(s, wc + 2)[:, 1:-1]
+    flat = c_val.reshape(-1)
+    sl = slice(w0, w0 + wc)
+
+    def run():
+        parts = [torch.segment_reduce(flat, red, lengths=lengths).reshape(
+            s, wc + 2)[:, 1:-1] for red in ("sum", "min", "max")]
+        state["n"][:, sl] += cnt
+        state["total"][:, sl] += parts[0]
+        torch.minimum(state["lo"][:, sl], parts[1], out=state["lo"][:, sl])
+        torch.maximum(state["hi"][:, sl], parts[2], out=state["hi"][:, sl])
+    return run
+
+
+def _config_chunk(pinned, s: int, base_col: int, seed: int) -> None:
+    """bench_configs._chunk_gen's closed form, into the host buffers
+    (ts, val, mask) [s, C_CHUNK] (numpy); `seed` 0 gives bench_configs'
+    data.  In place, on torch's CPU threads: no [s, n] temporaries."""
+    ts, val, mask = (torch.from_numpy(x) for x in pinned)
+    rows = torch.arange(s, dtype=torch.int64)[:, None]
+    cols = base_col + torch.arange(C_CHUNK, dtype=torch.int64)[None, :]
+    torch.add(rows * 2_654_435_761, cols * 40_503 + seed * 7_919, out=ts)
+    ts.bitwise_and_(0x7FFFFFFF)
+    torch.remainder(ts, 1_000, out=val)
+    val.mul_(0.05).add_(100.0)
+    ts.remainder_(4_000).add_(C_START + cols * C_STEP)
+    mask.fill_(True)
+
+
+def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
+    """Phase 11: S1 stream_fold, S2 sketch_fold and S3 stream_finish
+    against their plain versions on the card."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import streaming as st
+
+    n_chunk = 4_096      # the planner's chunk at 1024 series (4e6 points)
+    windows = ds.FixedWindows.for_range(START, END, INTERVAL_MS)
+    w = windows.count
+    chunks = _headline_chunks(dev, ts, val, h, n_chunk, clean=False)
+    span = int(chunks[0][0].max() - chunks[0][0].min())
+    wc = st.quantize_window_slice(2 * (span // INTERVAL_MS + 2), windows) \
+        or w
+    print("stream headline chunk [%d, %d], slice of %d of %d 1h windows"
+          % (S, n_chunk, wc, w))
+    # (a) S1, sum lanes and every lane, two chunks (the Chan merge where
+    # a window straddles them), with masked slots and NaN values
+    for name, lanes in (("sum lanes", st.lanes_for(["sum"])),
+                        ("all lanes", None)):
+        states = [st.zero_state(S, w, dev, lanes=lanes, with_oob=True)
+                  for _ in range(2)]
+        _fold_both(st, states, chunks, windows, wc)
+        _compare_states(checks, "stream_fold", "headline " + name, states)
+        del states
+    # (b) the audit: a slice 10 windows past the chunk's
+    states = [st.zero_state(S, w, dev, lanes=st.lanes_for(["sum"]),
+                            with_oob=True) for _ in range(2)]
+    c_ts, c_val, c_mask = chunks[1]
+    w0 = min(_slice_of(c_ts, windows, wc) + 10, w - wc)
+    edges = windows.window_edges(dev)[w0:w0 + wc + 1]
+    audit = (windows.first_window_ms,
+             windows.first_window_ms + w * INTERVAL_MS)
+    st.stream_fold(states[0], c_ts, c_val, c_mask, edges, w0, audit)
+    st.stream_fold_plain(states[1], c_ts, c_val, c_mask, edges, w0, audit)
+    checks.exact("stream_fold", "wrong slice audit", states[0]["oob"],
+                 states[1]["oob"], "counts")
+    print("stream_fold     wrong slice: oob %d (plain %d)"
+          % (int(states[0]["oob"]), int(states[1]["oob"])))
+    if int(states[1]["oob"]) <= 0:
+        checks.failures.append("stream_fold: a wrong slice counted nothing")
+    del states
+
+    # S1's times on a clean chunk, sum lanes (the main path's fold)
+    clean = _headline_chunks(dev, ts, val, h, n_chunk, clean=True)[0]
+    c_ts, c_val, c_mask = clean
+    w0 = _slice_of(c_ts, windows, wc)
+    edges = windows.window_edges(dev)[w0:w0 + wc + 1]
+    lanes = st.lanes_for(["sum"])
+    state = st.zero_state(S, w, dev, lanes=lanes)
+    plain_state = st.zero_state(S, w, dev, lanes=lanes)
+    lib_state = st.zero_state(S, w, dev, lanes=frozenset({"total", "lo",
+                                                          "hi"}))
+    slice_bytes = S * wc * 8 * 2 * 2     # n and total, read and written
+    times = {"stream_fold": {
+        "ms": time_ms(lambda: st.stream_fold(state, c_ts, c_val, c_mask,
+                                             edges, w0)),
+        "plain_ms": time_ms(lambda: st.stream_fold_plain(
+            plain_state, c_ts, c_val, c_mask, edges, w0)),
+        "bound_ms": bound_ms(S * n_chunk * (8 + 1) + S * (wc + 1) * 8
+                             + slice_bytes, 2.0 * S * n_chunk),
+        "library_ms": time_ms(_segment_fold(lib_state, c_ts, c_val, edges,
+                                            w0)),
+    }}
+    del state, plain_state, lib_state
+
+    # (c) S1 at config 2's chunk into its 720,897-window state, sliced
+    cfg = CONFIGS[2]
+    s2 = cfg["s"]
+    c2_windows = ds.FixedWindows.for_range(
+        C_START, C_START + C_CHUNK * cfg["chunks"] * C_STEP, cfg["interval"])
+    w2 = c2_windows.count
+    wc2 = st.quantize_window_slice(
+        2 * ((C_CHUNK * C_STEP + 4_000) // cfg["interval"] + 2),
+        c2_windows) or w2
+    host = [np.empty((s2, C_CHUNK), np.int64), np.empty((s2, C_CHUNK)),
+            np.empty((s2, C_CHUNK), bool)]
+    c2 = []
+    for k in (4, 5):
+        _config_chunk(host, s2, k * C_CHUNK, seed)
+        c2.append(tuple(torch.from_numpy(x).to(dev) for x in host))
+    lanes2 = st.lanes_for(cfg["fns"])
+    states = [st.zero_state(s2, w2, dev, lanes=lanes2, with_oob=True)
+              for _ in range(2)]
+    _fold_both(st, states, c2, c2_windows, wc2)
+    _compare_states(checks, "stream_fold", "config 2 chunk", states)
+    del states
+    c_ts, c_val, c_mask = c2[1]
+    w0 = _slice_of(c_ts, c2_windows, wc2)
+    edges = c2_windows.window_edges(dev)[w0:w0 + wc2 + 1]
+    state = st.zero_state(s2, w2, dev, lanes=lanes2)
+    plain_state = st.zero_state(s2, w2, dev, lanes=lanes2)
+    lib_state = st.zero_state(s2, w2, dev, lanes=lanes2)
+    t_c2 = {
+        "ms": time_ms(lambda: st.stream_fold(state, c_ts, c_val, c_mask,
+                                             edges, w0)),
+        "plain_ms": time_ms(lambda: st.stream_fold_plain(
+            plain_state, c_ts, c_val, c_mask, edges, w0)),
+        "bound_ms": bound_ms(s2 * C_CHUNK * (8 + 1) + s2 * (wc2 + 1) * 8
+                             + s2 * wc2 * 8 * 4 * 2, 3.0 * s2 * C_CHUNK),
+        "library_ms": time_ms(_segment_fold(lib_state, c_ts, c_val, edges,
+                                            w0)),
+    }
+    print("time stream_fold     config 2 chunk [%d, %d] into [%d, %d] "
+          "(slice %d, 4 lanes): kernel %.4f ms  plain %.4f ms  bound %.4f "
+          "ms (bytes)  library %.4f ms"
+          % (s2, C_CHUNK, s2, w2, wc2, t_c2["ms"], t_c2["plain_ms"],
+             t_c2["bound_ms"], t_c2["library_ms"]))
+    del state, plain_state, lib_state, c2
+
+    # (d) S2 at the headline chunks under 1h windows (p95's sketch)
+    states = [st.zero_state(S, w, dev, sketch=True, lanes=frozenset(),
+                            with_oob=True) for _ in range(2)]
+    _fold_both(st, states, chunks, windows, wc, sketch=True)
+    _compare_states(checks, "sketch_fold", "headline p95 sketch",
+                    [{"q": states[0]["q"]}, {"q": states[1]["q"]}],
+                    SKETCH_RTOL, SKETCH_ATOL)
+    for fn in ("p95", "median"):
+        got = st.stream_finish(states[0], fn)
+        want = st.stream_finish_plain(states[1], fn)
+        checks.exact("stream_finish", "headline " + fn, got[1], want[1])
+        checks.values("stream_finish", "headline " + fn, got[0], want[0],
+                      SKETCH_RTOL, SKETCH_ATOL)
+    c_ts, c_val, c_mask = clean
+    w0 = _slice_of(c_ts, windows, wc)
+    edges = windows.window_edges(dev)[w0:w0 + wc + 1]
+    q_state, q_plain = states
+    times["sketch_fold"] = {
+        "ms": time_ms(lambda: st.sketch_fold(q_state, c_ts, c_val, c_mask,
+                                             edges, w0)),
+        "plain_ms": time_ms(lambda: st.sketch_fold_plain(
+            q_plain, c_ts, c_val, c_mask, edges, w0)),
+        "bound_ms": bound_ms(S * n_chunk * (8 + 1) + S * (wc + 1) * 8
+                             + S * wc * (st.SKETCH_K * 4 * 2 + 8),
+                             2.0 * S * n_chunk),
+        # no torch call merges equi-rank summaries
+        "library_ms": None,
+    }
+    del states, q_state, q_plain, chunks, clean
+
+    # (e) S3 on config 2's grid: a full [128, 720,897] state, some cells
+    # empty, every function of the config and the fills
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cells = (s2, w2)
+    fin = {"n": torch.randint(0, 3, cells, device=dev, generator=gen),
+           "total": torch.rand(cells, dtype=torch.float64, device=dev,
+                               generator=gen) * 300.0}
+    fin["lo"] = fin["total"] / 3.0
+    fin["hi"] = fin["total"] / 2.0
+    for fn in cfg["fns"] + ["avg"]:
+        for fill in ("none", "zero"):
+            got = st.stream_finish(fin, fn, fill)
+            want = st.stream_finish_plain(fin, fn, fill)
+            case = "config 2 %s fill=%s" % (fn, fill)
+            checks.exact("stream_finish", case, got[1], want[1])
+            checks.values("stream_finish", case, got[0], want[0])
+    times["stream_finish"] = {
+        "ms": time_ms(lambda: st.stream_finish(fin, "sum")),
+        "plain_ms": time_ms(lambda: st.stream_finish_plain(fin, "sum")),
+        "bound_ms": bound_ms(s2 * w2 * (8 + 8 + 8 + 1), 1.0 * s2 * w2),
+        # no torch call finishes moment lanes by a function and a fill
+        "library_ms": None,
+    }
+    del fin
+    print_times(times)
+    return times
+
+
+def _exact_cell_quantiles(tsdb, windows, pct: float, delta: float):
+    """Per series of `m` (in the store's order), the exact quantiles of
+    each window's values at pct -/+ delta (fractions), by the sketch's
+    midpoint-rank convention: (lo[S, W], hi[S, W])."""
+    series = tsdb.store.series_for_metric(tsdb.metrics.get_id("m"))
+    w = windows.count
+    out = np.zeros((2, len(series), w))
+    for i, s in enumerate(series):
+        t, v, _, _ = s.window(START, END)
+        win = (t - windows.first_window_ms) // windows.interval_ms
+        order = np.lexsort((v, win))
+        sv = v[order]
+        cnt = np.bincount(win, minlength=w)
+        starts = np.cumsum(cnt) - cnt
+        for j, q in enumerate((pct - delta, pct + delta)):
+            fr = np.clip(q * cnt - 0.5, 0.0, np.maximum(cnt - 1.0, 0.0))
+            lo = np.floor(fr).astype(np.int64)
+            hi = np.minimum(lo + 1, np.maximum(cnt - 1, 0))
+            a = sv[np.minimum(starts + lo, len(sv) - 1)]
+            b = sv[np.minimum(starts + hi, len(sv) - 1)]
+            out[j, i] = np.where(cnt > 0, a + (fr - lo) * (b - a), np.nan)
+    return out[0], out[1], series
+
+
+def stream_e2e_phase(dev, tsdb, checks: Checks) -> dict:
+    """Phase 12: the seven grouped queries streamed on the headline TSDB
+    at the default threshold, beside the materialized miss."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.ops.streaming import SKETCH_K, pad_pow2
+    from opentsdb_tpu_torch.utils.config import DEFAULTS
+
+    cfg = tsdb.config
+    key = "tsd.query.streaming.point_threshold"
+    cache = tsdb.device_cache
+    cache.invalidate()
+    cfg.override_config(key, DEFAULTS[key])
+    batch_bytes = S * N * 17
+    kernels.reset_launches()
+
+    # cold: the query streams and queues the entry's build
+    builds0 = cache.builds
+    runner = tsdb.new_query_runner()
+    t0 = time.perf_counter()
+    cold = runner.run(_query(STREAM_QUERIES[0]))
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    st0 = runner.exec_stats
+    cold_builds = cache.builds - builds0
+    t0 = time.perf_counter()
+    rebuilt = cache.refresh()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    runner = tsdb.new_query_runner()
+    after = runner.run(_query(STREAM_QUERIES[0]))
+    after_hit = runner.exec_stats.get("deviceCacheHit")
+    print("stream cold %s wall %.1f ms | streamedChunks %s deviceCacheHit "
+          "%s inline builds %d | refresh() rebuilt %d in %.1f ms | the query "
+          "after it %s" % (STREAM_QUERIES[0], cold_ms,
+                           st0.get("streamedChunks"),
+                           st0.get("deviceCacheHit"), cold_builds, rebuilt,
+                           refresh_ms,
+                           "hit" if after_hit == 1.0 else "MISSED"))
+    if not st0.get("streamedChunks") or st0.get("deviceCacheHit") \
+            or cold_builds != 0 or rebuilt != 1 or after_hit != 1.0:
+        checks.failures.append("stream: the cold query did not stream, "
+                               "queue its build and hit after refresh()")
+
+    # the exact answers: device-cache hits
+    hits = {}
+    for m in STREAM_QUERIES:
+        runner = tsdb.new_query_runner()
+        hits[m] = runner.run(_query(m))
+        if runner.exec_stats.get("deviceCacheHit") != 1.0:
+            checks.failures.append("stream: %s did not hit" % m)
+    _same_answer(checks, "cold streamed " + STREAM_QUERIES[0], cold,
+                 hits[STREAM_QUERIES[0]], exact=False)
+
+    def timed(m, reps=3):
+        runner = tsdb.new_query_runner()
+        runner.run(_query(m))                   # warm-up
+        walls, stats = [], []
+        for _ in range(reps):
+            runner = tsdb.new_query_runner()
+            t0 = time.perf_counter()
+            res = runner.run(_query(m))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            stats.append(dict(runner.exec_stats))
+        split = {k: statistics.median(s.get(k, 0.0) for s in stats)
+                 for k in stats[0]}
+        return res, statistics.median(walls), split
+
+    tsdb.device_cache = None
+    streamed = {}
+    for m in STREAM_QUERIES:
+        res, wall, sp = timed(m)
+        streamed[m] = (res, wall, sp)
+        print("stream e2e %-34s wall %.1f ms (median of 3) | %d chunks | "
+              "build %.1f stream %.1f (pack %.1f h2d %.1f fold kernels "
+              "%.1f) finish+tail %.1f extract %.1f ms | host chunk bytes "
+              "%.1f MB against the batch's %.3f GB | %.3e points/s"
+              % (m, wall, sp.get("streamedChunks", 0), sp["buildMs"],
+                 sp["streamMs"], sp.get("streamPackMs", 0.0),
+                 sp.get("streamH2dMs", 0.0), sp.get("streamFoldMs", 0.0),
+                 sp["kernelsMs"], sp["extractMs"],
+                 sp.get("streamHostBytes", 0.0) / 1e6, batch_bytes / 1e9,
+                 S * N / (wall / 1e3)))
+        if not sp.get("streamedChunks"):
+            checks.failures.append("stream: %s did not stream" % m)
+    launches = dict(kernels.LAUNCHES)
+    print("stream launches %s" % json.dumps(launches))
+    for name in ("stream_fold", "sketch_fold", "stream_finish"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the main "
+                                   "path" % name)
+
+    # the materialized miss beside it (threshold raised)
+    cfg.override_config(key, MATERIALIZE[key])
+    for m in STREAM_QUERIES:
+        _, wall, sp = timed(m)
+        print("stream miss %-34s materialized wall %.1f ms (median of 3) | "
+              "build %.1f h2d %.1f kernels %.1f extract %.1f ms | streamed "
+              "%.1f ms" % (m, wall, sp["buildMs"], sp["h2dMs"],
+                           sp["kernelsMs"], sp["extractMs"],
+                           streamed[m][1]))
+    # p95 with the sketch off takes the materialized route: exact
+    cfg.override_config(key, DEFAULTS[key])
+    cfg.override_config("tsd.query.streaming.sketch_percentiles", "false")
+    runner = tsdb.new_query_runner()
+    exact_p95 = runner.run(_query("sum:1h-p95:m{group=*}"))
+    if runner.exec_stats.get("streamedChunks"):
+        checks.failures.append("stream: p95 streamed with the sketch off")
+    _same_answer(checks, "p95 sketch off", exact_p95,
+                 hits["sum:1h-p95:m{group=*}"], exact=True)
+    cfg.override_config("tsd.query.streaming.sketch_percentiles", "true")
+    tsdb.device_cache = cache
+
+    for m in STREAM_QUERIES:
+        if "p95" in m:
+            continue
+        exact = any(f in m for f in (":1h-count:", ":1h-max:", ":1h-first:"))
+        _same_answer(checks, "streamed " + m, streamed[m][0], hits[m], exact)
+
+    # p95 through the sketch: each member's estimate lies between its
+    # exact quantiles at p -/+ (C / 2K + 1 / K), C the merges a cell took
+    windows = ds.FixedWindows.for_range(START, END, INTERVAL_MS)
+    n_chunk = pad_pow2(max(1024, int(DEFAULTS[
+        "tsd.query.streaming.chunk_points"]) // S))
+    merges = 1
+    for s in tsdb.store.series_for_metric(tsdb.metrics.get_id("m")):
+        tsb = s.window_stride_timestamps(START, END, n_chunk)
+        wids = (tsb - windows.first_window_ms) // INTERVAL_MS
+        merges = max(merges, int(np.unique(wids, return_counts=True)[1]
+                                 .max()) + 1)
+    delta = merges / (2.0 * SKETCH_K) + 1.0 / SKETCH_K
+    lo, hi, series = _exact_cell_quantiles(tsdb, windows, 0.95, delta)
+    group_of = {}
+    for i, s in enumerate(series):
+        tags = tsdb.resolve_key_tags(s.key)
+        group_of.setdefault(tags["group"], []).append(i)
+    m = "sum:1h-p95:m{group=*}"
+    worst, outside, rel_to_hit = 0.0, 0, 0.0
+    wts = windows.first_window_ms + np.arange(windows.count) * INTERVAL_MS
+    for r, hr in zip(streamed[m][0], hits[m]):
+        rows = group_of[r.tags["group"]]
+        glo = np.nansum(lo[rows], axis=0)
+        ghi = np.nansum(hi[rows], axis=0)
+        for (t_ms, v), (_, hv) in zip(r.dps, hr.dps):
+            j = int(np.searchsorted(wts, t_ms))
+            span = max(ghi[j] - glo[j], 1e-12)
+            if not glo[j] - 1e-9 <= v <= ghi[j] + 1e-9:
+                outside += 1
+            worst = max(worst, abs(v - hv) / span)
+            rel_to_hit = max(rel_to_hit, abs(v - hv) / max(abs(hv), 1e-12))
+    print("stream p95 sketch: %d merges a cell at most, rank bound %.4f; "
+          "%d answers outside the exact [p-%.4f, p+%.4f] bounds; largest "
+          "difference to the hit's p95 (the LEGACY estimator) %.3e "
+          "relative, %.3f of the bound's width" % (
+              merges, delta, outside, delta, delta, rel_to_hit, worst))
+    if outside:
+        checks.failures.append("stream: p95 sketch outside its rank bound")
+    return launches
+
+
+def _same_answer(checks, label, got, want, exact: bool) -> None:
+    same_shape = [(a.tags, [t for t, _ in a.dps]) for a in got] \
+        == [(b.tags, [t for t, _ in b.dps]) for b in want]
+    if not same_shape:
+        checks.failures.append("%s: groups or timestamps differ" % label)
+        return
+    g = torch.tensor([v for a in got for _, v in a.dps], dtype=torch.float64)
+    w = torch.tensor([v for b in want for _, v in b.dps], dtype=torch.float64)
+    if exact:
+        checks.exact("e2e", label, g, w, "values")
+        print("%-15s %-44s %s" % ("e2e", label, "exact" if torch.equal(g, w)
+                                  else "DIFFERENT"))
+    else:
+        checks.values("e2e", label, g, w)
+
+
+def config_phase(dev, cid: int, checks: Checks, seed: int) -> None:
+    """Phase 13: BASELINE config `cid` at full size through a
+    StreamAccumulator, chunks made on the host and copied through a
+    ChunkFeed, each grid held to a one-shot K1 over the same data."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import streaming as st
+    from opentsdb_tpu_torch.ops.pipeline import (DownsampleStep,
+                                                 PipelineSpec, run_grid_tail)
+    from opentsdb_tpu_torch.ops.rate import RateOptions
+
+    cfg = CONFIGS[cid]
+    s, chunks, interval = cfg["s"], cfg["chunks"], cfg["interval"]
+    total = s * C_CHUNK * chunks
+    windows = ds.FixedWindows.for_range(
+        C_START, C_START + C_CHUNK * chunks * C_STEP, interval)
+    wslice = (C_CHUNK * C_STEP + 4_000) // interval + 2
+    acc = st.StreamAccumulator.create(s, windows, dev,
+                                      lanes=st.lanes_for(cfg["fns"]),
+                                      window_slice=wslice)
+    feed = st.ChunkFeed(dev, s, C_CHUNK)
+    # the one-shot batch, assembled on the card from the copied chunks
+    batch = [torch.empty((s, C_CHUNK * chunks), dtype=dt, device=dev)
+             for dt in (torch.int64, torch.float64, torch.bool)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(chunks):
+        _config_chunk(feed.take(), s, k * C_CHUNK, seed)
+        d = feed.upload()
+        w0 = (C_START + k * C_CHUNK * C_STEP - windows.first_window_ms) \
+            // interval
+        acc.update(*d, w0=w0)
+        feed.folded()
+        for b, x in zip(batch, d):
+            b[:, k * C_CHUNK:(k + 1) * C_CHUNK].copy_(x)
+    oob = acc.oob_count()
+    wall = time.perf_counter() - t0
+    h2d, fold = feed.timings()
+    print("config %d: %d series x %d points (%d chunks of %d), W = %d "
+          "%d s windows, slice %d | wall %.3f s, %.3e points/s (%.3e over "
+          "the card's copies and folds alone) | host make %.1f ms a chunk, "
+          "copy %.3f ms a chunk (%.1f MB, %.1f GB/s), fold %.3f ms a chunk "
+          "| oob %d"
+          % (cid, s, C_CHUNK * chunks, chunks, C_CHUNK, windows.count,
+             interval // 1000, acc.window_slice, wall, total / wall,
+             total / max((h2d + fold) / 1e3, 1e-12),
+             feed.pack_ms / chunks, h2d / chunks, s * C_CHUNK * 17 / 1e6,
+             s * C_CHUNK * 17 / max(h2d / chunks / 1e3, 1e-12) / 1e9,
+             fold / chunks,
+             oob))
+    if oob:
+        checks.failures.append("config %d: %d points outside their slices"
+                               % (cid, oob))
+    edges = windows.window_edges(dev)
+    grids = {}
+    for fn in cfg["fns"]:
+        t1 = time.perf_counter()
+        wts, got, gm = acc.finish(fn)
+        torch.cuda.synchronize()
+        finish_ms = (time.perf_counter() - t1) * 1e3
+        want, wm = ds.window_moments(*batch, edges, fn)
+        case = "config %d %s" % (cid, fn)
+        checks.exact("stream_finish", case, gm, wm)
+        if fn in ("min", "max", "count"):     # exact (NaN where empty)
+            checks.values("stream_fold", case, got, want, 0.0, 0.0)
+        else:
+            checks.values("stream_fold", case, got, want)
+        print("config %d %-5s finish %.2f ms, grid against one-shot K1 %s"
+              % (cid, fn, finish_ms, "checked"))
+        grids[fn] = (wts, got, gm, want, wm)
+    del batch
+    if cid == 4:
+        spec = PipelineSpec("p99", DownsampleStep("avg"),
+                            rate=RateOptions())
+        gid = np.zeros(s, np.int64)
+        wts, got, gm, want, wm = grids["avg"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tail = run_grid_tail(spec, wts, got, gm, gid, 1)
+        torch.cuda.synchronize()
+        tail_ms = (time.perf_counter() - t1) * 1e3
+        ref = run_grid_tail(spec, wts, want, wm, gid, 1)
+        checks.exact("e2e", "config 4 rate+p99 mask", tail[2], ref[2])
+        checks.values("e2e", "config 4 rate+p99", tail[1], ref[1])
+        print("config 4 rate + p99 tail %.2f ms on the streamed grid"
+              % tail_ms)
+    del grids, acc, feed
+
+
 def cost_constants(dev, times: dict, lane_costs: dict) -> dict:
     """The `cuda` table of ops/costmodel.py from this run: per-point and
     per-cell kernel times at the headline batch, the host launch floor,
@@ -2129,7 +2742,13 @@ def cost_constants(dev, times: dict, lane_costs: dict) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="mixed into the data of phases 11-13 (0: "
+                        "bench_configs' own chunks)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2145,7 +2764,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kernels.load_all()
     print("kernel build %.2f s" % (time.perf_counter() - t0))
 
@@ -2175,19 +2794,33 @@ def main() -> int:
         times.update(histogram_kernel_phase(dev, tsdb, checks))
         torch.cuda.empty_cache()
         daemon_launches = daemon_query_phase(dev, tsdb, server, checks)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    stream_launches = stream_e2e_phase(dev, tsdb, checks)
+    print("phase 12 wall %.1f s" % (time.perf_counter() - t_phase))
     del tsdb
     torch.cuda.empty_cache()
     rollup_launches, lane_costs = rollup_e2e_phase(dev, ts, val, h, checks)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    times.update(stream_kernel_phase(dev, ts, val, h, checks, args.seed))
     del ts, val, gid, h
     torch.cuda.empty_cache()
+    print("phase 11 wall %.1f s" % (time.perf_counter() - t_phase))
+    t_phase = time.perf_counter()
+    for cid in CONFIGS:
+        config_phase(dev, cid, checks, args.seed)
+        torch.cuda.empty_cache()
+    print("phase 13 wall %.1f s; the script %.1f s"
+          % (time.perf_counter() - t_phase, time.perf_counter() - t_start))
     print("costmodel cuda %s" % json.dumps(cost_constants(dev, times,
                                                           lane_costs)))
 
-    # Each kernel's launches on the main path: the grouped, union, daemon
-    # and rollup phases, their counts reset just before each.
+    # Each kernel's launches on the main path: the grouped, union, daemon,
+    # streamed and rollup phases, their counts reset just before each.
     for name in launches:
         launches[name] += (union_launches[name] + daemon_launches[name]
-                           + rollup_launches[name])
+                           + stream_launches[name] + rollup_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name,

@@ -28,6 +28,7 @@ from opentsdb_tpu_torch.device import resolve_device
 from opentsdb_tpu_torch.histogram import (HistogramCodecManager,
                                           HistogramStore, SimpleHistogram)
 from opentsdb_tpu_torch.ops.aggregators import AGGREGATORS
+from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.rollup import RollupConfig, RollupStore
 from opentsdb_tpu_torch.storage.device_cache import DeviceSeriesCache
 from opentsdb_tpu_torch.storage.memstore import (
@@ -143,6 +144,7 @@ class TSDB:
         self._stats_lock = threading.Lock()
         self.datapoints_added = 0  # guarded-by: _stats_lock
         self.maintenance = None
+        self._query_limits = None
 
     # -- write path ------------------------------------------------------ #
 
@@ -403,6 +405,14 @@ class TSDB:
         if self.maintenance is not None:
             self.maintenance.stop()
             self.maintenance = None
+
+    @property
+    def query_limits(self) -> QueryLimitOverride:
+        """The scan-budget registry (QueryLimitOverride.java), built at
+        first use from the config, as the reference's facade builds it."""
+        if self._query_limits is None:
+            self._query_limits = QueryLimitOverride(self.config)
+        return self._query_limits
 
     def new_query_runner(self):
         from opentsdb_tpu_torch.query.planner import QueryRunner

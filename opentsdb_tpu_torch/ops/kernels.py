@@ -12,7 +12,7 @@ libraries are loaded with ctypes; every pointer and the stream pass as
 A kernel launches on torch's current stream, synchronises nothing and
 allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
 ops.union_agg, ops.aggregators, storage.device_cache, histogram.kernels,
-ops.lanes)
+ops.lanes, ops.streaming)
 allocates the outputs and any scratch with ``torch.empty``, checks
 device, dtype, shape and contiguity, calls ``launch``, and raises when
 the C entry returns a CUDA error.  A build or launch failure always
@@ -100,6 +100,16 @@ SIGNATURES: dict[str, tuple] = {
     # fill_mode, fill_value, sum_is_int, cnt_is_int, out, out_mask, stream
     "rollup_avg": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _I64, _I32, _I32,
                    _F64, _I32, _I32, _P, _P, _P),
+    # ts, val, mask, edges, s, n, wc, w, w0, n_state, total, m2, lo, hi,
+    # first, last, prod, oob, grid_lo, grid_hi, stream
+    "stream_fold": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P, _P, _P,
+                    _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+    # ts, val, mask, edges, s, n, wc, w, w0, n_state, q_state, stream
+    "sketch_fold": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P, _P, _P),
+    # n, total, m2, lo, hi, first, last, prod, q, cells, code, pct,
+    # fill_mode, fill_value, out, out_mask, stream
+    "stream_finish": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _F64,
+                      _I32, _F64, _P, _P, _P),
 }
 
 # Launch counts per kernel, bumped only by launch().

@@ -29,6 +29,13 @@ the maintenance-built rollup lanes (storage/rollup.py) before the device
 cache: a plan they cover takes its full windows from lane cells, its edge
 windows from the raw points, then the grid tail.
 
+A grouped plan over ``tsd.query.streaming.point_threshold`` points whose
+downsample function streams takes, on a device-cache miss, the streamed
+route (``_stream_grouped``, the reference's :1228): bounded chunks folded
+on the device (ops/streaming.py, S1-S3), never the [S, N] batch.  Each
+sub query's points are charged to its scan budget (query/limits.py
+``QueryBudget``) before any batch or chunk is built.
+
 Every aggregator and downsample function of the registry is answered
 (moments, order and rank functions, movingAverage<N>), with or without a
 rate.  A histogram sub query (percentiles or show-histogram-buckets, the
@@ -53,10 +60,13 @@ from opentsdb_tpu_torch.ops.downsample import (
     FixedWindows, EdgeWindows, AllWindow)
 from opentsdb_tpu_torch.ops.group_agg import group_offsets
 from opentsdb_tpu_torch.ops.pipeline import (
-    PipelineSpec, DownsampleStep, build_batch, build_batch_direct,
+    PAD_TS, PipelineSpec, DownsampleStep, build_batch, build_batch_direct,
     check_ported, run_downsample_grid, run_grid_tail, run_group_pipeline,
     run_group_rollup_avg_pipeline, run_union_pipeline)
-from opentsdb_tpu_torch.query.limits import grid_budget
+from opentsdb_tpu_torch.ops.streaming import (
+    SKETCH_K, STREAMABLE_DS, ChunkFeed, StreamAccumulator, is_sketch_ds,
+    lanes_for, pad_pow2)
+from opentsdb_tpu_torch.query.limits import QueryBudget, grid_budget
 from opentsdb_tpu_torch.rollup.config import (NoSuchRollupForInterval,
                                               RollupQuery)
 from opentsdb_tpu_torch.storage.memstore import Series
@@ -85,8 +95,11 @@ _GRID_CELL_BYTES = 24
 # Host-clock phases of one dispatch; exec_stats carries each as
 # "<phase>Ms" summed over the run's dispatches.  "gather" is the grouped
 # arm's device-cache consult: validation and, on a hit, the gather (a cold
-# entry built inline lands there too).
-PHASES = ("build", "gather", "h2d", "kernels", "extract")
+# entry built inline lands there too).  "stream" is the streamed route's
+# scan: chunks packed on the host, copied and folded, overlapped (its
+# split: streamPackMs on the host clock, streamH2dMs and streamFoldMs
+# from CUDA events).
+PHASES = ("build", "gather", "h2d", "stream", "kernels", "extract")
 
 
 def compute_tags(tag_maps: list[dict]) -> tuple[dict, list]:
@@ -412,20 +425,23 @@ class QueryRunner:
             rate=sub.rate_options if sub.rate else None)
 
     def _run_grouped(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
-                     groups, global_notes: list,
-                     store) -> dict[tuple, QueryResult]:
-        """All group-by buckets of a segment in ONE batch through the
-        grouped pipeline.  The rollup-avg arm reads the segment's sum and
-        count lanes through L2.  On the raw store the rollup lanes are
-        consulted first, then the device cache; a lane plan serves the
-        grid from lane cells, a cache hit gathers the batch on the device,
-        and otherwise the batch is built on the host."""
+                     groups, global_notes: list, store,
+                     budget: QueryBudget) -> dict[tuple, QueryResult]:
+        """All group-by buckets of a segment through the grouped pipeline,
+        by the reference's route (query/plandecision.py): the rollup-avg
+        arm reads the segment's sum and count lanes through L2; on the raw
+        store the rollup lanes are consulted first, then the device cache
+        (a hit gathers the batch on the device); a plan over
+        ``tsd.query.streaming.point_threshold`` points whose function
+        streams takes the streamed route on a miss; and otherwise the
+        [S, N] batch is built on the host."""
         tsdb = self.tsdb
         start_ms, end_ms = seg.start_ms, seg.end_ms
         fix = tsdb.config.fix_duplicates
         clock = _PhaseClock(tsdb.device, self.exec_stats)
-        kept = []  # (group_key, members)
-        points = n_max = 0
+        # counts first (no copy): the budget and the route must not pull
+        # the range into host memory
+        kept = []  # (group_key, members, per-member point counts)
         for group_key in sorted(groups, key=lambda k: tuple(map(str, k))):
             members = groups[group_key]
             counts = [s.window_count(start_ms, end_ms, fix)
@@ -433,21 +449,33 @@ class QueryRunner:
             # no datapoints in range -> no SpanGroup at all
             # (TsdbQuery.findSpans -> empty group map)
             if sum(counts):
-                kept.append((group_key, members))
-                points += sum(counts)
-                n_max = max(n_max, max(counts))
+                budget.charge(sum(counts))
+                kept.append((group_key, members, counts))
         if not kept:
             return {}
-        series_list = [s for _, members in kept for s, _t in members]
+        budget.check_deadline()
+        points = sum(sum(c) for _, _, c in kept)
+        n_max = max(max(c) for _, _, c in kept)
+        series_list = [s for _, members, _ in kept for s, _t in members]
         gid = np.concatenate([np.full(len(members), i, np.int64)
-                              for i, (_, members) in enumerate(kept)])
+                              for i, (_, members, _) in enumerate(kept)])
         self._bump("pointsScanned", float(points))
         self._bump("seriesScanned", float(len(series_list)))
-        clock.mark("build")
 
         dev = tsdb.device
         spec = self._spec_for(sub, seg.ds_function)
+        ds_fn = spec.downsample.function
         windows = self._windows_for(sub, query)
+        sketchable, hazard = self._sketch_eligible(seg, ds_fn, windows, kept,
+                                                   len(series_list), fix)
+        if hazard:
+            self.exec_stats["sketchHazardExact"] = 1.0
+        stream_ok = seg.kind != "rollup_avg" and (ds_fn in STREAMABLE_DS
+                                                  or sketchable)
+        would_stream = stream_ok and points > tsdb.config.get_int(
+            "tsd.query.streaming.point_threshold")
+        clock.mark("build")
+
         lane_plan = None
         if (seg.kind == "raw" and store is tsdb.store
                 and tsdb.rollup_lanes is not None
@@ -479,19 +507,45 @@ class QueryRunner:
                 spec, *batches, gid, len(kept), edges)
             clock.mark("kernels")
         else:
+            # the reference's padded window count, which its state
+            # budgets read: the two refuse the same plans
+            wp = pad_pow2(windows.count)
+            state_mb = tsdb.config.get_int("tsd.query.streaming.state_mb")
+            s_rows = len(series_list)
+            if would_stream:
+                per_cell = 8 + 8 * len(lanes_for([ds_fn])) \
+                    + (4 * SKETCH_K if sketchable else 0)
+                gbd = grid_budget("streaming", state_mb,
+                                  s_rows * wp * per_cell, s_rows, wp,
+                                  sketch=sketchable)
+                if gbd.over:
+                    # the reference serves it by tiling (ops/tiling.py,
+                    # tsd.query.spill.enable), which ROADMAP slice 7b
+                    # ports; until then the streaming 413
+                    raise gbd.exception()
             cached = None
             # the device cache holds raw columns only (the reference's
-            # store_is_raw gate)
+            # store_is_raw gate); a streamed plan queues a cold entry's
+            # build instead of building it inline
             if tsdb.device_cache is not None and store is tsdb.store:
-                # a cold entry builds inline: the port has no streaming
-                # path that would make that the dearer choice
                 cached = tsdb.device_cache.batch_for(
                     tsdb.store, series_list[0].key.metric, series_list,
-                    start_ms, end_ms)
+                    start_ms, end_ms, build=not would_stream)
+                if cached is not None and would_stream and grid_budget(
+                        "grid", state_mb, s_rows * wp * _GRID_CELL_BYTES,
+                        s_rows, wp).over:
+                    # a hit must not divert a streamed plan onto a grid
+                    # over the budget (plandecision.py:375-378)
+                    cached = None
                 clock.mark("gather")
             if cached is not None:
                 self.exec_stats["deviceCacheHit"] = 1.0
                 d_ts, d_val, d_mask = cached
+            elif would_stream:
+                d_ts = None
+                out_ts, out_val, out_mask = self._stream_grouped(
+                    spec, seg, series_list, n_max, gid, len(kept), windows,
+                    sketchable, clock)
             else:
                 ts, val, mask, _ = build_batch_direct(series_list, start_ms,
                                                       end_ms, fix)
@@ -499,17 +553,18 @@ class QueryRunner:
                 d_ts = torch.from_numpy(ts).to(dev)
                 d_val = torch.from_numpy(val).to(dev)
                 d_mask = torch.from_numpy(mask).to(dev)
-            edges = windows.window_edges(dev)
-            clock.mark("h2d")
-            out_ts, out_val, out_mask = run_group_pipeline(
-                spec, d_ts, d_val, d_mask, gid, len(kept), edges)
-            clock.mark("kernels")
+            if d_ts is not None:
+                edges = windows.window_edges(dev)
+                clock.mark("h2d")
+                out_ts, out_val, out_mask = run_group_pipeline(
+                    spec, d_ts, d_val, d_mask, gid, len(kept), edges)
+                clock.mark("kernels")
 
         out_ts = out_ts.cpu().numpy()
         out_val = out_val.cpu().numpy()
         out_mask = out_mask.cpu().numpy()
         results: dict[tuple, QueryResult] = {}
-        for i, (group_key, members) in enumerate(kept):
+        for i, (group_key, members, _) in enumerate(kept):
             dps = extract_dps(out_ts, out_val[i], out_mask[i], start_ms,
                               end_ms, False,
                               keep_nans=sub.fill_policy != "none")
@@ -518,13 +573,151 @@ class QueryRunner:
         clock.mark("extract")
         return results
 
+    def _sketch_eligible(self, seg: Segment, ds_fn: str, windows, kept,
+                         n_rows: int, fix: bool) -> tuple[bool, bool]:
+        """(sketchable, hazard) for one grouped segment (the reference's
+        planner.py:955-995).  A cell drifts about merges / (2K) of its
+        population in rank; when the densest cell would take more chunk
+        merges than ``tsd.query.streaming.sketch_max_merges`` (a window
+        much wider than a chunk, "0all" over a long range) the plan takes
+        the exact path.  The estimate is exact under skew: per series, the
+        windows of the chunk boundaries (every n_chunk-th point) are
+        counted, and a cell's merges are its window's boundary count + 1."""
+        tsdb = self.tsdb
+        sketchable = (is_sketch_ds(ds_fn) and tsdb.config.get_bool(
+            "tsd.query.streaming.sketch_percentiles"))
+        if not sketchable:
+            return False, False
+        max_merges = tsdb.config.get_int(
+            "tsd.query.streaming.sketch_max_merges")
+        if max_merges <= 0:
+            return True, False
+        chunk_points = max(tsdb.config.get_int(
+            "tsd.query.streaming.chunk_points"), 1)
+        n_chunk = pad_pow2(max(1024, chunk_points // max(n_rows, 1)))
+        worst = 0
+        for _, members, counts in kept:
+            for (s, _t), c in zip(members, counts):
+                if c <= n_chunk:
+                    continue        # a single chunk: no merge at all
+                tsb = s.window_stride_timestamps(
+                    seg.start_ms, seg.end_ms, n_chunk, fix)
+                wids = self._host_window_ids(windows, tsb)
+                if len(wids):
+                    worst = max(worst, int(np.max(
+                        np.unique(wids, return_counts=True)[1])))
+        if worst + 1 > max_merges:
+            return False, True
+        return True, False
+
+    @staticmethod
+    def _host_window_ids(windows, tsb) -> np.ndarray:
+        """The window of each timestamp, on the host, for every plan."""
+        if isinstance(windows, FixedWindows):
+            return (np.asarray(tsb, np.int64)
+                    - windows.first_window_ms) // windows.interval_ms
+        if isinstance(windows, EdgeWindows):
+            return np.searchsorted(np.asarray(windows.edges, np.int64),
+                                   tsb, "right") - 1
+        return np.zeros(len(tsb), np.int64)    # AllWindow: one cell
+
+    def _stream_grouped(self, spec: PipelineSpec, seg: Segment, series_list,
+                        max_len: int, gid, num_groups: int, windows,
+                        sketch: bool, clock: "_PhaseClock"):
+        """The streamed route (the reference's ``_stream_grouped``,
+        :1228): bounded [S, n_chunk] chunks copied out of the store
+        (Series.window_chunk, timestamp cursors) into pinned buffers,
+        copied to the device while the previous chunk folds
+        (ops.streaming.ChunkFeed), folded into a StreamAccumulator (S2,
+        S1), finished (S3), then the grid tail.  The [S, N] batch is never
+        built; the host holds two chunks.  Like the reference's scan over
+        live rows, the pass has no snapshot isolation: a write landing
+        mid-query may or may not be seen (SaltScanner.java:269)."""
+        tsdb = self.tsdb
+        dev = tsdb.device
+        fix = tsdb.config.fix_duplicates
+        s = len(series_list)
+        chunk_points = max(tsdb.config.get_int(
+            "tsd.query.streaming.chunk_points"), 1)
+        n_chunk = pad_pow2(max(1024, chunk_points // max(s, 1)))
+        lanes = lanes_for([spec.downsample.function])
+        n_chunks = -(-max_len // n_chunk)
+        self._bump("streamedChunks", float(n_chunks))
+        use_slice = isinstance(windows, FixedWindows)
+        feed = ChunkFeed(dev, s, n_chunk)
+        self._bump("streamHostBytes", float(feed.host_bytes))
+        acc = None
+        cursors: list[int | None] = [None] * s
+        for _ in range(n_chunks):
+            ts, val, mask = feed.take()
+            tmin = tmax = None
+            for i, series in enumerate(series_list):
+                t, _v = series.window_chunk(seg.start_ms, seg.end_ms,
+                                            cursors[i], n_chunk, fix,
+                                            ts[i], val[i])
+                m = len(t)
+                ts[i, m:] = PAD_TS
+                val[i, m:] = 0.0
+                mask[i, :m] = True
+                mask[i, m:] = False
+                if m:
+                    cursors[i] = int(t[-1])
+                    tmin = int(t[0]) if tmin is None else min(tmin,
+                                                              int(t[0]))
+                    tmax = int(t[-1]) if tmax is None else max(tmax,
+                                                               int(t[-1]))
+            if tmin is None:
+                # a chunk without points folds nothing; skipping it before
+                # the accumulator exists lets the slice be sized from the
+                # first chunk that has points
+                continue
+            if acc is None:
+                wslice = None
+                if use_slice:
+                    # twice the first chunk's span: the series advance on
+                    # their own cursors, so later spans vary; a chunk that
+                    # still overflows takes the full-grid fold
+                    wslice = 2 * ((tmax - tmin) // windows.interval_ms + 2)
+                acc = StreamAccumulator.create(s, windows, dev, sketch=sketch,
+                                               lanes=lanes,
+                                               window_slice=wslice)
+            w0 = None
+            if acc.window_slice is not None and \
+                    (tmax - tmin) // windows.interval_ms + 2 \
+                    <= acc.window_slice:
+                w0 = (tmin - windows.first_window_ms) // windows.interval_ms
+            d_ts, d_val, d_mask = feed.upload()
+            acc.update(d_ts, d_val, d_mask, w0=w0)
+            feed.folded()
+        if acc is None:     # no chunk held a point: an empty state
+            acc = StreamAccumulator.create(s, windows, dev, sketch=sketch,
+                                           lanes=lanes)
+        oob = acc.oob_count()
+        clock.mark("stream")
+        h2d_ms, fold_ms = feed.timings()
+        self._bump("streamPackMs", feed.pack_ms)
+        self._bump("streamH2dMs", h2d_ms)
+        self._bump("streamFoldMs", fold_ms)
+        if oob:
+            # w0 from each chunk's first point with a slice at least the
+            # chunk's span makes this impossible: never serve an answer
+            # that dropped points
+            raise RuntimeError("internal: %d points fell outside their "
+                               "declared streaming window slice" % oob)
+        step = spec.downsample
+        wts, v, m = acc.finish(step.function, step.fill_policy,
+                               step.fill_value)
+        out = run_grid_tail(spec, wts, v, m, gid, num_groups)
+        clock.mark("kernels")
+        return out
+
     def _lane_plan(self, spec: PipelineSpec, series_list, num_groups: int,
                    windows: FixedWindows, seg: Segment, n_max: int,
                    points: int):
         """The rollup lanes' verdict on a raw fixed-grid segment: a plan
         whose [S, W] grid fits ``tsd.query.streaming.state_mb`` on the
         device, else None.  A plan over that budget would need the
-        reference's striped serving (ops/tiling.py, slice 7); the port
+        reference's striped serving (ops/tiling.py, slice 7b); the port
         answers it on the exact path and counts a miss."""
         lanes = self.tsdb.rollup_lanes
         plan = lanes.plan(
@@ -593,9 +786,12 @@ class QueryRunner:
         return out
 
     def _run_union(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
-                   groups, global_notes: list) -> dict[tuple, QueryResult]:
+                   groups, global_notes: list,
+                   budget: QueryBudget) -> dict[tuple, QueryResult]:
         """All group-by buckets through the union pipeline: the integer
-        groups in one batch, the others in another."""
+        groups in one batch, the others in another.  Each group's points
+        are charged to the budget, and the deadline checked, before any
+        batch is built (the reference's planner.py:1483-1495)."""
         tsdb = self.tsdb
         start_ms, end_ms = seg.start_ms, seg.end_ms
         fix = tsdb.config.fix_duplicates
@@ -607,6 +803,8 @@ class QueryRunner:
                      for s, _ in members]
             n = sum(c for c, _ in stats)
             if n:        # no datapoints in range -> no SpanGroup at all
+                budget.charge(n)
+                budget.check_deadline()
                 all_int = all(isint for c, isint in stats if c)
                 parts[all_int].append((group_key, members))
                 self._bump("pointsScanned", float(n))
@@ -654,11 +852,12 @@ class QueryRunner:
                 query, sub, members, dps, global_notes)
         clock.mark("extract")
 
-    def _run_histogram_sub(self, query: TSQuery,
-                           sub: TSSubQuery) -> list[QueryResult]:
-        """A percentile or show-buckets sub query: every group's bucket
-        entries in one batch, H1 onto the [rows, B] grid, then H2 for
-        all percentiles at once."""
+    def _run_histogram_sub(self, query: TSQuery, sub: TSSubQuery,
+                           budget: QueryBudget) -> list[QueryResult]:
+        """A percentile or show-buckets sub query: every group's points
+        charged to the budget (the reference's planner.py:1533-1534), then
+        every group's bucket entries in one batch, H1 onto the [rows, B]
+        grid, and H2 for all percentiles at once."""
         tsdb = self.tsdb
         if tsdb.histogram_store is None:
             raise ValueError("histograms are not configured "
@@ -679,6 +878,16 @@ class QueryRunner:
         ordered = [(gk, [s for s, _ in groups[gk]]) for gk in
                    sorted(groups, key=lambda k: tuple(map(str, k)))]
         results: list[QueryResult] = []
+        total_points = 0
+        for _, members in ordered:
+            pts = sum(s.count_in_range(query.start_time, query.end_time)
+                      for s in members)
+            if pts:
+                budget.charge(pts)
+                budget.check_deadline()
+            total_points += pts
+        if not total_points:
+            return results
         batch = assemble_columnar(ordered, query.start_time, query.end_time,
                                   interval_ms)
         if batch is None:
@@ -736,7 +945,8 @@ class QueryRunner:
         return results
 
     def _run_segment(self, query: TSQuery, sub: TSSubQuery, seg: Segment,
-                     global_notes: list) -> dict[tuple, QueryResult]:
+                     global_notes: list,
+                     budget: QueryBudget) -> dict[tuple, QueryResult]:
         """One segment: its store's matching series, grouped, through the
         grouped or the union arm.  A raw segment of a pre-aggregate query
         reads the pre-aggregate lane of its aggregator when one exists
@@ -751,20 +961,31 @@ class QueryRunner:
         groups = self._group(self._resolve_series(sub, store), sub)
         if sub.downsample_spec is not None:
             return self._run_grouped(query, sub, seg, groups, global_notes,
-                                     store)
-        return self._run_union(query, sub, seg, groups, global_notes)
+                                     store, budget)
+        return self._run_union(query, sub, seg, groups, global_notes, budget)
+
+    def _new_budget(self, sub: TSSubQuery) -> QueryBudget:
+        """The scan budget and timeout of one sub query
+        (QueryLimitOverride), the overrides file reloaded first when its
+        interval has passed."""
+        tsdb = self.tsdb
+        limits = tsdb.query_limits
+        limits.maybe_reload()
+        return QueryBudget(limits, sub.metric or "",
+                           tsdb.config.get_int("tsd.query.timeout"))
 
     def run_sub(self, query: TSQuery, sub: TSSubQuery) -> list[QueryResult]:
+        budget = self._new_budget(sub)
         if sub.percentiles or sub.show_histogram_buckets:
-            return self._run_histogram_sub(query, sub)
+            return self._run_histogram_sub(query, sub, budget)
         check_ported(self._spec_for(sub))
         global_notes = (self.tsdb.store.get_annotations(
             "", query.start_time, query.end_time)
             if query.global_annotations else [])
         merged: dict[tuple, QueryResult] = {}
         for seg in self._plan_segments(query, sub):
-            for gk, qr in self._run_segment(query, sub, seg,
-                                            global_notes).items():
+            for gk, qr in self._run_segment(query, sub, seg, global_notes,
+                                            budget).items():
                 cur = merged.get(gk)
                 if cur is None:
                     merged[gk] = qr

@@ -30,7 +30,9 @@ Differences from the reference: the buffers hold exactly the metric's
 points (no power-of-two padding, 16 B a point) and a batch's N is the
 longest requested run, the N that ops.pipeline.build_batch_direct gives;
 the int32 ``ts_base`` form of the gather, ``peek`` and the prometheus
-counters are not ported (ROADMAP A5, B10).
+counters are not ported (ROADMAP A5, B10).  A query that streams (the
+planner's streamed route) does not build a cold entry inline: it queues
+the build for ``refresh``, as the reference does.
 """
 
 from __future__ import annotations
@@ -108,16 +110,24 @@ class DeviceSeriesCache:
     # -- query path ------------------------------------------------------
 
     def batch_for(self, store, metric: int, series_list, start_ms: int,
-                  end_ms: int):
+                  end_ms: int, build: bool = True):
         """Device (ts[S, N], val[S, N], mask[S, N]) of the series' windows
         in [start_ms, end_ms], or None on a miss (stale, a series the entry
         does not hold, unresolved duplicates, over budget, or a cold entry
         that another query is building): the caller then takes its host
-        path.  A cold entry is built inline."""
+        path.  A cold entry is built inline, or with `build=False` queued
+        for ``refresh`` and counted a miss: the streamed route passes it,
+        since its chunks overlap copies with the folds and a blocking
+        upload of the whole metric first would cost more."""
         ekey = (id(store), metric)
         with self._lock:
             entry = self._entries.get(ekey)
         if entry is None:
+            if not build:
+                with self._lock:
+                    self._stale[ekey] = store
+                self._count("misses")
+                return None
             entry = self._build(store, metric)
             if entry is None:
                 self._count("misses")

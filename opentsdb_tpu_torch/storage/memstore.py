@@ -8,7 +8,9 @@ points are normalized lazily at read time (sort + last-write-wins dedup),
 as the reference does.  The store lives on the host: a query copies its
 window into one padded [S, N] batch and moves that to the device
 (ops/pipeline.build_batch_direct), unless the device series cache
-(storage/device_cache.py) holds the metric's columns already.  Each
+(storage/device_cache.py) holds the metric's columns already, or the
+query streams and reads its window chunk by chunk (``window_chunk``).
+Each
 series carries a content version that every visible mutation bumps; the
 cache validates its snapshots by it; the rollup lanes hear of every
 write through the store's mutation listeners.  No WAL and no
@@ -301,6 +303,44 @@ class Series:
             val_row[:k] = src[lo:lo + k]
             mask_row[:k] = True
             return k, True
+
+    def window_stride_timestamps(self, start_ms: int, end_ms: int,
+                                 stride: int, fix_duplicates: bool = True
+                                 ) -> np.ndarray:
+        """Every stride-th timestamp in [start_ms, end_ms]: the streaming
+        chunk boundaries, which the planner's sketch-hazard estimate reads
+        (O(points / stride); the window is never materialized)."""
+        with self._lock:
+            lo, hi = self._window_bounds_locked(start_ms, end_ms,
+                                                fix_duplicates)
+            return self._ts[lo:hi:max(stride, 1)].copy()
+
+    def window_chunk(self, start_ms: int, end_ms: int,
+                     after_ts: int | None, limit: int, fix_duplicates: bool,
+                     ts_out: np.ndarray, val_out: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Copy up to `limit` window points with timestamp > `after_ts`
+        (None: from the window's start) into the rows `ts_out` and
+        `val_out` -> views of their filled prefixes (ts, float_vals): the
+        streaming scan's cursor read, one copy from the store to the
+        chunk's buffer.
+
+        The cursor is a timestamp, not an index: an out-of-order write or
+        a normalization's dedup shifts buffer positions between calls,
+        and an index cursor could read a point twice or skip one.  Each
+        point that existed when the scan began is returned at most once;
+        a point landing behind the cursor mid-query is a new write, which
+        the scan need not see (SaltScanner.java:269)."""
+        with self._lock:
+            lo, hi = self._window_bounds_locked(start_ms, end_ms,
+                                                fix_duplicates)
+            if after_ts is not None:
+                lo = max(lo, int(np.searchsorted(self._ts[:self._n],
+                                                 after_ts, side="right")))
+            k = max(min(lo + max(limit, 0), hi) - lo, 0)
+            ts_out[:k] = self._ts[lo:lo + k]
+            val_out[:k] = self._val[lo:lo + k]
+            return ts_out[:k], val_out[:k]
 
     def restore_arrays(self, ts: np.ndarray, val: np.ndarray,
                        ival: np.ndarray, isint: np.ndarray) -> None:

@@ -36,7 +36,7 @@ Deliberate differences from the reference: a block holds exactly
 ``tsd.rollup.block_windows`` cells (no power-of-two rounding); blocks live
 on the host, as the reference's do; there is no striped serving of plans
 whose grid is over the device budget (the reference's ops/tiling.py,
-slice 7): the planner answers them on the exact path; there are no
+slice 7b): the planner answers them on the exact path; there are no
 prometheus counters and no flight recorder, the tallies stay in
 ``collect_stats``.
 """

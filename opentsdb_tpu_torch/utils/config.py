@@ -30,7 +30,21 @@ DEFAULTS: dict[str, str] = {
     "tsd.http.query.allow_delete": "false",
     # histograms (histogram/, the planner's histogram arm)
     "tsd.core.histograms.config": "",
+    # the streamed grouped route (query/planner.py, ops/streaming.py) and
+    # the device-state grid guard every path honours
     "tsd.query.streaming.state_mb": "6144",
+    "tsd.query.streaming.point_threshold": "8000000",
+    "tsd.query.streaming.chunk_points": "4000000",
+    "tsd.query.streaming.sketch_percentiles": "true",
+    "tsd.query.streaming.sketch_max_merges": "4",
+    # scan budgets and the timeout (query/limits.py)
+    "tsd.query.timeout": "0",
+    "tsd.query.limits.bytes.default": "0",
+    "tsd.query.limits.bytes.allow_override": "false",
+    "tsd.query.limits.data_points.default": "0",
+    "tsd.query.limits.data_points.allow_override": "false",
+    "tsd.query.limits.overrides.config": "",
+    "tsd.query.limits.overrides.interval": "60000",
     "tsd.core.auto_create_metrics": "false",
     "tsd.core.auto_create_tagks": "true",
     "tsd.core.auto_create_tagvs": "true",
@@ -68,20 +82,10 @@ DEFAULTS: dict[str, str] = {
 # (the reference's default, the ROADMAP item that ports it).  A key that
 # ends in "." names every key under it; those not listed here have no
 # default the port knows and are refused whenever they are set.
-_SLICE7_BUDGETS = "A, slice 7 (query budgets)"
-_SLICE7_DURABILITY = "A, slice 7 (durability)"
+_SLICE9_DURABILITY = "A, slice 9 (durability, with replication)"
 _SLICE9_CLUSTER = "A, slice 9 (the cluster)"
 UNPORTED: dict[str, tuple[str, str]] = {
-    "tsd.storage.directory": ("", _SLICE7_DURABILITY),
-    "tsd.query.timeout": ("0", _SLICE7_BUDGETS),
-    "tsd.query.limits.": ("", _SLICE7_BUDGETS),
-    "tsd.query.limits.bytes.default": ("0", _SLICE7_BUDGETS),
-    "tsd.query.limits.bytes.allow_override": ("false", _SLICE7_BUDGETS),
-    "tsd.query.limits.data_points.default": ("0", _SLICE7_BUDGETS),
-    "tsd.query.limits.data_points.allow_override": ("false",
-                                                    _SLICE7_BUDGETS),
-    "tsd.query.limits.overrides.config": ("", _SLICE7_BUDGETS),
-    "tsd.query.limits.overrides.interval": ("60000", _SLICE7_BUDGETS),
+    "tsd.storage.directory": ("", _SLICE9_DURABILITY),
     "tsd.network.cluster.": ("", _SLICE9_CLUSTER),
     "tsd.network.cluster.peers": ("", _SLICE9_CLUSTER),
     "tsd.network.cluster.self": ("", _SLICE9_CLUSTER),

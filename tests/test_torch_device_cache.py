@@ -24,12 +24,12 @@ all-integer metric near 2^53, runs with the cache (a hit) and without (a
 miss) on the port.  Last, G1's plain version against the reference's
 ``_gather_windows`` on the same buffers.
 
-Not mirrored: the reference's streaming, rollup-lane and pre-aggregate
-cases (``test_cached_metric_preempts_streaming``,
-``test_rollup_lane_cached_separately``,
+Not mirrored here: the reference's streaming case
+(``test_cached_metric_preempts_streaming``, mirrored in
+tests/test_torch_streaming.py), its rollup-lane and pre-aggregate cases
+(``test_rollup_lane_cached_separately``,
 ``test_pre_aggregate_lane_uses_its_own_entry``) and its int32
-``ts_base`` pad contract; those paths are not ported (ROADMAP A7, A8,
-B10).
+``ts_base`` pad contract (B10, not ported).
 """
 
 import math

@@ -1,15 +1,18 @@
-"""The port's repaired faults (ROADMAP C1-C3), each against what the
-reference does.
+"""The port's repaired faults (ROADMAP C1-C3) and its deliberate
+differences, each against what the reference does.
 
 C1: a reference key whose subsystem the port lacks, set away from its
 default, is refused by TSDB(config) and by tools/tsd_main.py with the
-ROADMAP item that ports it; keys that change no answer stay ignored, and
-the rollup keys this port serves are accepted.  C2: a negative histogram
+ROADMAP item that ports it; the scan budget and timeout keys, ported
+since, are honoured; keys that change no answer stay ignored, and the
+rollup keys this port serves are accepted.  C2: a negative histogram
 count, which SimpleHistogram.from_pojo stores in both packages, is added
 by H1 as the reference's segment sum adds it, so later queries answer as
 the reference's do, through both RpcManagers.  C3: the port's "not ported
 yet" 501s are not logged as internal failures; a real internal failure
-still is.
+still is.  A grouped plan whose streaming state is over
+tsd.query.streaming.state_mb gets the streaming 413 in the port, while
+the reference serves it by tiling (ROADMAP slice 7b).
 """
 
 import json
@@ -33,23 +36,37 @@ BASE = 1_356_998_400
 HIST_CONFIG = '{"SimpleHistogramDecoder": 0}'
 
 
-# -- C1: unported keys are refused, not ignored -----------------------------
+# -- C1: unported keys are refused, not ignored ---------------------------
 
 
 @pytest.mark.parametrize("key, value, item", [
-    ("tsd.storage.directory", "/var/lib/tsdb", "slice 7 (durability)"),
-    ("tsd.query.limits.data_points.default", 5, "slice 7 (query budgets)"),
-    ("tsd.query.limits.bytes.default", 1 << 20, "slice 7 (query budgets)"),
-    ("tsd.query.limits.overrides.config", "/etc/limits.json",
-     "slice 7 (query budgets)"),
-    ("tsd.query.limits.data_points.allow_override", True,
-     "slice 7 (query budgets)"),
-    ("tsd.query.timeout", 1500, "slice 7 (query budgets)"),
+    ("tsd.storage.directory", "/var/lib/tsdb",
+     "slice 9 (durability, with replication)"),
+    ("tsd.query.limits.data_points.default", 5, None),
+    ("tsd.query.limits.bytes.default", 1 << 20, None),
+    ("tsd.query.limits.overrides.config", "/etc/limits.json", None),
+    ("tsd.query.limits.data_points.allow_override", True, None),
+    ("tsd.query.timeout", 1500, None),
     ("tsd.network.cluster.peers", "127.0.0.1:4243", "slice 9 (the cluster)"),
     ("tsd.network.cluster.shard.enable", "yes", "slice 9 (the cluster)"),
     ("tsd.network.cluster.breaker.threshold", 3, "slice 9 (the cluster)"),
 ])
 def test_unported_keys_are_refused(key, value, item):
+    """A key of a subsystem still to port is refused, naming its ROADMAP
+    item (item); the budget keys (item None) are honoured now: the TSDB
+    starts and its budget registry reads them."""
+    if item is None:
+        tsdb = TSDB(Config({key: value}), device="cpu")
+        limits = tsdb.query_limits
+        assert {
+            "tsd.query.limits.data_points.default":
+                limits.default_data_points_limit,
+            "tsd.query.limits.bytes.default": limits.default_byte_limit,
+            "tsd.query.limits.overrides.config": limits.file_location,
+            "tsd.query.limits.data_points.allow_override": value,
+            "tsd.query.timeout": tsdb.config.get_int("tsd.query.timeout"),
+        }[key] == value
+        return
     with pytest.raises(ValueError,
                        match=re.escape("ROADMAP A, " + item)) as info:
         TSDB(Config({key: value}), device="cpu")
@@ -58,13 +75,29 @@ def test_unported_keys_are_refused(key, value, item):
 
 def test_the_two_reproduced_cases_are_refused():
     """The two cases ROADMAP C1 reproduced: the reference writes a WAL
-    under tsd.storage.directory and answers 413 over a 5-point limit;
-    the port refuses both configs rather than ignore them."""
-    for props in ({"tsd.storage.directory": "/tmp/tsdb-wal"},
-                  {"tsd.query.limits.data_points.default": "5"}):
-        with pytest.raises(ValueError, match="not supported"):
-            TSDB(Config({"tsd.core.auto_create_metrics": True, **props}),
-                 device="cpu")
+    under tsd.storage.directory, which the port still refuses; and it
+    answers 413 over a 5-point limit, which the port now answers too,
+    with the reference's message."""
+    with pytest.raises(ValueError, match="not supported"):
+        TSDB(Config({"tsd.core.auto_create_metrics": True,
+                     "tsd.storage.directory": "/tmp/tsdb-wal"}),
+             device="cpu")
+    props = {"tsd.core.auto_create_metrics": True,
+             "tsd.query.limits.data_points.default": "5",
+             "tsd.http.show_stack_trace": False}
+    ref = RefManager(RefTSDB(RefConfig({**props,
+                                        "tsd.query.mesh.enable": False})))
+    port = RpcManager(TSDB(Config(props), device="cpu"))
+    body = [{"metric": "m", "timestamp": BASE + i, "value": i,
+             "tags": {"h": "a"}} for i in range(8)]
+    uri = "/api/query?start=%d&end=%d&m=sum:1m-avg:m" % (BASE, BASE + 60)
+    got = []
+    for manager, request_cls in ((ref, RefRequest), (port, HttpRequest)):
+        assert _http(manager, request_cls, "POST", "/api/put", body)[0] == 204
+        got.append(_http(manager, request_cls, "GET", uri))
+    assert got[0] == got[1]
+    assert got[1][0] == 413 and "5 data points" in got[1][1]["error"][
+        "message"]
 
 
 @pytest.mark.parametrize("props", [
@@ -90,9 +123,9 @@ def test_defaults_ignored_and_ported_keys_are_accepted(props):
 def test_tsd_main_refuses_an_unported_key(tmp_path, capsys):
     conf = tmp_path / "tsd.conf"
     conf.write_text("tsd.network.port = 4242\n"
-                    "tsd.query.limits.data_points.default = 5\n")
+                    "tsd.storage.directory = /var/lib/tsdb\n")
     assert tsd_main.main(["--config", str(conf)]) == 1
-    assert "tsd.query.limits.data_points.default" in capsys.readouterr().err
+    assert "tsd.storage.directory" in capsys.readouterr().err
 
 
 # -- C2: a negative histogram count answers as the reference's --------------
@@ -169,3 +202,52 @@ def test_an_internal_failure_is_still_logged(caplog, monkeypatch):
     assert status == 500
     errors = [r for r in caplog.records if r.levelno >= logging.ERROR]
     assert len(errors) == 1 and errors[0].exc_info is not None
+
+
+# -- deliberate difference: no tiled execution yet (ROADMAP slice 7b) -------
+
+
+def test_streaming_state_over_budget_is_refused_where_the_reference_tiles():
+    """24 series x 4,096 10 s windows of sum lanes (~1.5 MB of streaming
+    state) under a 1 MB budget: the reference (tsd.query.spill.enable,
+    its default) serves the plan by tiling; the port answers the
+    reference's streaming 413 until tiling is ported."""
+    import numpy as np
+
+    from opentsdb_tpu.models import TSQuery as RefTSQuery
+    from opentsdb_tpu.models import parse_m_subquery as ref_parse
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.query.limits import QueryException
+
+    props = {"tsd.core.auto_create_metrics": True,
+             "tsd.query.streaming.point_threshold": "10",
+             "tsd.query.streaming.chunk_points": "20000",
+             "tsd.query.device_cache.enable": "false",
+             "tsd.query.streaming.state_mb": "1"}
+    ref = RefTSDB(RefConfig({**props, "tsd.query.mesh.enable": False,
+                             "tsd.query.cache.enable": False}))
+    port = TSDB(Config(props), device="cpu")
+    span = 40_960
+    for t in (ref, port):
+        rng = np.random.default_rng(7)
+        for h in range(24):
+            times = np.sort(rng.choice(span, size=60, replace=False))
+            for i, ts in enumerate(times):
+                t.add_point("til.m", BASE + int(ts), float((i * 7 + h * 13)
+                                                           % 101),
+                            {"h": "h%d" % h, "g": "g%d" % (h % 4)})
+    m = "sum:10s-sum:til.m{g=*}"
+    q = RefTSQuery(start=str(BASE), end=str(BASE + span),
+                   queries=[ref_parse(m)])
+    q.validate()
+    runner = ref.new_query_runner()
+    served = runner.run(q)
+    assert runner.exec_stats.get("tiledExecution") == 1.0
+    assert len(served) == 4
+    q = TSQuery(start=str(BASE), end=str(BASE + span),
+                queries=[parse_m_subquery(m)])
+    q.validate()
+    with pytest.raises(QueryException, match="streaming state") as info:
+        port.new_query_runner().run(q)
+    assert info.value.status == 413
+    assert info.value.details["kind"] == "streaming"

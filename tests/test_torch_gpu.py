@@ -21,6 +21,7 @@ from opentsdb_tpu_torch.ops import group_agg as tga
 from opentsdb_tpu_torch.ops import kernels
 from opentsdb_tpu_torch.ops import pipeline as tpipe
 from opentsdb_tpu_torch.ops import rate as trate
+from opentsdb_tpu_torch.ops import streaming as tst
 from opentsdb_tpu_torch.ops import union_agg as tua
 from opentsdb_tpu_torch.ops.rate import RateOptions
 from opentsdb_tpu_torch.storage import device_cache as tdc
@@ -727,3 +728,126 @@ def test_rollups_on_card_match_cpu(cuda_device):
             == [(r["tags"], list(r["dps"])) for r in cpu]
         assert_values([v for r in card for v in r["dps"].values()],
                       [v for r in cpu for v in r["dps"].values()])
+
+
+# -- the stream kernels (S1 stream_fold, S2 sketch_fold, S3 stream_finish) --
+
+
+def _stream_pair(dev, batch, windows, chunk, sliced, sketch, lanes=None):
+    """The same chunks through an accumulator on the card and one on the
+    CPU (the plain versions); returns both."""
+    ts, val, mask = batch
+    s, n = ts.shape
+    ws = None
+    if sliced:
+        ws = max(int((ts[:, k:k + chunk][mask[:, k:k + chunk]].max()
+                      - ts[:, k:k + chunk][mask[:, k:k + chunk]].min())
+                     // windows.interval_ms) + 2
+                 for k in range(0, n, chunk) if mask[:, k:k + chunk].any())
+    accs = [tst.StreamAccumulator.create(s, windows, d, sketch=sketch,
+                                         lanes=lanes, window_slice=ws)
+            for d in (dev, "cpu")]
+    for k in range(0, n, chunk):
+        sl = slice(k, k + chunk)
+        w0 = None
+        if sliced and mask[:, sl].any():
+            w0 = int((ts[:, sl][mask[:, sl]].min() - windows.first_window_ms)
+                     // windows.interval_ms)
+        for acc in accs:
+            acc.update(*_on(acc.device, np.ascontiguousarray(ts[:, sl]),
+                            np.ascontiguousarray(val[:, sl]).astype(
+                                np.float64),
+                            np.ascontiguousarray(mask[:, sl])), w0=w0)
+    return accs
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("interval_ms", [10_000, 300_000])
+def test_stream_fold_kernel_matches_plain(cuda_device, interval_ms, sliced):
+    """S1 in both of its modes (a thread a 10 s window, a warp a 5 min
+    one), full-grid and sliced, every lane, then S3 for every function
+    and fill."""
+    batch = sorted_batch(np.random.default_rng(21), 16, 1024)
+    windows = tds.FixedWindows.for_range(T0, T0 + 3_600_000, interval_ms)
+    card, cpu = _stream_pair(cuda_device, batch, windows, 256, sliced, False)
+    assert card.oob_count() == cpu.oob_count() == 0
+    for k in cpu.state:
+        assert_values(card.state[k].cpu().numpy(), cpu.state[k].numpy())
+    for fn in sorted(tst.STREAMABLE_DS):
+        for fill in FILLS:
+            _, got, gm = card.finish(fn, fill, -1.5)
+            _, want, wm = cpu.finish(fn, fill, -1.5)
+            assert_exact(gm.cpu().numpy(), wm.numpy())
+            assert_values(got.cpu().numpy(), want.numpy())
+
+
+def test_stream_fold_audits_a_wrong_slice(cuda_device):
+    batch = sorted_batch(np.random.default_rng(22), 8, 512)
+    windows = tds.FixedWindows.for_range(T0, T0 + 3_600_000, 10_000)
+    ts, val, mask = batch
+    accs = [tst.StreamAccumulator.create(8, windows, d, window_slice=64)
+            for d in (cuda_device, "cpu")]
+    for acc in accs:
+        acc.update(*_on(acc.device, ts, val, mask), w0=100)
+    assert accs[0].oob_count() == accs[1].oob_count() > 0
+
+
+@pytest.mark.parametrize("chunk", [6000, 300])
+@pytest.mark.parametrize("plan", ["fixed", "all"])
+def test_sketch_fold_kernel_matches_plain(cuda_device, plan, chunk):
+    """S2 over short runs (the shared-memory sort) and a "0all" run of
+    4,096 points and more (the radix select), then S3's quantiles."""
+    batch = sorted_batch(np.random.default_rng(23), 6, 6000)
+    windows = PLANS[plan]
+    card, cpu = _stream_pair(cuda_device, batch, windows, chunk, False, True)
+    np.testing.assert_allclose(card.state["q"].cpu().numpy(),
+                               cpu.state["q"].numpy(), rtol=1e-6, atol=1e-5)
+    for fn in ("p95", "median", "ep99r7"):
+        _, got, gm = card.finish(fn)
+        _, want, wm = cpu.finish(fn)
+        assert_exact(gm.cpu().numpy(), wm.numpy())
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-6, atol=1e-5)
+
+
+def test_streamed_queries_on_card_match_cpu(cuda_device):
+    """A lowered point_threshold: the card's streamed answers equal the
+    CPU's, S1, S2 and S3 launching on the way."""
+    from opentsdb_tpu_torch.core import TSDB
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.utils.config import Config
+
+    props = {"tsd.core.auto_create_metrics": True,
+             "tsd.query.streaming.point_threshold": "100",
+             "tsd.query.streaming.chunk_points": "4096"}
+    queries = ("sum:10m-avg:s.m{g=*}", "max:1h-dev:s.m{g=*}",
+               "sum:1h-p95:s.m{g=*}", "sum:30m-first:s.m")
+    answers = []
+    for dev in ("cpu", cuda_device):
+        tsdb = TSDB(Config(props), device=dev)
+        rng = np.random.default_rng(9)
+        for i in range(12):
+            key = tsdb._series_key("s.m", {"host": "h%d" % i,
+                                           "g": "g%d" % (i % 3)}, True)
+            ts = T0 + np.arange(3000, dtype=np.int64) * 10_000 + i
+            tsdb.store.add_batch(key, ts, rng.normal(5, 2, 3000), False)
+        kernels.reset_launches()
+        out = []
+        for m in queries:
+            q = TSQuery(start=str(T0 // 1000), end=str(T0 // 1000 + 30_000),
+                        queries=[parse_m_subquery(m)])
+            q.validate()
+            runner = tsdb.new_query_runner()
+            out.append([r.to_json() for r in runner.run(q)])
+            assert runner.exec_stats["streamedChunks"] == 3
+        if dev != "cpu":
+            assert kernels.LAUNCHES["stream_fold"] == 12
+            assert kernels.LAUNCHES["sketch_fold"] == 3
+            assert kernels.LAUNCHES["stream_finish"] == 4
+        answers.append(out)
+    for cpu, card in zip(*answers):
+        assert [(r["tags"], list(r["dps"])) for r in card] \
+            == [(r["tags"], list(r["dps"])) for r in cpu]
+        np.testing.assert_allclose(
+            [v for r in card for v in r["dps"].values()],
+            [v for r in cpu for v in r["dps"].values()], rtol=1e-6)
