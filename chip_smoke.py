@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip check of opentsdb_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then answer queries end to
-end through the port's TSDB: grouped downsample queries, materialized and
-streamed, queries without a downsample (the union path), histograms
-through the daemon, and rollups.
+end through the port's TSDB: grouped downsample queries, materialized,
+streamed and tiled past the device budget, queries without a downsample
+(the union path), histograms through the daemon, and rollups with their
+striped lane serving.
 
     python3 chip_smoke.py [--seed N]
 
@@ -162,6 +163,39 @@ days), 1h windows.  Phases:
    assembled on the card (rtol 1e-9; min, max and count exactly), and
    for config 4 the rate + p99 tail on both grids; oob_count() == 0.
 
+14. T1 tile_partials (after phase 9): 256-row tiles of the headline
+   batch's K1 sum grid at 1m windows (W = 16,931), one slot in eleven
+   and a run of 512 slots in thirteen a row masked (empty windows that
+   K2 fills), through K2 and folded by T1 for sum, count, avg, min and
+   max, with and without a rate, against the plain version: counts,
+   presence, min and max exact, sums at rtol 1e-9; on h % 1000 (the
+   integer metric's values) the fold of the four tiles equals K3 over
+   the whole grid bit for bit.  Times one tile's launch against its
+   byte bound, the plain version and one index_add_ (scatter_reduce
+   amin and amax for the extremes).
+15. out-of-core queries: (a) after phase 12, on its TSDB, the device
+   cache detached: `sum:1m-p95:m{group=*}` with sketch percentiles has
+   8.9 GB of streaming state at the default state_mb, so it is tiled
+   (2 tiles, 1 stripe); tiled and a resident streamed run at a raised
+   state_mb both lie within the sketch's rank bound of the exact
+   per-member quantiles.  (b) at state_mb 255, six queries (moments, a
+   rate, dev, p99, movingAverage5) in 4 tiles and 4 stripes planned on
+   the padded 32,768 windows, of which the 16,931 real windows run 3,
+   each equal
+   to the resident answer at the default budget (rtol 1e-9; count and
+   the max rate exactly); with a 64 MB host ring `sum:1m-avg` demotes
+   stripes to disk and answers the same bit for bit; with the pool off
+   it answers 413; with the cache attached its tiles come from G1
+   gathers.  Each query prints its wall, tiles, stripes, spilled bytes,
+   split (tile grids, K2 and the copy to the host, pool writes and
+   reads, stripe replays) and the cost model's prediction of the
+   overhead (K2 and the pool's round trip and the replays).  (c) after phase 10, on its TSDB, 1m lanes
+   built for `m` (state_mb 256) and `mi` (state_mb 16, so that its 64
+   series stripe too): `sum:1m-sum` and `sum:1m-sum:rate` take the
+   device fold (T1 launches), `dev:1m-avg` the pool replay, each equal to the exact answer (rtol 1e-9 on `m`,
+   bitwise on `mi`).  Launch counts are reset before (a) and before (c)
+   and read after each.
+
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
 JSON line, the card's name and power limit, and last the result line.  Any failed check exits 1 before
@@ -221,6 +255,7 @@ REPLACES = {
     "stream_fold": "opentsdb_tpu/ops/streaming.py:513",
     "sketch_fold": "opentsdb_tpu/ops/streaming.py:406",
     "stream_finish": "opentsdb_tpu/ops/streaming.py:596",
+    "tile_partials": "opentsdb_tpu/ops/tiling.py:238",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -251,6 +286,12 @@ CONFIGS = {
         "fns": ["sum", "min", "max", "count"]},
     4: {"s": 512, "chunks": 14, "interval": 60_000, "fns": ["avg"]},
 }
+# Phase 15's device budgets (tsd.query.streaming.state_mb): (b)'s tiled
+# queries (count's streaming state, 8 B a cell at the padded 32,768
+# windows, is exactly 256 MB: 255 tiles all six), and (c)'s striped lane
+# serves by metric
+TILED_MB = "255"
+STRIPED_MB = {"m": "256", "mi": "16"}
 STREAM_QUERIES = ["sum:1h-avg:m{group=*}", "sum:1h-count:m{group=*}",
                   "sum:1h-max:rate:m{group=*}", "p99:1h-avg:m{group=*}",
                   "sum:1h-p95:m{group=*}", "last:1h-first:m{group=*}",
@@ -1956,9 +1997,10 @@ def _timed_run(tsdb, m, reps=3):
     return res, statistics.median(walls), split
 
 
-def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple[dict, dict]:
+def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple:
     """Phase 10: written rollups (a) and maintenance-built lanes (b) end to
-    end on the card.  Returns (launches, measured cost constants)."""
+    end on the card.  Returns (launches, measured cost constants, the
+    TSDB)."""
     from opentsdb_tpu_torch.core import load_state
     from opentsdb_tpu_torch.ops import kernels
     from opentsdb_tpu_torch.ops.costmodel import (LANE_CELL_BYTES,
@@ -2153,7 +2195,7 @@ def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple[dict, dict]:
         if launches[name] < 1:
             checks.failures.append("kernel %s never launched on the "
                                    "rollup path" % name)
-    return launches, costs
+    return launches, costs, tsdb
 
 
 def _headline_chunks(dev, ts, val, h, n_chunk: int, clean: bool):
@@ -2704,10 +2746,428 @@ def config_phase(dev, cid: int, checks: Checks, seed: int) -> None:
     del grids, acc, feed
 
 
-def cost_constants(dev, times: dict, lane_costs: dict) -> dict:
+def _fold_tiles(tiling, spec, wts, v, m, gid, rows, extreme, plain=False):
+    """K2, then T1 (or its plain version) over the [rows]-row tiles of the
+    grid -> the [GROUPS, W] partial moments."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    acc = tiling.new_lane_fold(GROUPS, v.shape[1], extreme, v.device)
+    fold = tiling.tile_partials_plain if plain else tiling.tile_partials
+    for lo in range(0, v.shape[0], rows):
+        contrib, part, actual = tiling.tile_contrib(spec, wts, v[lo:lo + rows],
+                                                    m[lo:lo + rows])
+        fold(contrib, part, actual, ga.group_offsets(
+            gid[lo:lo + rows], GROUPS).to(v.device), acc)
+    return acc
+
+
+def tile_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """Phase 14: T1 tile_partials against its plain version on the card:
+    256-row tiles of the headline batch's K1 grid at 1m windows, holes
+    masked, through K2."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import tiling
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+    from opentsdb_tpu_torch.ops.rate import RateOptions
+
+    rows = 256
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_h = torch.from_numpy(h).to(dev)
+    cols = torch.arange(N, device=dev)[None, :]
+    rix = torch.arange(S, device=dev)[:, None]
+    # holes: one slot in eleven, and a run of 512 slots in thirteen a row
+    # (hours of empty 1m windows, which K2 fills by interpolation)
+    mask = (d_h % 11 != 0) & ((cols // 512) % 13 != rix % 13)
+    plan = ds.FixedWindows.for_range(START, END, 60_000)
+    edges = plan.window_edges(dev)
+    w = plan.count
+    v, m = ds.window_moments(d_ts, torch.from_numpy(val).to(dev), mask,
+                             edges, "sum")
+    mi, mim = ds.window_moments(d_ts, (d_h % 1_000).double(), mask, edges,
+                                "sum")
+    del d_h, cols, rix, mask
+    wts = edges[:-1]
+    offsets = ga.group_offsets(gid, GROUPS).to(dev)
+    print("tile_partials grid [%d, %d] (1m windows), %.1f%% of cells empty"
+          % (S, w, 100.0 * float((~m).double().mean())))
+    for rate in (None, RateOptions()):
+        for extreme, aggs in ((False, ("sum", "count", "avg")),
+                              (True, ("min", "max"))):
+            spec = PipelineSpec(aggs[0], rate=rate)
+            got = _fold_tiles(tiling, spec, wts, v, m, gid, rows, extreme)
+            want = _fold_tiles(tiling, spec, wts, v, m, gid, rows, extreme,
+                               plain=True)
+            case = "%s%s" % ("extreme" if extreme else "additive",
+                             " rate" if rate is not None else "")
+            for lane in want:
+                if lane == "tot":
+                    checks.values("tile_partials", case + " tot", got[lane],
+                                  want[lane])
+                else:
+                    checks.exact("tile_partials", case + " " + lane,
+                                 got[lane], want[lane], lane)
+            for agg in aggs:
+                out, mask_g = tiling.finish_lane_fold(got, agg)
+                pout, pmask = tiling.finish_lane_fold(want, agg)
+                checks.exact("tile_partials", "%s %s mask" % (case, agg),
+                             mask_g, pmask)
+                checks.values("tile_partials", "%s %s" % (case, agg), out,
+                              pout, rtol=RTOL if agg in ("sum", "avg")
+                              else 0.0, atol=ATOL if agg in ("sum", "avg")
+                              else 0.0)
+    # the integer metric: the fold of four tiles is K3 over the whole grid
+    for agg in ("sum", "count", "avg", "min", "max"):
+        spec = PipelineSpec(agg)
+        acc = _fold_tiles(tiling, spec, wts, mi, mim, gid, rows,
+                          tiling.is_extreme(agg))
+        out, mask_g = tiling.finish_lane_fold(acc, agg)
+        contrib, part, actual = tiling.tile_contrib(spec, wts, mi, mim)
+        want, want_mask = ga.group_moments(agg, contrib, part, actual,
+                                           offsets)
+        label = "mi fold vs K3 %s" % agg
+        # limits of 0: equal bit for bit, NaN where K3 gives NaN
+        checks.values("tile_partials", label, out, want, rtol=0.0,
+                      atol=0.0)
+        checks.exact("tile_partials", label + " mask", mask_g, want_mask)
+    # one tile's launch, as the striped lane fold makes it (additive)
+    spec = PipelineSpec("sum")
+    contrib, part, actual = tiling.tile_contrib(spec, wts, v[:rows],
+                                                m[:rows])
+    t_off = ga.group_offsets(gid[:rows], GROUPS).to(dev)
+    g_tile = int(np.unique(gid[:rows]).size)
+    times = {}
+    for extreme in (False, True):
+        acc = tiling.new_lane_fold(GROUPS, w, extreme, dev)
+        ok = part & ~torch.isnan(contrib)
+        grows = torch.from_numpy(gid[:rows]).to(dev)
+        if extreme:
+            idx = grows[:, None].expand(-1, w)
+            lo_src = torch.where(ok, contrib, math.inf)
+            hi_src = torch.where(ok, contrib, -math.inf)
+
+            def library():
+                acc["lo"].scatter_reduce_(0, idx, lo_src, "amin")
+                acc["hi"].scatter_reduce_(0, idx, hi_src, "amax")
+            lanes = 32
+            what = "scatter_reduce amin and amax"
+        else:
+            stacked = torch.cat([torch.where(ok, contrib, 0.0),
+                                 ok.double(), actual.double()], dim=1)
+            into = torch.zeros((GROUPS, 3 * w), dtype=torch.float64,
+                               device=dev)
+
+            def library():
+                into.index_add_(0, grows, stacked)
+            lanes = 24
+            what = "index_add_ of sums, counts and presence"
+        t = {
+            "ms": time_ms(lambda: tiling.tile_partials(contrib, part, actual,
+                                                       t_off, acc)),
+            "plain_ms": time_ms(lambda: tiling.tile_partials_plain(
+                contrib, part, actual, t_off, acc)),
+            # the tile's cells read once (10 B), the accumulators of the
+            # groups it holds read and written once
+            "bound_ms": bound_ms(rows * w * 10 + 2 * g_tile * w * lanes,
+                                 2.0 * rows * w),
+            "library_ms": time_ms(library),
+        }
+        print("time tile_partials %s tile [%d, %d], %d groups: kernel %.4f "
+              "ms  plain %.4f ms  bound %.4f ms (bytes)  library %.4f ms (%s)"
+              % ("extreme" if extreme else "additive", rows, w, g_tile,
+                 t["ms"], t["plain_ms"], t["bound_ms"], t["library_ms"],
+                 what))
+        times["extreme" if extreme else "additive"] = t
+    return {"tile_partials": times["additive"]}
+
+
+def _fresh_pool(tsdb, host_mb: int | None = None):
+    """A spill pool of the TSDB's configured budgets (host_mb overridden):
+    a daemon's shutdown closes the TSDB's own."""
+    from opentsdb_tpu_torch.storage.spill import SpillPool
+    cfg = tsdb.config
+    return SpillPool((cfg.get_int("tsd.query.spill.host_mb")
+                      if host_mb is None else host_mb) * 2 ** 20,
+                     cfg.get_int("tsd.query.spill.disk_mb") * 2 ** 20)
+
+
+def _tiled_run(tsdb, m):
+    """(answer, wall ms, exec_stats) of one run after a warm-up."""
+    tsdb.new_query_runner().run(_query(m))
+    runner = tsdb.new_query_runner()
+    t0 = time.perf_counter()
+    res = runner.run(_query(m))
+    return res, (time.perf_counter() - t0) * 1e3, dict(runner.exec_stats)
+
+
+def _print_tiled(label, m, wall, st):
+    overhead = sum(st.get(k, 0.0) for k in ("tileContribMs", "spillWriteMs",
+                                            "spillReadMs", "replayMs"))
+    print("tiled %-5s %-34s wall %.1f ms | %d tiles %d stripes (%d "
+          "planned), %.1f MB spilled, %d chunks | tile grids %.1f (pack "
+          "%.1f h2d %.1f fold %.1f) K2+copy %.1f pool write %.1f pool read "
+          "%.1f stripe replay %.1f extract %.1f ms | overhead %.1f ms, "
+          "predicted %.1f ms"
+          % (label, m, wall, st.get("tiledTiles", 0),
+             st.get("tiledStripes", 0), st.get("tiledStripesPlanned", 0),
+             st.get("spillBytes", 0) / 1e6,
+             st.get("streamedChunks", 0), st.get("tileGridMs", 0.0),
+             st.get("streamPackMs", 0.0), st.get("streamH2dMs", 0.0),
+             st.get("streamFoldMs", 0.0), st.get("tileContribMs", 0.0),
+             st.get("spillWriteMs", 0.0), st.get("spillReadMs", 0.0),
+             st.get("replayMs", 0.0), st.get("extractMs", 0.0), overhead,
+             st.get("tiledPredictedMs", 0.0)))
+
+
+def tiled_e2e_phase(dev, tsdb, checks: Checks) -> tuple[dict, dict]:
+    """Phase 15 (a) and (b): out-of-core grouped queries on the headline
+    TSDB, the device cache detached so that tiles stream.  Returns
+    (launches, the measured tiled cost constants)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.ops.streaming import SKETCH_K, pad_pow2
+    from opentsdb_tpu_torch.query.limits import QueryException
+    from opentsdb_tpu_torch.utils.config import DEFAULTS
+
+    cfg = tsdb.config
+    budget_key = "tsd.query.streaming.state_mb"
+    threshold_key = "tsd.query.streaming.point_threshold"
+    threshold = cfg.get_string(threshold_key)
+    cfg.override_config(threshold_key, DEFAULTS[threshold_key])
+    cache = tsdb.device_cache
+    tsdb.device_cache = None
+    tsdb.spill_pool = _fresh_pool(tsdb)
+    kernels.reset_launches()
+    spill_mb, write_ms, read_ms, stripe_ms = 0.0, 0.0, 0.0, []
+
+    def account(st):
+        nonlocal spill_mb, write_ms, read_ms
+        spill_mb += st["spillBytes"] / 2.0 ** 20
+        write_ms += st["tileContribMs"] + st["spillWriteMs"]
+        read_ms += st["spillReadMs"]
+
+    # (a) the default budget: p95 through the sketch, 8.9 GB of state
+    m = "sum:1m-p95:m{group=*}"
+    res, wall, st = _tiled_run(tsdb, m)
+    _print_tiled("(a)", m, wall, st)
+    if st.get("tiledExecution") != 1.0 or st.get("tiledTiles") != 2 \
+            or st.get("tiledStripes") != 1:
+        checks.failures.append("tiled (a): %s was not tiled in 2 tiles and "
+                               "1 stripe" % m)
+    account(st)
+    cfg.override_config(budget_key, "65536")
+    resident, r_wall, r_st = _tiled_run(tsdb, m)
+    cfg.override_config(budget_key, DEFAULTS[budget_key])
+    print("tiled (a) %s resident streamed at state_mb 65536: wall %.1f ms, "
+          "%d chunks" % (m, r_wall, r_st.get("streamedChunks", 0)))
+    windows = ds.FixedWindows.for_range(START, END, 60_000)
+    merges = 1
+    for n_chunk in {pad_pow2(max(1024, int(DEFAULTS[
+            "tsd.query.streaming.chunk_points"]) // rows))
+            for rows in (S, -(-S // 2))}:
+        for s in tsdb.store.series_for_metric(tsdb.metrics.get_id("m")):
+            tsb = s.window_stride_timestamps(START, END, n_chunk)
+            wids = (tsb - windows.first_window_ms) // 60_000
+            merges = max(merges, int(np.unique(wids, return_counts=True)[1]
+                                     .max()) + 1)
+    delta = merges / (2.0 * SKETCH_K) + 1.0 / SKETCH_K
+    lo, hi, series = _exact_cell_quantiles(tsdb, windows, 0.95, delta)
+    group_of = {}
+    for i, s in enumerate(series):
+        group_of.setdefault(tsdb.resolve_key_tags(s.key)["group"],
+                            []).append(i)
+    wts = windows.first_window_ms + np.arange(windows.count) * 60_000
+    outside, worst = 0, 0.0
+    for answer in (res, resident):
+        for r in answer:
+            rows = group_of[r.tags["group"]]
+            glo = np.nansum(lo[rows], axis=0)
+            ghi = np.nansum(hi[rows], axis=0)
+            t_ms = np.array([t for t, _ in r.dps], np.int64)
+            v = np.array([x for _, x in r.dps], np.float64)
+            j = np.searchsorted(wts, t_ms)
+            # the sketch is float32: its rounding beside the bounds
+            slack = SKETCH_ATOL + SKETCH_RTOL * np.abs(v)
+            outside += int(np.sum((v < glo[j] - slack)
+                                  | (v > ghi[j] + slack)))
+    for a, b in zip(res, resident):
+        x = np.array([v for _, v in a.dps], np.float64)
+        y = np.array([v for _, v in b.dps], np.float64)
+        if len(x) == len(y) and len(x):
+            worst = max(worst, float(np.max(np.abs(x - y)
+                                            / np.maximum(np.abs(y), 1e-12))))
+    print("tiled (a) p95 sketch: %d merges a cell at most, rank bound "
+          "%.4f; %d answers (tiled and resident) outside the exact bounds "
+          "(float32 slack); tiled vs resident %.3e relative at most"
+          % (merges, delta, outside, worst))
+    if outside or [(r.tags, [t for t, _ in r.dps]) for r in res] \
+            != [(r.tags, [t for t, _ in r.dps]) for r in resident]:
+        checks.failures.append("tiled (a): p95 outside its rank bound or "
+                               "groups differ")
+    del lo, hi, resident
+
+    # (b) state_mb 255: four tiles and four stripes each, planned on the
+    # padded windows; the real windows run the stripes they reach
+    stripes_run = -(-windows.count // (pad_pow2(windows.count) // 4))
+    queries = ["sum:1m-avg:m{group=*}", "count:1m-count:m{group=*}",
+               "sum:1m-max:rate:m{group=*}", "dev:1m-avg:m{group=*}",
+               "p99:1m-avg:m{group=*}", "movingAverage5:1m-sum:m{group=*}"]
+    tiled = {}
+    for m in queries:
+        cfg.override_config(budget_key, TILED_MB)
+        res, wall, st = _tiled_run(tsdb, m)
+        cfg.override_config(budget_key, DEFAULTS[budget_key])
+        _print_tiled("(b)", m, wall, st)
+        account(st)
+        if st.get("tiledExecution") != 1.0 or st.get("tiledTiles") != 4 \
+                or st.get("tiledStripesPlanned") != 4 \
+                or st.get("tiledStripes") != stripes_run:
+            checks.failures.append(
+                "tiled (b): %s took %s tiles and %s stripes (%s planned), "
+                "not 4 and %d (4)" % (m, st.get("tiledTiles"),
+                                      st.get("tiledStripes"),
+                                      st.get("tiledStripesPlanned"),
+                                      stripes_run))
+        runner = tsdb.new_query_runner()
+        t0 = time.perf_counter()
+        want = runner.run(_query(m))
+        r_wall = (time.perf_counter() - t0) * 1e3
+        rst = runner.exec_stats
+        print("tiled (b) %-34s resident at the default budget: wall %.1f ms "
+              "(%s)" % (m, r_wall, "streamed" if rst.get("streamedChunks")
+                        else "materialized"))
+        exact = m.startswith(("count:", "sum:1m-max"))
+        _same_answer(checks, "tiled " + m, res, want, exact)
+        tiled[m] = res
+        # a stripe's dispatch: its copy to the card and its reduce
+        stripe_ms.append(st["replayMs"] / st["tiledStripes"])
+    # the host ring at 64 MB: the stripes demote to disk, same answer
+    m = queries[0]
+    cfg.override_config(budget_key, TILED_MB)
+    pool = tsdb.spill_pool
+    tsdb.spill_pool = _fresh_pool(tsdb, host_mb=64)
+    runner = tsdb.new_query_runner()
+    t0 = time.perf_counter()
+    small = runner.run(_query(m))
+    wall = (time.perf_counter() - t0) * 1e3
+    pst = tsdb.spill_pool.collect_stats()
+    _print_tiled("64MB", m, wall, runner.exec_stats)
+    print("tiled host_mb 64: %d entries demoted to disk, %d disk reads"
+          % (pst["tsd.query.spill.evictions"], pst["tsd.query.spill.reads"]))
+    if pst["tsd.query.spill.evictions"] < 1:
+        checks.failures.append("tiled: host_mb 64 demoted nothing")
+    _same_answer(checks, "tiled host_mb 64 " + m, small, tiled[m], True)
+    tsdb.spill_pool.close()
+    # the pool off: the reference's 413
+    tsdb.spill_pool = None
+    try:
+        tsdb.new_query_runner().run(_query(m))
+        status = 200
+    except QueryException as e:
+        status = e.status
+    print("tiled spill disabled: %s answers %d" % (m, status))
+    if status != 413:
+        checks.failures.append("tiled: spill off gave %d, not 413" % status)
+    # one query with the cache attached: tiles from G1 gathers
+    tsdb.spill_pool = pool
+    tsdb.device_cache = cache
+    res, wall, st = _tiled_run(tsdb, m)
+    _print_tiled("(hit)", m, wall, st)
+    if st.get("tiledCacheHits") != 4:
+        checks.failures.append("tiled: cache-hit tiles %s, not 4"
+                               % st.get("tiledCacheHits"))
+    _same_answer(checks, "tiled cache-hit tiles " + m, res, tiled[m], False)
+    cfg.override_config(budget_key, DEFAULTS[budget_key])
+    cfg.override_config(threshold_key, threshold)
+    launches = dict(kernels.LAUNCHES)
+    print("tiled launches %s" % json.dumps(launches))
+    tsdb.spill_pool.close()
+    # the pool's round trip per MB (K2's grids copied to the host and
+    # put; stripes assembled), and a stripe replay's cost
+    costs = {"spill_write_mb": write_ms / 1e3 / spill_mb,
+             "spill_read_mb": read_ms / 1e3 / spill_mb,
+             "tile_dispatch": statistics.median(stripe_ms) / 1e3}
+    return launches, costs
+
+
+def striped_lane_phase(dev, tsdb, checks: Checks) -> dict:
+    """Phase 15 (c): striped rollup-lane serving on phase 10's TSDB, 1m
+    lanes built for m and mi; each query in its mode, held to the exact
+    answer (lanes detached, the device cache's hit)."""
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.storage.rollup import RollupLanes
+    from opentsdb_tpu_torch.utils.config import DEFAULTS
+
+    cfg = tsdb.config
+    lanes_1h = tsdb.rollup_lanes
+    cfg.override_config("tsd.rollup.intervals", "1m")
+    cfg.override_config("tsd.rollup.mb", "2048")
+    lanes = RollupLanes(cfg, dev)
+    tsdb.store.add_mutation_listener(lanes.note_mutation)
+    tsdb.rollup_lanes = lanes
+    tsdb.spill_pool = _fresh_pool(tsdb)
+    # every 1m window holds points of every series (the cadence leaves at
+    # most 20.5 s between two): the dense grid that the reference folds
+    # on the host and the port on the device.  The range ends on the
+    # last ms of the last window the data fills.
+    end = START + ((N - 1) * STEP_MS // 60_000) * 60_000 - 1
+    modes = [("sum:1m-sum:rollup_raw:%s{group=*}", "rollupFoldDevice"),
+             ("sum:1m-sum:rate:rollup_raw:%s{group=*}", "rollupFoldDevice"),
+             ("dev:1m-avg:rollup_raw:%s{group=*}", "rollupFoldReplay")]
+    for q, _ in modes:
+        for metric in ("m", "mi"):
+            tsdb.new_query_runner().run(_query(q % metric, end=end))
+    t0 = time.perf_counter()
+    built = 0
+    while True:
+        n = lanes.refresh(tsdb.store, max_blocks=1024)
+        built += n
+        if not n:
+            break
+    print("striped 1m lanes: %d blocks built in %.1f s, %.1f MB"
+          % (built, time.perf_counter() - t0,
+             lanes.collect_stats()["tsd.query.rollup.bytes"] / 1e6))
+    kernels.reset_launches()
+    for q, mode in modes:
+        for metric in ("m", "mi"):
+            m = q % metric
+            cfg.override_config("tsd.query.streaming.state_mb",
+                                STRIPED_MB[metric])
+            before = kernels.LAUNCHES["tile_partials"]
+            runner = tsdb.new_query_runner()
+            t0 = time.perf_counter()
+            served = runner.run(_query(m, end=end))
+            wall = (time.perf_counter() - t0) * 1e3
+            st = runner.exec_stats
+            t1 = kernels.LAUNCHES["tile_partials"] - before
+            cfg.override_config("tsd.query.streaming.state_mb",
+                                DEFAULTS["tsd.query.streaming.state_mb"])
+            tsdb.rollup_lanes = None
+            exact = tsdb.new_query_runner().run(_query(m, end=end))
+            tsdb.rollup_lanes = lanes
+            print("striped %-40s state_mb %s wall %.1f ms | %s | T1 "
+                  "launches %d | build %.1f kernels %.1f extract %.1f ms"
+                  % (m, STRIPED_MB[metric], wall,
+                     " ".join(k for k in st if k.startswith("rollup")), t1,
+                     st["buildMs"], st["kernelsMs"], st["extractMs"]))
+            if st.get("rollupLaneStriped") != 1.0 or st.get(mode) != 1.0 \
+                    or (mode == "rollupFoldDevice") != (t1 > 0):
+                checks.failures.append("striped: %s did not take %s" % (
+                    m, mode))
+            _same(checks, "striped " + m, served, exact, metric == "mi")
+    launches = dict(kernels.LAUNCHES)
+    print("striped launches %s" % json.dumps(launches))
+    if launches["tile_partials"] < 1:
+        checks.failures.append("kernel tile_partials never launched on "
+                               "the striped lane path")
+    tsdb.rollup_lanes = lanes_1h
+    tsdb.spill_pool.close()
+    return launches
+
+
+def cost_constants(dev, times: dict, measured: dict) -> dict:
     """The `cuda` table of ops/costmodel.py from this run: per-point and
     per-cell kernel times at the headline batch, the host launch floor,
-    and the lane costs phase 10 measured."""
+    the lane costs phase 10 measured and the tiled costs of phase 15."""
     from opentsdb_tpu_torch.ops import downsample as ds
     from opentsdb_tpu_torch.ops import group_agg as ga
     from opentsdb_tpu_torch.ops.rate import RateOptions
@@ -2737,7 +3197,7 @@ def cost_constants(dev, times: dict, lane_costs: dict) -> dict:
         / 1e3 / (S * w),
         "group_cell": times["grid_fill_rate"]["ms"] / 1e3 / (S * w),
         "aggregate_cell": times["group_moments"]["ms"] / 1e3 / (GROUPS * w),
-        **lane_costs,
+        **measured,
     }
     return out
 
@@ -2787,6 +3247,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     times.update(lane_kernel_phase(dev, ts, val, h, checks))
     torch.cuda.empty_cache()
+    times.update(tile_kernel_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
     fleet = histogram_fleet()
     with Serving(tsdb) as server:
         daemon_ingest(tsdb, server.port, fleet, checks)
@@ -2798,9 +3260,19 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     stream_launches = stream_e2e_phase(dev, tsdb, checks)
     print("phase 12 wall %.1f s" % (time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tiled_launches, tiled_costs = tiled_e2e_phase(dev, tsdb, checks)
+    print("phase 15 (a, b) wall %.1f s" % (time.perf_counter() - t_phase))
     del tsdb
     torch.cuda.empty_cache()
-    rollup_launches, lane_costs = rollup_e2e_phase(dev, ts, val, h, checks)
+    rollup_launches, lane_costs, rtsdb = rollup_e2e_phase(dev, ts, val, h,
+                                                          checks)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    striped_launches = striped_lane_phase(dev, rtsdb, checks)
+    print("phase 15 (c) wall %.1f s" % (time.perf_counter() - t_phase))
+    del rtsdb
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     times.update(stream_kernel_phase(dev, ts, val, h, checks, args.seed))
@@ -2813,14 +3285,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     print("phase 13 wall %.1f s; the script %.1f s"
           % (time.perf_counter() - t_phase, time.perf_counter() - t_start))
-    print("costmodel cuda %s" % json.dumps(cost_constants(dev, times,
-                                                          lane_costs)))
+    print("costmodel cuda %s" % json.dumps(cost_constants(
+        dev, times, {**lane_costs, **tiled_costs})))
 
     # Each kernel's launches on the main path: the grouped, union, daemon,
-    # streamed and rollup phases, their counts reset just before each.
+    # streamed, rollup, tiled and striped phases, their counts reset just
+    # before each.
     for name in launches:
         launches[name] += (union_launches[name] + daemon_launches[name]
-                           + stream_launches[name] + rollup_launches[name])
+                           + stream_launches[name] + rollup_launches[name]
+                           + tiled_launches[name] + striped_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name,

@@ -6,8 +6,10 @@ validation :1313, and the second/millisecond timestamp heuristic).  The
 store lives on the host; queries run on ``device``, which is ``cuda``
 unless the caller passes another (device.resolve_device).  One cache, the
 device series cache (storage/device_cache.py), refreshed by the maintenance
-thread that ``start_maintenance`` starts.  With ``tsd.rollups.enable`` the
-TSDB takes written rollups (``add_aggregate_point``, TSDB.java:1359-1457)
+thread that ``start_maintenance`` starts; the spill pool behind
+out-of-core tiled execution (``tsd.query.spill.*``, storage/spill.py),
+closed by ``shutdown``.  With ``tsd.rollups.enable`` the TSDB takes
+written rollups (``add_aggregate_point``, TSDB.java:1359-1457)
 into its RollupStore; with ``tsd.rollup.enable`` the maintenance thread
 builds rollup lanes (storage/rollup.py) that hear of every write through
 the store's mutation listener.  No WAL, no replication, no plugins.
@@ -34,6 +36,7 @@ from opentsdb_tpu_torch.storage.device_cache import DeviceSeriesCache
 from opentsdb_tpu_torch.storage.memstore import (
     MemStore, SeriesKey, MAX_NUM_TAGS)
 from opentsdb_tpu_torch.storage.rollup import RollupLanes
+from opentsdb_tpu_torch.storage.spill import SpillPool
 from opentsdb_tpu_torch.uid import UniqueId, UniqueIdType
 from opentsdb_tpu_torch.utils.config import Config, refuse_unported
 
@@ -140,9 +143,20 @@ class TSDB:
                              else None)
         if self.rollup_lanes is not None:
             self.store.add_mutation_listener(self.rollup_lanes.note_mutation)
+        # the bounded partial-aggregate spill pool behind tiled execution
+        # (reference core/tsdb.py:102-113), closed at shutdown
+        self.spill_pool = (
+            SpillPool(
+                self.config.get_int("tsd.query.spill.host_mb") * 2**20,
+                self.config.get_int("tsd.query.spill.disk_mb") * 2**20,
+                directory=self.config.get_string("tsd.query.spill.dir")
+                or None)
+            if self.config.get_bool("tsd.query.spill.enable") else None)
         self.mode = self.config.get_string("tsd.mode")  # rw / ro / wo
         self._stats_lock = threading.Lock()
         self.datapoints_added = 0  # guarded-by: _stats_lock
+        # over-budget plans the tiled path refused, by reason
+        self.tiled_refusals: dict[str, int] = {}  # guarded-by: _stats_lock
         self.maintenance = None
         self._query_limits = None
 
@@ -383,6 +397,11 @@ class TSDB:
             out.update(self.rollup_lanes.collect_stats())
         if self.maintenance is not None:
             out.update(self.maintenance.collect_stats())
+        if self.spill_pool is not None:
+            out.update(self.spill_pool.collect_stats())
+        with self._stats_lock:
+            for reason, n in self.tiled_refusals.items():
+                out["tsd.query.spill.refusals." + reason] = float(n)
         return out
 
     # -- maintenance ----------------------------------------------------- #
@@ -401,10 +420,13 @@ class TSDB:
         return self.maintenance
 
     def shutdown(self) -> None:
-        """Stop the maintenance thread, if one runs."""
+        """Stop the maintenance thread, if one runs, and close the spill
+        pool: its entries and its private temp directory go."""
         if self.maintenance is not None:
             self.maintenance.stop()
             self.maintenance = None
+        if self.spill_pool is not None:
+            self.spill_pool.close()
 
     @property
     def query_limits(self) -> QueryLimitOverride:

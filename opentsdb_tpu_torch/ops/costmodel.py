@@ -1,5 +1,5 @@
-"""Predicted seconds of the port's grouped query stages and of the rollup
-lanes, for lane placement.
+"""Predicted seconds of the port's grouped query stages, of the rollup
+lanes, for lane placement, and of a tiled plan's overhead.
 
 Port of the terms of opentsdb_tpu/ops/costmodel.py and
 obs/jaxprof.stage_breakdown (:286) that the rollup lanes read
@@ -7,7 +7,9 @@ obs/jaxprof.stage_breakdown (:286) that the rollup lanes read
 stage (downsample, rate, groupby, aggregate), ``predict_lane`` (:638) the
 host assembly of a lane-served grid and ``predict_lane_build`` (:651) a
 lane block build.  The lanes rank their demand by the saving per byte
-that these predictions give.  The reference's mode-selection half has no
+that these predictions give.  ``predict_tiled`` (:608) prices what a
+tiled execution (ops/tiling.py) adds: the spill pool's round trip and the
+stripe replays.  The reference's mode-selection half has no
 counterpart: the port has one kernel per function.
 
 The one table, ``CUDA_COSTS``, holds constants measured on an NVIDIA
@@ -46,7 +48,32 @@ CUDA_COSTS: dict[str, float] = {
     # one lane block build (host batch, L1, copy back), per
     # (series, cell)
     "lane_build_cell": 1.551000023935337e-06,
+    # a tiled plan's pool writes (K2's grids copied to the host and put)
+    # and pool reads (stripes assembled on the host), per MB, and one
+    # stripe replay (its copy to the card and its reduce): phase 15 of
+    # chip_smoke.py on the same card (PERF.md names the run)
+    "spill_write_mb": 0.0005706923990043238,
+    "spill_read_mb": 0.0002072213020310592,
+    "tile_dispatch": 0.0020319061666687808,
 }
+
+
+def features_tiled(spill_bytes: int, n_stripes: int) -> dict[str, float]:
+    """Unit counts of what a tiled plan adds to the resident one (the
+    reference's features_tiled, :589): the partial grids' MB written to
+    and read from the pool, and the stripes replayed.  The reference
+    counts every launch a tiled plan adds; the port's constant is
+    measured per stripe replay, so the feature counts stripes."""
+    mb = spill_bytes / 2.0 ** 20
+    return {"spill_write_mb": mb, "spill_read_mb": mb,
+            "tile_dispatch": float(n_stripes)}
+
+
+def predict_tiled(spill_bytes: int, n_stripes: int) -> float:
+    """Predicted seconds a tiled execution adds to its plan's compute:
+    the dot product of features_tiled with the cuda table."""
+    feats = features_tiled(spill_bytes, n_stripes)
+    return sum(u * CUDA_COSTS[term] for term, u in feats.items())
 
 
 def stage_breakdown(s: int, n: int, w: int, g: int,

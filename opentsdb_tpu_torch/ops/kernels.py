@@ -12,7 +12,7 @@ libraries are loaded with ctypes; every pointer and the stream pass as
 A kernel launches on torch's current stream, synchronises nothing and
 allocates nothing: its wrapper (ops.downsample, ops.group_agg, ops.rate,
 ops.union_agg, ops.aggregators, storage.device_cache, histogram.kernels,
-ops.lanes, ops.streaming)
+ops.lanes, ops.streaming, ops.tiling)
 allocates the outputs and any scratch with ``torch.empty``, checks
 device, dtype, shape and contiguity, calls ``launch``, and raises when
 the C entry returns a CUDA error.  A build or launch failure always
@@ -110,6 +110,10 @@ SIGNATURES: dict[str, tuple] = {
     # fill_mode, fill_value, out, out_mask, stream
     "stream_finish": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _F64,
                       _I32, _F64, _P, _P, _P),
+    # contrib, participate, present, offsets, g, w, extreme, cnt, pres, tot,
+    # lo, hi, stream
+    "tile_partials": (_P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P, _P,
+                      _P),
 }
 
 # Launch counts per kernel, bumped only by launch().

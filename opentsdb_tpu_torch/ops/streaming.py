@@ -754,3 +754,88 @@ class ChunkFeed:
             h2d += ev[0].elapsed_time(ev[1])
             fold += ev[2].elapsed_time(ev[3])
         return h2d, fold
+
+
+# -- the chunk loop ----------------------------------------------------------
+
+_PAD_TS = 2 ** 63 - 1
+
+
+def stream_grid(series_list, start_ms: int, end_ms: int, fix: bool, windows,
+                device, step, sketch: bool, chunk_points: int,
+                max_len: int | None = None):
+    """The finished [S, W] downsample grid of `series_list` over [start_ms,
+    end_ms], streamed -> ((wts[W], v[S, W], m[S, W]), info).
+
+    Bounded [S, n_chunk] chunks are copied out of the store
+    (Series.window_chunk, a timestamp cursor a series) into a ChunkFeed's
+    pinned buffers, copied to the device while the previous chunk folds,
+    folded into a StreamAccumulator (S2, S1) and finished (S3) by `step`
+    (function, fill_policy, fill_value).  The streamed route and each
+    tile of a tiled plan run this loop.  `max_len` is the longest row's
+    point count, counted here when not given.  `info` holds the chunk
+    count, the pinned host bytes, the host's packing ms and the device's
+    copy and fold ms.  A fold that misses a point raises: no answer that
+    dropped points is served."""
+    s = len(series_list)
+    if max_len is None:
+        max_len = max((sr.window_count(start_ms, end_ms, fix)
+                       for sr in series_list), default=0)
+    n_chunk = pad_pow2(max(1024, chunk_points // max(s, 1)))
+    lanes = lanes_for([step.function])
+    n_chunks = -(-max_len // n_chunk)
+    use_slice = isinstance(windows, FixedWindows)
+    feed = ChunkFeed(device, s, n_chunk)
+    acc = None
+    cursors: list = [None] * s
+    for _ in range(n_chunks):
+        ts, val, mask = feed.take()
+        tmin = tmax = None
+        for i, series in enumerate(series_list):
+            t, _v = series.window_chunk(start_ms, end_ms, cursors[i],
+                                        n_chunk, fix, ts[i], val[i])
+            m = len(t)
+            ts[i, m:] = _PAD_TS
+            val[i, m:] = 0.0
+            mask[i, :m] = True
+            mask[i, m:] = False
+            if m:
+                cursors[i] = int(t[-1])
+                tmin = int(t[0]) if tmin is None else min(tmin, int(t[0]))
+                tmax = int(t[-1]) if tmax is None else max(tmax, int(t[-1]))
+        if tmin is None:
+            # a chunk without points folds nothing; skipping it before the
+            # accumulator exists lets the slice be sized from the first
+            # chunk that has points
+            continue
+        if acc is None:
+            wslice = None
+            if use_slice:
+                # twice the first chunk's span: the series advance on
+                # their own cursors, so later spans vary; a chunk that
+                # still overflows takes the full-grid fold
+                wslice = 2 * ((tmax - tmin) // windows.interval_ms + 2)
+            acc = StreamAccumulator.create(s, windows, device, sketch=sketch,
+                                           lanes=lanes, window_slice=wslice)
+        w0 = None
+        if acc.window_slice is not None and \
+                (tmax - tmin) // windows.interval_ms + 2 <= acc.window_slice:
+            w0 = (tmin - windows.first_window_ms) // windows.interval_ms
+        d_ts, d_val, d_mask = feed.upload()
+        acc.update(d_ts, d_val, d_mask, w0=w0)
+        feed.folded()
+    if acc is None:     # no chunk held a point: an empty state
+        acc = StreamAccumulator.create(s, windows, device, sketch=sketch,
+                                       lanes=lanes)
+    oob = acc.oob_count()
+    h2d_ms, fold_ms = feed.timings()
+    if oob:
+        # w0 from each chunk's first point with a slice at least the
+        # chunk's span makes this impossible: never serve an answer that
+        # dropped points
+        raise RuntimeError("internal: %d points fell outside their "
+                           "declared streaming window slice" % oob)
+    grid = acc.finish(step.function, step.fill_policy, step.fill_value)
+    return grid, {"chunks": n_chunks, "hostBytes": feed.host_bytes,
+                  "packMs": feed.pack_ms, "h2dMs": h2d_ms,
+                  "foldMs": fold_ms}

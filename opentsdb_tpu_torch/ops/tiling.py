@@ -1,0 +1,415 @@
+"""Out-of-core tiled execution: series tiles, the spill pool and a
+window-striped replay, with T1 tile_partials for the striped lane fold.
+
+Port of opentsdb_tpu/ops/tiling.py.  A grouped plan whose device state
+is over ``tsd.query.streaming.state_mb`` is executed instead of refused:
+
+1. **Series tiles.**  The series axis splits into tiles whose [S_tile, W]
+   state fits the budget (``size_tiles``).  Each tile's finished
+   downsample grid comes from its caller (``tile_grid_fn``): a
+   device-cache hit (G1, then K1 or K4) or the streamed chunk loop
+   (ops/streaming.stream_grid: S1, S2 and S3) for raw data, lane cells
+   for a rollup-lane serve.
+2. **Row-local contributions, then spill.**  Rate and gap fill are
+   row-local, so K2 (``tile_contrib``) runs per tile on the full width.
+   The tile's (contrib, participate, actual) grids go to the host and
+   into the spill pool (storage/spill.py), cut into window stripes.
+3. **Window-striped replay.**  The cross-series reduce is window-local:
+   for each stripe the tiles' pieces are read back, copied to the device
+   as one [S, stripe] grid and reduced by K3 or K5 (``group_reduce``,
+   ``present`` = the actual mask, the reference's ``_group_presence``).
+   movingAverage<N> runs over windows, not within them: its stripes give
+   K3's group sums and counts, stitched across the width, and MA runs
+   once over the whole [G, W] grid, so the answer is the resident one
+   (the reference restarts its moving average at every stripe).
+
+Plans are sized on the reference's padded window and group counts
+(``pad_pow2``), so both packages split into the same tiles and stripes
+and refuse the same plans; execution runs on the real window count, so a
+stripe past the last window is empty and skipped.
+
+The striped lane serve folds the aggregators of ``LANE_FOLDABLE``
+instead of replaying them: ``run_lane_fold`` runs K2 on a tile, then T1
+(csrc/tile_partials.cu) adds the tile's rows into [G, W] partial moments
+held on the device, which ``finish_lane_fold`` turns into
+moment_group_reduce's answer.
+
+Deliberate differences: refusals are tallies on the TSDB
+(``tiled_refusals``), not prometheus counters; no admission or explain
+pricing of tiled plans: ``run_tiled`` reports the cost model's
+prediction of its overhead (``predictedMs``) beside the measured split;
+the reference's host-dense lane fold (numpy reduceat) is not ported, as
+T1's device fold gives the same answers and is the faster on the card.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from opentsdb_tpu_torch.ops import costmodel as cm
+from opentsdb_tpu_torch.ops import kernels
+from opentsdb_tpu_torch.ops.aggregators import (PREV, get_agg, ma_window,
+                                                moving_average_rows)
+from opentsdb_tpu_torch.ops.group_agg import (grid_fill_rate, group_moments,
+                                              group_offsets)
+from opentsdb_tpu_torch.ops.pipeline import group_reduce
+
+# Per-cell bytes for plan sizing.  A spill entry holds contrib (f64),
+# participate and the actual mask (bool) per (series, window) cell; a
+# tile's device working set holds the accumulator state and the
+# finished and contribution grids; an assembled stripe holds the three
+# spilled lanes for every series plus the [G, stripe] output.
+SPILL_CELL_BYTES = 10
+TILE_WORK_CELL_BYTES = 26
+STRIPE_CELL_BYTES = 24
+
+# Cross-series aggregators whose group reduce folds tile by tile into
+# [G, W] partial moments: sum and count for the additive ones, min or
+# max and count for the extremes.  The others (dev's two passes, the
+# order and rank functions) take the spill pool's stripe replay.
+LANE_FOLDABLE = frozenset({"sum", "zimsum", "count", "avg",
+                           "min", "mimmin", "max", "mimmax"})
+_EXTREME = frozenset({"min", "mimmin", "max", "mimmax"})
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """A sized tiled execution: how the series and window axes split."""
+    tile_rows: int       # series a tile (the last may hold fewer)
+    n_tiles: int
+    stripe_w: int        # windows a replay stripe
+    n_stripes: int
+    spill_bytes: int     # the partial grids' bytes through the pool
+
+
+def size_tiles(s: int, w: int, budget_bytes: int, acc_cell_bytes: int,
+               g_pad: int, max_tiles: int) -> TilePlan | None:
+    """Split [s, w] so that every device-resident piece fits
+    ``budget_bytes``; None when no split can (one row's [1, w] state or a
+    one-window stripe over every series is still over the budget, or the
+    split needs more than ``max_tiles`` tiles)."""
+    if s < 1 or w < 1 or budget_bytes <= 0:
+        return None
+    per_row = w * max(acc_cell_bytes, TILE_WORK_CELL_BYTES)
+    tile_rows = budget_bytes // per_row
+    if tile_rows < 1:
+        return None
+    tile_rows = min(int(tile_rows), s)
+    n_tiles = -(-s // tile_rows)
+    if max_tiles > 0 and n_tiles > max_tiles:
+        return None
+    stripe_w = budget_bytes // ((s + g_pad) * STRIPE_CELL_BYTES)
+    if stripe_w < 1:
+        return None
+    if stripe_w >= w:
+        stripe_w = w
+    else:
+        stripe_w = 1 << max(int(stripe_w).bit_length() - 1, 0)
+    n_stripes = -(-w // stripe_w)
+    spill_bytes = s * w * SPILL_CELL_BYTES
+    return TilePlan(tile_rows, n_tiles, stripe_w, n_stripes, spill_bytes)
+
+
+def count_refusal(tsdb, reason: str) -> None:
+    """One over-budget plan the tiled path could not serve (still a 413),
+    tallied by reason in ``tsdb.tiled_refusals``."""
+    with tsdb._stats_lock:
+        tsdb.tiled_refusals[reason] = tsdb.tiled_refusals.get(reason, 0) + 1
+
+
+def plan_tiled(tsdb, *, s: int, w: int, g_pad: int,
+               acc_cell_bytes: int) -> TilePlan | None:
+    """Size a tiled execution of an over-budget [s, w] plan (w and g_pad
+    padded as the reference pads them); None, with the reason tallied,
+    when the pool is off, no split fits, or the partial grids exceed the
+    pool's budgets."""
+    pool = tsdb.spill_pool
+    if pool is None:
+        count_refusal(tsdb, "disabled")
+        return None
+    config = tsdb.config
+    budget_bytes = config.get_int("tsd.query.streaming.state_mb") * 2 ** 20
+    plan = size_tiles(s, w, budget_bytes, acc_cell_bytes, g_pad,
+                      config.get_int("tsd.query.spill.max_tiles"))
+    if plan is None:
+        count_refusal(tsdb, "no_fit")
+        return None
+    # one stripe entry of slack: demotion moves whole entries, so up to
+    # one entry of disk room can go unused at the boundary
+    entry_bytes = plan.tile_rows * plan.stripe_w * SPILL_CELL_BYTES
+    if plan.spill_bytes + entry_bytes > pool.host_budget + pool.disk_budget:
+        count_refusal(tsdb, "pool_budget")
+        return None
+    return plan
+
+
+# -- per-tile kernels ------------------------------------------------------
+
+
+# shape: wts[W] i64, v[S,W] f64, m[S,W] bool
+# shape: -> ([S,W] f64, [S,W] bool, [S,W] bool)
+def tile_contrib(spec, wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor):
+    """K2 on one tile's finished grid -> (contrib, participate, actual):
+    the rate when the spec has one (a missing rate takes the previous
+    one), then the gap fill, as run_grid_tail computes them before its
+    group reduce (the reference's ``_tile_contrib``)."""
+    policy = PREV if spec.rate is not None \
+        else get_agg(spec.aggregator).interpolation
+    return grid_fill_rate(wts, v, m, policy, spec.rate)
+
+
+def new_lane_fold(num_groups: int, w: int, extreme: bool, device) -> dict:
+    """Zeroed [G, W] partial moments for run_lane_fold: cnt and present
+    (int64), and tot (additive) or lo and hi (extreme)."""
+    def full(value, dtype):
+        return torch.full((num_groups, w), value, dtype=dtype, device=device)
+
+    acc = {"cnt": full(0, torch.int64), "present": full(0, torch.int64)}
+    if extreme:
+        acc["lo"] = full(math.inf, torch.float64)
+        acc["hi"] = full(-math.inf, torch.float64)
+    else:
+        acc["tot"] = full(0.0, torch.float64)
+    return acc
+
+
+# shape: contrib[S,W] f64, participate[S,W] bool, present[S,W] bool,
+# shape: offsets[G+1] i64 -> None (acc [G,W] updated in place)
+def tile_partials(contrib: torch.Tensor, participate: torch.Tensor,
+                  present: torch.Tensor, offsets: torch.Tensor,
+                  acc: dict) -> None:
+    """T1: add one tile's rows into the partial moments `acc`
+    (new_lane_fold) in place.  Group g is rows [offsets[g],
+    offsets[g+1]) of the tile.  Per (group, window): cnt counts the
+    participating non-NaN cells, tot adds them (lo and hi take their
+    extremes), present counts the cells that hold a real value."""
+    s, w = contrib.shape
+    g = offsets.numel() - 1
+    if participate.shape != (s, w) or present.shape != (s, w) \
+            or acc["cnt"].shape != (g, w):
+        raise ValueError("tile_partials takes [S, W] grids, offsets[G + 1] "
+                         "and [G, W] accumulators")
+    extreme = "lo" in acc
+    f64_lanes = ("lo", "hi") if extreme else ("tot",)
+    if contrib.dtype != torch.float64 \
+            or participate.dtype != torch.bool \
+            or present.dtype != torch.bool \
+            or offsets.dtype != torch.int64 \
+            or acc["cnt"].dtype != torch.int64 \
+            or acc["present"].dtype != torch.int64 \
+            or any(acc[k].dtype != torch.float64 for k in f64_lanes):
+        raise ValueError("tile_partials takes contrib f64, participate and "
+                         "present bool, offsets int64, cnt and present "
+                         "int64 and %s f64" % "/".join(f64_lanes))
+    if contrib.device.type == "cpu":
+        tile_partials_plain(contrib, participate, present, offsets, acc)
+        return
+    lanes = [acc["cnt"], acc["present"]] + (
+        [acc["lo"], acc["hi"]] if extreme else [acc["tot"]])
+    dev = kernels.require_cuda(contrib, participate, present, offsets,
+                               *lanes)
+    if g == 0 or w == 0:
+        return
+    tot = acc["lo"] if extreme else acc["tot"]
+    lo = acc["lo"] if extreme else acc["tot"]
+    hi = acc["hi"] if extreme else acc["tot"]
+    kernels.launch(
+        "tile_partials", dev, kernels.ptr(contrib), kernels.ptr(participate),
+        kernels.ptr(present), kernels.ptr(offsets), g, w, int(extreme),
+        kernels.ptr(acc["cnt"]), kernels.ptr(acc["present"]),
+        kernels.ptr(tot), kernels.ptr(lo), kernels.ptr(hi))
+
+
+def tile_partials_plain(contrib, participate, present, offsets,
+                        acc: dict) -> None:
+    """Plain PyTorch version of T1: index_add_ and scatter_reduce_ of the
+    tile's member rows onto the accumulators, row by row."""
+    dev = contrib.device
+    g = offsets.numel() - 1
+    lo_row, hi_row = int(offsets[0]), int(offsets[-1])
+    sizes = (offsets[1:] - offsets[:-1]).to(dev)
+    rows = torch.repeat_interleave(torch.arange(g, device=dev), sizes)
+    x = contrib[lo_row:hi_row]
+    ok = participate[lo_row:hi_row] & ~torch.isnan(x)
+    acc["cnt"].index_add_(0, rows, ok.to(torch.int64))
+    acc["present"].index_add_(0, rows,
+                              present[lo_row:hi_row].to(torch.int64))
+    if "lo" in acc:
+        idx = rows[:, None].expand(-1, x.shape[1])
+        acc["lo"].scatter_reduce_(0, idx, torch.where(ok, x, math.inf),
+                                  "amin", include_self=True)
+        acc["hi"].scatter_reduce_(0, idx, torch.where(ok, x, -math.inf),
+                                  "amax", include_self=True)
+    else:
+        acc["tot"].index_add_(0, rows, torch.where(ok, x, 0.0))
+
+
+# shape: wts[W] i64, v[S,W] f64, m[S,W] bool, offsets[G+1] i64 -> None
+def run_lane_fold(spec, acc: dict, wts: torch.Tensor, v: torch.Tensor,
+                  m: torch.Tensor, offsets: torch.Tensor) -> None:
+    """One tile of the striped lane fold: K2 on its finished grid, then
+    T1 into `acc` (the reference's ``run_lane_fold``, :281)."""
+    contrib, participate, actual = tile_contrib(spec, wts, v, m)
+    tile_partials(contrib, participate, actual, offsets, acc)
+
+
+def finish_lane_fold(acc: dict, agg_name: str):
+    """(out[G, W] f64, out_mask[G, W] bool) from folded partial moments:
+    moment_group_reduce's arithmetic (avg is tot / max(cnt, 1); every
+    answer but count is NaN where cnt is 0), the mask where some member
+    held a real value."""
+    cnt = acc["cnt"]
+    if agg_name in ("min", "mimmin"):
+        out = acc["lo"]
+    elif agg_name in ("max", "mimmax"):
+        out = acc["hi"]
+    elif agg_name == "count":
+        out = cnt.to(torch.float64)
+    elif agg_name == "avg":
+        out = acc["tot"] / cnt.clamp(min=1).to(torch.float64)
+    else:
+        out = acc["tot"]
+    if agg_name != "count":
+        out = torch.where(cnt > 0, out, math.nan)
+    return out, acc["present"] > 0
+
+
+def is_extreme(agg_name: str) -> bool:
+    return agg_name in _EXTREME
+
+
+# -- the executor -----------------------------------------------------------
+
+
+def _spill_failure(exc, s: int, w: int, plan: TilePlan):
+    """The query-level answer to a pool failure: the reference's 503 for a
+    failed disk write, its 413 otherwise (:438-448)."""
+    from opentsdb_tpu_torch.query.limits import QueryException
+    from opentsdb_tpu_torch.storage.spill import SpillWriteError
+    if isinstance(exc, SpillWriteError):
+        return QueryException(
+            "Sorry, the spill pool backing this tiled query failed to "
+            "write (%s); please retry." % exc, status=503)
+    return QueryException(
+        "Sorry, this query's partial aggregates (%d series x %d windows, "
+        "~%dMB) exceed the spill pool budget (tsd.query.spill.*): %s"
+        % (s, w, plan.spill_bytes // 2 ** 20, exc))
+
+
+def run_tiled(tsdb, spec, num_series: int, gid, num_groups: int, w: int,
+              plan: TilePlan, budget, tile_grid_fn):
+    """Execute an over-budget grouped plan tiled -> ((wts[W], out[G, W],
+    out_mask[G, W]) on the TSDB's device, stats).
+
+    ``tile_grid_fn(row_lo, row_hi) -> ((wts[W], v[rows, W], m[rows, W]),
+    chunks)`` gives a tile's finished downsample grid on the device.
+    Every pooled key is released on every exit path; a pool failure
+    becomes the reference's 503 or 413, never a resident run.  The
+    deadline is checked before every tile and every stripe.  `stats`
+    holds the tiles and stripes run (and the stripes planned on the
+    padded W, the count the reference reports), the bytes through the
+    pool, the cost model's prediction of the overhead (``predictedMs``:
+    pool writes, pool reads and stripe replays) and the host-clock split
+    (tile grids, K2 and the copy to the host, pool writes, pool reads,
+    stripe replays)."""
+    from opentsdb_tpu_torch.storage.spill import SpillError
+
+    pool = tsdb.spill_pool
+    dev = tsdb.device
+    cuda = dev.type == "cuda"
+    g = np.asarray(gid, np.int64)
+    offsets = group_offsets(g, num_groups).to(dev)
+    tiles = [(lo, min(lo + plan.tile_rows, num_series))
+             for lo in range(0, num_series, plan.tile_rows)]
+    stripes = [(lo, min(lo + plan.stripe_w, w))
+               for lo in range(0, w, plan.stripe_w)]
+    predicted_ms = cm.predict_tiled(num_series * w * SPILL_CELL_BYTES,
+                                    len(stripes)) * 1e3
+    split = {"tileGridMs": 0.0, "tileContribMs": 0.0, "spillWriteMs": 0.0,
+             "spillReadMs": 0.0, "replayMs": 0.0}
+
+    def tick(key, t0):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        split[key] += (now - t0) * 1e3
+        return now
+
+    keys: list = []
+    grid_keys: list[list] = []
+    wts = None
+    spilled = 0
+    chunks = 0
+    ma = ma_window(spec.aggregator)
+    try:
+        for lo, hi in tiles:
+            budget.check_deadline()
+            t0 = time.perf_counter()
+            (t_wts, v, m), n_chunks = tile_grid_fn(lo, hi)
+            chunks += n_chunks
+            t0 = tick("tileGridMs", t0)
+            contrib, participate, actual = tile_contrib(spec, t_wts, v, m)
+            if wts is None:
+                wts = t_wts
+            del v, m
+            host = [x.cpu().numpy() for x in (contrib, participate, actual)]
+            del contrib, participate, actual
+            t0 = tick("tileContribMs", t0)
+            row = []
+            for w0, w1 in stripes:
+                entry = tuple(a[:, w0:w1] for a in host)
+                try:
+                    key = pool.put(entry)
+                except SpillError as e:
+                    raise _spill_failure(e, num_series, w, plan) from e
+                keys.append(key)
+                row.append(key)
+                spilled += sum(a.nbytes for a in entry)
+            grid_keys.append(row)
+            del host
+            tick("spillWriteMs", t0)
+        out = torch.empty((num_groups, w), dtype=torch.float64, device=dev)
+        out_mask = torch.empty((num_groups, w), dtype=torch.bool, device=dev)
+        count = torch.empty_like(out) if ma is not None else None
+        for s_i, (w0, w1) in enumerate(stripes):
+            budget.check_deadline()
+            t0 = time.perf_counter()
+            n = w1 - w0
+            grids = [torch.empty((num_series, n), dtype=dt, pin_memory=cuda)
+                     for dt in (torch.float64, torch.bool, torch.bool)]
+            views = [x.numpy() for x in grids]
+            for t_i, (lo, hi) in enumerate(tiles):
+                key = grid_keys[t_i][s_i]
+                for dst, part in zip(views, pool.get(key)):
+                    dst[lo:hi] = part
+                pool.free(key)
+            t0 = tick("spillReadMs", t0)
+            V, P, A = (x.to(dev) for x in grids)
+            if ma is not None:
+                out[:, w0:w1], out_mask[:, w0:w1] = group_moments(
+                    "sum", V, P, A, offsets)
+                count[:, w0:w1], _ = group_moments("count", V, P, A, offsets)
+            else:
+                out[:, w0:w1], out_mask[:, w0:w1] = group_reduce(
+                    spec.aggregator, V, P, A, offsets)
+            del V, P, A, grids, views
+            tick("replayMs", t0)
+        if ma is not None:
+            # the moving average over the whole width, as group_reduce
+            # takes it on a resident grid
+            t0 = time.perf_counter()
+            live = count > 0
+            out = torch.where(live, moving_average_rows(out, live, ma),
+                              math.nan)
+            tick("replayMs", t0)
+    finally:
+        pool.release(keys)
+    stats = {"tiles": len(tiles), "stripes": len(stripes),
+             "stripesPlanned": plan.n_stripes, "spillBytes": int(spilled),
+             "chunks": int(chunks), "predictedMs": predicted_ms, **split}
+    return (wts, out, out_mask), stats

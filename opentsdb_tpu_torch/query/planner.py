@@ -32,9 +32,14 @@ windows from the raw points, then the grid tail.
 A grouped plan over ``tsd.query.streaming.point_threshold`` points whose
 downsample function streams takes, on a device-cache miss, the streamed
 route (``_stream_grouped``, the reference's :1228): bounded chunks folded
-on the device (ops/streaming.py, S1-S3), never the [S, N] batch.  Each
-sub query's points are charged to its scan budget (query/limits.py
-``QueryBudget``) before any batch or chunk is built.
+on the device (ops/streaming.py, S1-S3), never the [S, N] batch.  A plan
+whose device state is over ``tsd.query.streaming.state_mb`` (the
+streaming state when it streams, else the materialized grid;
+query/plandecision.py) takes the tiled route (``_run_tiled``, the
+reference's :514-558): series tiles through the spill pool and a
+window-striped replay (ops/tiling.py); a rollup-lane plan over it is
+served striped.  Each sub query's points are charged to its scan budget
+(query/limits.py ``QueryBudget``) before any batch or chunk is built.
 
 Every aggregator and downsample function of the registry is answered
 (moments, order and rank functions, movingAverage<N>), with or without a
@@ -60,12 +65,15 @@ from opentsdb_tpu_torch.ops.downsample import (
     FixedWindows, EdgeWindows, AllWindow)
 from opentsdb_tpu_torch.ops.group_agg import group_offsets
 from opentsdb_tpu_torch.ops.pipeline import (
-    PAD_TS, PipelineSpec, DownsampleStep, build_batch, build_batch_direct,
+    PipelineSpec, DownsampleStep, build_batch, build_batch_direct,
     check_ported, run_downsample_grid, run_grid_tail, run_group_pipeline,
     run_group_rollup_avg_pipeline, run_union_pipeline)
 from opentsdb_tpu_torch.ops.streaming import (
-    SKETCH_K, STREAMABLE_DS, ChunkFeed, StreamAccumulator, is_sketch_ds,
-    lanes_for, pad_pow2)
+    STREAMABLE_DS, is_sketch_ds, pad_pow2, stream_grid)
+from opentsdb_tpu_torch.ops.tiling import (
+    LANE_FOLDABLE, finish_lane_fold, is_extreme, new_lane_fold,
+    run_lane_fold, run_tiled)
+from opentsdb_tpu_torch.query import plandecision as pdn
 from opentsdb_tpu_torch.query.limits import QueryBudget, grid_budget
 from opentsdb_tpu_torch.rollup.config import (NoSuchRollupForInterval,
                                               RollupQuery)
@@ -87,10 +95,6 @@ _ROLLUP_LANES = {
     "max": ("max", "max"),
     "mimmax": ("max", "mimmax"),
 }
-
-# bytes a cell of an [S, W] grid holds on the device through the tail
-# (values, contributions, masks), the reference's lane residency estimate
-_GRID_CELL_BYTES = 24
 
 # Host-clock phases of one dispatch; exec_stats carries each as
 # "<phase>Ms" summed over the run's dispatches.  "gather" is the grouped
@@ -476,17 +480,43 @@ class QueryRunner:
             "tsd.query.streaming.point_threshold")
         clock.mark("build")
 
+        # sized as the reference sizes them: its padded window and group
+        # counts, so that the two route and refuse the same plans
+        wp = pad_pow2(windows.count)
+        g_pad = pad_pow2(len(kept))
+        state_mb = tsdb.config.get_int("tsd.query.streaming.state_mb")
+        s_rows = len(series_list)
         lane_plan = None
         if (seg.kind == "raw" and store is tsdb.store
                 and tsdb.rollup_lanes is not None
                 and isinstance(windows, FixedWindows)):
             lane_plan = self._lane_plan(spec, series_list, len(kept),
-                                        windows, seg, n_max, points)
+                                        windows, seg, n_max, points, wp,
+                                        g_pad, state_mb)
+        tiled_plan = None
+        grid_gbd = pdn.grid_budget_for(state_mb, s_rows, wp, seg.kind)
+        if lane_plan is None:
+            gbd = (pdn.streaming_budget_for(state_mb, s_rows, wp, ds_fn,
+                                            sketchable)
+                   if would_stream else grid_gbd)
+            if gbd.over:
+                tiled_plan = pdn.over_budget_plan(
+                    tsdb, stream_ok=stream_ok, s=s_rows, wp=wp, g_pad=g_pad,
+                    ds_fn=ds_fn, sketchable=sketchable)
+                if tiled_plan is None:
+                    self.exec_stats["tiledRefused"] = 1.0
+                    raise gbd.exception()
         if lane_plan is not None:
             self.exec_stats["rollupLane"] = 1.0
+            if lane_plan.striped:
+                self.exec_stats["rollupLaneStriped"] = 1.0
             out_ts, out_val, out_mask = self._run_lane_serve(
                 spec, seg, lane_plan, series_list, gid, len(kept), windows,
-                clock)
+                budget, clock)
+        elif tiled_plan is not None:
+            out_ts, out_val, out_mask = self._run_tiled(
+                spec, seg, series_list, gid, len(kept), windows, sketchable,
+                tiled_plan, budget, store, clock)
         elif seg.kind == "rollup_avg":
             ts, val, mask, _ = build_batch_direct(series_list, start_ms,
                                                   end_ms, fix)
@@ -507,22 +537,6 @@ class QueryRunner:
                 spec, *batches, gid, len(kept), edges)
             clock.mark("kernels")
         else:
-            # the reference's padded window count, which its state
-            # budgets read: the two refuse the same plans
-            wp = pad_pow2(windows.count)
-            state_mb = tsdb.config.get_int("tsd.query.streaming.state_mb")
-            s_rows = len(series_list)
-            if would_stream:
-                per_cell = 8 + 8 * len(lanes_for([ds_fn])) \
-                    + (4 * SKETCH_K if sketchable else 0)
-                gbd = grid_budget("streaming", state_mb,
-                                  s_rows * wp * per_cell, s_rows, wp,
-                                  sketch=sketchable)
-                if gbd.over:
-                    # the reference serves it by tiling (ops/tiling.py,
-                    # tsd.query.spill.enable), which ROADMAP slice 7b
-                    # ports; until then the streaming 413
-                    raise gbd.exception()
             cached = None
             # the device cache holds raw columns only (the reference's
             # store_is_raw gate); a streamed plan queues a cold entry's
@@ -531,9 +545,7 @@ class QueryRunner:
                 cached = tsdb.device_cache.batch_for(
                     tsdb.store, series_list[0].key.metric, series_list,
                     start_ms, end_ms, build=not would_stream)
-                if cached is not None and would_stream and grid_budget(
-                        "grid", state_mb, s_rows * wp * _GRID_CELL_BYTES,
-                        s_rows, wp).over:
+                if cached is not None and would_stream and grid_gbd.over:
                     # a hit must not divert a streamed plan onto a grid
                     # over the budget (plandecision.py:375-378)
                     cached = None
@@ -625,100 +637,84 @@ class QueryRunner:
                         max_len: int, gid, num_groups: int, windows,
                         sketch: bool, clock: "_PhaseClock"):
         """The streamed route (the reference's ``_stream_grouped``,
-        :1228): bounded [S, n_chunk] chunks copied out of the store
-        (Series.window_chunk, timestamp cursors) into pinned buffers,
-        copied to the device while the previous chunk folds
-        (ops.streaming.ChunkFeed), folded into a StreamAccumulator (S2,
-        S1), finished (S3), then the grid tail.  The [S, N] batch is never
-        built; the host holds two chunks.  Like the reference's scan over
-        live rows, the pass has no snapshot isolation: a write landing
-        mid-query may or may not be seen (SaltScanner.java:269)."""
-        tsdb = self.tsdb
-        dev = tsdb.device
-        fix = tsdb.config.fix_duplicates
-        s = len(series_list)
-        chunk_points = max(tsdb.config.get_int(
-            "tsd.query.streaming.chunk_points"), 1)
-        n_chunk = pad_pow2(max(1024, chunk_points // max(s, 1)))
-        lanes = lanes_for([spec.downsample.function])
-        n_chunks = -(-max_len // n_chunk)
-        self._bump("streamedChunks", float(n_chunks))
-        use_slice = isinstance(windows, FixedWindows)
-        feed = ChunkFeed(dev, s, n_chunk)
-        self._bump("streamHostBytes", float(feed.host_bytes))
-        acc = None
-        cursors: list[int | None] = [None] * s
-        for _ in range(n_chunks):
-            ts, val, mask = feed.take()
-            tmin = tmax = None
-            for i, series in enumerate(series_list):
-                t, _v = series.window_chunk(seg.start_ms, seg.end_ms,
-                                            cursors[i], n_chunk, fix,
-                                            ts[i], val[i])
-                m = len(t)
-                ts[i, m:] = PAD_TS
-                val[i, m:] = 0.0
-                mask[i, :m] = True
-                mask[i, m:] = False
-                if m:
-                    cursors[i] = int(t[-1])
-                    tmin = int(t[0]) if tmin is None else min(tmin,
-                                                              int(t[0]))
-                    tmax = int(t[-1]) if tmax is None else max(tmax,
-                                                               int(t[-1]))
-            if tmin is None:
-                # a chunk without points folds nothing; skipping it before
-                # the accumulator exists lets the slice be sized from the
-                # first chunk that has points
-                continue
-            if acc is None:
-                wslice = None
-                if use_slice:
-                    # twice the first chunk's span: the series advance on
-                    # their own cursors, so later spans vary; a chunk that
-                    # still overflows takes the full-grid fold
-                    wslice = 2 * ((tmax - tmin) // windows.interval_ms + 2)
-                acc = StreamAccumulator.create(s, windows, dev, sketch=sketch,
-                                               lanes=lanes,
-                                               window_slice=wslice)
-            w0 = None
-            if acc.window_slice is not None and \
-                    (tmax - tmin) // windows.interval_ms + 2 \
-                    <= acc.window_slice:
-                w0 = (tmin - windows.first_window_ms) // windows.interval_ms
-            d_ts, d_val, d_mask = feed.upload()
-            acc.update(d_ts, d_val, d_mask, w0=w0)
-            feed.folded()
-        if acc is None:     # no chunk held a point: an empty state
-            acc = StreamAccumulator.create(s, windows, dev, sketch=sketch,
-                                           lanes=lanes)
-        oob = acc.oob_count()
+        :1228): the chunk loop of ops.streaming.stream_grid (bounded
+        [S, n_chunk] chunks copied out of the store into pinned buffers,
+        copied to the device while the previous chunk folds, folded by S2
+        and S1 and finished by S3), then the grid tail.  The [S, N] batch
+        is never built; the host holds two chunks.  Like the reference's
+        scan over live rows, the pass has no snapshot isolation: a write
+        landing mid-query may or may not be seen (SaltScanner.java:269)."""
+        (wts, v, m), _ = self._stream_grid(spec, seg, series_list, windows,
+                                           sketch, max_len)
         clock.mark("stream")
-        h2d_ms, fold_ms = feed.timings()
-        self._bump("streamPackMs", feed.pack_ms)
-        self._bump("streamH2dMs", h2d_ms)
-        self._bump("streamFoldMs", fold_ms)
-        if oob:
-            # w0 from each chunk's first point with a slice at least the
-            # chunk's span makes this impossible: never serve an answer
-            # that dropped points
-            raise RuntimeError("internal: %d points fell outside their "
-                               "declared streaming window slice" % oob)
-        step = spec.downsample
-        wts, v, m = acc.finish(step.function, step.fill_policy,
-                               step.fill_value)
         out = run_grid_tail(spec, wts, v, m, gid, num_groups)
         clock.mark("kernels")
         return out
 
+    def _stream_grid(self, spec: PipelineSpec, seg: Segment, series_list,
+                     windows, sketch: bool, max_len: int | None = None):
+        """The finished [S, W] grid of `series_list` through the chunk
+        loop, its chunk count and split added to exec_stats."""
+        tsdb = self.tsdb
+        grid, info = stream_grid(
+            series_list, seg.start_ms, seg.end_ms,
+            tsdb.config.fix_duplicates, windows, tsdb.device, spec.downsample,
+            sketch, tsdb.config.get_int("tsd.query.streaming.chunk_points"),
+            max_len)
+        self._bump("streamedChunks", float(info["chunks"]))
+        self._bump("streamHostBytes", float(info["hostBytes"]))
+        self._bump("streamPackMs", info["packMs"])
+        self._bump("streamH2dMs", info["h2dMs"])
+        self._bump("streamFoldMs", info["foldMs"])
+        return grid, info["chunks"]
+
+    def _run_tiled(self, spec: PipelineSpec, seg: Segment, series_list, gid,
+                   num_groups: int, windows, sketch: bool, plan, budget,
+                   store, clock: "_PhaseClock"):
+        """An over-budget plan through series tiles, the spill pool and the
+        window-striped replay (ops/tiling.run_tiled, the reference's tiled
+        arm, :514-558).  A tile's grid is the device cache's when it holds
+        the tile's rows (G1, then K1 or K4), else the chunk loop's (the
+        reference's ``_stream_tile``, tiling.py:292)."""
+        tsdb = self.tsdb
+        dev = tsdb.device
+        step = spec.downsample
+        cache = tsdb.device_cache if store is tsdb.store else None
+
+        def tile_grid(lo: int, hi: int):
+            tile = series_list[lo:hi]
+            if cache is not None:
+                batch = cache.batch_for(store, tile[0].key.metric, tile,
+                                        seg.start_ms, seg.end_ms,
+                                        build=False)
+                if batch is not None:
+                    self._bump("tiledCacheHits", 1.0)
+                    return run_downsample_grid(
+                        step, *batch, windows.window_edges(dev)), 1
+            return self._stream_grid(spec, seg, tile, windows, sketch)
+
+        out, stats = run_tiled(tsdb, spec, len(series_list), gid, num_groups,
+                               windows.count, plan, budget, tile_grid)
+        clock.mark("stream")
+        self.exec_stats["tiledExecution"] = 1.0
+        self._bump("tiledTiles", float(stats["tiles"]))
+        self._bump("tiledStripes", float(stats["stripes"]))
+        self._bump("tiledStripesPlanned", float(stats["stripesPlanned"]))
+        self._bump("tiledPredictedMs", stats["predictedMs"])
+        self._bump("spillBytes", float(stats["spillBytes"]))
+        for key in ("tileGridMs", "tileContribMs", "spillWriteMs",
+                    "spillReadMs", "replayMs"):
+            self._bump(key, stats[key])
+        return out
+
     def _lane_plan(self, spec: PipelineSpec, series_list, num_groups: int,
                    windows: FixedWindows, seg: Segment, n_max: int,
-                   points: int):
-        """The rollup lanes' verdict on a raw fixed-grid segment: a plan
-        whose [S, W] grid fits ``tsd.query.streaming.state_mb`` on the
-        device, else None.  A plan over that budget would need the
-        reference's striped serving (ops/tiling.py, slice 7b); the port
-        answers it on the exact path and counts a miss."""
+                   points: int, wp: int, g_pad: int, state_mb: int):
+        """The rollup lanes' verdict on a raw fixed-grid segment: a plan,
+        striped when its [S, W] grid is over
+        ``tsd.query.streaming.state_mb`` (query/plandecision.py
+        size_lane_stripes), or None for the exact path (counted a miss
+        when a plan over the budget cannot be striped)."""
         lanes = self.tsdb.rollup_lanes
         plan = lanes.plan(
             series_list[0].key.metric, series_list, windows, seg.start_ms,
@@ -726,22 +722,24 @@ class QueryRunner:
             spec.rate is not None, total_points=points)
         if plan is None:
             return None
-        state_mb = self.tsdb.config.get_int("tsd.query.streaming.state_mb")
-        if state_mb > 0 and len(series_list) * windows.count \
-                * _GRID_CELL_BYTES > state_mb * 2 ** 20:
-            lanes.note_fallback()
-            return None
+        s = len(series_list)
+        if grid_budget("grid", state_mb, s * wp * pdn.GRID_CELL_BYTES, s,
+                       wp).over:
+            plan = pdn.size_lane_stripes(self.tsdb, plan, s, wp, g_pad,
+                                         state_mb, spec.aggregator)
+            if plan is None:
+                lanes.note_striping_fallback()
+                return None
         lanes.note_served(plan)
         return plan
 
-    def _run_lane_serve(self, spec: PipelineSpec, seg: Segment, plan,
-                        series_list, gid, num_groups: int,
-                        windows: FixedWindows, clock: "_PhaseClock"):
-        """Serve a lane-derivable plan (the reference's _run_lane_serve,
-        :996, for grids under budget): the full interior windows come from
-        the lane cells (RollupLanes.derive_grid, on the host), the two or
-        fewer edge windows from the raw points through run_downsample_grid,
-        and the assembled [S, W] grid goes through run_grid_tail."""
+    def _lane_grid(self, spec: PipelineSpec, seg: Segment, plan,
+                   series_list, windows: FixedWindows):
+        """The lane-served [S, W] downsample grid on the host: the full
+        interior windows from the lane cells (RollupLanes.derive_grid),
+        the two or fewer edge windows, which hold part of their range,
+        from the raw points through run_downsample_grid, as the exact
+        path computes them."""
         tsdb = self.tsdb
         dev = tsdb.device
         fix = tsdb.config.fix_duplicates
@@ -757,8 +755,6 @@ class QueryRunner:
         m = np.empty((s, w), bool)
         v[:, plan.wf_lo:plan.wf_hi + 1] = iv
         m[:, plan.wf_lo:plan.wf_hi + 1] = im
-        # the windows the lane cannot serve hold part of their range: they
-        # are computed from the raw points, as the exact path computes them
         edge_windows = []
         if plan.wf_lo > 0:
             edge_windows.append((0, seg.start_ms,
@@ -766,22 +762,82 @@ class QueryRunner:
         if plan.wf_hi < w - 1:
             edge_windows.append((w - 1, first + (w - 1) * interval,
                                  seg.end_ms))
-        batches = [(w_i, build_batch_direct(series_list, lo_ms, hi_ms, fix))
-                   for w_i, lo_ms, hi_ms in edge_windows]
-        clock.mark("build")
-        d_v = torch.from_numpy(v).to(dev)
-        d_m = torch.from_numpy(m).to(dev)
-        batches = [(w_i, [torch.from_numpy(x).to(dev) for x in batch[:3]])
-                   for w_i, batch in batches]
-        wts = windows.window_edges(dev)[:-1]
-        clock.mark("h2d")
-        for w_i, batch in batches:
+        for w_i, lo_ms, hi_ms in edge_windows:
+            batch = build_batch_direct(series_list, lo_ms, hi_ms, fix)[:3]
             edge = FixedWindows(interval, first + w_i * interval,
                                 1).window_edges(dev)
-            _, ev, em = run_downsample_grid(step, *batch, edge)
-            d_v[:, w_i] = ev[:, 0]
-            d_m[:, w_i] = em[:, 0]
-        out = run_grid_tail(spec, wts, d_v, d_m, gid, num_groups)
+            _, ev, em = run_downsample_grid(
+                step, *(torch.from_numpy(x).to(dev) for x in batch), edge)
+            v[:, w_i] = ev[:, 0].cpu().numpy()
+            m[:, w_i] = em[:, 0].cpu().numpy()
+        return v, m
+
+    def _run_lane_serve(self, spec: PipelineSpec, seg: Segment, plan,
+                        series_list, gid, num_groups: int,
+                        windows: FixedWindows, budget, clock: "_PhaseClock"):
+        """Serve a lane-derivable plan (the reference's _run_lane_serve,
+        :996): the [S, W] grid from the lanes (``_lane_grid``), then the
+        grid tail on the device.  A striped plan's grid never goes to the
+        device whole; it takes one of two of the reference's modes
+        (:1173-1226):
+
+        * device fold: a foldable aggregator (tiling.LANE_FOLDABLE):
+          tiles of ``fold_rows`` rows go through K2 and T1 into [G, W]
+          partial moments held on the device;
+        * pool replay: dev and the order and rank aggregators take the
+          spill pool's window-striped replay (tiling.run_tiled) over the
+          grid's row tiles.
+
+        The reference's third mode, a numpy reduceat fold on the host for
+        a dense rate-free grid (:1127-1172), is left out: the device fold
+        gives the same answers and is the faster on the card."""
+        tsdb = self.tsdb
+        dev = tsdb.device
+        wts = windows.window_edges(dev)[:-1]
+        budget.check_deadline()
+        v, m = self._lane_grid(spec, seg, plan, series_list, windows)
+        clock.mark("build")
+        if not plan.striped:
+            d_v = torch.from_numpy(v).to(dev)
+            d_m = torch.from_numpy(m).to(dev)
+            clock.mark("h2d")
+            out = run_grid_tail(spec, wts, d_v, d_m, gid, num_groups)
+            clock.mark("kernels")
+            return out
+        agg = spec.aggregator
+        s, w = v.shape
+        gid = np.asarray(gid, np.int64)
+        # the device fold holds a tile's grid and the [G, W] partials: its
+        # tiles are what the budget leaves after the partials
+        budget_bytes = tsdb.config.get_int(
+            "tsd.query.streaming.state_mb") * 2 ** 20
+        g_pad = pad_pow2(num_groups)
+        wp = pad_pow2(w)
+        fold_rows = (budget_bytes - 3 * g_pad * wp * 8) // (wp * 19)
+        if agg in LANE_FOLDABLE and fold_rows >= 1:
+            acc = new_lane_fold(num_groups, w, is_extreme(agg), dev)
+            fold_rows = min(int(fold_rows), s)
+            for t_lo in range(0, s, fold_rows):
+                t_hi = min(t_lo + fold_rows, s)
+                budget.check_deadline()
+                run_lane_fold(spec, acc, wts,
+                              torch.from_numpy(v[t_lo:t_hi]).to(dev),
+                              torch.from_numpy(m[t_lo:t_hi]).to(dev),
+                              group_offsets(gid[t_lo:t_hi],
+                                            num_groups).to(dev))
+            out_val, out_mask = finish_lane_fold(acc, agg)
+            self.exec_stats["rollupFoldDevice"] = 1.0
+            clock.mark("kernels")
+            return wts, out_val, out_mask
+
+        def tile_grid(lo: int, hi: int):
+            return (wts, torch.from_numpy(v[lo:hi]).to(dev),
+                    torch.from_numpy(m[lo:hi]).to(dev)), 1
+
+        out, stats = run_tiled(tsdb, spec, s, gid, num_groups, w,
+                               plan.tile_plan, budget, tile_grid)
+        self.exec_stats["rollupFoldReplay"] = 1.0
+        self._bump("spillBytes", float(stats["spillBytes"]))
         clock.mark("kernels")
         return out
 

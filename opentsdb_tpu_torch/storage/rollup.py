@@ -32,13 +32,16 @@ write is never served stale: the planner takes the exact path until a
 maintenance pass rebuilds the block.  The ring is bounded; its overflow
 raises the metric's floor generation, which fails older blocks.
 
+A plan whose [S, W] grid is over ``tsd.query.streaming.state_mb`` is
+served striped (``LanePlan.striped``, sized by
+query/plandecision.size_lane_stripes): the planner derives the whole
+grid on the host (``derive_grid``), then folds it tile by tile on the
+device or replays it through the spill pool (ops/tiling.py).
+
 Deliberate differences from the reference: a block holds exactly
 ``tsd.rollup.block_windows`` cells (no power-of-two rounding); blocks live
-on the host, as the reference's do; there is no striped serving of plans
-whose grid is over the device budget (the reference's ops/tiling.py,
-slice 7b): the planner answers them on the exact path; there are no
-prometheus counters and no flight recorder, the tallies stay in
-``collect_stats``.
+on the host, as the reference's do; there are no prometheus counters and
+no flight recorder, the tallies stay in ``collect_stats``.
 """
 
 from __future__ import annotations
@@ -105,6 +108,8 @@ class LanePlan:
     # vector (blocks built at different times may order rows otherwise)
     # and the cell slice it contributes
     segments: list = field(default_factory=list)
+    striped: bool = False    # over the device budget: served striped
+    tile_plan: object = None  # its ops.tiling.TilePlan when striped
 
 
 class RollupLanes:
@@ -336,9 +341,9 @@ class RollupLanes:
             self.hits += 1
             self.served_windows += plan.wf_hi - plan.wf_lo + 1
 
-    def note_fallback(self) -> None:
-        """The planner answered a lane plan on the exact path (its grid is
-        over the device budget): count a miss, not a hit."""
+    def note_striping_fallback(self) -> None:
+        """A plan over the device budget that striping could not serve
+        took the exact path: count a miss, not a hit."""
         with self._lock:
             self.misses += 1
 
@@ -365,9 +370,9 @@ class RollupLanes:
 
     def derive_grid(self, plan: LanePlan, ds_fn: str, fill_policy: str,
                     fill_value: float) -> tuple[np.ndarray, np.ndarray]:
-        """The interior [S, windows] downsample grid from the plan's lane
-        cells, on the host, outside any lock (blocks are immutable once
-        stored).  Window w re-reduces its k cells with the function's
+        """The interior [rows, windows] downsample grid from the plan's
+        lane cells, on the host, outside any lock (blocks are immutable
+        once stored).  Window w re-reduces its k cells with the function's
         mergeable form; on integer data every value is K1's bit for bit
         (integer sums are exact in any order, extremes are selections, and
         avg divides the same two operands)."""

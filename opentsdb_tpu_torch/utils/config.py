@@ -37,6 +37,12 @@ DEFAULTS: dict[str, str] = {
     "tsd.query.streaming.chunk_points": "4000000",
     "tsd.query.streaming.sketch_percentiles": "true",
     "tsd.query.streaming.sketch_max_merges": "4",
+    # out-of-core tiled execution (ops/tiling.py, storage/spill.py)
+    "tsd.query.spill.enable": "true",
+    "tsd.query.spill.host_mb": "1024",
+    "tsd.query.spill.disk_mb": "16384",
+    "tsd.query.spill.dir": "",
+    "tsd.query.spill.max_tiles": "1024",
     # scan budgets and the timeout (query/limits.py)
     "tsd.query.timeout": "0",
     "tsd.query.limits.bytes.default": "0",

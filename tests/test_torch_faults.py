@@ -11,8 +11,8 @@ by H1 as the reference's segment sum adds it, so later queries answer as
 the reference's do, through both RpcManagers.  C3: the port's "not ported
 yet" 501s are not logged as internal failures; a real internal failure
 still is.  A grouped plan whose streaming state is over
-tsd.query.streaming.state_mb gets the streaming 413 in the port, while
-the reference serves it by tiling (ROADMAP slice 7b).
+tsd.query.streaming.state_mb is served by tiling in both packages (a
+deliberate difference until slice 7b).
 """
 
 import json
@@ -204,20 +204,21 @@ def test_an_internal_failure_is_still_logged(caplog, monkeypatch):
     assert len(errors) == 1 and errors[0].exc_info is not None
 
 
-# -- deliberate difference: no tiled execution yet (ROADMAP slice 7b) -------
+# -- a closed deliberate difference: tiled execution (ROADMAP slice 7b) ------
 
 
 def test_streaming_state_over_budget_is_refused_where_the_reference_tiles():
-    """24 series x 4,096 10 s windows of sum lanes (~1.5 MB of streaming
-    state) under a 1 MB budget: the reference (tsd.query.spill.enable,
-    its default) serves the plan by tiling; the port answers the
-    reference's streaming 413 until tiling is ported."""
+    """24 series x 4,097 10 s windows of sum lanes (~3 MB of streaming
+    state at the padded window count) under a 1 MB budget: both packages
+    serve the plan by tiling (tsd.query.spill.enable, on by default) in
+    the same number of tiles and agree bit for bit on this integer data.
+    Until slice 7b the port answered the streaming 413 here; the name is
+    kept from then."""
     import numpy as np
 
     from opentsdb_tpu.models import TSQuery as RefTSQuery
     from opentsdb_tpu.models import parse_m_subquery as ref_parse
     from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
-    from opentsdb_tpu_torch.query.limits import QueryException
 
     props = {"tsd.core.auto_create_metrics": True,
              "tsd.query.streaming.point_threshold": "10",
@@ -241,13 +242,15 @@ def test_streaming_state_over_budget_is_refused_where_the_reference_tiles():
                    queries=[ref_parse(m)])
     q.validate()
     runner = ref.new_query_runner()
-    served = runner.run(q)
-    assert runner.exec_stats.get("tiledExecution") == 1.0
-    assert len(served) == 4
+    want = [r.to_json() for r in runner.run(q)]
+    ref_stats = runner.exec_stats
+    assert ref_stats.get("tiledExecution") == 1.0
+    assert len(want) == 4
     q = TSQuery(start=str(BASE), end=str(BASE + span),
                 queries=[parse_m_subquery(m)])
     q.validate()
-    with pytest.raises(QueryException, match="streaming state") as info:
-        port.new_query_runner().run(q)
-    assert info.value.status == 413
-    assert info.value.details["kind"] == "streaming"
+    runner = port.new_query_runner()
+    got = [r.to_json() for r in runner.run(q)]
+    assert runner.exec_stats.get("tiledExecution") == 1.0
+    assert runner.exec_stats["tiledTiles"] == ref_stats["tiledTiles"]
+    assert got == want

@@ -851,3 +851,109 @@ def test_streamed_queries_on_card_match_cpu(cuda_device):
         np.testing.assert_allclose(
             [v for r in card for v in r["dps"].values()],
             [v for r in cpu for v in r["dps"].values()], rtol=1e-6)
+
+
+# -- T1 tile_partials and the tiled route ---------------------------------
+
+
+def _fold_pair(dev, spec, v, m, gid, g, rows, extreme):
+    """The tiles of `rows` rows folded by K2 + T1 on `dev` -> acc."""
+    from opentsdb_tpu_torch.ops import tiling
+    s, w = v.shape
+    wts = torch.arange(w, dtype=torch.int64, device=dev) * 60_000 + T0
+    acc = tiling.new_lane_fold(g, w, extreme, dev)
+    for lo in range(0, s, rows):
+        tiling.run_lane_fold(
+            spec, acc, wts, *_on(dev, v[lo:lo + rows], m[lo:lo + rows]),
+            tga.group_offsets(gid[lo:lo + rows], g).to(dev))
+    return acc
+
+
+def _lane_tiles(rng, s=80, w=700, int_values=False):
+    v = (rng.integers(-1000, 1000, (s, w)).astype(np.float64) if int_values
+         else rng.normal(50.0, 20.0, (s, w)))
+    v[rng.random((s, w)) < 0.03] = np.nan
+    m = rng.random((s, w)) > 0.25
+    m[5] = False
+    gid = np.sort(rng.integers(0, 9, s))
+    return v, m, gid
+
+
+@pytest.mark.parametrize("rate", [None, ()])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_tile_partials_kernel_matches_plain(cuda_device, extreme, rate):
+    """T1 over four tiles against its plain version: counts, presence
+    and extremes exact, sums at rtol 1e-9."""
+    v, m, gid = _lane_tiles(np.random.default_rng(31))
+    spec = tpipe.PipelineSpec("max" if extreme else "sum",
+                              rate=None if rate is None
+                              else RateOptions(*rate))
+    card = _fold_pair(cuda_device, spec, v, m, gid, 9, 20, extreme)
+    cpu = _fold_pair("cpu", spec, v, m, gid, 9, 20, extreme)
+    for k in cpu:
+        if k == "tot":
+            assert_values(card[k].cpu().numpy(), cpu[k].numpy())
+        else:
+            assert_exact(card[k].cpu().numpy(), cpu[k].numpy())
+
+
+@pytest.mark.parametrize("agg", ["sum", "count", "avg", "min", "max"])
+def test_tile_fold_kernel_equals_group_moments(cuda_device, agg):
+    """On integer data the fold of all tiles, finished, is K3 over the
+    whole grid bit for bit."""
+    from opentsdb_tpu_torch.ops import tiling
+    v, m, gid = _lane_tiles(np.random.default_rng(32), int_values=True)
+    spec = tpipe.PipelineSpec(agg)
+    acc = _fold_pair(cuda_device, spec, v, m, gid, 9, 32,
+                     tiling.is_extreme(agg))
+    out, mask = tiling.finish_lane_fold(acc, agg)
+    wts = torch.arange(v.shape[1], dtype=torch.int64,
+                       device=cuda_device) * 60_000 + T0
+    contrib, part, actual = tiling.tile_contrib(
+        spec, wts, *_on(cuda_device, v, m))
+    want, want_mask = tga.group_moments(
+        agg, contrib, part, actual, tga.group_offsets(gid, 9).to(cuda_device))
+    assert_exact(out.cpu().numpy(), want.cpu().numpy())
+    assert_exact(mask.cpu().numpy(), want_mask.cpu().numpy())
+
+
+def test_tiled_queries_on_card_match_cpu(cuda_device):
+    """A 1 MB state budget: the card's tiled answers (chunk loop, K2, the
+    spill pool, the striped K3/K5/MA replay) equal the CPU's."""
+    from opentsdb_tpu_torch.core import TSDB
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.utils.config import Config
+
+    props = {"tsd.core.auto_create_metrics": True,
+             "tsd.query.device_cache.enable": "false",
+             "tsd.query.streaming.point_threshold": "100",
+             "tsd.query.streaming.chunk_points": "4096",
+             "tsd.query.streaming.state_mb": "1"}
+    queries = ("sum:10s-avg:s.m{g=*}", "dev:10s-max:rate:s.m{g=*}",
+               "p99:10s-sum:s.m{g=*}", "movingAverage5:10s-sum:s.m{g=*}")
+    answers = []
+    for dev in ("cpu", cuda_device):
+        tsdb = TSDB(Config(props), device=dev)
+        rng = np.random.default_rng(9)
+        for i in range(24):
+            key = tsdb._series_key("s.m", {"host": "h%d" % i,
+                                           "g": "g%d" % (i % 3)}, True)
+            ts = T0 + np.sort(rng.choice(40_000, 400, replace=False)) \
+                * 1000
+            tsdb.store.add_batch(key, ts, rng.normal(5, 2, 400), False)
+        out = []
+        for m in queries:
+            q = TSQuery(start=str(T0 // 1000), end=str(T0 // 1000 + 40_000),
+                        queries=[parse_m_subquery(m)])
+            q.validate()
+            runner = tsdb.new_query_runner()
+            out.append([r.to_json() for r in runner.run(q)])
+            assert runner.exec_stats["tiledTiles"] >= 2
+        answers.append(out)
+    for cpu, card in zip(*answers):
+        assert [(r["tags"], list(r["dps"])) for r in card] \
+            == [(r["tags"], list(r["dps"])) for r in cpu]
+        np.testing.assert_allclose(
+            [v for r in card for v in r["dps"].values()],
+            [v for r in cpu for v in r["dps"].values()], rtol=1e-9,
+            atol=1e-9)

@@ -8,9 +8,10 @@ reference's own latitude, rel 1e-12), edge windows recompute from raw
 points, other intervals and functions take the exact path, an acked write
 is never served stale, a new series invalidates, and the byte budget,
 eviction, coverage and the maintenance cadence behave as the reference's.
-The reference's striped serving of over-budget grids (ops/tiling.py)
-waits for slice 7: the port answers such a plan on the exact path, which
-a test here pins.  Reference TSDBs run with the mesh off.
+A plan whose grid is over tsd.query.streaming.state_mb is served striped
+in the reference's three modes (the reference's TestStripedServe): the
+host-dense fold, the device fold through T1 and the spill pool's replay,
+each equal to the exact answer.  Reference TSDBs run with the mesh off.
 """
 
 import numpy as np
@@ -273,27 +274,136 @@ def test_invalidate_drops_every_block():
 
 
 def test_over_budget_grid_takes_the_exact_path():
-    """A lane plan whose [S, W] grid is over tsd.query.streaming.state_mb
-    would need the reference's striped serving (slice 7): the port answers
-    it on the exact path and counts a miss, never a hit."""
+    """A lane plan whose [S, W] grid is over tsd.query.streaming.state_mb:
+    until slice 7b the port took the exact path here (the name is kept
+    from then); now it is served striped, as the reference serves it, and
+    counted a hit: the answer equals the exact one bit for bit."""
     on = make_tsdb(**{"tsd.query.streaming.state_mb": 1})
     off = make_tsdb(enable=False)
-    # 96 series x 1,000 windows x 24 bytes: over 1 MB
+    ref = make_ref()
+    # 96 series x 1,000 windows (1,024 padded) x 24 bytes: over 1 MB
     hosts = tuple("h%03d" % i for i in range(96))
     end = BASE + 2000 * 30 - 1
-    for tsdb in (on, off):
+    for tsdb in (on, off, ref):
         feed_int(tsdb, n=2000, hosts=hosts, step=30)
     m = "sum:60s-sum:lane.i{host=*}"
     warm(on, m, start=BASE, end=end)
     assert len(on.rollup_lanes) > 0
     before = on.rollup_lanes.collect_stats()
     served, stats = run_q(on, m, BASE, end)
-    assert "rollupLane" not in stats
-    assert served == run_q(off, m, BASE, end)[0]
+    assert stats.get("rollupLane") == 1.0
+    assert stats.get("rollupLaneStriped") == 1.0
+    assert served == run_q(off, m, BASE, end)[0] == run_q(ref, m, BASE,
+                                                          end)[0]
     after = on.rollup_lanes.collect_stats()
-    assert after["tsd.query.rollup.hits"] == before["tsd.query.rollup.hits"]
+    assert after["tsd.query.rollup.hits"] \
+        == before["tsd.query.rollup.hits"] + 1
     assert after["tsd.query.rollup.misses"] \
-        == before["tsd.query.rollup.misses"] + 1
+        == before["tsd.query.rollup.misses"]
+
+
+class TestStripedServe:
+    """The reference's striped cases (tests/test_rollup_lanes.py
+    TestStripedServe): grids over a 1 MB budget, each served in its mode
+    and equal to the lane-disabled control and to the reference's exact
+    answer."""
+
+    COMMON = {"tsd.query.streaming.state_mb": 1,
+              "tsd.query.spill.host_mb": 4,
+              "tsd.rollup.block_windows": 64,
+              "tsd.query.streaming.point_threshold": 1000}
+
+    @staticmethod
+    def _feed_wide(tsdb, hosts=96, n=3000, metric="lane.w"):
+        for h in range(hosts):
+            key = tsdb._series_key(
+                metric, {"h": "h%d" % h, "g": "g%d" % (h % 4)}, create=True)
+            ts = (np.arange(n, dtype=np.int64) * 10 + BASE) * 1000
+            vals = (np.arange(n, dtype=np.int64) * 7 + h * 13) % 101
+            tsdb.store.add_batch(key, ts, vals, True)
+
+    @staticmethod
+    def _feed_sparse(tsdb, hosts=96, n=300, metric="lane.s"):
+        """Holes: ~40% of the 60 s windows have no points."""
+        rng = np.random.default_rng(7)
+        for h in range(hosts):
+            secs = np.sort(rng.choice(30000, size=n, replace=False)
+                           .astype(np.int64))
+            vals = (np.arange(n, dtype=np.int64) * 7 + h * 13) % 101
+            key = tsdb._series_key(
+                metric, {"h": "h%d" % h, "g": "g%d" % (h % 4)}, create=True)
+            tsdb.store.add_batch(key, (BASE + secs) * 1000, vals, True)
+
+    def _served(self, feed, m, end=BASE + 30000):
+        on = make_tsdb(**self.COMMON)
+        off = make_tsdb(enable=False, **self.COMMON)
+        ref = make_ref()
+        for tsdb in (on, off, ref):
+            feed(tsdb)
+        warm(on, m, start=BASE, end=end)
+        served, stats = run_q(on, m, BASE, end)
+        assert stats.get("rollupLane") == 1.0, stats
+        assert stats.get("rollupLaneStriped") == 1.0, stats
+        return (served, stats, run_q(off, m, BASE, end)[0],
+                run_q(ref, m, BASE, end)[0])
+
+    @staticmethod
+    def _near(got, want):
+        assert [(a["tags"], sorted(a["dps"])) for a in got] \
+            == [(b["tags"], sorted(b["dps"])) for b in want]
+        for a, b in zip(got, want):
+            for k in a["dps"]:
+                assert a["dps"][k] == pytest.approx(b["dps"][k], rel=1e-12,
+                                                    abs=1e-12)
+
+    def test_over_budget_dense_grid_serves_host_fold(self):
+        """Every cell populated (regular-cadence telemetry, the query
+        ending on the data's last window): the reference folds the group
+        partials on the host; the port, which has no host fold, folds
+        them on the device through T1, bit for bit all the same."""
+        served, stats, plain, ref = self._served(
+            self._feed_wide, "sum:60s-sum:lane.w{g=*}", end=BASE + 29999)
+        assert stats.get("rollupFoldDevice") == 1.0, stats
+        assert "rollupFoldHostDense" not in stats, stats
+        assert served == plain == ref
+
+    def test_over_budget_rate_query_applies_rate(self):
+        """The rate is applied: rate plans take the device fold (K2
+        applies it row by row, then T1)."""
+        served, stats, plain, ref = self._served(
+            self._feed_wide, "sum:rate:60s-sum:lane.w{g=*}")
+        assert stats.get("rollupFoldDevice") == 1.0, stats
+        self._near(served, plain)
+        self._near(served, ref)
+
+    def test_over_budget_sparse_extreme_folds_on_device_bitwise(self):
+        """Holes force the device fold; for an extreme the fold is a
+        selection over the same contribution bits, bitwise even with
+        fractional interpolated values."""
+        served, stats, plain, ref = self._served(
+            self._feed_sparse, "max:60s-max:lane.s{g=*}")
+        assert stats.get("rollupFoldDevice") == 1.0, stats
+        assert served == plain == ref
+
+    def test_over_budget_sparse_sum_folds_within_reassociation(self):
+        """The additive device fold over holes: T1 adds each tile's rows
+        in row order into the running sums, so the port's fold is K3's
+        bit for bit; the reference's per-tile partials carry
+        reassociation latitude."""
+        served, stats, plain, ref = self._served(
+            self._feed_sparse, "sum:60s-sum:lane.s{g=*}")
+        assert stats.get("rollupFoldDevice") == 1.0, stats
+        assert served == plain
+        self._near(served, ref)
+
+    def test_over_budget_non_foldable_agg_replays_through_pool(self):
+        """dev does not fold across tiles: the striped serve replays the
+        spill pool's window stripes, bitwise against the control."""
+        served, stats, plain, ref = self._served(
+            self._feed_wide, "dev:60s-sum:lane.w{g=*}")
+        assert stats.get("rollupFoldReplay") == 1.0, stats
+        assert stats.get("spillBytes", 0) > 0, stats
+        assert served == plain == ref
 
 
 def test_zero_budget_materializes_nothing():
