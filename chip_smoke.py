@@ -3,8 +3,9 @@
 against its plain PyTorch version on the card, then answer queries end to
 end through the port's TSDB: grouped downsample queries, materialized,
 streamed and tiled past the device budget, queries without a downsample
-(the union path), histograms through the daemon, and rollups with their
-striped lane serving.
+(the union path), histograms through the daemon, rollups with their
+striped lane serving, and a dashboard fleet through the daemon's
+admission gate and dispatch batcher.
 
     python3 chip_smoke.py [--seed N]
 
@@ -195,6 +196,40 @@ days), 1h windows.  Phases:
    device fold (T1 launches), `dev:1m-avg` the pool replay, each equal to the exact answer (rtol 1e-9 on `m`,
    bitwise on `mi`).  Launch counts are reset before (a) and before (c)
    and read after each.
+16. the dashboard fleet (after phase 15 (a, b), on the headline TSDB).
+   (a) The member-strided K1, K4 and K2 and the stacked pipeline
+   (ops/pipeline.stacked_group_outputs) at Q = 16 members, each with its
+   own range, for two panel shapes: the reference's dispatch-layer panel
+   (tools/bench_qps.py:66-67, 1 series x 128 points x 16 windows) and a
+   headline panel (10 series of the batch over an hour, 256 points
+   padded, 60 1m windows): each against its plain version (rtol 1e-9,
+   masks exact) and the stacked answers against 16 solo dispatches bit
+   for bit; one stacked dispatch of sum:1m-avg must launch each of its
+   kernels once; one stacked dispatch against 16 solo ones on CUDA events
+   and on the host clock (the dispatch batcher's own dispatch: host
+   stack, copies, kernels, copy back), beside its byte bound; the two
+   shapes' host walls give the cost model's stacked_dispatch and
+   stacked_cell.  (b) plan_decision's path and fingerprint for
+   `sum:1h-avg:m{group=*}` (not batched) and a panel (batched).  (c) A
+   TSDServer (8 responder threads) serves 16 client threads in a child
+   process, each panel `sum:1m-avg:m{group=gNNN}` or
+   `max:1m-max:rate:m{group=gNNN}` over the data's last hour, rotating
+   over the 100 groups: batching off (the panels hit the device cache)
+   then on, each 5 s of warm-up and 20 s timed; QPS, p50 and p99 on the
+   client clock, stacked dispatches, members a dispatch, bucket keys; no
+   status but 200, and every panel's body byte-equal across the arms.
+   Then 5 s of `p99:1m-p95` panels (K4, K5).  Launch counts are reset
+   before the on arm and read after the order panels.  Two diagnostic
+   arms of 5 s follow, batching on: one with the server's GIL switch
+   interval at 0.5 ms, one with each responder thread on a CUDA stream
+   of its own; every arm prints a dispatch's host wall, its thread's CPU
+   time and its copy-back wall (the batcher's tallies), and every body
+   must equal the off arm's.  (d) Admission: 8
+   concurrent full-range queries on one permit and one queue slot get
+   503s with Retry-After; X-TSDB-Deadline-Ms: 1 on a full-range query
+   gets a 503 (degrade=error); degrade=allow answers a 200 carrying
+   partialResults, equal to a CPU TSDB's answer for the coarsened query;
+   a client that hangs up while queued is cancelled without a permit.
 
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
@@ -256,6 +291,9 @@ REPLACES = {
     "sketch_fold": "opentsdb_tpu/ops/streaming.py:406",
     "stream_finish": "opentsdb_tpu/ops/streaming.py:596",
     "tile_partials": "opentsdb_tpu/ops/tiling.py:238",
+    "window_moments.stacked": "opentsdb_tpu/ops/pipeline.py:225",
+    "window_order.stacked": "opentsdb_tpu/ops/pipeline.py:225",
+    "grid_fill_rate.stacked": "opentsdb_tpu/ops/pipeline.py:225",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -1442,12 +1480,12 @@ class Serving:
     thread; leaving the block stops it (the pool drains, then the TSDB
     shuts down) and joins the thread."""
 
-    def __init__(self, tsdb):
+    def __init__(self, tsdb, workers: int = 4):
         import asyncio
         import threading
         from opentsdb_tpu_torch.tsd.server import TSDServer
         self.server = TSDServer(tsdb, port=0, bind="127.0.0.1",
-                                worker_threads=4)
+                                worker_threads=workers)
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever)
 
@@ -3164,6 +3202,646 @@ def striped_lane_phase(dev, tsdb, checks: Checks) -> dict:
     return launches
 
 
+# Phase 16: the dashboard fleet.  FLEET_Q members a stacked dispatch; the
+# reference's dispatch-layer panel (tools/bench_qps.py:66-67) and a
+# headline panel (one group of the headline batch over its last hour).
+FLEET_Q = 16
+MINUTE_MS = 60_000
+DL_S, DL_N, DL_W = 1, 128, 16
+PANEL_S, PANEL_W = 10, 60
+FLEET_FORMS = ("sum:1m-avg:m{group=%s}", "max:1m-max:rate:m{group=%s}")
+ORDER_FORM = "p99:1m-p95:m{group=%s}"
+FLEET_THREADS, FLEET_WARMUP_S, FLEET_WINDOW_S = 16, 5.0, 20.0
+
+
+def _fleet_members(shape: str, ts, val, seed: int):
+    """FLEET_Q members of one panel shape, each with its own range: host
+    (ts, val, mask) [S, N], gid [S] and edges [W+1]."""
+    from opentsdb_tpu_torch.ops.pipeline import PAD_TS
+    from opentsdb_tpu_torch.ops.streaming import pad_pow2
+    rng = np.random.default_rng(seed)
+    out = []
+    for q in range(FLEET_Q):
+        if shape == "dispatch":
+            base = START + q * DL_W * MINUTE_MS
+            step = DL_W * MINUTE_MS // DL_N
+            m_ts = (base + np.arange(DL_N, dtype=np.int64) * step
+                    + rng.integers(0, step // 2, DL_N))[None, :]
+            m_val = rng.normal(100.0, 5.0, (DL_S, DL_N))
+            m_mask = np.ones((DL_S, DL_N), bool)
+            edges = base + np.arange(DL_W + 1, dtype=np.int64) * MINUTE_MS
+        else:
+            last = END - END % MINUTE_MS - q * MINUTE_MS
+            edges = last - PANEL_W * MINUTE_MS + np.arange(
+                PANEL_W + 1, dtype=np.int64) * MINUTE_MS
+            rows = np.arange(q * 10, q * 10 + PANEL_S)
+            bounds = [np.searchsorted(ts[r], [edges[0], edges[-1]])
+                      for r in rows]
+            n = pad_pow2(max(hi - lo for lo, hi in bounds))
+            m_ts = np.full((PANEL_S, n), PAD_TS, np.int64)
+            m_val = np.zeros((PANEL_S, n))
+            m_mask = np.zeros((PANEL_S, n), bool)
+            for i, (r, (lo, hi)) in enumerate(zip(rows, bounds)):
+                m_ts[i, :hi - lo] = ts[r, lo:hi]
+                m_val[i, :hi - lo] = val[r, lo:hi]
+                m_mask[i, :hi - lo] = True
+        out.append((m_ts, m_val, m_mask,
+                    np.zeros(m_ts.shape[0], np.int64), edges))
+    return out
+
+
+def _stacked_args(members, dev):
+    """The stacked operands of `members` on `dev`: ts, val, mask [Q*S, N],
+    gid [Q, S], the group counts, edges [Q, W+1]."""
+    d = [torch.from_numpy(np.concatenate([m[i] for m in members])).to(dev)
+         for i in range(3)]
+    return (*d, np.stack([m[3] for m in members]), [1] * len(members),
+            torch.from_numpy(np.stack([m[4] for m in members])).to(dev))
+
+
+def _host_wall_ms(fn, reps: int = 21) -> float:
+    """Median host-clock wall of `fn` (which ends synchronised)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def stacked_kernel_phase(dev, ts, val, checks: Checks) -> tuple[dict, dict]:
+    """Phase 16 (a): the member-strided K1, K4 and K2 and the stacked
+    pipeline at Q = 16 for two panel shapes, against their plain versions
+    and against 16 solo dispatches (bit for bit); one stacked dispatch
+    against 16 solo ones on CUDA events and on the host clock.  Returns
+    the stacked forms' times and the stacked-dispatch cost constants."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.ops import pipeline as pl
+    from opentsdb_tpu_torch.ops.rate import RateOptions
+    from types import SimpleNamespace
+    from opentsdb_tpu_torch.query.batcher import DispatchBatcher, _Member
+    from opentsdb_tpu_torch.utils.config import Config
+
+    specs = {
+        "sum:avg": pl.PipelineSpec("sum", pl.DownsampleStep("avg")),
+        "max:max:rate": pl.PipelineSpec("max", pl.DownsampleStep("max"),
+                                        RateOptions()),
+        "p99:p95": pl.PipelineSpec("p99", pl.DownsampleStep("p95")),
+    }
+    # the batcher's own dispatch, on a TSDB that is only its device
+    batcher = DispatchBatcher(Config(), SimpleNamespace(device=dev))
+    walls, times = {}, {}
+    for shape in ("dispatch", "headline"):
+        members = _fleet_members(shape, ts, val, 16)
+        s, n = members[0][0].shape
+        w = members[0][4].size - 1
+        d_ts, d_val, d_mask, gid, groups, d_edges = _stacked_args(members,
+                                                                  dev)
+        solo_args = [_stacked_args([m], dev) for m in members]
+        label = "%s [%d x %d x %d] x %d" % (shape, s, n, w, FLEET_Q)
+        for sname, spec in specs.items():
+            kernels.reset_launches()
+            got = pl.stacked_group_outputs(spec, d_ts, d_val, d_mask, gid,
+                                           groups, d_edges)
+            torch.cuda.synchronize()
+            fired = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            k1 = "window_order" if sname == "p99:p95" else "window_moments"
+            k3 = "group_order" if sname == "p99:p95" else "group_moments"
+            want = {k1: 1, k1 + ".stacked": 1, "grid_fill_rate": 1,
+                    "grid_fill_rate.stacked": 1, k3: 1}
+            print("stacked %-24s %-13s launches %s"
+                  % (label, sname, json.dumps(fired)))
+            if fired != want:
+                checks.failures.append("stacked %s %s: launches %s, not %s"
+                                       % (label, sname, fired, want))
+            plain = pl.stacked_group_outputs(
+                spec, *(x.cpu() for x in (d_ts, d_val, d_mask)), gid,
+                groups, d_edges.cpu())
+            case = "%s %s vs plain" % (label, sname)
+            checks.exact("stacked_pipeline", case, got[2], plain[2])
+            checks.values("stacked_pipeline", case, got[1], plain[1])
+            # each member's slice is its solo dispatch's, bit for bit
+            same = True
+            for q, (mine, args) in enumerate(zip(
+                    pl.split_members(got, groups), solo_args)):
+                solo = pl.run_group_pipeline(
+                    spec, args[0], args[1], args[2], args[3][0], 1,
+                    args[5][0])
+                for a, b in zip(mine, solo):
+                    same &= torch.equal(torch.nan_to_num(a, nan=7.25),
+                                        torch.nan_to_num(b, nan=7.25))
+            checks.exact("stacked_pipeline", "%s %s vs %d solo"
+                          % (label, sname, FLEET_Q),
+                          torch.tensor(same), torch.tensor(True),
+                          "bits")
+            print("stacked %-24s %-13s vs %d solo dispatches: %s"
+                  % (label, sname, FLEET_Q,
+                     "bit for bit" if same else "DIFFERENT"))
+
+        # the member-strided kernels alone against their plain versions
+        v, m = ds.window_moments(d_ts, d_val, d_mask, d_edges, "avg")
+        pv, pm = ds.window_moments_plain(d_ts, d_val, d_mask, d_edges, "avg")
+        checks.exact("window_moments.stacked", label, m, pm)
+        checks.values("window_moments.stacked", label, v, pv)
+        ov, om = ds.window_order(d_ts, d_val, d_mask, d_edges, "p95")
+        pov, pom = ds.window_order_plain(d_ts, d_val, d_mask, d_edges, "p95")
+        checks.exact("window_order.stacked", label, om, pom)
+        checks.values("window_order.stacked", label, ov, pov)
+        wts = d_edges[:, :-1].contiguous()
+        for policy, rate in (("lerp", None), ("prev", RateOptions())):
+            got2 = ga.grid_fill_rate(wts, v, m, policy, rate)
+            want2 = ga.grid_fill_rate_plain(wts, v, m, policy, rate)
+            case = "%s %s rate=%s" % (label, policy, rate is not None)
+            checks.exact("grid_fill_rate.stacked", case, got2[1], want2[1])
+            checks.exact("grid_fill_rate.stacked", case, got2[2], want2[2])
+            checks.values("grid_fill_rate.stacked", case, got2[0],
+                          want2[0])
+        offsets = pl.stacked_offsets(gid, groups).to(dev)
+        c, part, pres = ga.grid_fill_rate(wts, v, m, "lerp")
+        for agg, k3, plain3 in (("sum", ga.group_moments,
+                                 ga.group_moments_plain),
+                                ("p99", ga.group_order,
+                                 ga.group_order_plain)):
+            got3 = k3(agg, c, part, pres, offsets)
+            want3 = plain3(agg, c, part, pres, offsets)
+            name = "group_moments" if agg == "sum" else "group_order"
+            checks.exact(name, "stacked " + label, got3[1], want3[1])
+            checks.values(name, "stacked " + label, got3[0], want3[0])
+
+        # one stacked dispatch against 16 solo ones: CUDA events (the
+        # pipeline on operands already on the card) and the host clock
+        # (the batcher's dispatch: host stack, copies, kernels, copy back)
+        spec = specs["sum:avg"]
+        stacked_ms = time_ms(lambda: pl.stacked_group_outputs(
+            spec, d_ts, d_val, d_mask, gid, groups, d_edges))
+        solo_ms = time_ms(lambda: [pl.run_group_pipeline(
+            spec, a[0], a[1], a[2], a[3][0], 1, a[5][0]) for a in solo_args])
+        offsets = pl.stacked_offsets(gid, groups).to(dev)
+
+        def plain_pipeline():
+            pv, pm = ds.window_moments_plain(d_ts, d_val, d_mask, d_edges,
+                                             "avg")
+            pc = ga.grid_fill_rate_plain(d_edges[:, :-1], pv, pm, "lerp")
+            return ga.group_moments_plain("sum", *pc, offsets)
+
+        plain_ms = time_ms(plain_pipeline)
+        live = [_Member(*mb[:4], 1, mb[4], None) for mb in members]
+        host_stacked = _host_wall_ms(lambda: batcher._dispatch(spec, live))
+        host_solo = _host_wall_ms(lambda: [batcher._dispatch(spec, [mb])
+                                           for mb in live])
+        nbytes = (FLEET_Q * s * n * 17 + FLEET_Q * (w + 1) * 8
+                  + FLEET_Q * s * 8 + FLEET_Q * w * 8 + FLEET_Q * w * 9)
+        cells = FLEET_Q * (s * n + w)
+        walls[shape] = (host_stacked, cells)
+        print("stacked %-24s dispatch: CUDA events %.4f ms stacked, %.4f ms "
+              "for %d solo (%.2fx); host wall %.4f ms stacked, %.4f ms for "
+              "%d solo (%.2fx); plain %.4f ms; bound %.4f ms (bytes)"
+              % (label, stacked_ms, solo_ms, FLEET_Q, solo_ms / stacked_ms,
+                 host_stacked, host_solo, FLEET_Q, host_solo / host_stacked,
+                 plain_ms, bound_ms(nbytes, 0.0)))
+        if shape != "headline":
+            continue
+        # the member-strided kernels at the headline panel's shape
+        rows = FLEET_Q * s
+        # their library yardstick, as the solo K1 and K4 rows': one
+        # torch.segment_reduce over the window runs of every row, each
+        # row's lengths from the plain edge search against its member's
+        # edges, outside the timed call.  Every point of a panel lies in
+        # its windows, and a row's padding past the last edge is one
+        # more segment a row, so that the lengths cover the batch.
+        pos = torch.searchsorted(
+            d_ts, d_edges.repeat_interleave(s, dim=0).contiguous())
+        if int(pos[:, 0].max()) != 0:
+            checks.failures.append("stacked segment_reduce: points before "
+                                   "the first edge")
+        lengths = torch.diff(pos, dim=1, append=torch.full(
+            (rows, 1), n, dtype=pos.dtype, device=dev)).reshape(-1)
+        flat = d_val.reshape(-1)
+        seg = {red: time_ms(lambda red=red: torch.segment_reduce(
+            flat, red, lengths=lengths)) for red in ("mean", "prod")}
+        print("time segment_reduce mean %.4f ms  prod %.4f ms (stacked K1 "
+              "and K4 library, %d runs)"
+              % (seg["mean"], seg["prod"], lengths.numel()))
+        del pos, lengths, flat
+        times["window_moments.stacked"] = {
+            "ms": time_ms(lambda: ds.window_moments(d_ts, d_val, d_mask,
+                                                    d_edges, "avg")),
+            "plain_ms": time_ms(lambda: ds.window_moments_plain(
+                d_ts, d_val, d_mask, d_edges, "avg")),
+            "bound_ms": bound_ms(rows * n * 9 + rows * (w + 1) * 8
+                                 + FLEET_Q * (w + 1) * 8 + rows * w * 9,
+                                 2.0 * rows * n),
+            "library_ms": seg["mean"]}
+        # K4 at mult, as the solo K4 row, against segment_reduce prod;
+        # the fleet's order panels run it at p95
+        times["window_order.stacked"] = {
+            "ms": time_ms(lambda: ds.window_order(d_ts, d_val, d_mask,
+                                                  d_edges, "mult")),
+            "plain_ms": time_ms(lambda: ds.window_order_plain(
+                d_ts, d_val, d_mask, d_edges, "mult")),
+            "bound_ms": bound_ms(rows * n * 9 + rows * (w + 1) * 8
+                                 + FLEET_Q * (w + 1) * 8 + rows * w * 9,
+                                 1.0 * rows * n),
+            "library_ms": seg["prod"]}
+        print("time window_order.stacked p95 %.4f ms (plain %.4f ms)"
+              % (time_ms(lambda: ds.window_order(d_ts, d_val, d_mask,
+                                                 d_edges, "p95")),
+                 time_ms(lambda: ds.window_order_plain(
+                     d_ts, d_val, d_mask, d_edges, "p95"))))
+        times["grid_fill_rate.stacked"] = {
+            "ms": time_ms(lambda: ga.grid_fill_rate(wts, v, m, "lerp")),
+            "plain_ms": time_ms(lambda: ga.grid_fill_rate_plain(
+                wts, v, m, "lerp")),
+            "bound_ms": bound_ms(rows * w * 9 + FLEET_Q * w * 8
+                                 + rows * w * 10, 4.0 * rows * w),
+            "library_ms": None}
+    print_times(times)
+    (wall_a, cells_a), (wall_b, cells_b) = walls["dispatch"], \
+        walls["headline"]
+    cell_s = max((wall_b - wall_a) / 1e3 / (cells_b - cells_a), 0.0)
+    costs = {"stacked_dispatch": wall_a / 1e3 - cell_s * cells_a,
+             "stacked_cell": cell_s}
+    print("stacked dispatch cost: %s (the host walls of the two shapes, "
+          "linear in the member cells)" % json.dumps(costs))
+    return times, costs
+
+
+def _fleet_panels(tsdb) -> list[str]:
+    """The fleet's panels: both forms over each group, rotating, over the
+    data's last hour."""
+    groups = sorted(tsdb.tag_values.get_name(v) for v in {
+        dict(s.key.tags)[tsdb.tag_names.get_id("group")]
+        for s in tsdb.store.all_series()})
+    start_s, end_s = (END - 3_600_000) // 1000, END // 1000
+    return ["/api/query?start=%d&end=%d&m=%s" % (start_s, end_s, form % g)
+            for g in groups for form in FLEET_FORMS]
+
+
+def fleet_client(spec: dict) -> int:
+    """The fleet's clients, in a process of their own (`--fleet-client`):
+    `threads` threads each send the panels in turn over one keep-alive
+    connection for `warmup` + `window` seconds; prints one JSON line of
+    what the timed window saw: queries, latencies on this clock, statuses
+    and each panel's body hashes."""
+    import hashlib
+    import http.client
+    import threading
+    port, panels = spec["port"], spec["panels"]
+    threads = spec["threads"]
+    t_begin = time.perf_counter() + spec["warmup"]
+    t_end = t_begin + spec["window"]
+    lock = threading.Lock()
+    lat, statuses, hashes, retry = [], {}, {}, []
+
+    def run(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        k = i
+        while True:
+            t0 = time.perf_counter()
+            if t0 >= t_end:
+                break
+            idx = k % len(panels)
+            k += threads
+            try:
+                conn.request("GET", panels[idx])
+                resp = conn.getresponse()
+                body = resp.read()
+                status = resp.status
+                after = resp.getheader("Retry-After")
+            except (OSError, http.client.HTTPException):
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=120)
+                status, body, after = -1, b"", None
+            dt = (time.perf_counter() - t0) * 1e3
+            with lock:
+                if status == 200:
+                    hashes.setdefault(idx, set()).add(
+                        hashlib.sha256(body).hexdigest())
+                if t0 >= t_begin:
+                    lat.append(dt)
+                    statuses[status] = statuses.get(status, 0) + 1
+                    if status == 503:
+                        retry.append(after)
+        conn.close()
+
+    pool = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(spec["warmup"] + spec["window"] + 180)
+    lat.sort()
+    pct = (lambda p: lat[min(int(p * len(lat)), len(lat) - 1)]
+           if lat else float("nan"))
+    print(json.dumps({
+        "queries": len(lat), "qps": len(lat) / spec["window"],
+        "p50_ms": pct(0.50), "p99_ms": pct(0.99),
+        "statuses": {str(k): v for k, v in statuses.items()},
+        "retry_after": sum(1 for r in retry if r),
+        "hashes": {str(k): sorted(v) for k, v in hashes.items()}}))
+    return 0
+
+
+def _run_fleet(port: int, panels: list[str], window: float) -> dict:
+    """One arm of the fleet: the clients in a child process."""
+    spec = {"port": port, "panels": panels, "threads": FLEET_THREADS,
+            "warmup": FLEET_WARMUP_S, "window": window}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--fleet-client",
+         json.dumps(spec)], capture_output=True, text=True,
+        timeout=FLEET_WARMUP_S + window + 240)
+    if proc.returncode != 0:
+        raise RuntimeError("fleet client failed: %s" % proc.stderr[-2000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _http_get(port: int, path: str, headers: dict | None = None,
+              timeout: float = 120):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Retry-After"), resp.read()
+    finally:
+        conn.close()
+
+
+def fleet_phase(dev, tsdb, checks: Checks) -> dict:
+    """Phase 16 (b)-(d) on the headline TSDB: the routing verdicts, the
+    fleet over HTTP with batching off then on, and admission.  Returns
+    the launch counts of the main path (the on arm and the order
+    panels)."""
+    import threading
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.query.batcher import DispatchBatcher
+    from opentsdb_tpu_torch.tsd import admission
+    from opentsdb_tpu_torch.utils.config import Config
+
+    cfg = tsdb.config
+    key = "tsd.query.streaming.point_threshold"
+    threshold = cfg.get_string(key)
+    cfg.override_config(key, MATERIALIZE[key])
+    batcher = DispatchBatcher(Config(), tsdb=tsdb)
+    tsdb.dispatch_batcher = batcher
+
+    # (b) two routing verdicts
+    panel_q = _query(FLEET_FORMS[0] % "g007", END - 3_600_000, END)
+    for label, q, want in (("sum:1h-avg:m{group=*}",
+                            _query("sum:1h-avg:m{group=*}"), False),
+                           ("panel " + FLEET_FORMS[0] % "g007", panel_q,
+                            True)):
+        runner = tsdb.new_query_runner()
+        runner.run(q)
+        pd = runner.decisions[0]
+        print("fleet route %-36s path %s fingerprint %s fields %s"
+              % (label, pd.path, pd.fingerprint, json.dumps(pd.fp_fields)))
+        if (pd.path == "batched") != want:
+            checks.failures.append("fleet route %s: path %s" % (label,
+                                                                pd.path))
+
+    panels = _fleet_panels(tsdb)
+    arms = {}
+
+    def arm(label, arm_batcher, window):
+        """One arm of the fleet with `arm_batcher` (None: batching off)."""
+        tsdb.dispatch_batcher = arm_batcher
+        stats = arm_batcher or batcher
+        before = stats.collect_stats()
+        t0 = time.perf_counter()
+        res = _run_fleet(server.port, panels, window)
+        after = stats.collect_stats()
+        delta = {k.rsplit(".", 1)[1]: after[k] - before[k] for k in after}
+        res.update(dispatches=delta["stacked_dispatches"],
+                   members=delta["stacked_members"],
+                   solo=delta["solo_dispatches"])
+        n_disp = max(res["dispatches"] + res["solo"], 1)
+        print("fleet %-12s %d client threads, %d panels: %.1f QPS, p50 "
+              "%.2f ms, p99 %.2f ms (client clock) | statuses %s | stacked "
+              "dispatches %d, %.2f members a dispatch, solo dispatches %d "
+              "(buckets formed %d, bucket keys %d), coalesce wait %.3f ms "
+              "a batched query | a dispatch: host wall %.3f ms, its "
+              "thread's CPU %.3f ms, copy back %.3f ms | wall %.1f s"
+              % (label, FLEET_THREADS, len(panels), res["qps"],
+                 res["p50_ms"], res["p99_ms"], json.dumps(res["statuses"]),
+                 res["dispatches"],
+                 res["members"] / max(res["dispatches"], 1), res["solo"],
+                 res["dispatches"] + res["solo"],
+                 after["tsd.query.batch.keys"],
+                 delta["wait_ms"] / max(delta["queries"], 1),
+                 delta["dispatch_ms"] / n_disp,
+                 delta["dispatch_cpu_ms"] / n_disp,
+                 delta["copy_back_ms"] / n_disp,
+                 time.perf_counter() - t0))
+        if res["statuses"].get("503") or set(res["statuses"]) - {"200"}:
+            checks.failures.append("fleet %s: statuses %s"
+                                   % (label, res["statuses"]))
+        if "off" in arms:
+            # every panel answered one body, the off arm's
+            diff = [k for k, h in res["hashes"].items()
+                    if len(h) != 1 or arms["off"]["hashes"].get(k, h) != h]
+            shared = len(set(res["hashes"]) & set(arms["off"]["hashes"]))
+            print("fleet %s bodies: %d panels answered in this arm and "
+                  "the off arm, %d differ" % (label, shared, len(diff)))
+            if diff or not shared:
+                checks.failures.append("fleet %s: %d panel bodies differ "
+                                       "from the off arm's"
+                                       % (label, len(diff)))
+        return res
+
+    with Serving(tsdb, workers=8) as server:
+        arms["off"] = arm("off", None, FLEET_WINDOW_S)
+        kernels.reset_launches()
+        arms["on"] = arm("on", batcher, FLEET_WINDOW_S)
+        if arms["on"]["dispatches"] <= 0:
+            checks.failures.append("fleet on: no stacked dispatch")
+        # the order panels (K4, K5) through the same server, batching on
+        tsdb.dispatch_batcher = batcher
+        before = batcher.collect_stats()["tsd.query.batch.stacked_dispatches"]
+        start_s, end_s = (END - 3_600_000) // 1000, END // 1000
+        order = ["/api/query?start=%d&end=%d&m=%s"
+                 % (start_s, end_s, ORDER_FORM % ("g%03d" % g))
+                 for g in range(0, GROUPS, 2)]
+        res = _run_fleet(server.port, order, 5.0)
+        print("fleet order panels %s: %.1f QPS, p50 %.2f ms, statuses %s, "
+              "stacked dispatches %d"
+              % (ORDER_FORM % "gNNN", res["qps"], res["p50_ms"],
+                 json.dumps(res["statuses"]),
+                 batcher.collect_stats()["tsd.query.batch.stacked_dispatches"]
+                 - before))
+        launches = dict(kernels.LAUNCHES)
+        print("fleet launches %s" % json.dumps(launches))
+        for name in ("window_moments.stacked", "window_order.stacked",
+                     "grid_fill_rate.stacked", "group_moments",
+                     "group_order"):
+            if launches[name] < 1:
+                checks.failures.append("kernel %s never launched on the "
+                                       "fleet's path" % name)
+        # two diagnostic arms that separate where a batched query's
+        # host time goes: the GIL handed over every 0.5 ms instead of
+        # every 5 ms (a convoy of responder threads waiting for the GIL
+        # after each released call shrinks), and each responder thread
+        # on a CUDA stream of its own (a copy back then waits only for
+        # its own thread's work, not for every thread's on the one
+        # legacy default stream)
+        import sys
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            arm("on gil 0.5ms", DispatchBatcher(Config(), tsdb=tsdb), 5.0)
+        finally:
+            sys.setswitchinterval(interval)
+        local = threading.local()
+        handle_http = server.rpc_manager.handle_http
+
+        def on_own_stream(request, remote="unknown"):
+            if not hasattr(local, "stream"):
+                local.stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(local.stream):
+                return handle_http(request, remote)
+
+        server.rpc_manager.handle_http = on_own_stream
+        try:
+            arm("on streams", DispatchBatcher(Config(), tsdb=tsdb), 5.0)
+        finally:
+            del server.rpc_manager.handle_http
+        admission_phase(tsdb, server, checks, admission)
+    cfg.override_config(key, threshold)
+    return launches
+
+
+def admission_phase(tsdb, server, checks: Checks, admission) -> None:
+    """Phase 16 (d): a shed under permits=1, the request deadline's 503,
+    a degraded 200 and a client that hangs up while queued."""
+    import socket
+    import threading
+    cfg = tsdb.config
+    gate = tsdb.admission_gate
+    full = "/api/query?start=%d&end=%d&m=" % (START // 1000, END // 1000)
+
+    def fresh_gate(**over):
+        for k, v in over.items():
+            cfg.override_config(k, v)
+        tsdb.admission_gate = admission.AdmissionGate(cfg)
+        return tsdb.admission_gate
+
+    # 8 concurrent full-range queries on one permit and one queue slot
+    g1 = fresh_gate(**{"tsd.query.admission.permits": "1",
+                       "tsd.query.admission.queue_limit": "1"})
+    out = []
+    go = threading.Barrier(8)
+
+    def client():
+        go.wait()
+        out.append(_http_get(server.port, full + "sum:1h-avg:m{group=*}"))
+
+    pool = [threading.Thread(target=client) for _ in range(8)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(120)
+    codes = sorted(o[0] for o in out)
+    sheds = [o for o in out if o[0] == 503]
+    print("admission permits=1 queue=1, 8 concurrent: statuses %s, "
+          "Retry-After on %d of %d 503s | gate %s"
+          % (codes, sum(1 for o in sheds if o[1]), len(sheds),
+             json.dumps(g1.collect_stats())))
+    if not sheds or not all(o[1] for o in sheds) \
+            or set(codes) - {200, 503}:
+        checks.failures.append("admission: statuses %s" % codes)
+
+    # the request deadline: 1 ms on a full-range query, degrade=error
+    fresh_gate(**{"tsd.query.admission.permits": "8",
+                  "tsd.query.admission.queue_limit": "64"})
+    st, after, body = _http_get(server.port, full + "sum:1m-avg:m{group=*}",
+                                {"X-TSDB-Deadline-Ms": "1"})
+    print("admission X-TSDB-Deadline-Ms 1, degrade=error: %d Retry-After "
+          "%s %s" % (st, after, body[:160]))
+    if st != 503 or not after:
+        checks.failures.append("admission: a 1 ms deadline answered %d" % st)
+
+    # degrade=allow: the ladder coarsens x4.  At a 1 ms deadline no
+    # degraded run can finish (the cost table prices device work only),
+    # so, as tests/test_admission.py::test_degrade_allow_answers_200_partial
+    # does, the estimate is replaced for this request: it fits once the
+    # interval is coarsened x4, under a 5000 ms deadline
+    subset = "{group=g000|g001|g002|g003}"
+    cfg.override_config("tsd.query.degrade", "allow")
+    real = admission.estimate_plan_cost_ms
+    admission.estimate_plan_cost_ms = lambda _t, tq: (
+        1e9 if tq.queries[0].downsample_spec.interval_ms < 2_400_000
+        else 1.0)
+    try:
+        st, _, body = _http_get(server.port, full + "sum:10m-avg:m" + subset,
+                                {"X-TSDB-Deadline-Ms": "5000"})
+    finally:
+        admission.estimate_plan_cost_ms = real
+        cfg.override_config("tsd.query.degrade", "error")
+    payload = json.loads(body) if st == 200 else []
+    trailer = [e for e in payload if "partialResults" in e]
+    print("admission degrade=allow: %d, trailer %s"
+          % (st, json.dumps(trailer)))
+    if st != 200 or not trailer or trailer[0]["degraded"].get(
+            "coarsenedIntervalFactor") != 4:
+        checks.failures.append("admission: degrade=allow answered %d %s"
+                               % (st, trailer))
+    else:
+        cpu = _cpu_copy(tsdb)
+        want = cpu.new_query_runner().run(
+            _query("sum:40m-avg:m" + subset))
+        del cpu
+        got = [e for e in payload if "metric" in e]
+        if [(e["tags"], list(e["dps"])) for e in got] \
+                != [(r.tags, [str(t // 1000) for t, _ in r.dps])
+                    for r in want]:
+            checks.failures.append("admission: the degraded answer's "
+                                   "groups or timestamps differ")
+        else:
+            checks.values("e2e", "degraded sum:40m-avg" + subset,
+                          torch.tensor([v for e in got
+                                        for v in e["dps"].values()]),
+                          torch.tensor([v for r in want for _, v in r.dps]))
+
+    # a client that hangs up while queued leaves without a permit
+    g2 = fresh_gate(**{"tsd.query.admission.permits": "1",
+                       "tsd.query.admission.queue_limit": "4",
+                       "tsd.query.admission.max_wait_ms": "30000"})
+    held = []
+    ta = threading.Thread(target=lambda: held.append(_http_get(
+        server.port, full + "sum:1m-avg:m{group=*}")))
+    ta.start()
+    t0 = time.time()
+    while time.time() - t0 < 30 and g2.demand() < 1:
+        time.sleep(0.005)
+    sock = socket.create_connection(("127.0.0.1", server.port), timeout=30)
+    sock.sendall(("GET %ssum:1h-avg:m{group=*} HTTP/1.1\r\nHost: x\r\n\r\n"
+                  % full).encode())
+    while time.time() - t0 < 30 and g2.demand() < 2:
+        time.sleep(0.005)
+    queued = g2.demand()
+    sock.close()
+    while time.time() - t0 < 30 and not g2.cancelled:
+        time.sleep(0.005)
+    ta.join(120)
+    stats = g2.collect_stats()
+    print("admission hang-up: demand %d before it, A %s, gate %s"
+          % (queued, held[0][0] if held else None, json.dumps(stats)))
+    if queued != 2 or not held or held[0][0] != 200 \
+            or stats.get("tsd.query.admission.cancelled.client_disconnect") \
+            != 1.0 or stats["tsd.query.admission.admitted"] != 1.0 \
+            or stats["tsd.query.admission.inflight"] != 0.0:
+        checks.failures.append("admission: the hang-up did not release "
+                               "its place (%s)" % json.dumps(stats))
+    fresh_gate(**{"tsd.query.admission.permits": "8",
+                  "tsd.query.admission.queue_limit": "64",
+                  "tsd.query.admission.max_wait_ms": "5000"})
+    tsdb.admission_gate = gate
+
+
 def cost_constants(dev, times: dict, measured: dict) -> dict:
     """The `cuda` table of ops/costmodel.py from this run: per-point and
     per-cell kernel times at the headline batch, the host launch floor,
@@ -3208,7 +3886,11 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0,
                         help="mixed into the data of phases 11-13 (0: "
                         "bench_configs' own chunks)")
+    # phase 16's clients run in a child process of their own
+    parser.add_argument("--fleet-client", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.fleet_client:
+        return fleet_client(json.loads(args.fleet_client))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3264,6 +3946,13 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     tiled_launches, tiled_costs = tiled_e2e_phase(dev, tsdb, checks)
     print("phase 15 (a, b) wall %.1f s" % (time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    stacked_times, stacked_costs = stacked_kernel_phase(dev, ts, val, checks)
+    times.update(stacked_times)
+    torch.cuda.empty_cache()
+    fleet_launches = fleet_phase(dev, tsdb, checks)
+    print("phase 16 wall %.1f s" % (time.perf_counter() - t_phase))
     del tsdb
     torch.cuda.empty_cache()
     rollup_launches, lane_costs, rtsdb = rollup_e2e_phase(dev, ts, val, h,
@@ -3286,7 +3975,7 @@ def main(argv=None) -> int:
     print("phase 13 wall %.1f s; the script %.1f s"
           % (time.perf_counter() - t_phase, time.perf_counter() - t_start))
     print("costmodel cuda %s" % json.dumps(cost_constants(
-        dev, times, {**lane_costs, **tiled_costs})))
+        dev, times, {**lane_costs, **tiled_costs, **stacked_costs})))
 
     # Each kernel's launches on the main path: the grouped, union, daemon,
     # streamed, rollup, tiled and striped phases, their counts reset just
@@ -3294,10 +3983,11 @@ def main(argv=None) -> int:
     for name in launches:
         launches[name] += (union_launches[name] + daemon_launches[name]
                            + stream_launches[name] + rollup_launches[name]
-                           + tiled_launches[name] + striped_launches[name])
+                           + tiled_launches[name] + striped_launches[name]
+                           + fleet_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "opentsdb_tpu_torch/csrc/%s.cu" % name,
+         "source": "opentsdb_tpu_torch/csrc/%s.cu" % name.split(".")[0],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": checks.worst[name]["abs"],
          "max_rel_err": checks.worst[name]["rel"],

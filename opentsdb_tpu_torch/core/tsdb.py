@@ -12,7 +12,11 @@ closed by ``shutdown``.  With ``tsd.rollups.enable`` the TSDB takes
 written rollups (``add_aggregate_point``, TSDB.java:1359-1457)
 into its RollupStore; with ``tsd.rollup.enable`` the maintenance thread
 builds rollup lanes (storage/rollup.py) that hear of every write through
-the store's mutation listener.  No WAL, no replication, no plugins.
+the store's mutation listener.  The admission gate (tsd/admission.py)
+bounds the queries the daemon runs at once, and the dispatch batcher
+(query/batcher.py, ``tsd.query.batch.enable``) stacks concurrent small
+grouped queries into one launch of each kernel.  No WAL, no replication,
+no plugins.
 
 ``load_state`` builds a TSDB from another TSDB's UID dictionaries and
 series columns, so the two hold the same data under the same UIDs.
@@ -152,6 +156,14 @@ class TSDB:
                 directory=self.config.get_string("tsd.query.spill.dir")
                 or None)
             if self.config.get_bool("tsd.query.spill.enable") else None)
+        # admission control (tsd/admission.py) and fused multi-query
+        # dispatch (query/batcher.py; reference core/tsdb.py:162-170)
+        from opentsdb_tpu_torch.query.batcher import DispatchBatcher
+        from opentsdb_tpu_torch.tsd.admission import AdmissionGate
+        self.admission_gate = AdmissionGate(self.config)
+        self.dispatch_batcher = (
+            DispatchBatcher(self.config, tsdb=self)
+            if self.config.get_bool("tsd.query.batch.enable") else None)
         self.mode = self.config.get_string("tsd.mode")  # rw / ro / wo
         self._stats_lock = threading.Lock()
         self.datapoints_added = 0  # guarded-by: _stats_lock
@@ -386,8 +398,9 @@ class TSDB:
                          self.tag_values.width)
 
     def collect_stats(self) -> dict:
-        """The stored point count and the tallies of the device cache and
-        the rollup lanes, where they are on (a slim TSDB.collectStats,
+        """The stored point count and the tallies of the device cache, the
+        rollup lanes, the spill pool, the dispatch batcher and the
+        admission gate, where they are on (a slim TSDB.collectStats,
         reference core/tsdb.py:1056)."""
         out: dict = {"tsd.storage.datapoints": self.store.total_datapoints,
                      "tsd.datapoints.added": self.datapoints_added}
@@ -399,6 +412,9 @@ class TSDB:
             out.update(self.maintenance.collect_stats())
         if self.spill_pool is not None:
             out.update(self.spill_pool.collect_stats())
+        if self.dispatch_batcher is not None:
+            out.update(self.dispatch_batcher.collect_stats())
+        out.update(self.admission_gate.collect_stats())
         with self._stats_lock:
             for reason, n in self.tiled_refusals.items():
                 out["tsd.query.spill.refusals." + reason] = float(n)

@@ -25,6 +25,11 @@
 // NaN: every consumer masks them by `participate`.  No atomics: each cell
 // has one writer.  Left slow on purpose for now (one thread per row is a
 // few warps for the whole card); its time is recorded, not tuned.
+//
+// Stacked form (B14, opentsdb_tpu/ops/pipeline.py:225): Q members' [S, W]
+// grids are one [Q*S, W] grid and wts is [Q, W], each member's window
+// timestamps; row s reads the row of member s / rows_per_member.  A solo
+// call passes rows_per_member = S and one wts row.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -38,13 +43,16 @@ constexpr int THREADS = 128;
 
 __global__ void __launch_bounds__(THREADS)
 grid_fill_rate_kernel(const double* __restrict__ v, const uint8_t* __restrict__ m,
-                      const int64_t* __restrict__ wts, int64_t s_rows, int w,
-                      int do_rate, int counter, int drop_resets,
+                      const int64_t* __restrict__ wts_all, int64_t s_rows, int w,
+                      int64_t rows_per_member, int do_rate, int counter,
+                      int drop_resets,
                       double counter_max, double reset_value, int policy,
                       double* __restrict__ contrib, uint8_t* __restrict__ participate,
                       uint8_t* __restrict__ present) {
   const int64_t s = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (s >= s_rows) return;
+  // this row's member's window timestamps
+  const int64_t* wts = wts_all + (s / rows_per_member) * w;
   const double* vr = v + s * w;
   const uint8_t* mr = m + s * w;
   double* cr = contrib + s * w;
@@ -128,16 +136,19 @@ grid_fill_rate_kernel(const double* __restrict__ v, const uint8_t* __restrict__ 
 
 }  // namespace
 
+// wts holds s / rows_per_member rows of w window timestamps.
 extern "C" int grid_fill_rate(const void* v, const void* m, const void* wts,
-                              long long s, int w, int do_rate, int counter,
-                              int drop_resets, double counter_max,
-                              double reset_value, int policy, void* contrib,
-                              void* participate, void* present, void* stream) {
-  if (s <= 0 || w <= 0) return 0;
+                              long long s, int w, long long rows_per_member,
+                              int do_rate, int counter, int drop_resets,
+                              double counter_max, double reset_value,
+                              int policy, void* contrib, void* participate,
+                              void* present, void* stream) {
+  if (s <= 0 || w <= 0 || rows_per_member <= 0) return 0;
   const unsigned blocks = (unsigned)((s + THREADS - 1) / THREADS);
   grid_fill_rate_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const double*)v, (const uint8_t*)m, (const int64_t*)wts, (int64_t)s, w,
-      do_rate, counter, drop_resets, counter_max, reset_value, policy,
+      (int64_t)rows_per_member, do_rate, counter, drop_resets, counter_max,
+      reset_value, policy,
       (double*)contrib, (uint8_t*)participate, (uint8_t*)present);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,14 @@
 // float64 accumulation throughout.  The TPU tricks of the JAX version (int32
 // compaction, clean-batch count skip, hier/compare_all search, sub-block
 // scans) do not carry over: Hopper has native int64 and float64.
+//
+// Stacked form (B14, opentsdb_tpu/ops/pipeline.py:225
+// _stacked_group_pipeline, the vmap of _group_pipeline over a member axis):
+// Q members' [S, N] batches are one [Q*S, N] batch, and edges is [Q, W+1],
+// one row of window edges a member.  Row r reads the edges of member
+// r / rows_per_member; a solo call passes rows_per_member = S and one edge
+// row, so solo and stacked run the same code and a member's cells are bit
+// for bit its solo cells.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -44,7 +52,8 @@ __global__ void __launch_bounds__(THREADS)
 window_moments_kernel(const int64_t* __restrict__ ts, const V* __restrict__ val,
                       const uint8_t* __restrict__ mask,
                       const int64_t* __restrict__ edges, int64_t n, int w,
-                      int agg, int fill_mode, double fill_value,
+                      int64_t rows_per_member, int agg, int fill_mode,
+                      double fill_value,
                       double* __restrict__ out, uint8_t* __restrict__ out_mask) {
   __shared__ int64_t pos[TILE_W + 1];
   const int64_t row = blockIdx.x;
@@ -53,10 +62,12 @@ window_moments_kernel(const int64_t* __restrict__ ts, const V* __restrict__ val,
   const int64_t* trow = ts + row * n;
   const V* vrow = val + row * n;
   const uint8_t* mrow = mask + row * n;
+  // this row's member's window edges
+  const int64_t* medges = edges + (row / rows_per_member) * (int64_t)(w + 1);
 
   // Edge positions of the tile.
   for (int i = threadIdx.x; i <= tw; i += THREADS) {
-    pos[i] = lower_bound(trow, n, edges[w0 + i]);
+    pos[i] = lower_bound(trow, n, medges[w0 + i]);
   }
   __syncthreads();
 
@@ -116,30 +127,33 @@ window_moments_kernel(const int64_t* __restrict__ ts, const V* __restrict__ val,
 
 template <typename V>
 int launch(const void* ts, const void* val, const void* mask, const void* edges,
-           long long s, long long n, int w, int agg, int fill_mode,
-           double fill_value, void* out, void* out_mask, void* stream) {
-  if (s <= 0 || w <= 0) return 0;
+           long long s, long long n, int w, long long rows_per_member, int agg,
+           int fill_mode, double fill_value, void* out, void* out_mask,
+           void* stream) {
+  if (s <= 0 || w <= 0 || rows_per_member <= 0) return 0;
   const dim3 grid((unsigned)s, (unsigned)((w + TILE_W - 1) / TILE_W));
   window_moments_kernel<V><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)ts, (const V*)val, (const uint8_t*)mask,
-      (const int64_t*)edges, (int64_t)n, w, agg, fill_mode, fill_value,
+      (const int64_t*)edges, (int64_t)n, w, (int64_t)rows_per_member, agg,
+      fill_mode, fill_value,
       (double*)out, (uint8_t*)out_mask);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// val_is_int selects the value type: float64 (0) or exact int64 (1) rows.
+// val_is_int selects the value type: float64 (0) or exact int64 (1) rows;
+// edges holds s / rows_per_member rows of w + 1 edges.
 extern "C" int window_moments(const void* ts, const void* val, const void* mask,
                               const void* edges, long long s, long long n,
-                              int w, int agg, int fill_mode,
-                              double fill_value, int val_is_int, void* out,
-                              void* out_mask, void* stream) {
+                              int w, long long rows_per_member, int agg,
+                              int fill_mode, double fill_value, int val_is_int,
+                              void* out, void* out_mask, void* stream) {
   if (val_is_int)
-    return launch<int64_t>(ts, val, mask, edges, s, n, w, agg, fill_mode,
-                           fill_value, out, out_mask, stream);
-  return launch<double>(ts, val, mask, edges, s, n, w, agg, fill_mode,
-                        fill_value, out, out_mask, stream);
+    return launch<int64_t>(ts, val, mask, edges, s, n, w, rows_per_member,
+                           agg, fill_mode, fill_value, out, out_mask, stream);
+  return launch<double>(ts, val, mask, edges, s, n, w, rows_per_member, agg,
+                        fill_mode, fill_value, out, out_mask, stream);
 }
 
 extern "C" const char* window_moments_error(int code) {

@@ -24,6 +24,12 @@
 // reference's order: an overflow to inf before or after a zero is NaN or
 // 0), median and percentiles by radix select.  Each cell has one writer:
 // no atomics, deterministic results.
+//
+// Stacked form (B14, opentsdb_tpu/ops/pipeline.py:225, as K1's): Q members'
+// batches are one [Q*S, N] batch and edges is [Q, W+1]; row r reads the
+// edges of member r / rows_per_member.  A solo call passes
+// rows_per_member = S and one edge row: one code path, so a stacked cell is
+// bit for bit its solo cell.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -49,7 +55,8 @@ template <typename VIn>
 __global__ void __launch_bounds__(THREADS)
 window_order_kernel(const int64_t* __restrict__ ts, const VIn* __restrict__ val,
                     const uint8_t* __restrict__ mask, const int64_t* __restrict__ edges,
-                    int64_t s, int64_t n, int w, int code, double q, int est, int fill_mode,
+                    int64_t s, int64_t n, int w, int64_t rows_per_member, int code,
+                    double q, int est, int fill_mode,
                     double fill_value, double* __restrict__ out,
                     uint8_t* __restrict__ out_mask) {
   __shared__ unsigned hist[WARPS][order_stats::BINS];
@@ -61,8 +68,10 @@ window_order_kernel(const int64_t* __restrict__ ts, const VIn* __restrict__ val,
   const int64_t* trow = ts + row * n;
   const VIn* vrow = val + row * n;
   const uint8_t* mrow = mask + row * n;
-  const int64_t lo = lower_bound(trow, n, edges[wi]);
-  const int64_t hi = lower_bound(trow, n, edges[wi + 1]);
+  // this row's member's window edges
+  const int64_t* medges = edges + (row / rows_per_member) * (int64_t)(w + 1);
+  const int64_t lo = lower_bound(trow, n, medges[wi]);
+  const int64_t hi = lower_bound(trow, n, medges[wi + 1]);
   auto get = [&](int64_t i, double& v) {
     const int64_t k = lo + i;
     if (!mrow[k]) return false;
@@ -82,29 +91,32 @@ window_order_kernel(const int64_t* __restrict__ ts, const VIn* __restrict__ val,
 
 template <typename VIn>
 int launch(const void* ts, const void* val, const void* mask, const void* edges, long long s,
-           long long n, int w, int code, double q, int est, int fill_mode, double fill_value,
-           void* out, void* out_mask, void* stream) {
-  if (s <= 0 || w <= 0) return 0;
+           long long n, int w, long long rows_per_member, int code, double q, int est,
+           int fill_mode, double fill_value, void* out, void* out_mask, void* stream) {
+  if (s <= 0 || w <= 0 || rows_per_member <= 0) return 0;
   const long long blocks = (s * w + WARPS - 1) / WARPS;
   window_order_kernel<VIn><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)ts, (const VIn*)val, (const uint8_t*)mask, (const int64_t*)edges, s, n,
-      w, code, q, est, fill_mode, fill_value, (double*)out, (uint8_t*)out_mask);
+      w, (int64_t)rows_per_member, code, q, est, fill_mode, fill_value, (double*)out,
+      (uint8_t*)out_mask);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // code: order_stats::Order; q and est: the percentile and its estimator
-// (order_stats::Est); val_is_int selects float64 (0) or int64 (1) rows.
+// (order_stats::Est); val_is_int selects float64 (0) or int64 (1) rows;
+// edges holds s / rows_per_member rows of w + 1 edges.
 extern "C" int window_order(const void* ts, const void* val, const void* mask,
-                            const void* edges, long long s, long long n, int w, int code,
-                            double q, int est, int fill_mode, double fill_value,
-                            int val_is_int, void* out, void* out_mask, void* stream) {
+                            const void* edges, long long s, long long n, int w,
+                            long long rows_per_member, int code, double q, int est,
+                            int fill_mode, double fill_value, int val_is_int, void* out,
+                            void* out_mask, void* stream) {
   if (val_is_int)
-    return launch<int64_t>(ts, val, mask, edges, s, n, w, code, q, est, fill_mode,
-                           fill_value, out, out_mask, stream);
-  return launch<double>(ts, val, mask, edges, s, n, w, code, q, est, fill_mode, fill_value,
-                        out, out_mask, stream);
+    return launch<int64_t>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
+                           fill_mode, fill_value, out, out_mask, stream);
+  return launch<double>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
+                        fill_mode, fill_value, out, out_mask, stream);
 }
 
 extern "C" const char* window_order_error(int code) {

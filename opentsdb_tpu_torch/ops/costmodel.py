@@ -9,8 +9,12 @@ host assembly of a lane-served grid and ``predict_lane_build`` (:651) a
 lane block build.  The lanes rank their demand by the saving per byte
 that these predictions give.  ``predict_tiled`` (:608) prices what a
 tiled execution (ops/tiling.py) adds: the spill pool's round trip and the
-stripe replays.  The reference's mode-selection half has no
-counterpart: the port has one kernel per function.
+stripe replays.  ``coalesce_worthwhile`` (:682) is the batched arm's
+verdict (query/plandecision.py): a plan whose predicted compute and
+stack/unpack traffic stay within ``tsd.query.batch.amortize_factor`` x the
+stacked-dispatch floor is dispatch-bound and goes through the dispatch
+batcher.  The reference's mode-selection half has no counterpart: the
+port has one kernel per function.
 
 The one table, ``CUDA_COSTS``, holds constants measured on an NVIDIA
 H100 80GB HBM3 at 700 W by ``chip_smoke.py`` (it prints them as the
@@ -55,6 +59,13 @@ CUDA_COSTS: dict[str, float] = {
     "spill_write_mb": 0.0005706923990043238,
     "spill_read_mb": 0.0002072213020310592,
     "tile_dispatch": 0.0020319061666687808,
+    # one stacked dispatch of the dispatch batcher (the host stack, one
+    # upload, one K1 or K4, K2 and K3 or K5, the download), its floor and
+    # per member cell (s * n + g * w): the host walls of 16 members of
+    # phase 16's two panel shapes, on the same card (PERF.md names the
+    # run)
+    "stacked_dispatch": 0.0007323887140812703,
+    "stacked_cell": 4.931113691491309e-09,
 }
 
 
@@ -112,3 +123,30 @@ def predict_lane_build(s: int, cells: int) -> float:
     """Predicted seconds of one lane block build over s series x `cells`
     lane cells."""
     return s * max(cells, 1) * CUDA_COSTS["lane_build_cell"]
+
+
+def features_stacked(q: int, s: int, n: int, w: int,
+                     g: int) -> dict[str, float]:
+    """Unit counts of what batching adds to Q members' own compute (the
+    reference's features_stacked, :655): one stacked-dispatch floor and
+    the members' stacked cells, each member's [S, N] batch in and its
+    [G, W] answer out."""
+    return {"stacked_dispatch": 1.0,
+            "stacked_cell": float(q * (s * n + g * w))}
+
+
+def predict_stacked(q: int, s: int, n: int, w: int, g: int) -> float:
+    """Predicted seconds of a stacked dispatch's overhead."""
+    feats = features_stacked(q, s, n, w, g)
+    return sum(u * CUDA_COSTS[term] for term, u in feats.items())
+
+
+def coalesce_worthwhile(compute_s: float, s: int, n: int, w: int, g: int,
+                        factor: float) -> bool:
+    """The coalesce-or-dispatch-now verdict on one plan (:682): it is
+    dispatch-bound, worth stacking, when its predicted compute plus its
+    own stack/unpack cells stay within `factor` x the stacked-dispatch
+    floor that a shared launch amortizes."""
+    c = CUDA_COSTS
+    member_s = float(s * n + g * w) * c["stacked_cell"]
+    return compute_s + member_s <= factor * c["stacked_dispatch"]

@@ -20,6 +20,12 @@ windows: window w spans [e[w], e[w+1]), and its timestamp is e[w].
 
 ``window_moments_plain`` and ``window_order_plain`` are the kernels' plain
 PyTorch versions.
+
+Both kernels also take a stacked batch (the dispatch batcher's, B14): Q
+members' [S, N] batches as one [Q*S, N] batch with edges [Q, W+1], one row
+of window edges a member (each panel has its own range).  Row r reads the
+edges of member r // S; a solo call is one member, so a member's cells
+equal its solo call's bit for bit.
 """
 
 from __future__ import annotations
@@ -95,8 +101,10 @@ class AllWindow:
 
 
 def window_timestamps(edges: torch.Tensor) -> torch.Tensor:
-    """Representative (start-of-interval) timestamp per window [W]."""
-    return edges[:-1]
+    """Representative (start-of-interval) timestamp per window: [W] of
+    edges [W+1], or [Q, W] of a stacked batch's edges [Q, W+1] (a
+    contiguous copy: K2 reads it as rows)."""
+    return edges[..., :-1].contiguous()
 
 
 def fill_args(fill_policy: str, fill_value: float) -> tuple[int, float]:
@@ -114,15 +122,35 @@ def fill_args(fill_policy: str, fill_value: float) -> tuple[int, float]:
     raise ValueError("Unrecognized fill policy: " + fill_policy)
 
 
-def check_batch(ts, val, mask, edges) -> None:
+def check_batch(ts, val, mask, edges, stacked: bool = False) -> int:
+    """Check a windowed kernel's inputs; the rows a member.  With `stacked`
+    the edges may also be [Q, W+1], one row a member of S // Q rows."""
     if ts.dim() != 2 or val.shape != ts.shape or mask.shape != ts.shape:
         raise ValueError("ts, val and mask must share one [S, N] shape")
     if ts.dtype != torch.int64 or mask.dtype != torch.bool \
             or val.dtype not in (torch.float64, torch.int64):
         raise TypeError("the windowed kernels take ts int64, val float64 "
                         "or int64, mask bool")
-    if edges.dim() != 1 or edges.dtype != torch.int64 or edges.numel() < 2:
-        raise ValueError("edges must be int64 [W+1] with W >= 1")
+    dims = (1, 2) if stacked else (1,)
+    if edges.dim() not in dims or edges.dtype != torch.int64 \
+            or edges.shape[-1] < 2:
+        raise ValueError("edges must be int64 [W+1]%s with W >= 1"
+                         % (" or [Q, W+1]" if stacked else ""))
+    if edges.dim() == 1:
+        return ts.shape[0]
+    q = edges.shape[0]
+    if q < 1 or ts.shape[0] % q:
+        raise ValueError("a stacked batch holds S = Q x rows a member: "
+                         "%d rows for %d members" % (ts.shape[0], q))
+    return ts.shape[0] // q
+
+
+def row_boundaries(bounds: torch.Tensor, s: int) -> torch.Tensor:
+    """A plain version's view of 1-D bounds [K] as they are, or of a
+    stacked batch's [Q, K] as each of its s rows' own [s, K] row."""
+    if bounds.dim() == 1:
+        return bounds
+    return bounds.repeat_interleave(s // bounds.shape[0], dim=0)
 
 
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
@@ -135,19 +163,20 @@ def window_moments(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
 
     Slots that are masked or NaN do not participate.  Under FILL_NONE a
     window holding no data is masked out (value NaN); other policies
-    expose every window with the fill value in empty ones.
+    expose every window with the fill value in empty ones.  `edges` is
+    [W+1], or [Q, W+1] for a stacked batch of Q members (S % Q == 0).
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     if agg_name not in MOMENT_CODES:
         raise KeyError("window_moments computes the moments, not %r"
                        % agg_name)
-    check_batch(ts, val, mask, edges)
+    rows = check_batch(ts, val, mask, edges, stacked=True)
     if ts.device.type == "cpu":
         return window_moments_plain(ts, val, mask, edges, agg_name,
                                     fill_policy, fill_value)
     dev = kernels.require_cuda(ts, val, mask, edges)
     s, n = ts.shape
-    w = edges.numel() - 1
+    w = edges.shape[-1] - 1
     mode, fv = fill_args(fill_policy, fill_value)
     out = torch.empty((s, w), dtype=torch.float64, device=dev)
     out_mask = torch.empty((s, w), dtype=torch.bool, device=dev)
@@ -155,9 +184,9 @@ def window_moments(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
         return out, out_mask
     kernels.launch(
         "window_moments", dev, kernels.ptr(ts), kernels.ptr(val),
-        kernels.ptr(mask), kernels.ptr(edges), s, n, w,
+        kernels.ptr(mask), kernels.ptr(edges), s, n, w, rows,
         MOMENT_CODES[agg_name], mode, fv, int(val.dtype == torch.int64),
-        kernels.ptr(out), kernels.ptr(out_mask))
+        kernels.ptr(out), kernels.ptr(out_mask), stacked=rows < s)
     return out, out_mask
 
 
@@ -170,10 +199,10 @@ def window_moments_plain(ts: torch.Tensor, val: torch.Tensor,
     device; the CPU path and the tests use it, and the chip check holds
     the kernel against it."""
     s, n = ts.shape
-    w = edges.numel() - 1
+    w = edges.shape[-1] - 1
     dev = ts.device
     vf = val.to(torch.float64)
-    win = torch.searchsorted(edges, ts, right=True) - 1
+    win = torch.searchsorted(row_boundaries(edges, s), ts, right=True) - 1
     ok = mask & ~torch.isnan(vf) & (win >= 0) & (win < w)
     rows = torch.arange(s, dtype=torch.int64, device=dev)[:, None]
     cell = torch.where(ok, rows * w + win, s * w).reshape(-1)
@@ -222,19 +251,20 @@ def window_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     """K4: per-(series, window) order or rank function `agg_name` (first,
     last, diff, mult, median, a percentile) over time-sorted rows, then
     the fill policy -> (values[S, W] f64, mask[S, W] bool), under the
-    masking and fill rules of window_moments.
+    masking and fill rules of window_moments, `edges` [W+1] or a stacked
+    batch's [Q, W+1] as window_moments takes them.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     if agg_name not in ORDER_AGGS or agg_name == "none":
         raise KeyError("No such downsampling function: " + agg_name)
-    check_batch(ts, val, mask, edges)
+    rows = check_batch(ts, val, mask, edges, stacked=True)
     if ts.device.type == "cpu":
         return window_order_plain(ts, val, mask, edges, agg_name,
                                   fill_policy, fill_value)
     dev = kernels.require_cuda(ts, val, mask, edges)
     s, n = ts.shape
-    w = edges.numel() - 1
+    w = edges.shape[-1] - 1
     mode, fv = fill_args(fill_policy, fill_value)
     code, q, est = order_args(agg_name)
     out = torch.empty((s, w), dtype=torch.float64, device=dev)
@@ -243,9 +273,10 @@ def window_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
         return out, out_mask
     kernels.launch(
         "window_order", dev, kernels.ptr(ts), kernels.ptr(val),
-        kernels.ptr(mask), kernels.ptr(edges), s, n, w, code, q, est, mode,
+        kernels.ptr(mask), kernels.ptr(edges), s, n, w, rows, code, q, est,
+        mode,
         fv, int(val.dtype == torch.int64), kernels.ptr(out),
-        kernels.ptr(out_mask))
+        kernels.ptr(out_mask), stacked=rows < s)
     return out, out_mask
 
 
@@ -259,7 +290,7 @@ def window_order_plain(ts: torch.Tensor, val: torch.Tensor,
     sorted by (window, value) (two stable sorts) with each cell's run
     from the count grid."""
     s, n = ts.shape
-    w = edges.numel() - 1
+    w = edges.shape[-1] - 1
     dev = ts.device
     if n == 0:
         return apply_fill(torch.full((s, w), torch.nan, dtype=torch.float64,
@@ -267,7 +298,7 @@ def window_order_plain(ts: torch.Tensor, val: torch.Tensor,
                           torch.zeros((s, w), dtype=torch.bool, device=dev),
                           fill_policy, fill_value)
     vf = val.to(torch.float64)
-    win = torch.searchsorted(edges, ts, right=True) - 1
+    win = torch.searchsorted(row_boundaries(edges, s), ts, right=True) - 1
     ok = mask & ~torch.isnan(vf) & (win >= 0) & (win < w)
     rows = torch.arange(s, dtype=torch.int64, device=dev)[:, None]
     cell = torch.where(ok, rows * w + win, s * w).reshape(-1)
@@ -330,7 +361,8 @@ def apply_fill(out: torch.Tensor, out_mask: torch.Tensor, fill_policy: str,
 
 
 # shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
-# shape: -> ([W] i64, [S,W] f64, [S,W] bool)
+# shape: -> ([W] i64, [S,W] f64, [S,W] bool); stacked: edges[Q,W+1] i64
+# shape: -> ([Q,W] i64, [S,W] f64, [S,W] bool)
 def downsample(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                agg_name: str, edges: torch.Tensor,
                fill_policy: str = FILL_NONE, fill_value: float = 0.0):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.ops import kernels
+from opentsdb_tpu_torch.ops.downsample import row_boundaries
 from opentsdb_tpu_torch.ops.aggregators import (
     MOMENT_AGGS, MOMENT_CODES, ORDER_AGGS, POLICY_CODES, order_args)
 from opentsdb_tpu_torch.ops.percentile import (
@@ -61,12 +62,23 @@ def grid_fill_rate(wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     is then the rate's mask, else `m`.  A window absent from `present`
     contributes the `policy` interpolation between its row's neighbouring
     present windows and participates only between the row's first and last
-    present window; non-participating cells hold NaN.
+    present window; non-participating cells hold NaN.  A stacked grid of Q
+    members (the dispatch batcher's, B14) passes wts [Q, W], each member's
+    window timestamps; row r reads member r // (S // Q)'s.
     """
     if policy not in POLICY_CODES:
         raise ValueError("Invalid interpolation: " + policy)
-    if v.dim() != 2 or m.shape != v.shape or wts.shape != (v.shape[1],):
-        raise ValueError("grid_fill_rate takes v[S, W], m[S, W], wts[W]")
+    if v.dim() != 2 or m.shape != v.shape or wts.dim() not in (1, 2) \
+            or wts.shape[-1] != v.shape[1]:
+        raise ValueError("grid_fill_rate takes v[S, W], m[S, W] and wts[W] "
+                         "or a stacked grid's wts[Q, W]")
+    rows = v.shape[0]
+    if wts.dim() == 2:
+        if wts.shape[0] < 1 or v.shape[0] % wts.shape[0]:
+            raise ValueError("a stacked grid holds S = Q x rows a member: "
+                             "%d rows for %d members"
+                             % (v.shape[0], wts.shape[0]))
+        rows = v.shape[0] // wts.shape[0]
     _check_grid((v, torch.float64), (m, torch.bool), (wts, torch.int64))
     if v.device.type == "cpu":
         return grid_fill_rate_plain(wts, v, m, policy, rate_options)
@@ -80,10 +92,10 @@ def grid_fill_rate(wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     ro = rate_options or RateOptions()
     kernels.launch(
         "grid_fill_rate", dev, kernels.ptr(v), kernels.ptr(m),
-        kernels.ptr(wts), s, w, int(rate_options is not None),
+        kernels.ptr(wts), s, w, rows, int(rate_options is not None),
         int(ro.counter), int(ro.drop_resets), float(ro.counter_max),
         float(ro.reset_value), POLICY_CODES[policy], kernels.ptr(contrib),
-        kernels.ptr(participate), kernels.ptr(present))
+        kernels.ptr(participate), kernels.ptr(present), stacked=rows < s)
     return contrib, participate, present
 
 
@@ -92,15 +104,18 @@ def grid_fill_rate_plain(wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     """Plain PyTorch version of K2: rate.rate, then the gap values from
     the previous/next present index of every cell."""
     s, w = v.shape
+    row_wts = row_boundaries(wts, s).expand(s, w)
     if rate_options is not None:
-        v, m = rate(wts.expand(s, w), v, m, rate_options)
+        v, m = rate(row_wts, v, m, rate_options)
     prev_i = prev_valid_index(m)
     next_i = next_valid_index(m)
     participate = ((prev_i >= 0) & (next_i < w)) | m
     safe_prev = prev_i.clamp(0, w - 1)
     safe_next = next_i.clamp(0, w - 1)
-    interp = interpolate(policy, False, wts[None, :], wts[safe_prev],
-                         torch.gather(v, 1, safe_prev), wts[safe_next],
+    interp = interpolate(policy, False, row_wts,
+                         torch.gather(row_wts, 1, safe_prev),
+                         torch.gather(v, 1, safe_prev),
+                         torch.gather(row_wts, 1, safe_next),
                          torch.gather(v, 1, safe_next), v)
     contrib = torch.where(m, v, torch.where(participate, interp, torch.nan))
     return contrib, participate, m

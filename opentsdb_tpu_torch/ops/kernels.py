@@ -19,7 +19,9 @@ the C entry returns a CUDA error.  A build or launch failure always
 raises: nothing here falls back to a plain version.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
-that adds to it.
+that adds to it.  A launch of K1, K4 or K2 over a stacked batch of more
+than one member (the dispatch batcher's, B14) is counted under its name
+and again under ``<name>.stacked``.
 """
 
 from __future__ import annotations
@@ -48,14 +50,16 @@ _F64 = ctypes.c_double
 # C signature of every kernel entry: source stem -> argument types.  Each
 # entry returns the cudaError_t of its launch as an int.
 SIGNATURES: dict[str, tuple] = {
-    # ts, val, mask, edges, s, n, w, agg, fill_mode, fill_value,
-    # val_is_int, out, out_mask, stream
-    "window_moments": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _F64,
-                       _I32, _P, _P, _P),
-    # v, m, wts, s, w, do_rate, counter, drop_resets, counter_max,
-    # reset_value, policy, contrib, participate, present, stream
-    "grid_fill_rate": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F64, _F64,
-                       _I32, _P, _P, _P, _P),
+    # ts, val, mask, edges, s, n, w, rows_per_member, agg, fill_mode,
+    # fill_value, val_is_int, out, out_mask, stream (edges: one row of
+    # w + 1 a member of rows_per_member rows; a solo call is one member)
+    "window_moments": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32, _I32,
+                       _F64, _I32, _P, _P, _P),
+    # v, m, wts, s, w, rows_per_member, do_rate, counter, drop_resets,
+    # counter_max, reset_value, policy, contrib, participate, present,
+    # stream (wts: one row of w a member)
+    "grid_fill_rate": (_P, _P, _P, _I64, _I32, _I64, _I32, _I32, _I32, _F64,
+                       _F64, _I32, _P, _P, _P, _P),
     # contrib, participate, present, offsets, g, w, agg, out, out_mask,
     # stream
     "group_moments": (_P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
@@ -71,10 +75,11 @@ SIGNATURES: dict[str, tuple] = {
     # val_is_int, counts, out, stream
     "union_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                      _I32, _I32, _P, _P, _P),
-    # ts, val, mask, edges, s, n, w, code, q, est, fill_mode, fill_value,
-    # val_is_int, out, out_mask, stream
-    "window_order": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64, _I32, _I32,
-                     _F64, _I32, _P, _P, _P),
+    # ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
+    # fill_mode, fill_value, val_is_int, out, out_mask, stream (edges as
+    # window_moments takes them)
+    "window_order": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32, _F64, _I32,
+                     _I32, _F64, _I32, _P, _P, _P),
     # contrib, participate, present, offsets, g, w, code, q, est, out,
     # out_mask, stream
     "group_order": (_P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P, _P, _P),
@@ -116,8 +121,12 @@ SIGNATURES: dict[str, tuple] = {
                       _P),
 }
 
-# Launch counts per kernel, bumped only by launch().
+# The kernels with a member-strided (stacked) form.
+STACKED = ("window_moments", "window_order", "grid_fill_rate")
+
+# Launch counts per kernel, and per stacked form, bumped only by launch().
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
+LAUNCHES.update({name + ".stacked": 0 for name in STACKED})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -226,10 +235,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args,
+           stacked: bool = False) -> None:
     """Launch kernel `name` on the current stream of `device` with the
-    C arguments `args` (the stream is appended); count it; raise on a
-    CUDA error from the launch."""
+    C arguments `args` (the stream is appended); count it, and under
+    ``<name>.stacked`` too when `stacked` (a batch of several members);
+    raise on a CUDA error from the launch."""
     lib = library(name)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -239,3 +250,5 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError("CUDA kernel %s failed to launch: %s (%d)"
                            % (name, msg, rc))
     LAUNCHES[name] += 1
+    if stacked:
+        LAUNCHES[name + ".stacked"] += 1

@@ -13,7 +13,11 @@ window_order (by the downsample function's family, with MA after K1 for
 movingAverage<N>), K2 grid_fill_rate, and K3 group_moments or K5
 group_order (by the aggregator's family, K3 and MA for movingAverage<N>);
 the union pipeline is R point_rate (under a rate), U1 union_merge, and U2
-union_reduce, U3 union_order or U2 and MA by the aggregator's family.  Both
+union_reduce, U3 union_order or U2 and MA by the aggregator's family.
+``run_stacked_group_pipeline`` (the reference's ``_stacked_group_pipeline``,
+B14) runs Q members' grouped pipelines in one launch of each kernel: the
+members' batches are one [Q*S, N] batch, K1/K4 and K2 read each member's
+window edges, and K3/K5 reduce over every member's groups at once.  Both
 take every group of a sub query in one [S, N] batch whose groups are
 contiguous row runs.  The rollup programs are ``run_lane_partials`` (L1
 lane_partials, the rollup lanes' block builder and the rollup job) and
@@ -121,15 +125,93 @@ def run_grid_tail(spec: PipelineSpec, wts: torch.Tensor, v: torch.Tensor,
     non-decreasing."""
     check_ported(spec)
     offsets = group_offsets(gid, num_groups).to(v.device)
+    return (wts, *_tail(spec, wts, v, m, offsets))
+
+
+def _tail(spec: PipelineSpec, wts: torch.Tensor, v: torch.Tensor,
+          m: torch.Tensor, offsets: torch.Tensor):
+    """K2, then the grouped reduce over the row `offsets`[G+1] -> (out[G,
+    W], out_mask[G, W]); wts is [W] (solo) or [Q, W] (stacked)."""
     # Rates never LERP across series: a missing rate contributes the
     # previous rate value (AggregationIterator.java:744-752).
     policy = PREV if spec.rate is not None \
         else get_agg(spec.aggregator).interpolation
     contrib, participate, present = grid_fill_rate(wts, v, m, policy,
                                                    spec.rate)
-    out, out_mask = group_reduce(spec.aggregator, contrib, participate,
-                                 present, offsets)
-    return wts, out, out_mask
+    return group_reduce(spec.aggregator, contrib, participate, present,
+                        offsets)
+
+
+def stacked_offsets(gid, num_groups) -> torch.Tensor:
+    """The row offsets[sum(G_q) + 1] (int64, on the CPU) of a stacked
+    grid's groups: member q's group_offsets shifted by q*S, each member's
+    groups in order after the previous member's.  Every row of a member
+    must lie in one of its groups (the planner's gid does), so that the
+    members' group runs meet."""
+    gid = np.asarray(gid.cpu() if isinstance(gid, torch.Tensor) else gid,
+                     dtype=np.int64)
+    if gid.ndim != 2 or gid.shape[0] != len(num_groups):
+        raise ValueError("a stacked gid is [Q, S] with a group count a "
+                         "member")
+    q, s = gid.shape
+    parts = []
+    for i in range(q):
+        off = group_offsets(gid[i], int(num_groups[i])).numpy()
+        if off[0] != 0 or off[-1] != s:
+            raise ValueError("every row of a stacked member must lie in "
+                             "one of its groups")
+        parts.append(off[:-1] + i * s)
+    parts.append(np.array([q * s], np.int64))
+    return torch.from_numpy(np.concatenate(parts))
+
+
+# shape: ts[Q*S,N] i64, val[Q*S,N] f64|i64, mask[Q*S,N] bool, gid[Q,S] any,
+# shape: edges[Q,W+1] i64 -> ([Q,W] i64, [sum(G_q),W] f64, [sum(G_q),W] bool)
+def stacked_group_outputs(spec: PipelineSpec, ts: torch.Tensor,
+                          val: torch.Tensor, mask: torch.Tensor, gid,
+                          num_groups, edges: torch.Tensor):
+    """Q members' grouped pipelines in one dispatch, their outputs stacked:
+    one K1 or K4 (+ MA) over the [Q*S, N] batch with each member's edges,
+    one K2 with each member's window timestamps, one K3 or K5 (+ MA) over
+    every member's groups.  `ts`, `val`, `mask` may also come as
+    [Q, S, N]; `num_groups` holds each member's group count.  Returns
+    (wts[Q, W], out[sum(G_q), W], out_mask[sum(G_q), W]), member q's
+    groups after member q-1's (``split_members``)."""
+    step = _require_downsample(spec, "run_stacked_group_pipeline")
+    if edges.dim() != 2:
+        raise ValueError("a stacked dispatch takes edges[Q, W+1]")
+    if ts.dim() == 3:
+        ts, val, mask = (x.reshape(-1, x.shape[-1]) for x in (ts, val, mask))
+    offsets = stacked_offsets(gid, num_groups).to(ts.device)
+    wts, v, m = run_downsample_grid(step, ts, val, mask, edges)
+    return (wts, *_tail(spec, wts, v, m, offsets))
+
+
+def split_members(outputs, num_groups) -> list:
+    """Stacked outputs (tensors or arrays) -> per member (wts[W],
+    out[G_q, W], out_mask[G_q, W]), each a view."""
+    wts, out, out_mask = outputs
+    members = []
+    lo = 0
+    for i, g in enumerate(num_groups):
+        hi = lo + int(g)
+        members.append((wts[i], out[lo:hi], out_mask[lo:hi]))
+        lo = hi
+    return members
+
+
+# shape: ts[Q*S,N] i64, val[Q*S,N] f64|i64, mask[Q*S,N] bool, gid[Q,S] any,
+# shape: edges[Q,W+1] i64 -> Q x ([W] i64, [G_q,W] f64, [G_q,W] bool)
+def run_stacked_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
+                               val: torch.Tensor, mask: torch.Tensor, gid,
+                               num_groups, edges: torch.Tensor) -> list:
+    """Q members' grouped pipelines in one dispatch (the reference's
+    ``run_stacked_group_pipeline``, :261): ``stacked_group_outputs`` split
+    per member -> Q x (wts[W], out[G_q, W], out_mask[G_q, W]), each bit
+    for bit what run_group_pipeline gives the member alone."""
+    return split_members(stacked_group_outputs(spec, ts, val, mask, gid,
+                                               num_groups, edges),
+                         num_groups)
 
 
 def _require_downsample(spec: PipelineSpec, name: str) -> DownsampleStep:
@@ -232,17 +314,17 @@ def run_union_pipeline(spec: PipelineSpec, ts: torch.Tensor,
 
 # shape: -> ([S,N] i64, [S,N] f64|i64, [S,N] bool, [] bool)
 def build_batch_direct(series_list: list, start_ms: int, end_ms: int,
-                       fix_duplicates: bool):
+                       fix_duplicates: bool, min_width: int = 0):
     """Single-copy batch build: size/type from window_stats, then each
     series copies its window straight into its row under its own lock
     (Series.window_into).  Returns numpy (ts[S, N], val[S, N], mask[S, N],
-    all_int), N the largest window count; `val` is exact int64 when every
-    point in range is an integer, else float64.  Rows are time-sorted and
-    padded at int64 max."""
+    all_int), N the largest window count (at least `min_width`); `val` is
+    exact int64 when every point in range is an integer, else float64.
+    Rows are time-sorted and padded at int64 max."""
     stats = [s.window_stats(start_ms, end_ms, fix_duplicates)
              for s in series_list]
     s = len(series_list)
-    n = max((c for c, _ in stats), default=0)
+    n = max(max((c for c, _ in stats), default=0), min_width)
     all_int = s > 0 and all(isint for c, isint in stats if c)
     while True:
         ts = np.empty((s, n), dtype=np.int64)

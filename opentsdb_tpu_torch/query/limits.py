@@ -15,19 +15,24 @@ QueryLimitOverride.java and the enforcement sites of SaltScanner.java):
   :157); ``QueryBudget`` charges one sub query's points against them and
   checks ``tsd.query.timeout`` (SaltScanner.java:559, :580, :596), with
   the reference's 413 messages.
-
-The request-scoped deadline that the reference mints at request arrival
-(its ``Deadline`` and ``active_deadline``) comes with admission
-control: here a sub query's budget starts its clock when the planner
-creates it.
+* ``Deadline`` is the request-scoped wall budget and cancellation token
+  (the reference's :61): minted once a request by the daemon
+  (tsd/rpc_manager.py) from ``tsd.query.timeout`` and the client's
+  ``X-TSDB-Deadline-Ms``, made the responder thread's ambient deadline
+  (``activate_deadline``, ``active_deadline``), and taken by every
+  ``QueryBudget`` of the request, so the timeout clock starts when the
+  request arrives.  The server flips its token when the client hangs up
+  or a drain runs out of patience; every deadline check observes it.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import re
+import threading
 import time
 from dataclasses import dataclass
 
@@ -45,9 +50,107 @@ class QueryException(Exception):
         self.details = details
 
 
+class QueryCancelledException(QueryException):
+    """The request's deadline was cancelled mid-flight (the client hung
+    up, or the server is draining): 503, the query itself was sound."""
+
+    def __init__(self, message: str):
+        super().__init__(message, status=503)
+
+
 class QueryDeadlineExpired(QueryException):
-    """The sub query outlived ``tsd.query.timeout``: the reference's 413
-    timeout message under a type of its own."""
+    """The request outlived its wall budget: the reference's 413 timeout
+    message under a type of its own."""
+
+
+class Deadline:
+    """One request's wall budget and cooperative cancellation token (the
+    reference's ``Deadline``, :61).  ``timeout_ms`` <= 0 is unbounded, but
+    the token still works; ``cancel`` is idempotent and the first reason
+    wins; ``check`` raises QueryCancelledException (503) once cancelled,
+    else QueryDeadlineExpired (413) once past the budget."""
+
+    def __init__(self, timeout_ms: float = 0.0, clock=time.monotonic):
+        self.start = clock()
+        self.timeout_ms = float(timeout_ms)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._cancelled = False  # guarded-by: _lock
+        self._cancel_reason = ""  # guarded-by: _lock
+        self._cancel_event = threading.Event()
+
+    @property
+    def bounded(self) -> bool:
+        return self.timeout_ms > 0
+
+    def elapsed_ms(self) -> float:
+        return (self._clock() - self.start) * 1e3
+
+    def remaining_ms(self) -> float:
+        """Milliseconds left: +inf when unbounded, <= 0 once expired."""
+        if not self.bounded:
+            return math.inf
+        return self.timeout_ms - self.elapsed_ms()
+
+    def expired(self) -> bool:
+        return self.bounded and self.remaining_ms() <= 0.0
+
+    def cancel(self, reason: str) -> bool:
+        """Flip the token; True when this call did the flip."""
+        with self._lock:
+            if self._cancelled:
+                return False
+            self._cancelled = True
+            self._cancel_reason = reason
+        self._cancel_event.set()
+        return True
+
+    def is_cancelled(self) -> bool:
+        return self._cancelled
+
+    def wait_cancelled(self, timeout_s: float) -> bool:
+        """Sleep up to `timeout_s` (clamped to the remaining budget when
+        bounded), waking early when the token flips; whether it did."""
+        if timeout_s > 0 and not self._cancelled:
+            if self.bounded:
+                timeout_s = min(timeout_s,
+                                max(self.remaining_ms() / 1e3, 0.0))
+            self._cancel_event.wait(timeout_s)
+        return self._cancelled
+
+    @property
+    def cancel_reason(self) -> str:
+        return self._cancel_reason
+
+    def check(self) -> None:
+        """Raise if the request should stop now: cancelled (503) or past
+        its wall budget (the reference's 413)."""
+        if self._cancelled:
+            raise QueryCancelledException(
+                "Query cancelled: %s" % (self._cancel_reason or "unknown"))
+        if self.expired():
+            raise QueryDeadlineExpired(
+                "Sorry, your query timed out. Time limit: %d ms, elapsed: "
+                "%d ms. Please try filtering using more tags or decrease "
+                "your time range." % (self.timeout_ms, self.elapsed_ms()))
+
+
+# the ambient request deadline, one per responder thread (:163-174)
+_tls = threading.local()
+
+
+def activate_deadline(deadline: Deadline) -> None:
+    _tls.deadline = deadline
+
+
+def deactivate_deadline() -> None:
+    _tls.deadline = None
+
+
+def active_deadline() -> Deadline | None:
+    """The current request's deadline, or None outside a request (a
+    library caller's QueryRunner.run)."""
+    return getattr(_tls, "deadline", None)
 
 
 # SKETCH_K of ops/streaming.py (kept here so that this module imports
@@ -246,17 +349,20 @@ class QueryBudget:
     """The running charge of one sub query (SaltScanner's counters): a
     QueryException with the reference's 413 message past the data-point
     budget (:580) or the byte budget (:596), QueryDeadlineExpired past
-    ``tsd.query.timeout`` (:559).  The clock starts when the budget is
-    made (the reference's request deadline comes with admission
-    control)."""
+    ``tsd.query.timeout`` (:559).  With the request's `deadline` the clock
+    is the request's (it started when the request arrived) and a
+    cancelled token stops the query; without one (a library caller) it
+    starts when the budget is made."""
 
     def __init__(self, limits: QueryLimitOverride | None, metric: str,
-                 timeout_ms: int):
+                 timeout_ms: int, deadline: Deadline | None = None):
         self.max_data_points = (
             limits.get_data_points_limit(metric) if limits else 0)
         self.max_bytes = limits.get_byte_limit(metric) if limits else 0
         self.timeout_ms = timeout_ms
-        self.start = time.monotonic()
+        self.deadline = deadline
+        self.start = deadline.start if deadline is not None \
+            else time.monotonic()
         self.data_points = 0
 
     def charge(self, num_points: int) -> None:
@@ -275,6 +381,8 @@ class QueryBudget:
                 % (self.max_bytes / 1024 / 1024))
 
     def check_deadline(self) -> None:
+        if self.deadline is not None:
+            self.deadline.check()
         if self.timeout_ms <= 0:
             return
         elapsed_ms = (time.monotonic() - self.start) * 1000.0

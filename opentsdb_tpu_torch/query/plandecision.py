@@ -1,17 +1,27 @@
-"""The device-state budget verdicts of a grouped plan: resident, tiled,
-striped or refused.
+"""plan_decision(): a grouped segment's routing verdict as one pure
+function, and the device-state budget verdicts it rests on.
 
-The part of opentsdb_tpu/query/plandecision.py that out-of-core execution
-needs (the rest of the module, with the batcher, the host lane and the
-explain engine, is ROADMAP slice 8):
+Port of opentsdb_tpu/query/plandecision.py.  ``plan_decision`` (:239)
+takes a ``RouteContext`` snapshot of the segment and a consults provider
+(the planner's ``_ExecConsults``; the explain engine's read-only twin
+comes with it, slice 8b) and returns a ``PlanDecision``: its path, in the
+reference's order of arms (rollup lane, then tiled or refused over the
+budget, the aggregate cache, batched, the device cache, streamed,
+rollup_avg, resident), and a fingerprint over the discrete routing facts
+(``_finish``, ``_fingerprint``).  Differences: the aggregate cache is not
+ported (slice 8b), so its arm stays off as the reference's own gate leaves
+it off without one; there is no mesh (slice 9) and no host lane (every
+plan is answered on the card), so the context carries neither and the
+fingerprint's ``mesh`` and ``hostSmall`` are always false; the port has
+one kernel per function and no modes, so the fingerprint has no
+``modes`` field and its ``calibration`` reads "default".
+
+The budget verdicts:
 
 * ``acc_cell_bytes`` (:117): streaming-state bytes a (series, window) cell.
 * ``grid_budget_for`` and ``streaming_budget_for``: the materialized
   grid's and the streaming state's decisions; a plan is held to the
   streaming budget when it streams, else to the grid budget (:255-259).
-* ``over_budget_plan`` (:287-300): a plan over its budget is tiled
-  (ops/tiling.plan_tiled) when its function streams, else tallied as
-  ``not_streamable``; None means the structured 413.
 * ``size_lane_stripes`` (:152): the striped serve of a rollup-lane plan
   whose grid is over the budget.
 
@@ -21,13 +31,58 @@ so the two packages route and refuse alike.
 
 from __future__ import annotations
 
+import hashlib
+import json
+from dataclasses import dataclass, field
+
+from opentsdb_tpu_torch.ops import costmodel as cm
 from opentsdb_tpu_torch.ops import tiling
-from opentsdb_tpu_torch.ops.streaming import SKETCH_K, lanes_for
+from opentsdb_tpu_torch.ops.streaming import SKETCH_K, lanes_for, pad_pow2
 from opentsdb_tpu_torch.query.limits import GridBudgetDecision, grid_budget
 
 # bytes a cell of an [S, W] grid holds on the device through the tail
 # (values, contributions, masks)
 GRID_CELL_BYTES = 24
+
+@dataclass(frozen=True)
+class RouteContext:
+    """Everything the routing verdict depends on, snapshotted once a
+    segment (the reference's RouteContext, :61)."""
+    seg_kind: str            # "raw" | "rollup" | "rollup_avg"
+    ds_fn: str | None
+    aggregator: str
+    has_rate: bool
+    s: int                   # series rows in the dispatch
+    n_max: int               # the longest row's point count
+    wp: int                  # padded window count (pad_pow2(W))
+    groups: int              # group-by buckets kept
+    g_pad: int               # padded group count
+    total_points: int
+    sketchable: bool
+    stream_ok: bool
+    windows_fixed: bool
+    store_is_raw: bool
+    has_store: bool
+    platform: str            # the device type the plan runs on
+    state_mb: int
+    point_threshold: int
+    batch_ok: bool = False
+    batch_factor: float = 0.0
+
+
+@dataclass
+class PlanDecision:
+    """One grouped segment's complete routing verdict."""
+    path: str
+    would_stream: bool
+    lane_plan: object = None
+    tiled_plan: object = None
+    cached: object = None            # the device cache's batch, or None
+    refusal: GridBudgetDecision | None = None
+    n_pad: int = 0
+    g_dec: int = 0
+    fp_fields: dict = field(default_factory=dict)
+    fingerprint: str = ""
 
 
 def acc_cell_bytes(ds_fn: str | None, sketchable: bool) -> int:
@@ -55,18 +110,6 @@ def streaming_budget_for(state_mb: int, s: int, wp: int, ds_fn: str | None,
                        sketch=sketchable)
 
 
-def over_budget_plan(tsdb, *, stream_ok: bool, s: int, wp: int, g_pad: int,
-                     ds_fn: str | None, sketchable: bool):
-    """The tiled plan of a plan over its budget, or None for the
-    structured 413 (the reason tallied): a function that does not stream
-    cannot be tiled."""
-    if not stream_ok:
-        tiling.count_refusal(tsdb, "not_streamable")
-        return None
-    return tiling.plan_tiled(tsdb, s=s, w=wp, g_pad=g_pad,
-                             acc_cell_bytes=acc_cell_bytes(ds_fn, sketchable))
-
-
 def size_lane_stripes(tsdb, plan, s: int, wp: int, g_pad: int,
                       state_mb: int, aggregator: str):
     """Mark a rollup-lane plan whose [S, W] grid is over the budget
@@ -91,3 +134,143 @@ def size_lane_stripes(tsdb, plan, s: int, wp: int, g_pad: int,
     plan.striped = True
     plan.tile_plan = tp
     return plan
+
+
+def _fingerprint(fields: dict) -> str:
+    """Stable hash over the discrete routing facts (:186): canonical JSON,
+    the first 16 hex digits of its sha256."""
+    blob = json.dumps(fields, sort_keys=True, separators=(",", ":"))
+    return "pf-" + hashlib.sha256(blob.encode("utf-8")).hexdigest()[:16]
+
+
+def _finish(pd: PlanDecision, ctx: RouteContext) -> PlanDecision:
+    """The fingerprint of a decision, refused or served (:194).  The port
+    has no mesh, no host lane, no modes and one cost table: ``mesh`` and
+    ``hostSmall`` are false, there is no ``modes`` field, and the
+    ``calibration`` is "default"."""
+    fields = {
+        "path": pd.path,
+        "seg": ctx.seg_kind,
+        "ds": ctx.ds_fn,
+        "agg": ctx.aggregator,
+        "rate": ctx.has_rate,
+        "platform": ctx.platform,
+        "s": ctx.s, "n": pd.n_pad, "w": ctx.wp,
+        "g": pd.g_dec, "gPad": ctx.g_pad,
+        "stream": pd.would_stream,
+        "mesh": False,
+        "hostSmall": False,
+        "deviceCache": bool(pd.cached),
+        "calibration": "default",
+    }
+    if pd.lane_plan is not None:
+        fields["lane"] = {"lane": pd.lane_plan.lane,
+                          "k": pd.lane_plan.k,
+                          "striped": bool(pd.lane_plan.striped)}
+    if pd.tiled_plan is not None:
+        fields["tiled"] = {"tiles": pd.tiled_plan.n_tiles,
+                           "rows": pd.tiled_plan.tile_rows,
+                           "stripes": pd.tiled_plan.n_stripes,
+                           "stripeW": pd.tiled_plan.stripe_w}
+    if pd.refusal is not None:
+        fields["refused"] = {"kind": pd.refusal.kind,
+                             "limitMb": pd.refusal.state_mb}
+    pd.fp_fields = fields
+    pd.fingerprint = _fingerprint(fields)
+    return pd
+
+
+def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
+    """THE routing verdict for one grouped segment (:239).
+
+    ``consults`` provides the stateful hooks: ``rollup_plan()`` (a lane
+    plan or None), ``tiled_plan(acc_cell)``, ``device_batch(build)``, and
+    the accounting callbacks ``note_lane_served(plan)``,
+    ``note_lane_fallback()`` and ``tiled_refusal(reason)``.  Eligibility,
+    the order of the consults, the budget guards and the path live here.
+    """
+    would_stream = (ctx.stream_ok
+                    and ctx.total_points > ctx.point_threshold)
+    grid_gbd = grid_budget_for(ctx.state_mb, ctx.s, ctx.wp, ctx.seg_kind)
+    gbd = (streaming_budget_for(ctx.state_mb, ctx.s, ctx.wp, ctx.ds_fn,
+                                ctx.sketchable)
+           if would_stream else grid_gbd)
+
+    # the rollup lanes first: a plan over the budget is striped, or takes
+    # the exact path counted a miss
+    lane_plan = None
+    if (getattr(tsdb, "rollup_lanes", None) is not None
+            and ctx.seg_kind == "raw" and ctx.store_is_raw
+            and ctx.s > 0 and ctx.windows_fixed):
+        lane_plan = consults.rollup_plan()
+        if lane_plan is not None:
+            lane_gbd = grid_budget("grid", ctx.state_mb,
+                                   ctx.s * ctx.wp * GRID_CELL_BYTES, ctx.s,
+                                   ctx.wp)
+            if lane_gbd.over:
+                lane_plan = size_lane_stripes(
+                    tsdb, lane_plan, ctx.s, ctx.wp, ctx.g_pad, ctx.state_mb,
+                    ctx.aggregator)
+                if lane_plan is None:
+                    consults.note_lane_fallback()
+            if lane_plan is not None:
+                consults.note_lane_served(lane_plan)
+
+    # over the budget: a tiled execution, or the structured 413
+    tiled_plan = None
+    if gbd.over and lane_plan is None:
+        if not ctx.stream_ok:
+            consults.tiled_refusal("not_streamable")
+        else:
+            tiled_plan = consults.tiled_plan(
+                acc_cell_bytes(ctx.ds_fn, ctx.sketchable))
+        if tiled_plan is None:
+            pd = PlanDecision(
+                path="refused", would_stream=would_stream, refusal=gbd,
+                n_pad=pad_pow2(max(ctx.n_max, 1)),
+                g_dec=pad_pow2(max(ctx.groups, 1)))
+            return _finish(pd, ctx)
+
+    n_pad = pad_pow2(max(ctx.n_max, 1))
+    g_dec = pad_pow2(max(ctx.groups, 1))
+
+    # fused multi-query dispatch (query/batcher.py), priced before the
+    # device cache's consult: a dispatch-bound plan goes through the
+    # batcher, which stacks concurrent compatible plans into one launch
+    # of each kernel; a compute-bound plan dispatches now
+    batched = False
+    if (tiled_plan is None and lane_plan is None and ctx.batch_ok
+            and not would_stream and ctx.seg_kind == "raw" and ctx.has_store
+            and ctx.ds_fn is not None):
+        compute_s = sum(cm.stage_breakdown(
+            ctx.s, n_pad, ctx.wp, g_dec, ctx.ds_fn, ctx.has_rate).values())
+        batched = cm.coalesce_worthwhile(compute_s, ctx.s, n_pad, ctx.wp,
+                                         g_dec, ctx.batch_factor)
+
+    # the device series cache: a streamed plan queues a cold entry's build
+    # instead of building it inline, and a hit must not divert a streamed
+    # plan onto a grid over the budget; batched plans skip the consult
+    cached = None
+    if (tiled_plan is None and lane_plan is None and not batched
+            and getattr(tsdb, "device_cache", None) is not None
+            and ctx.has_store and ctx.seg_kind in ("raw", "rollup")):
+        cached = consults.device_batch(build=not would_stream)
+        if cached is not None and would_stream and grid_gbd.over:
+            cached = None
+
+    if lane_plan is not None:
+        path = "rollup_lane"
+    elif tiled_plan is not None:
+        path = "tiled"
+    elif batched:
+        path = "batched"
+    elif cached is None and would_stream:
+        path = "streamed"
+    elif ctx.seg_kind == "rollup_avg":
+        path = "rollup_avg"
+    else:
+        path = "resident"
+    pd = PlanDecision(
+        path=path, would_stream=would_stream, lane_plan=lane_plan,
+        tiled_plan=tiled_plan, cached=cached, n_pad=n_pad, g_dec=g_dec)
+    return _finish(pd, ctx)

@@ -38,8 +38,15 @@ streaming state when it streams, else the materialized grid;
 query/plandecision.py) takes the tiled route (``_run_tiled``, the
 reference's :514-558): series tiles through the spill pool and a
 window-striped replay (ops/tiling.py); a rollup-lane plan over it is
-served striped.  Each sub query's points are charged to its scan budget
-(query/limits.py ``QueryBudget``) before any batch or chunk is built.
+served striped.  A small plan that the cost model prices as
+dispatch-bound takes the batched route (``_run_batched``, the reference's
+:564-590): its batch goes to the dispatch batcher (query/batcher.py),
+which stacks concurrent compatible plans into one launch of each kernel.
+One pure function, query/plandecision.py ``plan_decision``, picks among
+these routes, fed by ``_ExecConsults``.  Each sub query's points are
+charged to its scan budget (query/limits.py ``QueryBudget``, on the
+request's deadline inside the daemon) before any batch or chunk is
+built.
 
 Every aggregator and downsample function of the registry is answered
 (moments, order and rank functions, movingAverage<N>), with or without a
@@ -71,10 +78,11 @@ from opentsdb_tpu_torch.ops.pipeline import (
 from opentsdb_tpu_torch.ops.streaming import (
     STREAMABLE_DS, is_sketch_ds, pad_pow2, stream_grid)
 from opentsdb_tpu_torch.ops.tiling import (
-    LANE_FOLDABLE, finish_lane_fold, is_extreme, new_lane_fold,
-    run_lane_fold, run_tiled)
+    LANE_FOLDABLE, count_refusal, finish_lane_fold, is_extreme,
+    new_lane_fold, plan_tiled, run_lane_fold, run_tiled)
 from opentsdb_tpu_torch.query import plandecision as pdn
-from opentsdb_tpu_torch.query.limits import QueryBudget, grid_budget
+from opentsdb_tpu_torch.query.limits import (QueryBudget, active_deadline,
+                                             grid_budget)
 from opentsdb_tpu_torch.rollup.config import (NoSuchRollupForInterval,
                                               RollupQuery)
 from opentsdb_tpu_torch.storage.memstore import Series
@@ -209,6 +217,9 @@ class QueryRunner:
         # numeric execution telemetry of the last run(): points and series
         # scanned, and the per-phase host milliseconds of PHASES
         self.exec_stats: dict[str, float] = {}
+        # the routing verdict (plandecision.PlanDecision) of each grouped
+        # segment of the last run(), in order
+        self.decisions: list = []
 
     def _bump(self, key: str, value: float) -> None:
         self.exec_stats[key] = self.exec_stats.get(key, 0.0) + value
@@ -432,13 +443,13 @@ class QueryRunner:
                      groups, global_notes: list, store,
                      budget: QueryBudget) -> dict[tuple, QueryResult]:
         """All group-by buckets of a segment through the grouped pipeline,
-        by the reference's route (query/plandecision.py): the rollup-avg
-        arm reads the segment's sum and count lanes through L2; on the raw
-        store the rollup lanes are consulted first, then the device cache
-        (a hit gathers the batch on the device); a plan over
-        ``tsd.query.streaming.point_threshold`` points whose function
-        streams takes the streamed route on a miss; and otherwise the
-        [S, N] batch is built on the host."""
+        by the route of one routing verdict (query/plandecision.py
+        ``plan_decision``, the reference's :488-506): the rollup lanes,
+        tiled or refused over the device budget, batched (a dispatch-bound
+        plan through the dispatch batcher), the device cache (a hit
+        gathers the batch on the device), streamed past
+        ``tsd.query.streaming.point_threshold`` points, the rollup-avg
+        arm, or the [S, N] batch built on the host."""
         tsdb = self.tsdb
         start_ms, end_ms = seg.start_ms, seg.end_ms
         fix = tsdb.config.fix_duplicates
@@ -474,50 +485,50 @@ class QueryRunner:
                                                    len(series_list), fix)
         if hazard:
             self.exec_stats["sketchHazardExact"] = 1.0
-        stream_ok = seg.kind != "rollup_avg" and (ds_fn in STREAMABLE_DS
-                                                  or sketchable)
-        would_stream = stream_ok and points > tsdb.config.get_int(
-            "tsd.query.streaming.point_threshold")
         clock.mark("build")
 
         # sized as the reference sizes them: its padded window and group
         # counts, so that the two route and refuse the same plans
-        wp = pad_pow2(windows.count)
-        g_pad = pad_pow2(len(kept))
-        state_mb = tsdb.config.get_int("tsd.query.streaming.state_mb")
-        s_rows = len(series_list)
-        lane_plan = None
-        if (seg.kind == "raw" and store is tsdb.store
-                and tsdb.rollup_lanes is not None
-                and isinstance(windows, FixedWindows)):
-            lane_plan = self._lane_plan(spec, series_list, len(kept),
-                                        windows, seg, n_max, points, wp,
-                                        g_pad, state_mb)
-        tiled_plan = None
-        grid_gbd = pdn.grid_budget_for(state_mb, s_rows, wp, seg.kind)
-        if lane_plan is None:
-            gbd = (pdn.streaming_budget_for(state_mb, s_rows, wp, ds_fn,
-                                            sketchable)
-                   if would_stream else grid_gbd)
-            if gbd.over:
-                tiled_plan = pdn.over_budget_plan(
-                    tsdb, stream_ok=stream_ok, s=s_rows, wp=wp, g_pad=g_pad,
-                    ds_fn=ds_fn, sketchable=sketchable)
-                if tiled_plan is None:
-                    self.exec_stats["tiledRefused"] = 1.0
-                    raise gbd.exception()
-        if lane_plan is not None:
+        batcher = tsdb.dispatch_batcher
+        ctx = pdn.RouteContext(
+            seg_kind=seg.kind, ds_fn=ds_fn, aggregator=sub.aggregator,
+            has_rate=spec.rate is not None, s=len(series_list),
+            n_max=int(n_max), wp=pad_pow2(windows.count), groups=len(kept),
+            g_pad=pad_pow2(len(kept)), total_points=int(points),
+            sketchable=sketchable,
+            stream_ok=seg.kind != "rollup_avg" and (ds_fn in STREAMABLE_DS
+                                                    or sketchable),
+            windows_fixed=isinstance(windows, FixedWindows),
+            store_is_raw=store is tsdb.store, has_store=store is not None,
+            platform=dev.type,
+            state_mb=tsdb.config.get_int("tsd.query.streaming.state_mb"),
+            point_threshold=tsdb.config.get_int(
+                "tsd.query.streaming.point_threshold"),
+            batch_ok=batcher is not None and batcher.enabled,
+            batch_factor=tsdb.config.get_float(
+                "tsd.query.batch.amortize_factor"))
+        pd = pdn.plan_decision(tsdb, ctx, _ExecConsults(
+            self, ctx, spec, seg, windows, store, series_list, clock))
+        self.decisions.append(pd)
+        if pd.path == "refused":
+            self.exec_stats["tiledRefused"] = 1.0
+            raise pd.refusal.exception()
+        if pd.path == "rollup_lane":
             self.exec_stats["rollupLane"] = 1.0
-            if lane_plan.striped:
+            if pd.lane_plan.striped:
                 self.exec_stats["rollupLaneStriped"] = 1.0
             out_ts, out_val, out_mask = self._run_lane_serve(
-                spec, seg, lane_plan, series_list, gid, len(kept), windows,
-                budget, clock)
-        elif tiled_plan is not None:
+                spec, seg, pd.lane_plan, series_list, gid, len(kept),
+                windows, budget, clock)
+        elif pd.path == "tiled":
             out_ts, out_val, out_mask = self._run_tiled(
                 spec, seg, series_list, gid, len(kept), windows, sketchable,
-                tiled_plan, budget, store, clock)
-        elif seg.kind == "rollup_avg":
+                pd.tiled_plan, budget, store, clock)
+        elif pd.path == "batched":
+            out_ts, out_val, out_mask = self._run_batched(
+                spec, seg, series_list, gid, len(kept), windows, pd.n_pad,
+                budget, clock)
+        elif pd.path == "rollup_avg":
             ts, val, mask, _ = build_batch_direct(series_list, start_ms,
                                                   end_ms, fix)
             empty = (np.empty(0, np.int64), np.empty(0, np.float64),
@@ -536,28 +547,15 @@ class QueryRunner:
             out_ts, out_val, out_mask = run_group_rollup_avg_pipeline(
                 spec, *batches, gid, len(kept), edges)
             clock.mark("kernels")
+        elif pd.path == "streamed":
+            out_ts, out_val, out_mask = self._stream_grouped(
+                spec, seg, series_list, n_max, gid, len(kept), windows,
+                sketchable, clock)
         else:
-            cached = None
-            # the device cache holds raw columns only (the reference's
-            # store_is_raw gate); a streamed plan queues a cold entry's
-            # build instead of building it inline
-            if tsdb.device_cache is not None and store is tsdb.store:
-                cached = tsdb.device_cache.batch_for(
-                    tsdb.store, series_list[0].key.metric, series_list,
-                    start_ms, end_ms, build=not would_stream)
-                if cached is not None and would_stream and grid_gbd.over:
-                    # a hit must not divert a streamed plan onto a grid
-                    # over the budget (plandecision.py:375-378)
-                    cached = None
-                clock.mark("gather")
-            if cached is not None:
+            # resident: the device cache's batch, or the host build
+            if pd.cached is not None:
                 self.exec_stats["deviceCacheHit"] = 1.0
-                d_ts, d_val, d_mask = cached
-            elif would_stream:
-                d_ts = None
-                out_ts, out_val, out_mask = self._stream_grouped(
-                    spec, seg, series_list, n_max, gid, len(kept), windows,
-                    sketchable, clock)
+                d_ts, d_val, d_mask = pd.cached
             else:
                 ts, val, mask, _ = build_batch_direct(series_list, start_ms,
                                                       end_ms, fix)
@@ -565,16 +563,15 @@ class QueryRunner:
                 d_ts = torch.from_numpy(ts).to(dev)
                 d_val = torch.from_numpy(val).to(dev)
                 d_mask = torch.from_numpy(mask).to(dev)
-            if d_ts is not None:
-                edges = windows.window_edges(dev)
-                clock.mark("h2d")
-                out_ts, out_val, out_mask = run_group_pipeline(
-                    spec, d_ts, d_val, d_mask, gid, len(kept), edges)
-                clock.mark("kernels")
+            edges = windows.window_edges(dev)
+            clock.mark("h2d")
+            out_ts, out_val, out_mask = run_group_pipeline(
+                spec, d_ts, d_val, d_mask, gid, len(kept), edges)
+            clock.mark("kernels")
 
-        out_ts = out_ts.cpu().numpy()
-        out_val = out_val.cpu().numpy()
-        out_mask = out_mask.cpu().numpy()
+        out_ts, out_val, out_mask = (
+            x if isinstance(x, np.ndarray) else x.cpu().numpy()
+            for x in (out_ts, out_val, out_mask))
         results: dict[tuple, QueryResult] = {}
         for i, (group_key, members, _) in enumerate(kept):
             dps = extract_dps(out_ts, out_val[i], out_mask[i], start_ms,
@@ -584,6 +581,32 @@ class QueryRunner:
                 query, sub, members, dps, global_notes)
         clock.mark("extract")
         return results
+
+    def _run_batched(self, spec: PipelineSpec, seg: Segment, series_list,
+                     gid, num_groups: int, windows, n_pad: int, budget,
+                     clock: "_PhaseClock"):
+        """The batched route (the reference's :564-590): the [S, N] batch
+        built on the host at the padded width pad_pow2(N) (the batcher's
+        bucket key holds the operand shape, so unpadded panels would
+        rarely share a bucket), then handed to the dispatch batcher under
+        the request's deadline, which stacks it with concurrent
+        compatible plans into one launch of each kernel."""
+        tsdb = self.tsdb
+        budget.check_deadline()
+        ts, val, mask, _ = build_batch_direct(
+            series_list, seg.start_ms, seg.end_ms,
+            tsdb.config.fix_duplicates, min_width=n_pad)
+        edges = windows.window_edges(torch.device("cpu")).numpy()
+        clock.mark("build")
+        out, info = tsdb.dispatch_batcher.submit(
+            spec, ts, val, mask, gid, num_groups, edges,
+            deadline=active_deadline())
+        clock.mark("kernels")
+        self.exec_stats["batched"] = 1.0
+        if info["stacked"]:
+            self.exec_stats["batchedStacked"] = 1.0
+            self._bump("batchedQ", float(info["q"]))
+        return out
 
     def _sketch_eligible(self, seg: Segment, ds_fn: str, windows, kept,
                          n_rows: int, fix: bool) -> tuple[bool, bool]:
@@ -706,32 +729,6 @@ class QueryRunner:
                     "spillReadMs", "replayMs"):
             self._bump(key, stats[key])
         return out
-
-    def _lane_plan(self, spec: PipelineSpec, series_list, num_groups: int,
-                   windows: FixedWindows, seg: Segment, n_max: int,
-                   points: int, wp: int, g_pad: int, state_mb: int):
-        """The rollup lanes' verdict on a raw fixed-grid segment: a plan,
-        striped when its [S, W] grid is over
-        ``tsd.query.streaming.state_mb`` (query/plandecision.py
-        size_lane_stripes), or None for the exact path (counted a miss
-        when a plan over the budget cannot be striped)."""
-        lanes = self.tsdb.rollup_lanes
-        plan = lanes.plan(
-            series_list[0].key.metric, series_list, windows, seg.start_ms,
-            seg.end_ms, spec.downsample.function, n_max, num_groups,
-            spec.rate is not None, total_points=points)
-        if plan is None:
-            return None
-        s = len(series_list)
-        if grid_budget("grid", state_mb, s * wp * pdn.GRID_CELL_BYTES, s,
-                       wp).over:
-            plan = pdn.size_lane_stripes(self.tsdb, plan, s, wp, g_pad,
-                                         state_mb, spec.aggregator)
-            if plan is None:
-                lanes.note_striping_fallback()
-                return None
-        lanes.note_served(plan)
-        return plan
 
     def _lane_grid(self, spec: PipelineSpec, seg: Segment, plan,
                    series_list, windows: FixedWindows):
@@ -1023,12 +1020,14 @@ class QueryRunner:
     def _new_budget(self, sub: TSSubQuery) -> QueryBudget:
         """The scan budget and timeout of one sub query
         (QueryLimitOverride), the overrides file reloaded first when its
-        interval has passed."""
+        interval has passed; inside a request its clock is the request
+        deadline's (limits.active_deadline)."""
         tsdb = self.tsdb
         limits = tsdb.query_limits
         limits.maybe_reload()
         return QueryBudget(limits, sub.metric or "",
-                           tsdb.config.get_int("tsd.query.timeout"))
+                           tsdb.config.get_int("tsd.query.timeout"),
+                           deadline=active_deadline())
 
     def run_sub(self, query: TSQuery, sub: TSSubQuery) -> list[QueryResult]:
         budget = self._new_budget(sub)
@@ -1063,6 +1062,7 @@ class QueryRunner:
 
     def run(self, query: TSQuery) -> list[QueryResult]:
         self.exec_stats = {}
+        self.decisions = []
         out = []
         for sub in query.queries:
             out.extend(self.run_sub(query, sub))
@@ -1090,3 +1090,56 @@ def extract_dps(out_ts: np.ndarray, out_val: np.ndarray, out_mask: np.ndarray,
     if not (int_mode and not np.issubdtype(val.dtype, np.floating)):
         val = val.astype(np.float64)
     return list(zip(ts.tolist(), val.tolist()))
+
+
+class _ExecConsults:
+    """plan_decision()'s consults for the executor (the reference's
+    planner.py:1655): each hook does the real, stateful work (lane demand
+    recording, tiled sizing with its refusal tallies, the device gather);
+    the routing logic lives in query/plandecision.py."""
+
+    def __init__(self, runner: QueryRunner, ctx, spec: PipelineSpec,
+                 seg: Segment, windows, store, series_list,
+                 clock: _PhaseClock):
+        self.tsdb = runner.tsdb
+        self.ctx = ctx
+        self.spec = spec
+        self.seg = seg
+        self.windows = windows
+        self.store = store
+        self.series_list = series_list
+        self.clock = clock
+
+    def rollup_plan(self):
+        ctx = self.ctx
+        return self.tsdb.rollup_lanes.plan(
+            self.series_list[0].key.metric, self.series_list, self.windows,
+            self.seg.start_ms, self.seg.end_ms, ctx.ds_fn, ctx.n_max,
+            ctx.groups, ctx.has_rate, total_points=ctx.total_points)
+
+    def note_lane_served(self, plan) -> None:
+        self.tsdb.rollup_lanes.note_served(plan)
+
+    def note_lane_fallback(self) -> None:
+        self.tsdb.rollup_lanes.note_striping_fallback()
+
+    def tiled_refusal(self, reason: str) -> None:
+        count_refusal(self.tsdb, reason)
+
+    def tiled_plan(self, acc_cell: int):
+        ctx = self.ctx
+        return plan_tiled(self.tsdb, s=ctx.s, w=ctx.wp, g_pad=ctx.g_pad,
+                          acc_cell_bytes=acc_cell)
+
+    def device_batch(self, build: bool):
+        """The device cache's batch, or None.  The cache holds the raw
+        store's columns only: a rollup lane or pre-aggregate store is
+        never looked up."""
+        tsdb = self.tsdb
+        if self.store is not tsdb.store:
+            return None
+        cached = tsdb.device_cache.batch_for(
+            tsdb.store, self.series_list[0].key.metric, self.series_list,
+            self.seg.start_ms, self.seg.end_ms, build=build)
+        self.clock.mark("gather")
+        return cached

@@ -19,6 +19,7 @@ persistence.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import zlib
 from dataclasses import dataclass
@@ -487,6 +488,16 @@ class MemStore:
         with self._lock:
             keys = self._by_metric.get(metric, set())
             return [self._series[k] for k in keys]
+
+    def series_count_and_sample(self, metric: int,
+                                limit: int) -> tuple[int, list[Series]]:
+        """A metric's series count and at most `limit` of its series,
+        without building the whole list (the admission gate's cost
+        estimate runs on every arrival)."""
+        with self._lock:
+            keys = self._by_metric.get(metric, set())
+            return len(keys), [self._series[k]
+                               for k in itertools.islice(keys, limit)]
 
     def get_series(self, key: SeriesKey) -> Series | None:
         with self._lock:

@@ -110,6 +110,7 @@ class LanePlan:
     segments: list = field(default_factory=list)
     striped: bool = False    # over the device budget: served striped
     tile_plan: object = None  # its ops.tiling.TilePlan when striped
+    lane: str = ""           # the lane's label ("1m", "1h", ...)
 
 
 class RollupLanes:
@@ -268,7 +269,7 @@ class RollupLanes:
         picked = self.lane_for(interval, first)
         if picked is None:
             return None
-        _label, lane_ms = picked
+        label, lane_ms = picked
         k = interval // lane_ms
         wf_lo, wf_hi = self._full_windows(windows, start_ms, end_ms)
         if wf_hi < wf_lo:
@@ -333,7 +334,7 @@ class RollupLanes:
                 self.misses += 1
             return None
         return LanePlan(k=k, wf_lo=wf_lo, wf_hi=wf_hi, n_cells=n_cells,
-                        segments=segments)
+                        segments=segments, lane=label)
 
     def note_served(self, plan: LanePlan) -> None:
         """The planner served this plan: count the hit."""
@@ -430,7 +431,7 @@ class RollupLanes:
         picked = self.lane_for(interval_ms, windows.first_window_ms)
         if picked is None:
             return 0.0
-        _label, lane_ms = picked
+        label, lane_ms = picked
         wf_lo, wf_hi = self._full_windows(windows, start_ms, end_ms)
         if wf_hi < wf_lo:
             return 0.0

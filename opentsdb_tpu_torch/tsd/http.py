@@ -219,6 +219,11 @@ class HttpQuery:
         if self.show_stack_trace:
             err["trace"] = "".join(traceback.format_exception(exc))
         self.send_reply({"error": err}, status=status)
+        retry_after = getattr(exc, "retry_after_s", None)
+        if retry_after:
+            # admission-shed 503s tell the client WHEN to come back
+            # (tsd/admission.py ShedError)
+            self.response.headers["Retry-After"] = str(int(retry_after))
 
     def elapsed_ms(self) -> float:
         return (time.time() - self.start_time) * 1000.0

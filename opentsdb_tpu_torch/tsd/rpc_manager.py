@@ -4,18 +4,24 @@ Port of opentsdb_tpu/tsd/rpc_manager.py (OpenTSDB
 src/tsd/RpcManager.java :251-364 initializeBuiltinRpcs, the route list per
 READWRITE / READONLY / WRITEONLY mode behind tsd.core.enable_api, and
 RpcHandler.java dispatch) for the routes the port serves, with the
-uniform error envelope and the 404 "Page not found".  Not ported (ROADMAP
-A4): admission, tracing, latency stamps, deadlines, authentication,
-CORS, plugins, the query-stats registry, the flight recorder and the UI
-routes.
+uniform error envelope and the 404 "Page not found".  Every HTTP request
+gets one Deadline (``_mint_deadline``, the reference's :288): the smaller
+of ``tsd.query.timeout`` and the client's ``X-TSDB-Deadline-Ms``, made the
+responder thread's ambient deadline for the request and bound to the
+server's cancellation handle, so a client that hangs up flips its token.
+Not ported: tracing and latency stamps (slice 8b), authentication, CORS,
+plugins, the query-stats registry, the flight recorder and the UI routes
+(ROADMAP A4).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 
+from opentsdb_tpu_torch.query import limits
 from opentsdb_tpu_torch.query.limits import QueryException
-from opentsdb_tpu_torch.tsd import admin_rpcs, rpcs
+from opentsdb_tpu_torch.tsd import admin_rpcs, admission, rpcs
 from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
                                          HttpRequest, NotPortedError,
                                          error_status)
@@ -75,6 +81,40 @@ class RpcManager:
 
     def handle_http(self, request: HttpRequest,
                     remote: str = "unknown") -> HttpQuery:
+        """Route one request under its own Deadline, active for the
+        request (``limits.active_deadline``) and bound to the server's
+        cancellation handle when the request carries one."""
+        deadline = self._mint_deadline(request)
+        limits.activate_deadline(deadline)
+        handle = getattr(request, "cancel_handle", None)
+        if handle is not None:
+            handle.bind(deadline)
+        try:
+            return self._dispatch_http(request, remote)
+        finally:
+            limits.deactivate_deadline()
+
+    def _mint_deadline(self, request: HttpRequest) -> limits.Deadline:
+        """min(tsd.query.timeout, X-TSDB-Deadline-Ms); 0 or absent on both
+        sides mints an unbounded deadline, still a cancellation token.  A
+        header that does not parse, or parses to a non-finite number,
+        counts as absent."""
+        timeout_ms = float(self.tsdb.config.get_int("tsd.query.timeout"))
+        raw = request.header(admission.DEADLINE_HEADER)
+        if raw:
+            try:
+                client_ms = float(raw)
+            except ValueError:
+                client_ms = 0.0
+            if not math.isfinite(client_ms):
+                client_ms = 0.0
+            if client_ms > 0:
+                timeout_ms = (min(timeout_ms, client_ms)
+                              if timeout_ms > 0 else client_ms)
+        return limits.Deadline(max(timeout_ms, 0.0))
+
+    def _dispatch_http(self, request: HttpRequest,
+                       remote: str = "unknown") -> HttpQuery:
         """Route one request; every failure becomes the error envelope."""
         query = HttpQuery(self.tsdb, request, remote)
         try:

@@ -9,13 +9,20 @@ query-string grammar and the POST JSON body).  Telnet puts are handled
 one line at a time; the reference's batched native put is a speed mode
 over its C++ engine, with the same answers, and is not ported.  The
 /api/query sub-endpoints last, exp, gexp and explain, and deleting data
-through a query, answer 501 naming the ROADMAP item that ports them.
+through a query, answer 501 naming the ROADMAP item that ports them.  A
+query passes the admission gate (tsd/admission.py, the reference's
+rpcs.py:484) before the runner and releases its permit after its
+response is written; a shed answers 503 with Retry-After, a degraded
+answer is a 200 whose trailer carries ``partialResults``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 from opentsdb_tpu_torch.models.tsquery import (
     TSQuery, parse_m_subquery, parse_tsuid_subquery)
+from opentsdb_tpu_torch.tsd import admission
 from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
                                          NotPortedError)
 from opentsdb_tpu_torch.uid import NoSuchUniqueName
@@ -277,14 +284,37 @@ class QueryRpc(HttpRpc):
             raise NotPortedError("deleting data through /api/query is "
                                  "not ported yet (ROADMAP A4)")
         ts_query.validate()
-        results = tsdb.new_query_runner().run(ts_query)
-        payload = query.serializer.format_query_v1(ts_query, results)
-        if ts_query.show_summary or ts_query.show_stats:
-            payload.append({"statsSummary": {
-                "datapoints": sum(len(r.dps) for r in results),
-                "queryTime": round(query.elapsed_ms(), 3),
-            }})
-        query.send_reply(payload)
+        # admission (tsd/admission.py) before any device work: a shed
+        # raises 503 with Retry-After; the degradation ladder may coarsen
+        # or cut ts_query.  The permit is held until the response is
+        # written, so the next queued query cannot start before this one
+        # has left the socket: under the server, which writes the reply
+        # after this handler returns, the request's after-write hooks
+        # release it once the bytes are drained; called directly, the
+        # handler's exit releases it.
+        permit = admission.admit(tsdb, ts_query, query)
+        after_write = getattr(query.request, "after_write", None)
+        if after_write is not None:
+            after_write.append(permit.release)
+        with permit if after_write is None else contextlib.nullcontext():
+            results = tsdb.new_query_runner().run(ts_query)
+            payload = query.serializer.format_query_v1(ts_query, results)
+            partial = None
+            if permit.degrade_note:
+                # the 200 says out loud that the ladder degraded it
+                partial = admission.partial_annotation(
+                    {"partialResults": True,
+                     "degraded": permit.degrade_note})
+                payload.append(partial)
+            if ts_query.show_summary or ts_query.show_stats:
+                summary = {
+                    "datapoints": sum(len(r.dps) for r in results),
+                    "queryTime": round(query.elapsed_ms(), 3),
+                }
+                if partial:
+                    summary.update(partial)
+                payload.append({"statsSummary": summary})
+            query.send_reply(payload)
 
     @staticmethod
     def parse_query_string(query: HttpQuery) -> TSQuery:

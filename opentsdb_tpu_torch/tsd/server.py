@@ -9,10 +9,18 @@ ConnectionManager.java :37-41, the connection limit).  HTTP/1.1 keeps the
 connection alive unless the client asks to close; pipelined requests are
 answered in order.  Handlers run on a bounded thread pool (the "OpenTSDB
 Responder", RpcResponder.java) so device work never blocks the accept
-loop.  Shutdown stops accepting, drains the pool (queued requests are
-dropped, running ones finish and their replies are written) and then shuts
-the TSDB down; with no request deadline ported there is nothing to cancel
-a running handler early.
+loop.  Every HTTP request carries a cancellation handle
+(tsd/admission.py CancellationHandle, the reference's server.py:455-475)
+that rpc_manager binds to the request's deadline: while its handler runs,
+a read on the idle connection watches for the client hanging up and, on
+EOF, flips the token, so a queued query leaves the admission queue
+without dispatching.  What a handler leaves to its request's
+``after_write`` hooks (its admission permit's release) runs once the reply
+is drained to the socket.  Shutdown stops accepting and drains the pool
+(queued requests are dropped, running ones finish and their replies are
+written); at ``tsd.network.drain_timeout_ms`` it cancels every request
+still in flight, gives them ``POST_CANCEL_GRACE_S`` to unwind, and shuts
+the TSDB down.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from opentsdb_tpu_torch.tsd.admission import CancellationHandle, gate_for
 from opentsdb_tpu_torch.tsd.http import (
     BadRequestError, HttpResponse, parse_http_head)
 from opentsdb_tpu_torch.tsd.rpc_manager import RpcManager
@@ -31,6 +40,22 @@ LOG = logging.getLogger("tsd.server")
 
 MAX_REQUEST_BYTES = 64 * 1024 * 1024   # HttpRequestDecoder aggregator cap
 MAX_TELNET_LINE = 1024 * 1024
+# After the drain timeout, cancelled handlers get this long to see their
+# token and unwind before the TSDB is shut down regardless.
+POST_CANCEL_GRACE_S = 5.0
+
+
+def _after_write(request, fut) -> None:
+    """Run the request's after-write hooks: now when its handler has
+    ended (the reply written, or the write failed), else when the handler
+    ends (the connection task was torn down under a running handler)."""
+    def run(_=None):
+        for hook in request.after_write:
+            hook()
+    if fut is None or fut.done():
+        run()
+    else:
+        fut.add_done_callback(run)
 
 
 class TelnetConn:
@@ -57,9 +82,14 @@ class TSDServer:
             "tsd.network.keep_alive_timeout")
         self._conn_lock = threading.Lock()
         self._open_connections = 0  # guarded-by: _conn_lock
-        # RPCs dispatched whose reply has not hit the socket yet; touched
-        # only on the event-loop thread
+        # RPCs dispatched whose reply has not hit the socket yet, and the
+        # cancellation handles of HTTP requests in flight; touched only
+        # on the event-loop thread
         self._inflight_rpcs = 0
+        self._active_handles: set = set()
+        # the drain's patience before every in-flight token is flipped
+        self.drain_grace_s = max(
+            tsdb.config.get_int("tsd.network.drain_timeout_ms"), 0) / 1e3
         self._executor = ThreadPoolExecutor(
             max_workers=worker_threads, thread_name_prefix="tsd-responder")
         self._server: asyncio.AbstractServer | None = None
@@ -84,20 +114,52 @@ class TSDServer:
         await self.stop()
 
     async def stop(self) -> None:
-        if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
-            self._server = None
+        # stop accepting; the connections still open are waited for only
+        # after the drain, and only as long as the replies are (a wedged
+        # handler keeps its connection open, and wait_closed waits for
+        # every connection)
+        server, self._server = self._server, None
+        if server is not None:
+            server.close()
         # drain the responder pool off the loop, so that the draining
-        # handlers' replies can still be written, then wait (bounded)
-        # for the last dispatched reply to reach its socket
+        # handlers' replies can still be written; past the drain timeout
+        # cancel every request in flight, so that cooperative handlers
+        # (deadline checks, admission waits) unwind, and wait a bounded
+        # grace; then wait (bounded) for the last dispatched reply to
+        # reach its socket
         loop = asyncio.get_running_loop()
         try:
-            await loop.run_in_executor(None, functools.partial(
+            drain = loop.run_in_executor(None, functools.partial(
                 self._executor.shutdown, wait=True, cancel_futures=True))
+            try:
+                await asyncio.wait_for(asyncio.shield(drain),
+                                       timeout=self.drain_grace_s)
+            except asyncio.TimeoutError:
+                handles = list(self._active_handles)
+                LOG.warning("responder drain exceeded %.1fs; cancelling "
+                            "%d in-flight request(s)", self.drain_grace_s,
+                            len(handles))
+                gate = gate_for(self.tsdb)
+                for handle in handles:
+                    if handle.cancel("server drain timeout"):
+                        gate.count_cancelled("drain_timeout")
+                try:
+                    await asyncio.wait_for(asyncio.shield(drain),
+                                           timeout=POST_CANCEL_GRACE_S)
+                except asyncio.TimeoutError:
+                    LOG.warning("responder drain still wedged after the "
+                                "cancel; shutting the TSDB down (a "
+                                "handler ignores its cancellation token)")
             deadline = loop.time() + 5.0
             while self._inflight_rpcs and loop.time() < deadline:
                 await asyncio.sleep(0.02)
+            if server is not None:
+                try:
+                    await asyncio.wait_for(
+                        server.wait_closed(),
+                        timeout=max(deadline - loop.time(), 0.05))
+                except asyncio.TimeoutError:
+                    LOG.warning("connections still open at shutdown")
         finally:
             self.tsdb.shutdown()
             LOG.info("Server shut down")
@@ -228,9 +290,44 @@ class TSDServer:
             buffer = buffer[offset + length:] + body[length:]
 
             self._inflight_rpcs += 1
+            # the request's cancellation lever: made here (the loop sees
+            # the client hang up), bound to its deadline by rpc_manager
+            handle = CancellationHandle()
+            request.cancel_handle = handle
+            # what the handler leaves to run once its reply is written
+            # (its admission permit's release)
+            request.after_write = []
+            self._active_handles.add(handle)
+            watcher = fut = None
             try:
-                query = await self._dispatch(self.rpc_manager.handle_http,
-                                             request, remote)
+                fut = asyncio.get_running_loop().run_in_executor(
+                    self._executor, self.rpc_manager.handle_http, request,
+                    remote)
+                if not buffer:
+                    # while the handler runs, a read on the idle
+                    # connection sees the client go away: EOF flips the
+                    # token.  Skipped when pipelined bytes are buffered
+                    # (the client is alive, and the read would race the
+                    # next request).
+                    watcher = asyncio.ensure_future(reader.read(65536))
+                    await asyncio.wait({fut, watcher},
+                                       return_when=asyncio.FIRST_COMPLETED)
+                    if watcher.done():
+                        try:
+                            chunk = watcher.result()
+                        except (ConnectionError, OSError):
+                            chunk = b""
+                        watcher = None
+                        if not chunk:
+                            if not fut.done() and handle.cancel(
+                                    "client disconnected"):
+                                gate_for(self.tsdb).count_cancelled(
+                                    "client_disconnect")
+                        else:
+                            # the next pipelined request arrived while
+                            # this one ran: keep its bytes
+                            buffer = chunk
+                query = await fut
                 keep_alive = (request.version != "HTTP/1.0"
                               and (request.header("connection")
                                    or "").lower() != "close")
@@ -238,6 +335,10 @@ class TSDServer:
                 writer.write(response.to_bytes(keep_alive))
                 await writer.drain()
             finally:
+                _after_write(request, fut)
+                if watcher is not None:
+                    buffer = await self._drain_watcher(watcher, buffer)
+                self._active_handles.discard(handle)
                 self._inflight_rpcs -= 1
             if not keep_alive:
                 return
@@ -250,3 +351,19 @@ class TSDServer:
                 if not chunk:
                     return
                 buffer = chunk
+
+    @staticmethod
+    async def _drain_watcher(watcher, buffer: bytes) -> bytes:
+        """Retire a pending disconnect watcher without losing bytes: a
+        read that completed between the handler's end and this cancel
+        holds the next pipelined request (the watcher only starts when
+        `buffer` is empty, so appending keeps the order)."""
+        if not watcher.done():
+            watcher.cancel()
+        try:
+            chunk = await watcher
+        except asyncio.CancelledError:
+            return buffer
+        except (ConnectionError, OSError):
+            return buffer
+        return buffer + chunk if chunk else buffer

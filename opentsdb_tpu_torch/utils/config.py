@@ -9,7 +9,9 @@ durability (``UNPORTED``), are refused with a non-default value by
 ``refuse_unported``, which the TSDB and the daemon call: the error names
 the ROADMAP item that ports them.  Every other key is stored and ignored:
 the reference's TPU strategy keys (``tsd.query.mesh.*``, the kernel
-modes) and its aggregate cache's ``tsd.query.cache.*`` change no answer.
+modes, ``tsd.query.host_lane.max_points``: the port answers every plan on
+the card) and its aggregate cache's ``tsd.query.cache.*`` change no
+answer.
 """
 
 from __future__ import annotations
@@ -28,6 +30,25 @@ DEFAULTS: dict[str, str] = {
     "tsd.core.enable_api": "true",
     "tsd.http.show_stack_trace": "true",
     "tsd.http.query.allow_delete": "false",
+    "tsd.network.drain_timeout_ms": "30000",
+    # admission control and the request deadline (tsd/admission.py)
+    "tsd.query.admission.enable": "true",
+    "tsd.query.admission.permits": "8",
+    "tsd.query.admission.queue_limit": "64",
+    "tsd.query.admission.max_wait_ms": "5000",
+    "tsd.query.tenant.fair_share": "true",
+    "tsd.query.tenant.weights": "",
+    "tsd.query.tenant.quantum_ms": "50",
+    "tsd.query.tenant.max_inflight": "0",
+    "tsd.query.degrade": "error",
+    "tsd.diag.tenants": "",
+    "tsd.diag.tenant_buckets": "16",
+    # fused multi-query dispatch (query/batcher.py)
+    "tsd.query.batch.enable": "true",
+    "tsd.query.batch.hold_ms": "2",
+    "tsd.query.batch.max_q": "16",
+    "tsd.query.batch.max_mb": "64",
+    "tsd.query.batch.amortize_factor": "4.0",
     # histograms (histogram/, the planner's histogram arm)
     "tsd.core.histograms.config": "",
     # the streamed grouped route (query/planner.py, ops/streaming.py) and
@@ -171,6 +192,9 @@ class Config:
 
     def get_int(self, key: str) -> int:
         return int(self.get_string(key))
+
+    def get_float(self, key: str) -> float:
+        return float(self.get_string(key))
 
     def get_bool(self, key: str) -> bool:
         value = self.get_string(key).strip().lower()

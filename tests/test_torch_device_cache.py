@@ -59,7 +59,10 @@ from torch_parity import ATOL, RTOL
 
 BASE = 1_356_998_400
 AUTO = {"tsd.core.auto_create_metrics": True}
-REF_ONLY = {"tsd.query.batch.enable": False, "tsd.query.mesh.enable": False}
+# both packages price small plans onto the batched route, which skips the
+# device cache's consult (plandecision.py): the cache's cases turn it off
+NO_BATCH = {"tsd.query.batch.enable": False}
+REF_ONLY = {"tsd.query.mesh.enable": False}
 OFF = {"tsd.query.device_cache.enable": False}
 QUERY = "avg:1m-avg:dc.m{host=*}"
 
@@ -112,9 +115,11 @@ class Trio:
     cache off; every mutation and query goes to all three."""
 
     def __init__(self, ingest=_ingest, **cfg):
-        self.ref = ingest(RefTSDB(RefConfig({**AUTO, **REF_ONLY, **cfg})))
-        self.port = ingest(TSDB(Config({**AUTO, **cfg}), device="cpu"))
-        self.plain = ingest(TSDB(Config({**AUTO, **cfg, **OFF}),
+        self.ref = ingest(RefTSDB(RefConfig({**AUTO, **NO_BATCH, **REF_ONLY,
+                                             **cfg})))
+        self.port = ingest(TSDB(Config({**AUTO, **NO_BATCH, **cfg}),
+                                device="cpu"))
+        self.plain = ingest(TSDB(Config({**AUTO, **NO_BATCH, **cfg, **OFF}),
                                  device="cpu"))
 
     def each(self, fn) -> None:
@@ -461,7 +466,8 @@ def test_load_state_leaves_versions_the_cache_validates():
                 for kind in ("metric", "tagk", "tagv")}
     series = [(s.key.metric, dict(s.key.tags), *s.arrays())
               for s in src.store.all_series()]
-    tsdb = load_state(uid_maps, series, device="cpu")
+    tsdb = load_state(uid_maps, series, config=Config(NO_BATCH),
+                      device="cpu")
     assert all(s.version == 1 for s in tsdb.store.all_series())
     answers = []
     for _ in range(2):
@@ -537,8 +543,9 @@ def test_every_visible_mutation_bumps_the_version():
 
 @pytest.fixture(scope="module")
 def hit_and_miss():
-    return (e2e_ingest(TSDB(Config(AUTO), device="cpu")),
-            e2e_ingest(TSDB(Config({**AUTO, **OFF}), device="cpu")))
+    return (e2e_ingest(TSDB(Config({**AUTO, **NO_BATCH}), device="cpu")),
+            e2e_ingest(TSDB(Config({**AUTO, **NO_BATCH, **OFF}),
+                            device="cpu")))
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])

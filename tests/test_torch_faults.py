@@ -112,12 +112,48 @@ def test_the_two_reproduced_cases_are_refused():
     # the rollup keys this port serves
     {"tsd.rollups.enable": True, "tsd.rollups.split_query.enable": True,
      "tsd.rollup.enable": True, "tsd.rollup.mb": 16},
+    # admission, the request deadline's stance and the dispatch batcher
+    {"tsd.query.batch.enable": True, "tsd.query.batch.hold_ms": 5,
+     "tsd.query.batch.max_q": 8, "tsd.query.batch.max_mb": 32,
+     "tsd.query.batch.amortize_factor": 2.5,
+     "tsd.query.admission.enable": True, "tsd.query.admission.permits": 3,
+     "tsd.query.admission.queue_limit": 7,
+     "tsd.query.admission.max_wait_ms": 900,
+     "tsd.query.tenant.fair_share": False,
+     "tsd.query.tenant.weights": "a:2", "tsd.query.tenant.quantum_ms": 20,
+     "tsd.query.tenant.max_inflight": 2, "tsd.query.degrade": "allow",
+     "tsd.diag.tenants": "a,b", "tsd.diag.tenant_buckets": 4},
+    # the host lane: accepted and ignored, every plan runs on the device
+    {"tsd.query.host_lane.max_points": 1_000_000,
+     "tsd.core.auto_create_metrics": True},
 ])
 def test_defaults_ignored_and_ported_keys_are_accepted(props):
     tsdb = TSDB(Config(props), device="cpu")
     if props.get("tsd.rollups.enable"):
         assert tsdb.rollup_store is not None
         assert tsdb.rollup_lanes is not None
+    if "tsd.query.batch.enable" in props:
+        batcher, gate = tsdb.dispatch_batcher, tsdb.admission_gate
+        assert (batcher.hold_ms, batcher.max_q, batcher.max_bytes) \
+            == (5, 8, 32 * 2 ** 20)
+        assert (gate.permits, gate.queue_limit, gate.max_wait_ms,
+                gate.fair_share, gate.quantum_ms,
+                gate.tenant_max_inflight) == (3, 7, 900, False, 20, 2)
+        assert gate._weights == {"a": 2.0}
+    if "tsd.query.host_lane.max_points" in props:
+        # a plan far under the host lane's bound still routes on the
+        # TSDB's device: no host lane
+        from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+        for k in range(10):
+            tsdb.add_point("hl.m", BASE + k, float(k), {"h": "a"})
+        q = TSQuery(start=str(BASE), end=str(BASE + 60),
+                    queries=[parse_m_subquery("sum:10s-avg:hl.m")])
+        q.validate()
+        runner = tsdb.new_query_runner()
+        runner.run(q)
+        assert runner.decisions[0].path == "batched"
+        assert runner.decisions[0].fp_fields["hostSmall"] is False
+        assert "hostLane" not in runner.exec_stats
 
 
 def test_tsd_main_refuses_an_unported_key(tmp_path, capsys):

@@ -511,9 +511,13 @@ def test_warm_query_on_card_matches_cold(cuda_device):
         series.append((1, {1: i + 1, 2: 41 + i % 3}, ts,
                        rng.normal(10, 2, k), np.zeros(k, np.int64),
                        np.zeros(k, bool)))
-    cached = load_state(uid_maps, series, device=cuda_device)
+    # a plan this small prices onto the batched route, which skips the
+    # device cache: the cache's case turns batching off
+    cached = load_state(uid_maps, series, config=Config(
+        {"tsd.query.batch.enable": False}), device=cuda_device)
     host = load_state(uid_maps, series, config=Config(
-        {"tsd.query.device_cache.enable": False}), device=cuda_device)
+        {"tsd.query.device_cache.enable": False,
+         "tsd.query.batch.enable": False}), device=cuda_device)
     for m in ("sum:5m-avg:rate:m{g=*}", "p99:5m-median:m{g=*}"):
         q = TSQuery(start="1356998400", end="1357002000",
                     queries=[parse_m_subquery(m)])
@@ -957,3 +961,135 @@ def test_tiled_queries_on_card_match_cpu(cuda_device):
             [v for r in card for v in r["dps"].values()],
             [v for r in cpu for v in r["dps"].values()], rtol=1e-9,
             atol=1e-9)
+
+
+# -- the member-strided K1, K4 and K2 (the dispatch batcher's B14) --------
+
+
+def _stacked_members(rng, q=5, s=6, n=160, w=12):
+    """q members of [s, n] sorted rows, each with its own window edges
+    [w+1] (its own range) and group ids."""
+    members = []
+    for i in range(q):
+        base = T0 + i * 7_000_000
+        ts = np.sort(base + rng.integers(0, w * 60_000, (s, n)), axis=1)
+        val = rng.normal(50, 20, (s, n))
+        mask = rng.random((s, n)) > 0.1
+        g = 1 + i % 3
+        gid = np.sort(np.concatenate([np.arange(g),
+                                      rng.integers(0, g, s - g)]))
+        edges = base + np.arange(w + 1, dtype=np.int64) * 60_000
+        members.append((ts.astype(np.int64), val, mask, gid, g, edges))
+    return members
+
+
+@pytest.mark.parametrize("spec", [
+    ("sum", "avg", None), ("max", "max", ()), ("p99", "p95", None),
+    ("movingAverage3", "first", ()), ("dev", "movingAverage3", None)])
+def test_stacked_pipeline_equals_plain_and_solo(cuda_device, spec):
+    """One stacked dispatch of 5 members: each member's slice equals its
+    solo dispatch bit for bit and the plain stacked pipeline at rtol
+    1e-9; K1 or K4, K2 and K3 or K5 launch once each (MA once where the
+    spec has one), counted as stacked."""
+    agg, ds_fn, rate = spec
+    pspec = tpipe.PipelineSpec(agg, tpipe.DownsampleStep(ds_fn),
+                               None if rate is None else RateOptions(*rate))
+    members = _stacked_members(np.random.default_rng(31))
+    stack = [np.concatenate([m[i] for m in members]) for i in range(3)]
+    gid = np.stack([m[3] for m in members])
+    groups = [m[4] for m in members]
+    edges = np.stack([m[5] for m in members])
+    kernels.reset_launches()
+    got = tpipe.run_stacked_group_pipeline(
+        pspec, *_on(cuda_device, *stack), gid, groups,
+        *_on(cuda_device, edges))
+    torch.cuda.synchronize()
+    fired = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    k1 = "window_order" if ds_fn in ("p95", "first") else "window_moments"
+    k3 = "group_order" if agg == "p99" else "group_moments"
+    assert fired[k1] == fired[k1 + ".stacked"] == 1
+    assert fired["grid_fill_rate"] == fired["grid_fill_rate.stacked"] == 1
+    assert fired[k3] == (2 if agg == "movingAverage3" else 1)
+    assert fired.get("moving_average", 0) == (
+        1 if "movingAverage3" in (agg, ds_fn) else 0)
+    plain = tpipe.run_stacked_group_pipeline(
+        pspec, *[t(x) for x in stack], gid, groups, t(edges))
+    for m, mine, ref in zip(members, got, plain):
+        solo = tpipe.run_group_pipeline(
+            pspec, *_on(cuda_device, *m[:3]), m[3], m[4],
+            *_on(cuda_device, m[5]))
+        for a, b in zip(mine, solo):
+            assert torch.equal(torch.nan_to_num(a, nan=7.25),
+                               torch.nan_to_num(b, nan=7.25))
+        assert_exact(mine[2].cpu().numpy(), ref[2].numpy())
+        assert_values(mine[1].cpu().numpy(), ref[1].numpy())
+
+
+@pytest.mark.parametrize("rate", [None, ()])
+def test_stacked_kernels_match_plain(cuda_device, rate):
+    """K1 and K4 over stacked edges [Q, W+1], K2 over stacked window
+    timestamps [Q, W], against their plain versions."""
+    members = _stacked_members(np.random.default_rng(32), q=4)
+    d_ts, d_val, d_mask = _on(cuda_device, *[
+        np.concatenate([m[i] for m in members]) for i in range(3)])
+    (edges,) = _on(cuda_device, np.stack([m[5] for m in members]))
+    for fn in ("sum", "dev", "min", "count"):
+        got = tds.window_moments(d_ts, d_val, d_mask, edges, fn, "zero")
+        want = tds.window_moments_plain(d_ts, d_val, d_mask, edges, fn,
+                                        "zero")
+        assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+    for fn in ("p95", "median", "first", "mult"):
+        got = tds.window_order(d_ts, d_val, d_mask, edges, fn)
+        want = tds.window_order_plain(d_ts, d_val, d_mask, edges, fn)
+        assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+    v, m = tds.window_moments(d_ts, d_val, d_mask, edges, "avg")
+    wts = edges[:, :-1].contiguous()
+    opts = None if rate is None else RateOptions(*rate)
+    for policy in POLICIES:
+        got = tga.grid_fill_rate(wts, v, m, policy, opts)
+        want = tga.grid_fill_rate_plain(wts, v, m, policy, opts)
+        assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+        assert_exact(got[2].cpu().numpy(), want[2].cpu().numpy())
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def test_batcher_on_card_stacks_and_matches_solo(cuda_device):
+    """Four members through the dispatch batcher's rendezvous on the card:
+    one stacked dispatch, each answer the solo pipeline's bit for bit."""
+    import threading
+    from types import SimpleNamespace
+    from opentsdb_tpu_torch.query.batcher import DispatchBatcher
+    from opentsdb_tpu_torch.utils.config import Config
+
+    # a TSDB whose admission gate shows other queries in flight, so that
+    # the leader holds the bucket open for the others
+    tsdb = SimpleNamespace(device=cuda_device, admission_gate=SimpleNamespace(
+        demand=lambda: 8))
+    batcher = DispatchBatcher(Config({"tsd.query.batch.hold_ms": "5000",
+                                      "tsd.query.batch.max_q": "4"}),
+                              tsdb=tsdb)
+    members = [(m[0], m[1], m[2], np.zeros(6, np.int64), 1, m[5])
+               for m in _stacked_members(np.random.default_rng(33), q=4)]
+    spec = tpipe.PipelineSpec("sum", tpipe.DownsampleStep("avg"))
+    out = [None] * 4
+
+    def run(i):
+        m = members[i]
+        out[i] = batcher.submit(spec, *m[:4], m[4], m[5])
+
+    pool = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(60)
+    assert all(o is not None and o[1]["q"] == 4 for o in out)
+    assert batcher.collect_stats()["tsd.query.batch.stacked_dispatches"] \
+        == 1.0
+    for m, (got, _info) in zip(members, out):
+        solo = tpipe.run_group_pipeline(
+            spec, *_on(cuda_device, *m[:3]), m[3], 1,
+            *_on(cuda_device, m[5]))
+        for a, b in zip(got, solo):
+            assert np.array_equal(a, b.cpu().numpy(), equal_nan=True)

@@ -44,8 +44,11 @@ from opentsdb_tpu_torch.utils.config import Config
 
 BASE = 1_356_998_400
 HIST_CONFIG = '{"SimpleHistogramDecoder": 0}'
-REF_OFF = {"tsd.query.mesh.enable": False, "tsd.query.batch.enable": False,
-           "tsd.query.admission.enable": False}
+# the budgets' cases run both packages off the batched route and without
+# admission, whose deadline check would answer first
+BOTH_OFF = {"tsd.query.batch.enable": False,
+            "tsd.query.admission.enable": False}
+REF_OFF = {"tsd.query.mesh.enable": False, **BOTH_OFF}
 
 
 def _both(**over):
@@ -58,7 +61,7 @@ def _both(**over):
 def _loaded(ref: bool, **over):
     props = {"tsd.core.auto_create_metrics": True, **over}
     tsdb = (RefTSDB(RefConfig({**props, **REF_OFF})) if ref
-            else TSDB(Config(props), device="cpu"))
+            else TSDB(Config({**props, **BOTH_OFF}), device="cpu"))
     for h in range(4):
         for k in range(50):
             tsdb.add_point("sys.cpu.user", BASE + k * 10, k,
@@ -311,7 +314,7 @@ def test_histogram_arm_charges_the_budget():
                  "tsd.core.histograms.config": HIST_CONFIG,
                  "tsd.query.limits.data_points.default": "5"}
         tsdb = (RefTSDB(RefConfig({**props, **REF_OFF})) if ref
-                else TSDB(Config(props), device="cpu"))
+                else TSDB(Config({**props, **BOTH_OFF}), device="cpu"))
         for k in range(8):
             tsdb.add_histogram_point_json(
                 "lat", BASE + 60 * k, {"buckets": {"0,10": 3, "10,20": k}},
@@ -425,7 +428,7 @@ def test_exec_stats_recorded():
                  "tsd.query.streaming.point_threshold": "50",
                  "tsd.query.streaming.chunk_points": "64"}
         tsdb = (RefTSDB(RefConfig({**props, **REF_OFF})) if ref
-                else TSDB(Config(props), device="cpu"))
+                else TSDB(Config({**props, **BOTH_OFF}), device="cpu"))
         for h in range(2):
             for k in range(100):
                 tsdb.add_point("es.m", BASE + k * 5 + h, k,

@@ -34,6 +34,9 @@ LANES = {
     "tsd.rollup.intervals": "1m,1h",
     "tsd.rollup.block_windows": 8,
     "tsd.rollup.delay_ms": 0,
+    # the lanes' fallbacks take the exact path in both packages, not the
+    # batched route that a small plan prices onto
+    "tsd.query.batch.enable": False,
 }
 
 
@@ -43,11 +46,10 @@ def make_tsdb(enable=True, **over):
 
 
 def make_ref():
-    """The reference's exact path: lanes off, mesh off, its batcher off so
-    its plan decision runs the plain grouped dispatch."""
+    """The reference's exact path: lanes off, mesh off, its batcher off
+    (LANES) so its plan decision runs the plain grouped dispatch."""
     return RefTSDB(RefConfig({**LANES, "tsd.rollup.enable": False,
-                              "tsd.query.mesh.enable": False,
-                              "tsd.query.batch.enable": False}))
+                              "tsd.query.mesh.enable": False}))
 
 
 def feed_int(tsdb, n=6000, hosts=("a", "b"), metric="lane.i", step=1):
