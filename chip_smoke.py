@@ -215,21 +215,47 @@ days), 1h windows.  Phases:
    process, each panel `sum:1m-avg:m{group=gNNN}` or
    `max:1m-max:rate:m{group=gNNN}` over the data's last hour, rotating
    over the 100 groups: batching off (the panels hit the device cache)
-   then on, each 5 s of warm-up and 20 s timed; QPS, p50 and p99 on the
-   client clock, stacked dispatches, members a dispatch, bucket keys; no
-   status but 200, and every panel's body byte-equal across the arms.
-   Then 5 s of `p99:1m-p95` panels (K4, K5).  Launch counts are reset
-   before the on arm and read after the order panels.  Two diagnostic
-   arms of 5 s follow, batching on: one with the server's GIL switch
-   interval at 0.5 ms, one with each responder thread on a CUDA stream
-   of its own; every arm prints a dispatch's host wall, its thread's CPU
-   time and its copy-back wall (the batcher's tallies), and every body
-   must equal the off arm's.  (d) Admission: 8
+   then on, each 3 s of warm-up and 8 s timed; QPS, p50 and p99 on the
+   client clock, stacked dispatches, members a dispatch, bucket keys, a
+   dispatch's host wall, its thread's CPU time and its copy-back wall
+   (the batcher's tallies); no status but 200, and every panel's body
+   byte-equal across the arms.  Then 5 s of `p99:1m-p95` panels (K4,
+   K5).  Launch counts are reset before the on arm and read after the
+   order panels.  (d) Admission: 8
    concurrent full-range queries on one permit and one queue slot get
    503s with Retry-After; X-TSDB-Deadline-Ms: 1 on a full-range query
    gets a 503 (degrade=error); degrade=allow answers a 200 carrying
    partialResults, equal to a CPU TSDB's answer for the coarsened query;
    a client that hangs up while queued is cancelled without a permit.
+17. the cache-hit path (after phase 16, on the headline TSDB, the
+   threshold raised as in phase 4).  (a) G1's int32 form (timestamps as
+   int32 offsets from the first window) against its plain version in
+   phase 3's cases (a)-(c), offsets, values and masks exact; K1's int32
+   form under every moment function and K4's under mult, p95, first and
+   "0all" p99, against their plain versions (rtol 1e-9, masks exact) and
+   bit for bit against their int64 forms on the same points; each prints
+   its time, bound, plain and library times.  (b) Phase 4's seven
+   queries as device-cache hits with the int32 gather and with the base
+   withheld (int64): equal bit for bit; both walls with the planner's
+   phase split, the gather phase's and G1's shares and the batch's bytes
+   (13 against 17 a slot); the int64 gather phase a series is the cost
+   model's `cache_gather_series`.  (c) The aggregate cache attached (the
+   reference's defaults) on `sum:1h-avg:m{group=*}` and
+   `max:1m-max:m{group=*}` over the full range: with the device cache
+   holding the metric, three repeats stay device-cache hits (the cache
+   prices the recompute as a hit), before and after blocks exist; with
+   the device cache detached, first sight, cold populate, warm, and warm
+   from the device tier (promote_pending), each warm answer equal to the
+   cold one bit for bit and to the cache-off answer; a range slid by one
+   window; one appended point served fresh.  Walls, the path and its
+   reason, windows served from blocks and computed, and the device
+   tier's bytes.  (d) The default-route follow-up: phase
+   16's fleet at 1, 2, 4 and 8 responder threads, three arms each (agg
+   off and batching off: device-cache hits; agg off, batching on;
+   default: agg on, batching on), 3 s warm-up and 8 s timed: QPS, p50,
+   p99, each query's request phases from /api/diag/latency and the
+   responder thread's CPU a query; every body equal to the hits arm's.
+   Launch counts are reset before (b) and read after (d).
 
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
@@ -291,6 +317,9 @@ REPLACES = {
     "sketch_fold": "opentsdb_tpu/ops/streaming.py:406",
     "stream_finish": "opentsdb_tpu/ops/streaming.py:596",
     "tile_partials": "opentsdb_tpu/ops/tiling.py:238",
+    "gather_windows.i32": "opentsdb_tpu/storage/device_cache.py:443",
+    "window_moments.i32": "opentsdb_tpu/ops/downsample.py:515",
+    "window_order.i32": "opentsdb_tpu/ops/downsample.py:515",
     "window_moments.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "window_order.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "grid_fill_rate.stacked": "opentsdb_tpu/ops/pipeline.py:225",
@@ -315,6 +344,10 @@ HB_SERIES, HB_GROUPS = 4_096, 64   # the synthetic histogram batch (b)
 # Phases 4-10 keep the materialized route (their misses build
 # the [S, N] batch): the streaming threshold raised past every query.
 MATERIALIZE = {"tsd.query.streaming.point_threshold": str(2 ** 62)}
+# The aggregate cache is on by default; the phases that measure the
+# device-cache hit, the batched route or the lanes turn it off, so that a
+# repeat stays on its route (phase 17 attaches it where it measures it).
+AGG_OFF = {"tsd.query.cache.enable": False}
 SKETCH_RTOL, SKETCH_ATOL = 1e-6, 1e-4    # the float32 sketch
 # BASELINE configs 2 and 4 (bench_configs.py:406, :452): bench_configs'
 # closed-form chunks at a 10 s cadence, 65,536 points a series a chunk
@@ -684,6 +717,24 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     return times
 
 
+def _gather_cases(ts, gid) -> dict:
+    """Phase 3's gathers over the headline batch packed as one buffer:
+    name -> (starts[R], lengths[R])."""
+    row0 = np.arange(S, dtype=np.int64) * N
+    day0 = START + 5 * 86_400_000
+    sub = np.random.default_rng(4).permutation(np.flatnonzero(gid < 4))
+    lo6 = np.array([np.searchsorted(ts[i], END - SIX_HOURS_MS) for i in
+                    range(S)], np.int64)
+    lo_d = np.array([np.searchsorted(ts[i], day0) for i in sub], np.int64)
+    hi_d = np.array([np.searchsorted(ts[i], day0 + 86_400_000, "right")
+                     for i in sub], np.int64)
+    return {
+        "(a) full range": (row0, np.full(S, N, np.int64)),
+        "(b) last 6h": (row0 + lo6, N - lo6),
+        "(c) groups 0-3 shuffled, 1 day": (row0[sub] + lo_d, hi_d - lo_d),
+    }
+
+
 def gather_phase(dev, ts, val, gid, checks: Checks) -> dict:
     """G1 gather_windows against its plain version on the headline
     batch's columns packed as the device cache packs a metric: (a) every
@@ -694,18 +745,7 @@ def gather_phase(dev, ts, val, gid, checks: Checks) -> dict:
     ts_buf = torch.from_numpy(ts.reshape(-1)).to(dev)
     val_buf = torch.from_numpy(val.reshape(-1)).to(dev)
     row0 = np.arange(S, dtype=np.int64) * N
-    day0 = START + 5 * 86_400_000
-    sub = np.random.default_rng(4).permutation(np.flatnonzero(gid < 4))
-    lo6 = np.array([np.searchsorted(ts[i], END - SIX_HOURS_MS) for i in
-                    range(S)], np.int64)
-    lo_d = np.array([np.searchsorted(ts[i], day0) for i in sub], np.int64)
-    hi_d = np.array([np.searchsorted(ts[i], day0 + 86_400_000, "right")
-                     for i in sub], np.int64)
-    cases = {
-        "(a) full range": (row0, np.full(S, N, np.int64)),
-        "(b) last 6h": (row0 + lo6, N - lo6),
-        "(c) groups 0-3 shuffled, 1 day": (row0[sub] + lo_d, hi_d - lo_d),
-    }
+    cases = _gather_cases(ts, gid)
     times = {}
     for name, (starts, lengths) in cases.items():
         n = int(lengths.max())
@@ -778,7 +818,7 @@ def _cpu_copy(tsdb):
     series = [(s.key.metric, dict(s.key.tags), *s.arrays())
               for s in tsdb.store.all_series()]
     return load_state(uid_maps, series, config=Config(
-        {"tsd.query.device_cache.enable": False, **MATERIALIZE}),
+        {"tsd.query.device_cache.enable": False, **AGG_OFF, **MATERIALIZE}),
         device="cpu")
 
 
@@ -949,7 +989,7 @@ def e2e_phase(dev, ts, val, checks: Checks):
     t0 = time.perf_counter()
     tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True,
                         "tsd.core.histograms.config": HIST_CONFIG,
-                        **MATERIALIZE}),
+                        **AGG_OFF, **MATERIALIZE}),
                 device=dev)
     metric = tsdb.metrics.get_or_create_id("m")
     k_host = tsdb.tag_names.get_or_create_id("host")
@@ -1983,7 +2023,8 @@ def _rollup_tsdb(dev, ts, val, h):
                         "tsd.rollups.config": json.dumps(table),
                         "tsd.rollup.enable": True,
                         "tsd.rollup.intervals": "1h",
-                        "tsd.rollup.interval": 0, **MATERIALIZE}),
+                        "tsd.rollup.interval": 0, **AGG_OFF,
+                        **MATERIALIZE}),
                 device=dev)
     for name, rows, values in (("m", S, val), ("mi", INT_ROWS, h % 1_000)):
         metric = tsdb.metrics.get_or_create_id(name)
@@ -2073,7 +2114,7 @@ def rollup_e2e_phase(dev, ts, val, h, checks: Checks) -> tuple:
     cpu = load_state(uid_maps, [(s.key.metric, dict(s.key.tags), *s.arrays())
                                 for s in store.all_series()],
                      config=Config({"tsd.query.device_cache.enable": False,
-                                    **MATERIALIZE}),
+                                    **AGG_OFF, **MATERIALIZE}),
                      device="cpu")
     written_q = ["sum:1h-avg:%s{group=*}", "sum:1h-sum:%s{group=*}",
                  "max:1h-max:%s{group=*}", "sum:1h-count:%s{group=*}",
@@ -3211,7 +3252,7 @@ DL_S, DL_N, DL_W = 1, 128, 16
 PANEL_S, PANEL_W = 10, 60
 FLEET_FORMS = ("sum:1m-avg:m{group=%s}", "max:1m-max:rate:m{group=%s}")
 ORDER_FORM = "p99:1m-p95:m{group=%s}"
-FLEET_THREADS, FLEET_WARMUP_S, FLEET_WINDOW_S = 16, 5.0, 20.0
+FLEET_THREADS, FLEET_WARMUP_S, FLEET_WINDOW_S = 16, 3.0, 8.0
 
 
 def _fleet_members(shape: str, ts, val, seed: int):
@@ -3546,14 +3587,15 @@ def fleet_client(spec: dict) -> int:
     return 0
 
 
-def _run_fleet(port: int, panels: list[str], window: float) -> dict:
+def _run_fleet(port: int, panels: list[str], window: float,
+               warmup: float = FLEET_WARMUP_S) -> dict:
     """One arm of the fleet: the clients in a child process."""
     spec = {"port": port, "panels": panels, "threads": FLEET_THREADS,
-            "warmup": FLEET_WARMUP_S, "window": window}
+            "warmup": warmup, "window": window}
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--fleet-client",
          json.dumps(spec)], capture_output=True, text=True,
-        timeout=FLEET_WARMUP_S + window + 240)
+        timeout=warmup + window + 240)
     if proc.returncode != 0:
         raise RuntimeError("fleet client failed: %s" % proc.stderr[-2000:])
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -3576,7 +3618,6 @@ def fleet_phase(dev, tsdb, checks: Checks) -> dict:
     fleet over HTTP with batching off then on, and admission.  Returns
     the launch counts of the main path (the on arm and the order
     panels)."""
-    import threading
     from opentsdb_tpu_torch.ops import kernels
     from opentsdb_tpu_torch.query.batcher import DispatchBatcher
     from opentsdb_tpu_torch.tsd import admission
@@ -3681,34 +3722,6 @@ def fleet_phase(dev, tsdb, checks: Checks) -> dict:
             if launches[name] < 1:
                 checks.failures.append("kernel %s never launched on the "
                                        "fleet's path" % name)
-        # two diagnostic arms that separate where a batched query's
-        # host time goes: the GIL handed over every 0.5 ms instead of
-        # every 5 ms (a convoy of responder threads waiting for the GIL
-        # after each released call shrinks), and each responder thread
-        # on a CUDA stream of its own (a copy back then waits only for
-        # its own thread's work, not for every thread's on the one
-        # legacy default stream)
-        import sys
-        interval = sys.getswitchinterval()
-        sys.setswitchinterval(5e-4)
-        try:
-            arm("on gil 0.5ms", DispatchBatcher(Config(), tsdb=tsdb), 5.0)
-        finally:
-            sys.setswitchinterval(interval)
-        local = threading.local()
-        handle_http = server.rpc_manager.handle_http
-
-        def on_own_stream(request, remote="unknown"):
-            if not hasattr(local, "stream"):
-                local.stream = torch.cuda.Stream(dev)
-            with torch.cuda.stream(local.stream):
-                return handle_http(request, remote)
-
-        server.rpc_manager.handle_http = on_own_stream
-        try:
-            arm("on streams", DispatchBatcher(Config(), tsdb=tsdb), 5.0)
-        finally:
-            del server.rpc_manager.handle_http
         admission_phase(tsdb, server, checks, admission)
     cfg.override_config(key, threshold)
     return launches
@@ -3842,6 +3855,422 @@ def admission_phase(tsdb, server, checks: Checks, admission) -> None:
     tsdb.admission_gate = gate
 
 
+# Phase 17: the cache-hit path.  The follow-up's responder counts, its
+# arms' warm-up and timed seconds, and (c)'s queries.
+FOLLOWUP_THREADS = (1, 2, 4, 8)
+FOLLOWUP_WARMUP_S, FOLLOWUP_WINDOW_S = 3.0, 8.0
+AGG_QUERIES = ("sum:1h-avg:m{group=*}", "max:1m-max:m{group=*}")
+
+
+def _raw_bits(x: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor's bits (NaN payloads included) for an exact
+    comparison."""
+    return x.contiguous().view(torch.int64)
+
+
+def int32_kernel_phase(dev, ts, val, gid, h, checks: Checks,
+                       times: dict) -> dict:
+    """Phase 17 (a): G1's, K1's and K4's int32 forms against their plain
+    versions, and K1 and K4 bit for bit against their int64 forms."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.storage import device_cache as dc
+
+    plan = ds.FixedWindows.for_range(START, END, INTERVAL_MS)
+    base = ds.precompact_base(plan, plan.first_window_ms)
+    if base is None:
+        checks.failures.append("the headline grid has no int32 base")
+        return {}
+    ts_buf = torch.from_numpy(ts.reshape(-1)).to(dev)
+    val_buf = torch.from_numpy(val.reshape(-1)).to(dev)
+    out = {}
+    for name, (starts, lengths) in _gather_cases(ts, gid).items():
+        n = int(lengths.max())
+        d_st = torch.from_numpy(starts).to(dev)
+        d_len = torch.from_numpy(lengths).to(dev)
+        got = dc.gather_windows(ts_buf, val_buf, d_st, d_len, n, base)
+        want = dc.gather_windows_plain(ts_buf, val_buf, d_st, d_len, n, base)
+        for what, a, b in zip(("offsets", "values", "masks"), got, want):
+            checks.exact("gather_windows.i32", name, a, b, what)
+        print("%-18s %-44s %d rows x %d int32 offsets exact %s"
+              % ("gather_windows.i32", name, len(starts), n,
+                 "ok" if all(torch.equal(a, b) for a, b in zip(got, want))
+                 else "FAIL"))
+        del got, want
+        if name.startswith("(a)"):
+            points = int(lengths.sum())
+            rows = len(starts)
+            i64_ms = time_ms(lambda: dc.gather_windows(
+                ts_buf, val_buf, d_st, d_len, n))
+            out["gather_windows.i32"] = {
+                "ms": time_ms(lambda: dc.gather_windows(
+                    ts_buf, val_buf, d_st, d_len, n, base)),
+                "plain_ms": time_ms(lambda: dc.gather_windows_plain(
+                    ts_buf, val_buf, d_st, d_len, n, base), 3),
+                # each point read once from both buffers, each slot
+                # written once (int32 offset, value, mask), the runs read
+                "bound_ms": bound_ms(points * 16 + rows * n * 13 + rows * 16,
+                                     0.0),
+                "library_ms": None,
+            }
+            print("time gather_windows.i32 (a) kernel %.4f ms (the int64 "
+                  "form %.4f ms in this call), bound %.4f ms (bytes; the "
+                  "int64 form's %.4f ms)"
+                  % (out["gather_windows.i32"]["ms"], i64_ms,
+                     out["gather_windows.i32"]["bound_ms"],
+                     bound_ms(points * 16 + rows * n * 17 + rows * 16, 0.0)))
+            d_ts32 = dc.gather_windows(ts_buf, val_buf, d_st, d_len, n,
+                                       base)[0]
+    del ts_buf, val_buf
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
+    d_h = torch.from_numpy(h).to(dev)
+    c_mask = d_mask & (d_h % 97 != 0)
+    c_val = torch.where(d_h % 211 == 0, torch.nan, d_val)
+    del d_h
+    grids = {"fixed": plan.window_edges(dev),
+             "all": ds.AllWindow(START, END).window_edges(dev)}
+    cases = [("window_moments", "fixed", f) for f in FUNCS]
+    cases += [("window_order", "fixed", f) for f in ("mult", "p95", "first")]
+    cases.append(("window_order", "all", "p99"))
+    for kernel, kind, func in cases:
+        fn, plain = ((ds.window_moments, ds.window_moments_plain)
+                     if kernel == "window_moments"
+                     else (ds.window_order, ds.window_order_plain))
+        edges = grids[kind]
+        edges32 = ds.compact_edges(edges, base)
+        got = fn(d_ts32, c_val, c_mask, edges32, func)
+        want = plain(d_ts32, c_val, c_mask, edges32, func)
+        name = kernel + ".i32"
+        case = "%s %s" % (kind, func)
+        checks.exact(name, case, got[1], want[1])
+        checks.values(name, case, got[0], want[0])
+        wide = fn(d_ts, c_val, c_mask, edges, func)
+        checks.exact(name, case + " vs int64 form", got[1], wide[1])
+        checks.exact(name, case + " vs int64 form", _raw_bits(got[0]),
+                     _raw_bits(wide[0]), "value bits")
+    del c_val, c_mask
+    edges = grids["fixed"]
+    edges32 = ds.compact_edges(edges, base)
+    w = edges.numel() - 1
+    # the bound reads val and mask once (9 B a point), a 4-byte offset
+    # where an edge falls, and writes 9 B a cell
+    i32_bytes = S * N * 9 + S * (w + 1) * 4 + (w + 1) * 4 + S * w * 9
+    for kernel, fn, plain, func, flops in (
+            ("window_moments", ds.window_moments, ds.window_moments_plain,
+             "avg", 2.0 * S * N),
+            ("window_order", ds.window_order, ds.window_order_plain, "mult",
+             1.0 * S * N)):
+        out[kernel + ".i32"] = {
+            "ms": time_ms(lambda: fn(d_ts32, d_val, d_mask, edges32, func)),
+            "plain_ms": time_ms(lambda: plain(d_ts32, d_val, d_mask,
+                                              edges32, func)),
+            "bound_ms": bound_ms(i32_bytes, flops),
+            "library_ms": times[kernel]["library_ms"],
+        }
+        print("time %s.i32 %s kernel %.4f ms (the int64 form %.4f ms in "
+              "this call)" % (kernel, func, out[kernel + ".i32"]["ms"],
+                              time_ms(lambda: fn(d_ts, d_val, d_mask, edges,
+                                                 func))))
+    print_times(out)
+    return out
+
+
+def _batch_points(tsdb, m: str) -> tuple[int, int]:
+    """(series, longest run) of `m`'s batch over the full range."""
+    metric = tsdb.metrics.get_id("m")
+    series = tsdb.store.series_for_metric(metric)
+    fix = tsdb.config.fix_duplicates
+    return len(series), max(s.window_count(START, END, fix) for s in series)
+
+
+def int32_hit_phase(tsdb, checks: Checks, times: dict) -> dict:
+    """Phase 17 (b): phase 4's seven queries as device-cache hits with the
+    int32 gather and with the base withheld, bit for bit alike; returns
+    the cost model's `cache_gather_series`, the int64 hits' median gather
+    phase (the cache's walk over the series and G1) a series."""
+    from opentsdb_tpu_torch.query import planner
+    from opentsdb_tpu_torch.query.planner import PHASES
+
+    with_base = planner.precompact_base
+    tsdb.new_query_runner().run(_query(STREAM_QUERIES[0]))  # the entry
+    s, n = _batch_points(tsdb, "m")
+    print("e2e int32 batch [%d, %d]: %.3f GB at 13 B a slot, %.3f GB at 17"
+          % (s, n, s * n * 13 / 1e9, s * n * 17 / 1e9))
+    # G1's CUDA-event time on the full range (phases 3 and 17 (a))
+    g1_ms = {"int32": times["gather_windows.i32"]["ms"],
+             "int64": times["gather_windows"]["ms"]}
+    gathers = []
+    for m in STREAM_QUERIES:
+        arms = {}
+        runs = {"int32": ([], []), "int64": ([], [])}
+        # the two arms in turns (a warm-up, then int32, int64, int64,
+        # int32, ...): host noise falls on both alike
+        for i, arm in enumerate(["int32", "int64"] + ["int32", "int64",
+                                                      "int64", "int32"] * 3):
+            if arm == "int64":
+                planner.precompact_base = lambda windows, first: None
+            try:
+                runner = tsdb.new_query_runner()
+                t0 = time.perf_counter()
+                res = runner.run(_query(m))
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                planner.precompact_base = with_base
+            arms[arm] = res
+            if i >= 2:
+                runs[arm][0].append(wall)
+                runs[arm][1].append(dict(runner.exec_stats))
+        for arm, (walls, splits) in runs.items():
+            wall = statistics.median(walls)
+            split = {p: statistics.median(x[p + "Ms"] for x in splits)
+                     for p in PHASES}
+            compacted = {x.get("tsCompacted") for x in splits}
+            hit = {x.get("deviceCacheHit") for x in splits}
+            print("e2e hit %-5s %-34s wall %.1f ms (median of 6) | build "
+                  "%.1f gather %.1f h2d %.1f kernels %.1f extract %.1f ms | "
+                  "gather share %.4f, G1's %.4f | tsCompacted %s"
+                  % (arm, m, wall, split["build"], split["gather"],
+                     split["h2d"], split["kernels"], split["extract"],
+                     split["gather"] / wall, g1_ms[arm] / wall,
+                     sorted(compacted, key=str)))
+            if arm == "int64":
+                gathers.append(split["gather"])
+            if hit != {1.0} or compacted != (
+                    {1.0} if arm == "int32" else {None}):
+                checks.failures.append("%s %s: not a %s hit" % (m, arm, arm))
+        if [(r.tags, r.dps) for r in arms["int32"]] \
+                != [(r.tags, r.dps) for r in arms["int64"]]:
+            checks.failures.append("%s: int32 and int64 hits differ" % m)
+        else:
+            print("e2e hit %s: int32 and int64 answers equal bit for bit" % m)
+    return {"cache_gather_series": statistics.median(gathers) / 1e3 / s}
+
+
+def _agg_run(tsdb, m, start=START, end=END):
+    """(answer, runner, wall ms) of one run of `m`."""
+    runner = tsdb.new_query_runner()
+    t0 = time.perf_counter()
+    res = runner.run(_query(m, start, end))
+    wall = (time.perf_counter() - t0) * 1e3
+    return [(r.tags, r.dps) for r in res], runner, wall
+
+
+def agg_cache_phase(dev, tsdb, checks: Checks):
+    """Phase 17 (c): the aggregate cache on the headline TSDB; returns the
+    cache (phase 17 (d)'s default arm uses it).  With the metric's entry
+    in the device cache a recompute is a hit, and the cache's pricing
+    keeps each repeat on it; with the device cache detached the same
+    queries populate blocks, replay them warm and from the device tier,
+    slide, and serve an append fresh, each answer equal to the cache
+    off's."""
+    from opentsdb_tpu_torch.storage.agg_cache import AggregateCache
+    from opentsdb_tpu_torch.storage.memstore import SeriesKey
+    from opentsdb_tpu_torch.utils.config import Config
+
+    agg = AggregateCache(Config(), dev)
+    dcache = tsdb.device_cache
+
+    def run(label, m, start=START, end=END):
+        tsdb.agg_cache = agg
+        got, runner, wall = _agg_run(tsdb, m, start, end)
+        st = runner.exec_stats
+        pd = runner.decisions[0]
+        print("e2e agg %-22s %-24s wall %.1f ms | path %s (%s) | windows "
+              "from blocks %d, computed %d | device tier %.3f MB"
+              % (label, m, wall, pd.path,
+                 (pd.agg_note or {}).get("reason"),
+                 st.get("aggCacheHitWindows", 0),
+                 st.get("aggCacheComputedWindows", 0),
+                 agg.collect_stats()["tsd.query.agg_cache.device_bytes"]
+                 / 2**20))
+        return got, st, pd
+
+    def cache_off(m, start=START, end=END):
+        tsdb.agg_cache = None
+        got, _, wall = _agg_run(tsdb, m, start, end)
+        print("e2e agg %-22s %-24s wall %.1f ms" % ("cache off", m, wall))
+        return got
+
+    def stays_on_hits(label):
+        for m in AGG_QUERIES:
+            want = cache_off(m)
+            for i in range(3):
+                got, st, pd = run("%s, hit %d" % (label, i), m)
+                if pd.path != "resident" \
+                        or st.get("deviceCacheHit") != 1.0 or got != want:
+                    checks.failures.append(
+                        "agg %s %s: a repeat left the device-cache hit "
+                        "(path %s) or changed its answer" % (label, m,
+                                                             pd.path))
+
+    stays_on_hits("entry held")
+    # the rewrite's own route: the device cache detached, pieces built on
+    # the host; the repeats above were the family's first sights
+    tsdb.device_cache = None
+    for m in AGG_QUERIES:
+        want = cache_off(m)
+        cold, st, _ = run("cold populate", m)
+        warm, st_w, _ = run("warm", m)
+        # a second serve earns a block its device-tier mirror
+        # (tsd.query.cache.promote_hits), uploaded here as the
+        # maintenance thread would
+        run("warm again", m)
+        promoted = agg.promote_pending(max_uploads=1024)
+        dev_warm, st_d, _ = run("warm, device tier", m)
+        print("e2e agg %s: %d blocks mirrored on the device" % (m, promoted))
+        if not st.get("aggCacheComputedWindows") \
+                or not st_w.get("aggCacheHitWindows") \
+                or not st_d.get("aggCacheHitWindows"):
+            checks.failures.append("agg %s: no populate or no warm hit" % m)
+        if not (warm == cold == dev_warm == want):
+            checks.failures.append("agg %s: warm, cold and cache-off "
+                                   "answers differ" % m)
+    m = AGG_QUERIES[0]
+    slid = (START + INTERVAL_MS, END + INTERVAL_MS)
+    got, st, _ = run("slid by one window", m, *slid)
+    if got != cache_off(m, *slid) or not st.get("aggCacheHitWindows"):
+        checks.failures.append("agg: the slid range differs or missed")
+    before = cache_off(m)
+    # (phase 4's staleness check appended END - 1 to h0000)
+    key = SeriesKey.make(tsdb.metrics.get_id("m"), {
+        tsdb.tag_names.get_id("host"): tsdb.tag_values.get_id("h0001"),
+        tsdb.tag_names.get_id("group"): tsdb.tag_values.get_id("g000")})
+    tsdb.store.add_batch(key, np.array([END - 3], np.int64),
+                         np.array([1e6]), False)
+    fresh, st, _ = run("after an append", m)
+    after = cache_off(m)
+    print("e2e agg after an append: answer %s, %s the cache-off answer; "
+          "%d windows recomputed"
+          % ("changed" if fresh != before else "UNCHANGED",
+             "equal to" if fresh == after else "DIFFERENT from",
+             st.get("aggCacheComputedWindows", 0)))
+    if fresh == before or fresh != after:
+        checks.failures.append("agg: an appended point was not served")
+    # the entry back, blocks cached: the priced verdict still takes the
+    # hit ((d)'s hits need the entry too).  The append moved a series'
+    # version while the cache was detached: the first cache-off run
+    # rebuilds the entry inline
+    tsdb.device_cache = dcache
+    dcache.invalidate()
+    stays_on_hits("blocks cached")
+    print("e2e agg cache %s" % json.dumps(agg.collect_stats()))
+    return agg
+
+
+def _query_phases(port: int) -> tuple[dict, int]:
+    """The /api/query profiles' summed phase milliseconds and request
+    count from /api/diag/latency."""
+    status, _, body = _http_get(port, "/api/diag/latency")
+    if status != 200:
+        raise RuntimeError("/api/diag/latency answered %d" % status)
+    totals = dict.fromkeys(json.loads(body)["phases"], 0.0)
+    count = 0
+    for profile in json.loads(body)["profiles"]:
+        if profile["route"] != "api/query":
+            continue
+        count += profile["count"]
+        for p, summary in profile["phases"].items():
+            totals[p] += summary["totalMs"]
+    return totals, count
+
+
+def route_followup_phase(tsdb, agg, checks: Checks) -> None:
+    """Phase 17 (d): phase 16's fleet at 1, 2, 4 and 8 responder threads,
+    three arms at each, the request phases and thread CPU a query."""
+    import threading
+    from opentsdb_tpu_torch.query.batcher import DispatchBatcher
+    from opentsdb_tpu_torch.utils.config import Config
+
+    panels = _fleet_panels(tsdb)
+    batcher = DispatchBatcher(Config(), tsdb=tsdb)
+    arms = (("hits", None, None), ("agg off", None, batcher),
+            ("default", agg, batcher))
+    want = None
+    for threads in FOLLOWUP_THREADS:
+        with Serving(tsdb, workers=threads) as server:
+            handle_http = server.rpc_manager.handle_http
+            lock = threading.Lock()
+            cpu = {"ms": 0.0, "n": 0}
+
+            def timed(request, remote="unknown"):
+                c0 = time.thread_time()
+                q = handle_http(request, remote)
+                if q.base_route() == "api/query":
+                    with lock:
+                        cpu["ms"] += (time.thread_time() - c0) * 1e3
+                        cpu["n"] += 1
+                return q
+
+            server.rpc_manager.handle_http = timed
+            for label, arm_agg, arm_batcher in arms:
+                tsdb.agg_cache = arm_agg
+                tsdb.dispatch_batcher = arm_batcher
+                p0, n0 = _query_phases(server.port)
+                c0, k0 = cpu["ms"], cpu["n"]
+                res = _run_fleet(server.port, panels, FOLLOWUP_WINDOW_S,
+                                 FOLLOWUP_WARMUP_S)
+                p1, n1 = _query_phases(server.port)
+                q = max(n1 - n0, 1)
+                split = " ".join("%s %.3f" % (p, (p1[p] - p0[p]) / q)
+                                 for p in p1)
+                print("followup %d responders %-8s %.1f QPS, p50 %.2f ms, "
+                      "p99 %.2f ms | statuses %s | a query: %s ms | thread "
+                      "CPU %.3f ms a query"
+                      % (threads, label, res["qps"], res["p50_ms"],
+                         res["p99_ms"], json.dumps(res["statuses"]), split,
+                         (cpu["ms"] - c0) / max(cpu["n"] - k0, 1)))
+                if set(res["statuses"]) - {"200"}:
+                    checks.failures.append("followup %d %s: statuses %s"
+                                           % (threads, label,
+                                              res["statuses"]))
+                if want is None:
+                    want = res["hashes"]
+                diff = [k for k, hs in res["hashes"].items()
+                        if len(hs) != 1 or want.get(k, hs) != hs]
+                if diff:
+                    checks.failures.append(
+                        "followup %d %s: %d panel bodies differ from the "
+                        "hits arm's" % (threads, label, len(diff)))
+            del server.rpc_manager.handle_http
+    tsdb.agg_cache = None
+    tsdb.dispatch_batcher = None
+
+
+def cache_hit_phase(dev, tsdb, checks: Checks,
+                    times: dict) -> tuple[dict, dict]:
+    """Phase 17 (b)-(d) on the headline TSDB, the threshold raised as in
+    phase 4; returns the launch counts of their main path and the cost
+    model's terms that (b) measured."""
+    from opentsdb_tpu_torch.ops import kernels
+
+    cfg = tsdb.config
+    key = "tsd.query.streaming.point_threshold"
+    threshold = cfg.get_string(key)
+    cfg.override_config(key, MATERIALIZE[key])
+    tsdb.dispatch_batcher = None
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    costs = int32_hit_phase(tsdb, checks, times)
+    print("phase 17 (b) wall %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    agg = agg_cache_phase(dev, tsdb, checks)
+    print("phase 17 (c) wall %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    route_followup_phase(tsdb, agg, checks)
+    print("phase 17 (d) wall %.1f s" % (time.perf_counter() - t0))
+    launches = dict(kernels.LAUNCHES)
+    print("cache-hit launches %s" % json.dumps(launches))
+    for name in ("gather_windows.i32", "window_moments.i32",
+                 "window_order.i32"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the "
+                                   "cache-hit path" % name)
+    cfg.override_config(key, threshold)
+    return launches, costs
+
+
 def cost_constants(dev, times: dict, measured: dict) -> dict:
     """The `cuda` table of ops/costmodel.py from this run: per-point and
     per-cell kernel times at the headline batch, the host launch floor,
@@ -3953,6 +4382,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fleet_launches = fleet_phase(dev, tsdb, checks)
     print("phase 16 wall %.1f s" % (time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    times.update(int32_kernel_phase(dev, ts, val, gid, h, checks, times))
+    torch.cuda.empty_cache()
+    hit_launches, hit_costs = cache_hit_phase(dev, tsdb, checks, times)
+    print("phase 17 wall %.1f s" % (time.perf_counter() - t_phase))
     del tsdb
     torch.cuda.empty_cache()
     rollup_launches, lane_costs, rtsdb = rollup_e2e_phase(dev, ts, val, h,
@@ -3975,16 +4410,17 @@ def main(argv=None) -> int:
     print("phase 13 wall %.1f s; the script %.1f s"
           % (time.perf_counter() - t_phase, time.perf_counter() - t_start))
     print("costmodel cuda %s" % json.dumps(cost_constants(
-        dev, times, {**lane_costs, **tiled_costs, **stacked_costs})))
+        dev, times, {**lane_costs, **tiled_costs, **stacked_costs,
+                     **hit_costs})))
 
     # Each kernel's launches on the main path: the grouped, union, daemon,
-    # streamed, rollup, tiled and striped phases, their counts reset just
-    # before each.
+    # streamed, rollup, tiled, striped, fleet and cache-hit phases, their
+    # counts reset just before each.
     for name in launches:
         launches[name] += (union_launches[name] + daemon_launches[name]
                            + stream_launches[name] + rollup_launches[name]
                            + tiled_launches[name] + striped_launches[name]
-                           + fleet_launches[name])
+                           + fleet_launches[name] + hit_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name.split(".")[0],

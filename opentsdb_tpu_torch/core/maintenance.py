@@ -1,5 +1,5 @@
-"""Background maintenance: the device series cache's refresh cadence and
-the rollup lanes' builds.
+"""Background maintenance: the device series cache's refresh cadence, the
+aggregate cache's promotions and the rollup lanes' builds.
 
 A slim port of opentsdb_tpu/core/maintenance.py (``MaintenanceThread``, a
 daemon thread ticking every ``TICK_SECONDS``).  Of the reference's passes
@@ -7,7 +7,9 @@ two have a subsystem in the port.  ``_maybe_refresh_device_cache``
 (:122-136): a query on a metric whose entry went stale misses to the host
 path and queues the metric, and this thread pays the snapshot and upload,
 so that a metric taking writes regains hits without a request ever
-waiting on a rebuild.  ``_maybe_rollup`` (:162-175): every
+waiting on a rebuild; the same pass uploads the aggregate cache's hot
+blocks to its device tier (storage/agg_cache.py ``promote_pending``).
+``_maybe_rollup`` (:162-175): every
 ``tsd.rollup.interval`` seconds one rollup-lane pass (storage/rollup.py
 ``refresh``: selection under the byte budget, then up to
 ``tsd.rollup.refresh_blocks`` block builds).  The compaction, WAL,
@@ -53,10 +55,16 @@ class MaintenanceThread(threading.Thread):
             self.join(timeout=5.0)
 
     def _maybe_refresh_device_cache(self) -> None:
-        """Rebuild the device-cache entries that queries found stale."""
+        """Rebuild the device-cache entries that queries found stale, and
+        mirror the aggregate blocks queued for the device tier (the
+        reference's :135): both uploads are paid here, off the query
+        path."""
         cache = self.tsdb.device_cache
         if cache is not None:
             self.device_cache_refreshes += cache.refresh()
+        agg = self.tsdb.agg_cache
+        if agg is not None:
+            agg.promote_pending()
 
     def _maybe_rollup(self, now: float) -> None:
         """The tsd.rollup.interval cadence: one rollup-lane pass

@@ -4,9 +4,14 @@ A slim port of opentsdb_tpu/core/tsdb.py (OpenTSDB TSDB.java :87 — the
 three UID dictionaries :297-302, ``addPoint`` :1051-1136 with timestamp/tag
 validation :1313, and the second/millisecond timestamp heuristic).  The
 store lives on the host; queries run on ``device``, which is ``cuda``
-unless the caller passes another (device.resolve_device).  One cache, the
-device series cache (storage/device_cache.py), refreshed by the maintenance
-thread that ``start_maintenance`` starts; the spill pool behind
+unless the caller passes another (device.resolve_device).  Two caches:
+the device series cache (storage/device_cache.py), refreshed by the
+maintenance thread that ``start_maintenance`` starts, and the aggregate
+cache of downsample blocks (storage/agg_cache.py, ``tsd.query.cache.*``),
+told of every write through the store's mutation listener, whose hot
+blocks the same thread mirrors on the device; latency attribution
+(obs/latattr.py, ``tsd.latattr.enable``) behind /api/diag/latency; the
+spill pool behind
 out-of-core tiled execution (``tsd.query.spill.*``, storage/spill.py),
 closed by ``shutdown``.  With ``tsd.rollups.enable`` the TSDB takes
 written rollups (``add_aggregate_point``, TSDB.java:1359-1457)
@@ -33,9 +38,11 @@ import numpy as np
 from opentsdb_tpu_torch.device import resolve_device
 from opentsdb_tpu_torch.histogram import (HistogramCodecManager,
                                           HistogramStore, SimpleHistogram)
+from opentsdb_tpu_torch.obs.latattr import LatencyAttribution
 from opentsdb_tpu_torch.ops.aggregators import AGGREGATORS
 from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.rollup import RollupConfig, RollupStore
+from opentsdb_tpu_torch.storage.agg_cache import AggregateCache
 from opentsdb_tpu_torch.storage.device_cache import DeviceSeriesCache
 from opentsdb_tpu_torch.storage.memstore import (
     MemStore, SeriesKey, MAX_NUM_TAGS)
@@ -123,6 +130,18 @@ class TSDB:
                 device=self.device)
             if self.config.get_bool("tsd.query.device_cache.enable")
             else None)
+        # the partial-aggregate block cache (reference core/tsdb.py:86-100):
+        # the store marks the affected (metric, range) dirty after each
+        # write lands.  The listener reads the attribute at each write, so
+        # a cache attached or detached later is told, or not, from then on
+        self.agg_cache = (
+            AggregateCache(self.config, self.device)
+            if self.config.get_bool("tsd.query.cache.enable") else None)
+        self.store.add_mutation_listener(self._note_agg_mutation)
+        # always-on latency attribution (reference core/tsdb.py:151-161)
+        self.latattr = (LatencyAttribution(self.config)
+                        if self.config.get_bool("tsd.latattr.enable")
+                        else None)
         # built from the config as the reference does at core/tsdb.py:182-187
         self.histogram_manager = HistogramCodecManager.from_config(
             self.config)
@@ -186,6 +205,11 @@ class TSDB:
                 (len(tags), MAX_NUM_TAGS))
         if int(timestamp) < 0:
             raise ValueError("Invalid timestamp: %s" % timestamp)
+
+    def _note_agg_mutation(self, metric: int, lo_ms, hi_ms) -> None:
+        cache = self.agg_cache
+        if cache is not None:
+            cache.note_mutation(metric, lo_ms, hi_ms, store=self.store)
 
     def _check_writable(self) -> None:
         """The read-only gate, applied after validation as the reference
@@ -399,13 +423,17 @@ class TSDB:
 
     def collect_stats(self) -> dict:
         """The stored point count and the tallies of the device cache, the
-        rollup lanes, the spill pool, the dispatch batcher and the
-        admission gate, where they are on (a slim TSDB.collectStats,
-        reference core/tsdb.py:1056)."""
+        aggregate cache, the rollup lanes, the spill pool, the dispatch
+        batcher, the admission gate and latency attribution, where they are
+        on (a slim TSDB.collectStats, reference core/tsdb.py:1056)."""
         out: dict = {"tsd.storage.datapoints": self.store.total_datapoints,
                      "tsd.datapoints.added": self.datapoints_added}
         if self.device_cache is not None:
             out.update(self.device_cache.collect_stats())
+        if self.agg_cache is not None:
+            out.update(self.agg_cache.collect_stats())
+        if self.latattr is not None:
+            out.update(self.latattr.collect_stats())
         if self.rollup_lanes is not None:
             out.update(self.rollup_lanes.collect_stats())
         if self.maintenance is not None:
@@ -424,8 +452,9 @@ class TSDB:
 
     def start_maintenance(self):
         """Start the background maintenance thread, which rebuilds stale
-        device-cache entries every MaintenanceThread.TICK_SECONDS and
-        builds rollup lanes every ``tsd.rollup.interval`` seconds.  A
+        device-cache entries and mirrors hot aggregate blocks on the
+        device every MaintenanceThread.TICK_SECONDS and builds rollup lanes
+        every ``tsd.rollup.interval`` seconds.  A
         long-lived TSDB that takes writes starts it, as the reference's
         daemon does (tools/tsd_main.py:126); a bare TSDB stays free of
         threads.  Returns the thread."""

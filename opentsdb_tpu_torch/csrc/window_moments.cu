@@ -33,6 +33,16 @@
 // r / rows_per_member; a solo call passes rows_per_member = S and one edge
 // row, so solo and stacked run the same code and a member's cells are bit
 // for bit its solo cells.
+//
+// Int32 form (B10, the reference's _compact_ts over a pre-compacted batch,
+// opentsdb_tpu/ops/downsample.py:515-534): ts holds int32 offsets from the
+// query's first window (the device cache's re-based gather, G1's int32
+// form) and edges the [W+1] edges re-based and clipped alike.  The search
+// reads 4-byte words instead of 8; the values, the accumulation and the
+// output are the int64 form's, and the run positions are equal on the
+// same points, so every cell is bit for bit the int64 form's.  The
+// stacked launches stay int64 (the batcher builds its batches on the
+// host).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -47,11 +57,11 @@ constexpr int WARPS = THREADS / 32;
 
 enum Agg { SUM = 0, COUNT = 1, AVG = 2, MIN = 3, MAX = 4, DEV = 5, SQUARESUM = 6 };
 
-template <typename V>
+template <typename T, typename V>
 __global__ void __launch_bounds__(THREADS)
-window_moments_kernel(const int64_t* __restrict__ ts, const V* __restrict__ val,
+window_moments_kernel(const T* __restrict__ ts, const V* __restrict__ val,
                       const uint8_t* __restrict__ mask,
-                      const int64_t* __restrict__ edges, int64_t n, int w,
+                      const T* __restrict__ edges, int64_t n, int w,
                       int64_t rows_per_member, int agg, int fill_mode,
                       double fill_value,
                       double* __restrict__ out, uint8_t* __restrict__ out_mask) {
@@ -59,11 +69,11 @@ window_moments_kernel(const int64_t* __restrict__ ts, const V* __restrict__ val,
   const int64_t row = blockIdx.x;
   const int w0 = blockIdx.y * TILE_W;
   const int tw = min(TILE_W, w - w0);
-  const int64_t* trow = ts + row * n;
+  const T* trow = ts + row * n;
   const V* vrow = val + row * n;
   const uint8_t* mrow = mask + row * n;
   // this row's member's window edges
-  const int64_t* medges = edges + (row / rows_per_member) * (int64_t)(w + 1);
+  const T* medges = edges + (row / rows_per_member) * (int64_t)(w + 1);
 
   // Edge positions of the tile.
   for (int i = threadIdx.x; i <= tw; i += THREADS) {
@@ -125,35 +135,51 @@ window_moments_kernel(const int64_t* __restrict__ ts, const V* __restrict__ val,
   }
 }
 
-template <typename V>
+template <typename T, typename V>
 int launch(const void* ts, const void* val, const void* mask, const void* edges,
            long long s, long long n, int w, long long rows_per_member, int agg,
            int fill_mode, double fill_value, void* out, void* out_mask,
            void* stream) {
   if (s <= 0 || w <= 0 || rows_per_member <= 0) return 0;
   const dim3 grid((unsigned)s, (unsigned)((w + TILE_W - 1) / TILE_W));
-  window_moments_kernel<V><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)ts, (const V*)val, (const uint8_t*)mask,
-      (const int64_t*)edges, (int64_t)n, w, (int64_t)rows_per_member, agg,
-      fill_mode, fill_value,
+  window_moments_kernel<T, V><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)ts, (const V*)val, (const uint8_t*)mask, (const T*)edges,
+      (int64_t)n, w, (int64_t)rows_per_member, agg, fill_mode, fill_value,
       (double*)out, (uint8_t*)out_mask);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ts(const void* ts, const void* val, const void* mask, const void* edges,
+              long long s, long long n, int w, long long rows_per_member, int agg,
+              int fill_mode, double fill_value, int val_is_int, void* out,
+              void* out_mask, void* stream) {
+  if (val_is_int)
+    return launch<T, int64_t>(ts, val, mask, edges, s, n, w, rows_per_member,
+                              agg, fill_mode, fill_value, out, out_mask, stream);
+  return launch<T, double>(ts, val, mask, edges, s, n, w, rows_per_member, agg,
+                           fill_mode, fill_value, out, out_mask, stream);
 }
 
 }  // namespace
 
 // val_is_int selects the value type: float64 (0) or exact int64 (1) rows;
-// edges holds s / rows_per_member rows of w + 1 edges.
+// ts_is_i32 the timestamp type of ts and edges: int64 ms (0) or int32
+// offsets from a base (1); edges holds s / rows_per_member rows of w + 1
+// edges.
 extern "C" int window_moments(const void* ts, const void* val, const void* mask,
                               const void* edges, long long s, long long n,
                               int w, long long rows_per_member, int agg,
                               int fill_mode, double fill_value, int val_is_int,
-                              void* out, void* out_mask, void* stream) {
-  if (val_is_int)
-    return launch<int64_t>(ts, val, mask, edges, s, n, w, rows_per_member,
-                           agg, fill_mode, fill_value, out, out_mask, stream);
-  return launch<double>(ts, val, mask, edges, s, n, w, rows_per_member, agg,
-                        fill_mode, fill_value, out, out_mask, stream);
+                              int ts_is_i32, void* out, void* out_mask,
+                              void* stream) {
+  if (ts_is_i32)
+    return launch_ts<int32_t>(ts, val, mask, edges, s, n, w, rows_per_member,
+                              agg, fill_mode, fill_value, val_is_int, out,
+                              out_mask, stream);
+  return launch_ts<int64_t>(ts, val, mask, edges, s, n, w, rows_per_member, agg,
+                            fill_mode, fill_value, val_is_int, out, out_mask,
+                            stream);
 }
 
 extern "C" const char* window_moments_error(int code) {

@@ -30,6 +30,11 @@
 // edges of member r / rows_per_member.  A solo call passes
 // rows_per_member = S and one edge row: one code path, so a stacked cell is
 // bit for bit its solo cell.
+//
+// Int32 form (B10, as K1's): ts holds int32 offsets from the query's first
+// window and edges the re-based [W+1] edges; the two binary searches read
+// 4-byte words and find the same runs, so every cell is bit for bit the
+// int64 form's.  The stacked launches stay int64.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -41,8 +46,10 @@ namespace {
 constexpr int THREADS = 256;  // 8 warps, 8 cells a block
 constexpr int WARPS = THREADS / 32;
 
-// Number of row entries strictly below `key` (searchsorted side="left").
-__device__ __forceinline__ int64_t lower_bound(const int64_t* row, int64_t n, int64_t key) {
+// Number of row entries strictly below `key` (searchsorted side="left");
+// T is int64 ms or int32 offsets from a base.
+template <typename T>
+__device__ __forceinline__ int64_t lower_bound(const T* row, int64_t n, T key) {
   int64_t lo = 0, hi = n;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
@@ -51,10 +58,10 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* row, int64_t n, in
   return lo;
 }
 
-template <typename VIn>
+template <typename T, typename VIn>
 __global__ void __launch_bounds__(THREADS)
-window_order_kernel(const int64_t* __restrict__ ts, const VIn* __restrict__ val,
-                    const uint8_t* __restrict__ mask, const int64_t* __restrict__ edges,
+window_order_kernel(const T* __restrict__ ts, const VIn* __restrict__ val,
+                    const uint8_t* __restrict__ mask, const T* __restrict__ edges,
                     int64_t s, int64_t n, int w, int64_t rows_per_member, int code,
                     double q, int est, int fill_mode,
                     double fill_value, double* __restrict__ out,
@@ -65,11 +72,11 @@ window_order_kernel(const int64_t* __restrict__ ts, const VIn* __restrict__ val,
   if (cell >= s * w) return;  // a whole warp leaves together
   const int64_t row = cell / w;
   const int wi = (int)(cell - row * w);
-  const int64_t* trow = ts + row * n;
+  const T* trow = ts + row * n;
   const VIn* vrow = val + row * n;
   const uint8_t* mrow = mask + row * n;
   // this row's member's window edges
-  const int64_t* medges = edges + (row / rows_per_member) * (int64_t)(w + 1);
+  const T* medges = edges + (row / rows_per_member) * (int64_t)(w + 1);
   const int64_t lo = lower_bound(trow, n, medges[wi]);
   const int64_t hi = lower_bound(trow, n, medges[wi + 1]);
   auto get = [&](int64_t i, double& v) {
@@ -89,34 +96,49 @@ window_order_kernel(const int64_t* __restrict__ ts, const VIn* __restrict__ val,
   }
 }
 
-template <typename VIn>
+template <typename T, typename VIn>
 int launch(const void* ts, const void* val, const void* mask, const void* edges, long long s,
            long long n, int w, long long rows_per_member, int code, double q, int est,
            int fill_mode, double fill_value, void* out, void* out_mask, void* stream) {
   if (s <= 0 || w <= 0 || rows_per_member <= 0) return 0;
   const long long blocks = (s * w + WARPS - 1) / WARPS;
-  window_order_kernel<VIn><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)ts, (const VIn*)val, (const uint8_t*)mask, (const int64_t*)edges, s, n,
-      w, (int64_t)rows_per_member, code, q, est, fill_mode, fill_value, (double*)out,
+  window_order_kernel<T, VIn><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)ts, (const VIn*)val, (const uint8_t*)mask, (const T*)edges, s, n, w,
+      (int64_t)rows_per_member, code, q, est, fill_mode, fill_value, (double*)out,
       (uint8_t*)out_mask);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ts(const void* ts, const void* val, const void* mask, const void* edges,
+              long long s, long long n, int w, long long rows_per_member, int code,
+              double q, int est, int fill_mode, double fill_value, int val_is_int,
+              void* out, void* out_mask, void* stream) {
+  if (val_is_int)
+    return launch<T, int64_t>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
+                              fill_mode, fill_value, out, out_mask, stream);
+  return launch<T, double>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
+                           fill_mode, fill_value, out, out_mask, stream);
 }
 
 }  // namespace
 
 // code: order_stats::Order; q and est: the percentile and its estimator
 // (order_stats::Est); val_is_int selects float64 (0) or int64 (1) rows;
-// edges holds s / rows_per_member rows of w + 1 edges.
+// ts_is_i32 the timestamp type of ts and edges: int64 ms (0) or int32
+// offsets from a base (1); edges holds s / rows_per_member rows of w + 1
+// edges.
 extern "C" int window_order(const void* ts, const void* val, const void* mask,
                             const void* edges, long long s, long long n, int w,
                             long long rows_per_member, int code, double q, int est,
-                            int fill_mode, double fill_value, int val_is_int, void* out,
-                            void* out_mask, void* stream) {
-  if (val_is_int)
-    return launch<int64_t>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
-                           fill_mode, fill_value, out, out_mask, stream);
-  return launch<double>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
-                        fill_mode, fill_value, out, out_mask, stream);
+                            int fill_mode, double fill_value, int val_is_int,
+                            int ts_is_i32, void* out, void* out_mask, void* stream) {
+  if (ts_is_i32)
+    return launch_ts<int32_t>(ts, val, mask, edges, s, n, w, rows_per_member, code, q,
+                              est, fill_mode, fill_value, val_is_int, out, out_mask,
+                              stream);
+  return launch_ts<int64_t>(ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
+                            fill_mode, fill_value, val_is_int, out, out_mask, stream);
 }
 
 extern "C" const char* window_order_error(int code) {

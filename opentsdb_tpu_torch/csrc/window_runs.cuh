@@ -11,8 +11,11 @@
 #include <stdint.h>
 
 // Number of row entries strictly below `key` (searchsorted side="left").
-__device__ __forceinline__ int64_t lower_bound(const int64_t* row, int64_t n,
-                                               int64_t key) {
+// T is the timestamp type: int64 ms, or the int32 offsets from a base
+// that the device cache's re-based gather writes (pads at 2^31 - 2) with
+// edges re-based alike; both give the same positions on the same points.
+template <typename T>
+__device__ __forceinline__ int64_t lower_bound(const T* row, int64_t n, T key) {
   int64_t lo = 0, hi = n;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;

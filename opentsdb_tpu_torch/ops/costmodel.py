@@ -7,7 +7,9 @@ obs/jaxprof.stage_breakdown (:286) that the rollup lanes read
 stage (downsample, rate, groupby, aggregate), ``predict_lane`` (:638) the
 host assembly of a lane-served grid and ``predict_lane_build`` (:651) a
 lane block build.  The lanes rank their demand by the saving per byte
-that these predictions give.  ``predict_tiled`` (:608) prices what a
+that these predictions give.  ``predict_cache_gather``, a port term,
+prices a device-cache hit's consult: the aggregate cache prices a plan
+the device cache would answer by it.  ``predict_tiled`` (:608) prices what a
 tiled execution (ops/tiling.py) adds: the spill pool's round trip and the
 stripe replays.  ``coalesce_worthwhile`` (:682) is the batched arm's
 verdict (query/plandecision.py): a plan whose predicted compute and
@@ -46,6 +48,11 @@ CUDA_COSTS: dict[str, float] = {
     "aggregate_cell": 1.5298940583589643e-09,
     # the host batch build of a grouped miss, per raw point
     "host_build_point": 2.9250691682103608e-09,
+    # a device-cache consult that hits, per series: the host walk that
+    # checks each series' version and bounds, and G1 (the gather phase
+    # of phase 17 (b)'s int64 hits over 1024 series, PERF.md names the
+    # run)
+    "cache_gather_series": 1.0449218750000001e-05,
     # derive_grid and the edge windows' batches on the host, per MB
     # of lane cells read
     "lane_assemble_mb": 0.00409800212417827,
@@ -110,6 +117,12 @@ def predict_host_build(points: int) -> float:
     """Predicted seconds of the host batch build of `points` raw points:
     what a lane-served plan never pays."""
     return max(int(points), 0) * CUDA_COSTS["host_build_point"]
+
+
+def predict_cache_gather(s: int) -> float:
+    """Predicted seconds of a device-cache consult over s series that
+    hits: what a hit pays instead of the host build."""
+    return max(int(s), 0) * CUDA_COSTS["cache_gather_series"]
 
 
 def predict_lane(s: int, w: int, k: int) -> float:

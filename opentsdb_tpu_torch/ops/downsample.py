@@ -26,6 +26,15 @@ members' [S, N] batches as one [Q*S, N] batch with edges [Q, W+1], one row
 of window edges a member (each panel has its own range).  Row r reads the
 edges of member r // S; a solo call is one member, so a member's cells
 equal its solo call's bit for bit.
+
+And both take a batch of int32 timestamp offsets (B10): the device
+cache's gather re-bases a hit's timestamps on the query's first window
+(``precompact_base``, the reference's :498) when the fixed grid spans
+less than 2^31 ms, pads at ``I32_PAD_TS``, and ``downsample`` re-bases the
+[W+1] edges alike (``compact_edges``, the reference's ``_compact_ts``,
+:515-534).  Both kernels search the rows only at window edges, so the
+int32 form finds the same runs and gives the int64 form's cells bit for
+bit.  A stacked batch stays int64.
 """
 
 from __future__ import annotations
@@ -40,6 +49,12 @@ from opentsdb_tpu_torch.ops.aggregators import (
     MOMENT_CODES, ORDER_AGGS, ma_window, moving_average_rows, order_args)
 from opentsdb_tpu_torch.ops.percentile import (
     parse_percentile_name, row_run_percentile)
+
+# The int32 form's sentinels, the reference's _I32_PAD and _I32_BIG
+# (:256, :261): the pad of a re-based batch, past every re-based edge, and
+# the clip of an edge.
+I32_PAD_TS = 2**31 - 2
+I32_BIG = 2**31 - 2
 
 # Fill policies (FillPolicy.java:22-27).
 FILL_NONE = "none"
@@ -100,6 +115,31 @@ class AllWindow:
                             dtype=torch.int64, device=device)
 
 
+def precompact_base(windows, first_window_ms) -> int | None:
+    """The int32 base of a batch source (the reference's :498), or None:
+    the first window's ms when `windows` is a fixed grid that spans less
+    than 2^31 - 2 ms, so that a batch's timestamps can travel as int32
+    offsets from it.  The span is (count + 1) * interval over the
+    reference's padded window count (the least power of two of at least 8
+    not below the count), so that the two packages compact alike.
+    Calendar and "0all" grids keep int64."""
+    if not isinstance(windows, FixedWindows) or first_window_ms is None:
+        return None
+    padded = 8
+    while padded < windows.count:
+        padded *= 2
+    if (padded + 1) * windows.interval_ms < 2**31 - 2:
+        return int(first_window_ms)
+    return None
+
+
+def compact_edges(edges: torch.Tensor, ts_base: int) -> torch.Tensor:
+    """Int64 edges re-based on `ts_base` as int32, clipped to +-I32_BIG
+    (the reference's _compact_ts over a pre-compacted batch): an edge of
+    another grid saturates and drops points, it never wraps."""
+    return (edges - int(ts_base)).clamp(-I32_BIG, I32_BIG).to(torch.int32)
+
+
 def window_timestamps(edges: torch.Tensor) -> torch.Tensor:
     """Representative (start-of-interval) timestamp per window: [W] of
     edges [W+1], or [Q, W] of a stacked batch's edges [Q, W+1] (a
@@ -124,18 +164,22 @@ def fill_args(fill_policy: str, fill_value: float) -> tuple[int, float]:
 
 def check_batch(ts, val, mask, edges, stacked: bool = False) -> int:
     """Check a windowed kernel's inputs; the rows a member.  With `stacked`
-    the edges may also be [Q, W+1], one row a member of S // Q rows."""
+    the edges may also be [Q, W+1], one row a member of S // Q rows.  ts
+    is int64 ms, or int32 offsets with int32 edges (never stacked)."""
     if ts.dim() != 2 or val.shape != ts.shape or mask.shape != ts.shape:
         raise ValueError("ts, val and mask must share one [S, N] shape")
-    if ts.dtype != torch.int64 or mask.dtype != torch.bool \
+    if ts.dtype not in (torch.int64, torch.int32) \
+            or mask.dtype != torch.bool \
             or val.dtype not in (torch.float64, torch.int64):
-        raise TypeError("the windowed kernels take ts int64, val float64 "
-                        "or int64, mask bool")
-    dims = (1, 2) if stacked else (1,)
-    if edges.dim() not in dims or edges.dtype != torch.int64 \
+        raise TypeError("the windowed kernels take ts int64 or int32, val "
+                        "float64 or int64, mask bool")
+    dims = (1, 2) if stacked and ts.dtype == torch.int64 else (1,)
+    if edges.dim() not in dims or edges.dtype != ts.dtype \
             or edges.shape[-1] < 2:
-        raise ValueError("edges must be int64 [W+1]%s with W >= 1"
-                         % (" or [Q, W+1]" if stacked else ""))
+        raise ValueError("edges must be [W+1]%s with W >= 1, of the "
+                         "timestamps' type (int32 offsets take int32 "
+                         "edges; a stacked batch is int64)"
+                         % (" or [Q, W+1]" if len(dims) == 2 else ""))
     if edges.dim() == 1:
         return ts.shape[0]
     q = edges.shape[0]
@@ -153,8 +197,8 @@ def row_boundaries(bounds: torch.Tensor, s: int) -> torch.Tensor:
     return bounds.repeat_interleave(s // bounds.shape[0], dim=0)
 
 
-# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
-# shape: -> ([S,W] f64, [S,W] bool)
+# shape: ts[S,N] i64|i32, val[S,N] f64|i64, mask[S,N] bool,
+# shape: edges[W+1] i64|i32 -> ([S,W] f64, [S,W] bool)
 def window_moments(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                    edges: torch.Tensor, agg_name: str,
                    fill_policy: str = FILL_NONE, fill_value: float = 0.0):
@@ -182,11 +226,13 @@ def window_moments(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     out_mask = torch.empty((s, w), dtype=torch.bool, device=dev)
     if s == 0:
         return out, out_mask
+    i32 = ts.dtype == torch.int32
     kernels.launch(
         "window_moments", dev, kernels.ptr(ts), kernels.ptr(val),
         kernels.ptr(mask), kernels.ptr(edges), s, n, w, rows,
         MOMENT_CODES[agg_name], mode, fv, int(val.dtype == torch.int64),
-        kernels.ptr(out), kernels.ptr(out_mask), stacked=rows < s)
+        int(i32), kernels.ptr(out), kernels.ptr(out_mask), stacked=rows < s,
+        i32=i32)
     return out, out_mask
 
 
@@ -243,8 +289,8 @@ def window_moments_plain(ts: torch.Tensor, val: torch.Tensor,
     return apply_fill(out, count > 0, fill_policy, fill_value)
 
 
-# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
-# shape: -> ([S,W] f64, [S,W] bool)
+# shape: ts[S,N] i64|i32, val[S,N] f64|i64, mask[S,N] bool,
+# shape: edges[W+1] i64|i32 -> ([S,W] f64, [S,W] bool)
 def window_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                  edges: torch.Tensor, agg_name: str,
                  fill_policy: str = FILL_NONE, fill_value: float = 0.0):
@@ -271,12 +317,12 @@ def window_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     out_mask = torch.empty((s, w), dtype=torch.bool, device=dev)
     if s == 0:
         return out, out_mask
+    i32 = ts.dtype == torch.int32
     kernels.launch(
         "window_order", dev, kernels.ptr(ts), kernels.ptr(val),
         kernels.ptr(mask), kernels.ptr(edges), s, n, w, rows, code, q, est,
-        mode,
-        fv, int(val.dtype == torch.int64), kernels.ptr(out),
-        kernels.ptr(out_mask), stacked=rows < s)
+        mode, fv, int(val.dtype == torch.int64), int(i32), kernels.ptr(out),
+        kernels.ptr(out_mask), stacked=rows < s, i32=i32)
     return out, out_mask
 
 
@@ -360,27 +406,35 @@ def apply_fill(out: torch.Tensor, out_mask: torch.Tensor, fill_policy: str,
     return out, torch.ones_like(out_mask)
 
 
-# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
+# shape: ts[S,N] i64|i32, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
 # shape: -> ([W] i64, [S,W] f64, [S,W] bool); stacked: edges[Q,W+1] i64
 # shape: -> ([Q,W] i64, [S,W] f64, [S,W] bool)
 def downsample(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                agg_name: str, edges: torch.Tensor,
-               fill_policy: str = FILL_NONE, fill_value: float = 0.0):
+               fill_policy: str = FILL_NONE, fill_value: float = 0.0,
+               ts_base: int | None = None):
     """Downsample a [S, N] batch over the windows of `edges`[W+1] ->
     (window_ts[W], values[S, W], mask[S, W]), as
     opentsdb_tpu.ops.downsample.downsample does: K1 for a moment, K4 for
     an order or rank function, and for movingAverage<N> K1's window sums
     then MA across each series' data-bearing windows (:1121-1136), the
-    fill applied to MA's output over the sums' mask."""
+    fill applied to MA's output over the sums' mask.  An int32 `ts` holds
+    offsets from `ts_base`: the kernels search edges re-based alike
+    (compact_edges), and the window timestamps stay the int64 edges'."""
+    k_edges = edges
+    if ts.dtype == torch.int32:
+        if ts_base is None:
+            raise ValueError("int32 timestamp offsets need their ts_base")
+        k_edges = compact_edges(edges, ts_base)
     nw = ma_window(agg_name)
     if nw is not None:
-        sums, sum_mask = window_moments(ts, val, mask, edges, "sum")
+        sums, sum_mask = window_moments(ts, val, mask, k_edges, "sum")
         out = moving_average_rows(sums, sum_mask, nw)
         out, out_mask = apply_fill(out, sum_mask, fill_policy, fill_value)
     elif agg_name in MOMENT_CODES:
-        out, out_mask = window_moments(ts, val, mask, edges, agg_name,
+        out, out_mask = window_moments(ts, val, mask, k_edges, agg_name,
                                        fill_policy, fill_value)
     else:
-        out, out_mask = window_order(ts, val, mask, edges, agg_name,
+        out, out_mask = window_order(ts, val, mask, k_edges, agg_name,
                                      fill_policy, fill_value)
     return window_timestamps(edges), out, out_mask

@@ -21,7 +21,9 @@ raises: nothing here falls back to a plain version.
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.  A launch of K1, K4 or K2 over a stacked batch of more
 than one member (the dispatch batcher's, B14) is counted under its name
-and again under ``<name>.stacked``.
+and again under ``<name>.stacked``; a launch of G1, K1 or K4 over int32
+timestamp offsets (B10, the device cache's re-based hit) under its name
+and again under ``<name>.i32``.
 """
 
 from __future__ import annotations
@@ -51,10 +53,11 @@ _F64 = ctypes.c_double
 # entry returns the cudaError_t of its launch as an int.
 SIGNATURES: dict[str, tuple] = {
     # ts, val, mask, edges, s, n, w, rows_per_member, agg, fill_mode,
-    # fill_value, val_is_int, out, out_mask, stream (edges: one row of
-    # w + 1 a member of rows_per_member rows; a solo call is one member)
+    # fill_value, val_is_int, ts_is_i32, out, out_mask, stream (edges: one
+    # row of w + 1 a member of rows_per_member rows; a solo call is one
+    # member)
     "window_moments": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32, _I32,
-                       _F64, _I32, _P, _P, _P),
+                       _F64, _I32, _I32, _P, _P, _P),
     # v, m, wts, s, w, rows_per_member, do_rate, counter, drop_resets,
     # counter_max, reset_value, policy, contrib, participate, present,
     # stream (wts: one row of w a member)
@@ -76,10 +79,10 @@ SIGNATURES: dict[str, tuple] = {
     "union_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                      _I32, _I32, _P, _P, _P),
     # ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
-    # fill_mode, fill_value, val_is_int, out, out_mask, stream (edges as
-    # window_moments takes them)
+    # fill_mode, fill_value, val_is_int, ts_is_i32, out, out_mask, stream
+    # (edges as window_moments takes them)
     "window_order": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32, _F64, _I32,
-                     _I32, _F64, _I32, _P, _P, _P),
+                     _I32, _F64, _I32, _I32, _P, _P, _P),
     # contrib, participate, present, offsets, g, w, code, q, est, out,
     # out_mask, stream
     "group_order": (_P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P, _P, _P),
@@ -90,9 +93,10 @@ SIGNATURES: dict[str, tuple] = {
     # sums, live (may be null), offsets, r, n_window, val_is_int, total,
     # pre, at, out, stream
     "moving_average": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P, _P, _P),
-    # ts_buf, val_buf, p, starts, lengths, s, n, out_ts, out_val, out_mask,
-    # stream
-    "gather_windows": (_P, _P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P),
+    # ts_buf, val_buf, p, starts, lengths, s, n, ts_base, ts_is_i32,
+    # out_ts, out_val, out_mask, stream
+    "gather_windows": (_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,
+                       _P, _P),
     # seg, cnt, nnz, cells, grid, flag, stream
     "histogram_accumulate": (_P, _P, _I64, _I64, _P, _P, _P),
     # counts, mid, percs, r, b, np, out, stream
@@ -121,12 +125,16 @@ SIGNATURES: dict[str, tuple] = {
                       _P),
 }
 
-# The kernels with a member-strided (stacked) form.
+# The kernels with a member-strided (stacked) form, and those with a form
+# over int32 timestamp offsets.
 STACKED = ("window_moments", "window_order", "grid_fill_rate")
+I32 = ("gather_windows", "window_moments", "window_order")
 
-# Launch counts per kernel, and per stacked form, bumped only by launch().
+# Launch counts per kernel, and per stacked and int32 form, bumped only by
+# launch().
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
 LAUNCHES.update({name + ".stacked": 0 for name in STACKED})
+LAUNCHES.update({name + ".i32": 0 for name in I32})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -236,11 +244,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def launch(name: str, device: torch.device, *args,
-           stacked: bool = False) -> None:
+           stacked: bool = False, i32: bool = False) -> None:
     """Launch kernel `name` on the current stream of `device` with the
     C arguments `args` (the stream is appended); count it, and under
-    ``<name>.stacked`` too when `stacked` (a batch of several members);
-    raise on a CUDA error from the launch."""
+    ``<name>.stacked`` too when `stacked` (a batch of several members),
+    under ``<name>.i32`` when `i32` (int32 timestamp offsets); raise on a
+    CUDA error from the launch."""
     lib = library(name)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -252,3 +261,5 @@ def launch(name: str, device: torch.device, *args,
     LAUNCHES[name] += 1
     if stacked:
         LAUNCHES[name + ".stacked"] += 1
+    if i32:
+        LAUNCHES[name + ".i32"] += 1

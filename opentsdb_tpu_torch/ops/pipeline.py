@@ -101,17 +101,18 @@ def group_reduce(agg_name: str, contrib: torch.Tensor,
     return torch.where(live, out, torch.nan), out_mask
 
 
-# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
+# shape: ts[S,N] i64|i32, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64
 # shape: -> ([W] i64, [S,W] f64, [S,W] bool)
 def run_downsample_grid(step: DownsampleStep, ts: torch.Tensor,
                         val: torch.Tensor, mask: torch.Tensor,
-                        edges: torch.Tensor):
+                        edges: torch.Tensor, ts_base: int | None = None):
     """The downsample alone -> (wts[W], v[S, W], m[S, W]): K1 or K4 (K1
     and MA for movingAverage<N>) with the fill, as the reference's
-    ``_downsample_grid`` (:181) computes it.  The rollup lanes' edge
-    windows come from here."""
+    ``_downsample_grid`` (:181) computes it; an int32 `ts` holds offsets
+    from `ts_base` (the device cache's re-based hit).  The rollup lanes'
+    edge windows and the aggregate cache's pieces come from here."""
     return downsample(ts, val, mask, step.function, edges, step.fill_policy,
-                      step.fill_value)
+                      step.fill_value, ts_base)
 
 
 # shape: wts[W] i64, v[S,W] f64, m[S,W] bool, gid[S] any
@@ -222,21 +223,23 @@ def _require_downsample(spec: PipelineSpec, name: str) -> DownsampleStep:
     return spec.downsample
 
 
-# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, gid[S] any,
+# shape: ts[S,N] i64|i32, val[S,N] f64|i64, mask[S,N] bool, gid[S] any,
 # shape: edges[W+1] i64 -> ([W] i64, [G,W] f64, [G,W] bool)
 def run_group_pipeline(spec: PipelineSpec, ts: torch.Tensor,
                        val: torch.Tensor, mask: torch.Tensor, gid,
-                       num_groups: int, edges: torch.Tensor):
+                       num_groups: int, edges: torch.Tensor,
+                       ts_base: int | None = None):
     """Execute the grouped pipeline -> (wts[W], out[G, W], out_mask[G, W]):
     run_downsample_grid, then run_grid_tail.
 
     `ts`, `val`, `mask` and the window `edges` lie on the device the
-    pipeline runs on; `gid` (host array or tensor) maps rows to groups and
-    must be non-decreasing (groups as contiguous row runs, as the planner
-    emits them).
+    pipeline runs on (`ts` int64 ms, or int32 offsets from `ts_base`);
+    `gid` (host array or tensor) maps rows to groups and must be
+    non-decreasing (groups as contiguous row runs, as the planner emits
+    them).
     """
     step = _require_downsample(spec, "run_group_pipeline")
-    wts, v, m = run_downsample_grid(step, ts, val, mask, edges)
+    wts, v, m = run_downsample_grid(step, ts, val, mask, edges, ts_base)
     return run_grid_tail(spec, wts, v, m, gid, num_groups)
 
 

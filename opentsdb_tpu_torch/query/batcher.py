@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.obs import latattr
 from opentsdb_tpu_torch.ops.pipeline import (
     run_group_pipeline, split_members, stacked_group_outputs)
 from opentsdb_tpu_torch.query.limits import QueryException
@@ -189,6 +190,10 @@ class DispatchBatcher:
             member.deadline.check()
             raise QueryException(
                 "Sorry, your query's deadline expired while batched.")
+        # the coalesce wait (a follower's holds the leader's shared
+        # dispatch) is the request's batch_rendezvous: the planner's
+        # "dispatch" mark right after this returns reads ~0
+        latattr.mark("batch_rendezvous")
         q = result[3]
         waited_ms = (time.monotonic() - t0) * 1e3
         with self._lock:

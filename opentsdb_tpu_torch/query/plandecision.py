@@ -4,17 +4,23 @@ function, and the device-state budget verdicts it rests on.
 Port of opentsdb_tpu/query/plandecision.py.  ``plan_decision`` (:239)
 takes a ``RouteContext`` snapshot of the segment and a consults provider
 (the planner's ``_ExecConsults``; the explain engine's read-only twin
-comes with it, slice 8b) and returns a ``PlanDecision``: its path, in the
+comes with it, slice 8c) and returns a ``PlanDecision``: its path, in the
 reference's order of arms (rollup lane, then tiled or refused over the
-budget, the aggregate cache, batched, the device cache, streamed,
-rollup_avg, resident), and a fingerprint over the discrete routing facts
-(``_finish``, ``_fingerprint``).  Differences: the aggregate cache is not
-ported (slice 8b), so its arm stays off as the reference's own gate leaves
-it off without one; there is no mesh (slice 9) and no host lane (every
-plan is answered on the card), so the context carries neither and the
-fingerprint's ``mesh`` and ``hostSmall`` are always false; the port has
-one kernel per function and no modes, so the fingerprint has no
-``modes`` field and its ``calibration`` reads "default".
+budget, the aggregate cache's rewrite, batched, the device cache,
+streamed, rollup_avg, resident), and a fingerprint over the discrete
+routing facts (``_finish``, ``_fingerprint``).  The aggregate cache
+(storage/agg_cache.py) is consulted before the batched arm is priced
+(:311-324): a warm rewrite skips the batch build and the gather too; a
+movingAverage<N> downsample is not consulted, since its pieces would
+each restart the average (the reference consults it, and answers a
+repeat differently with the cache on).  A
+device-cache consult passes the context's ``ts_base``, so a hit's batch
+comes as int32 offsets.  Differences: there is no mesh (slice 9) and no
+host lane (every plan is answered on the card), so the context carries
+neither and the fingerprint's ``mesh`` and ``hostSmall`` are always
+false; the port has one kernel per function and no modes, so the
+fingerprint has no ``modes`` field and its ``calibration`` reads
+"default".
 
 The budget verdicts:
 
@@ -37,6 +43,7 @@ from dataclasses import dataclass, field
 
 from opentsdb_tpu_torch.ops import costmodel as cm
 from opentsdb_tpu_torch.ops import tiling
+from opentsdb_tpu_torch.ops.aggregators import ma_window
 from opentsdb_tpu_torch.ops.streaming import SKETCH_K, lanes_for, pad_pow2
 from opentsdb_tpu_torch.query.limits import GridBudgetDecision, grid_budget
 
@@ -68,6 +75,8 @@ class RouteContext:
     point_threshold: int
     batch_ok: bool = False
     batch_factor: float = 0.0
+    # the int32 base of a device-cache hit (ops.downsample.precompact_base)
+    ts_base: int | None = None
 
 
 @dataclass
@@ -77,6 +86,8 @@ class PlanDecision:
     would_stream: bool
     lane_plan: object = None
     tiled_plan: object = None
+    agg_plan: object = None          # the aggregate cache's RewritePlan
+    agg_note: dict | None = None     # its decision, consulted or not
     cached: object = None            # the device cache's batch, or None
     refusal: GridBudgetDecision | None = None
     n_pad: int = 0
@@ -167,6 +178,11 @@ def _finish(pd: PlanDecision, ctx: RouteContext) -> PlanDecision:
         fields["lane"] = {"lane": pd.lane_plan.lane,
                           "k": pd.lane_plan.k,
                           "striped": bool(pd.lane_plan.striped)}
+    if pd.path == "agg_rewrite" and pd.agg_note is not None:
+        fields["aggCache"] = {
+            "reason": pd.agg_note.get("reason"),
+            "cached": pd.agg_note.get("cachedWindows"),
+            "computed": pd.agg_note.get("computedWindows")}
     if pd.tiled_plan is not None:
         fields["tiled"] = {"tiles": pd.tiled_plan.n_tiles,
                            "rows": pd.tiled_plan.tile_rows,
@@ -184,8 +200,9 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
     """THE routing verdict for one grouped segment (:239).
 
     ``consults`` provides the stateful hooks: ``rollup_plan()`` (a lane
-    plan or None), ``tiled_plan(acc_cell)``, ``device_batch(build)``, and
-    the accounting callbacks ``note_lane_served(plan)``,
+    plan or None), ``tiled_plan(acc_cell)``, ``agg_plan(platform)`` (a
+    rewrite plan or None, and its decision), ``device_batch(build,
+    ts_base)``, and the accounting callbacks ``note_lane_served(plan)``,
     ``note_lane_fallback()`` and ``tiled_refusal(reason)``.  Eligibility,
     the order of the consults, the budget guards and the path live here.
     """
@@ -231,6 +248,19 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
                 g_dec=pad_pow2(max(ctx.groups, 1)))
             return _finish(pd, ctx)
 
+    # the partial-aggregate rewrite (storage/agg_cache.py), before the
+    # batched arm and the device cache: a warm rewrite skips the batch
+    # build and the gather.  A movingAverage<N> downsample is never
+    # rewritten: a piece's average would restart without the N - 1
+    # windows before it (the reference consults it, and differs)
+    agg_plan = agg_note = None
+    if (tiled_plan is None and lane_plan is None
+            and getattr(tsdb, "agg_cache", None) is not None
+            and not would_stream and ctx.seg_kind == "raw"
+            and ctx.store_is_raw and ctx.windows_fixed
+            and ma_window(ctx.ds_fn or "") is None):
+        agg_plan, agg_note = consults.agg_plan(ctx.platform)
+
     n_pad = pad_pow2(max(ctx.n_max, 1))
     g_dec = pad_pow2(max(ctx.groups, 1))
 
@@ -239,7 +269,8 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
     # batcher, which stacks concurrent compatible plans into one launch
     # of each kernel; a compute-bound plan dispatches now
     batched = False
-    if (tiled_plan is None and lane_plan is None and ctx.batch_ok
+    if (tiled_plan is None and lane_plan is None and agg_plan is None
+            and ctx.batch_ok
             and not would_stream and ctx.seg_kind == "raw" and ctx.has_store
             and ctx.ds_fn is not None):
         compute_s = sum(cm.stage_breakdown(
@@ -251,10 +282,12 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
     # instead of building it inline, and a hit must not divert a streamed
     # plan onto a grid over the budget; batched plans skip the consult
     cached = None
-    if (tiled_plan is None and lane_plan is None and not batched
+    if (tiled_plan is None and lane_plan is None and agg_plan is None
+            and not batched
             and getattr(tsdb, "device_cache", None) is not None
             and ctx.has_store and ctx.seg_kind in ("raw", "rollup")):
-        cached = consults.device_batch(build=not would_stream)
+        cached = consults.device_batch(build=not would_stream,
+                                       ts_base=ctx.ts_base)
         if cached is not None and would_stream and grid_gbd.over:
             cached = None
 
@@ -262,6 +295,8 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
         path = "rollup_lane"
     elif tiled_plan is not None:
         path = "tiled"
+    elif agg_plan is not None:
+        path = "agg_rewrite"
     elif batched:
         path = "batched"
     elif cached is None and would_stream:
@@ -272,5 +307,6 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
         path = "resident"
     pd = PlanDecision(
         path=path, would_stream=would_stream, lane_plan=lane_plan,
-        tiled_plan=tiled_plan, cached=cached, n_pad=n_pad, g_dec=g_dec)
+        tiled_plan=tiled_plan, agg_plan=agg_plan, agg_note=agg_note,
+        cached=cached, n_pad=n_pad, g_dec=g_dec)
     return _finish(pd, ctx)

@@ -38,10 +38,18 @@ streaming state when it streams, else the materialized grid;
 query/plandecision.py) takes the tiled route (``_run_tiled``, the
 reference's :514-558): series tiles through the spill pool and a
 window-striped replay (ops/tiling.py); a rollup-lane plan over it is
-served striped.  A small plan that the cost model prices as
-dispatch-bound takes the batched route (``_run_batched``, the reference's
-:564-590): its batch goes to the dispatch batcher (query/batcher.py),
-which stacks concurrent compatible plans into one launch of each kernel.
+served striped.  A fixed-grid plan on the raw store first asks the
+aggregate cache (storage/agg_cache.py, ``_run_agg_rewrite``, the
+reference's :824-949): its cached blocks of downsample cells are
+replayed, only the uncovered pieces are computed (K1 or K4 over exactly
+their windows' points), and the grid tail (K2, then K3 or K5) runs on the
+assembled grid.  A small
+plan that the cost model prices as dispatch-bound takes the batched route
+(``_run_batched``, the reference's :564-590): its batch goes to the
+dispatch batcher (query/batcher.py), which stacks concurrent compatible
+plans into one launch of each kernel.  A device-cache hit on a fixed grid
+that spans less than 2^31 ms gathers its timestamps as int32 offsets from
+the first window (``precompact_base``; G1's, K1's and K4's int32 forms).
 One pure function, query/plandecision.py ``plan_decision``, picks among
 these routes, fed by ``_ExecConsults``.  Each sub query's points are
 charged to its scan budget (query/limits.py ``QueryBudget``, on the
@@ -54,6 +62,14 @@ rate.  A histogram sub query (percentiles or show-histogram-buckets, the
 reference's _run_histogram_sub, TsdbQuery.isHistogramQuery :806-812)
 scatters every group's bucket entries onto one [rows, B] grid on the
 device (H1) and picks the percentiles there (H2).
+
+Inside a traced request a segment's series resolution is a ``scan``
+span, each dispatch a ``pipeline`` span (its fingerprint and aggregate
+cache decision as tags, its device wait as device time) and the host
+extraction an ``extract`` span (obs/trace.py); the request's phase stamps
+(obs/latattr.py) mark ``plan`` after the routing verdict, ``dispatch``
+after the launches and ``device_wait`` after the results reach the host,
+where the reference marks them (:508-509, :651, :696).
 """
 
 from __future__ import annotations
@@ -68,8 +84,11 @@ from opentsdb_tpu_torch.histogram.kernels import (accumulate_rows,
                                                   percentile_rows)
 from opentsdb_tpu_torch.histogram.store import assemble_columnar
 from opentsdb_tpu_torch.models.tsquery import TSQuery, TSSubQuery
+from opentsdb_tpu_torch.obs import latattr
+from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.ops.downsample import (
-    FixedWindows, EdgeWindows, AllWindow)
+    FixedWindows, EdgeWindows, AllWindow, precompact_base,
+    window_timestamps)
 from opentsdb_tpu_torch.ops.group_agg import group_offsets
 from opentsdb_tpu_torch.ops.pipeline import (
     PipelineSpec, DownsampleStep, build_batch, build_batch_direct,
@@ -480,6 +499,10 @@ class QueryRunner:
         dev = tsdb.device
         spec = self._spec_for(sub, seg.ds_function)
         ds_fn = spec.downsample.function
+        # one span over the route and the dispatch; begin/end, not a
+        # with-block: an exception leaves it open until the trace ends
+        psp = obs_trace.begin("pipeline", aggregator=sub.aggregator,
+                              downsample=ds_fn)
         windows = self._windows_for(sub, query)
         sketchable, hazard = self._sketch_eligible(seg, ds_fn, windows, kept,
                                                    len(series_list), fix)
@@ -506,10 +529,19 @@ class QueryRunner:
                 "tsd.query.streaming.point_threshold"),
             batch_ok=batcher is not None and batcher.enabled,
             batch_factor=tsdb.config.get_float(
-                "tsd.query.batch.amortize_factor"))
+                "tsd.query.batch.amortize_factor"),
+            ts_base=precompact_base(
+                windows, getattr(windows, "first_window_ms", None)))
         pd = pdn.plan_decision(tsdb, ctx, _ExecConsults(
             self, ctx, spec, seg, windows, store, series_list, clock))
         self.decisions.append(pd)
+        if pd.agg_note is not None:
+            obs_trace.annotate(psp, agg_cache=pd.agg_note)
+        obs_trace.annotate(psp, fingerprint=pd.fingerprint)
+        # the scan, the batch shaping and the verdict are "plan"; the
+        # first segment's fingerprint keys the request's profile
+        latattr.mark("plan")
+        latattr.set_fingerprint(pd.fingerprint)
         if pd.path == "refused":
             self.exec_stats["tiledRefused"] = 1.0
             raise pd.refusal.exception()
@@ -524,6 +556,10 @@ class QueryRunner:
             out_ts, out_val, out_mask = self._run_tiled(
                 spec, seg, series_list, gid, len(kept), windows, sketchable,
                 pd.tiled_plan, budget, store, clock)
+        elif pd.path == "agg_rewrite":
+            out_ts, out_val, out_mask = self._run_agg_rewrite(
+                spec, pd.agg_plan, series_list, gid, len(kept), windows,
+                budget, clock)
         elif pd.path == "batched":
             out_ts, out_val, out_mask = self._run_batched(
                 spec, seg, series_list, gid, len(kept), windows, pd.n_pad,
@@ -553,34 +589,112 @@ class QueryRunner:
                 sketchable, clock)
         else:
             # resident: the device cache's batch, or the host build
+            ts_base = None
             if pd.cached is not None:
                 self.exec_stats["deviceCacheHit"] = 1.0
-                d_ts, d_val, d_mask = pd.cached
-            else:
-                ts, val, mask, _ = build_batch_direct(series_list, start_ms,
-                                                      end_ms, fix)
-                clock.mark("build")
-                d_ts = torch.from_numpy(ts).to(dev)
-                d_val = torch.from_numpy(val).to(dev)
-                d_mask = torch.from_numpy(mask).to(dev)
+                if pd.cached[0].dtype == torch.int32:
+                    # gathered as int32 offsets: only the [W+1] edges are
+                    # re-based, inside the downsample
+                    ts_base = ctx.ts_base
+                    self.exec_stats["tsCompacted"] = 1.0
+            d_ts, d_val, d_mask = self._device_batch(
+                series_list, start_ms, end_ms, pd.cached, clock)
             edges = windows.window_edges(dev)
             clock.mark("h2d")
             out_ts, out_val, out_mask = run_group_pipeline(
-                spec, d_ts, d_val, d_mask, gid, len(kept), edges)
+                spec, d_ts, d_val, d_mask, gid, len(kept), edges, ts_base)
             clock.mark("kernels")
+        latattr.mark("dispatch")
+        obs_trace.device_wait(psp, (out_ts, out_val, out_mask))
+        obs_trace.end(psp)
 
-        out_ts, out_val, out_mask = (
-            x if isinstance(x, np.ndarray) else x.cpu().numpy()
-            for x in (out_ts, out_val, out_mask))
-        results: dict[tuple, QueryResult] = {}
-        for i, (group_key, members, _) in enumerate(kept):
-            dps = extract_dps(out_ts, out_val[i], out_mask[i], start_ms,
-                              end_ms, False,
-                              keep_nans=sub.fill_policy != "none")
-            results[tuple(map(str, group_key))] = self._assemble_result(
-                query, sub, members, dps, global_notes)
+        with obs_trace.stage("extract"):
+            out_ts, out_val, out_mask = (
+                x if isinstance(x, np.ndarray) else x.cpu().numpy()
+                for x in (out_ts, out_val, out_mask))
+            latattr.mark("device_wait")
+            results: dict[tuple, QueryResult] = {}
+            for i, (group_key, members, _) in enumerate(kept):
+                dps = extract_dps(out_ts, out_val[i], out_mask[i], start_ms,
+                                  end_ms, False,
+                                  keep_nans=sub.fill_policy != "none")
+                results[tuple(map(str, group_key))] = self._assemble_result(
+                    query, sub, members, dps, global_notes)
         clock.mark("extract")
         return results
+
+    def _device_batch(self, series_list, lo_ms: int, hi_ms: int, cached,
+                      clock: "_PhaseClock"):
+        """The (ts, val, mask) batch of [lo_ms, hi_ms] on the device: the
+        device cache's gather when it answered (`cached`), else the host
+        build, uploaded."""
+        if cached is not None:
+            return cached
+        ts, val, mask, _ = build_batch_direct(
+            series_list, lo_ms, hi_ms, self.tsdb.config.fix_duplicates)
+        clock.mark("build")
+        dev = self.tsdb.device
+        return tuple(torch.from_numpy(x).to(dev) for x in (ts, val, mask))
+
+    def _run_agg_rewrite(self, spec: PipelineSpec, plan, series_list, gid,
+                         num_groups: int, windows: FixedWindows, budget,
+                         clock: "_PhaseClock"):
+        """A partial-aggregate rewrite (storage/agg_cache.py, the
+        reference's :824-949).  Cached blocks replay their [S, B] grids
+        (narrowed to this query's rows when the block holds others: a
+        device-tier block by index_select on the card); each uncovered
+        piece runs K1 or K4 over exactly its windows' points, from the
+        device cache's batch (int64, no inline build) or the host build,
+        the same launch a cold run makes, so a warm answer is bit for bit
+        a cold one; a freshly computed full block is stored back.  The
+        assembled [S, W] grid then runs the grid tail (K2, then K3 or K5)."""
+        tsdb = self.tsdb
+        dev = tsdb.device
+        s = len(series_list)
+        identity = np.arange(s, dtype=np.int64)
+        vs, ms = [], []
+        for piece in plan.pieces:
+            if piece.cached is not None:
+                v, m = piece.cached
+                rows = piece.rows
+                if v.shape[0] != s or not np.array_equal(rows, identity):
+                    if piece.tier == "agg_device":
+                        r = torch.from_numpy(rows).to(v.device)
+                        v, m = v.index_select(0, r), m.index_select(0, r)
+                    else:
+                        v, m = v[rows], m[rows]
+                if piece.tier == "agg_host":
+                    v = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    m = torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+                vs.append(v)
+                ms.append(m)
+                self._bump("aggCacheHitWindows", float(piece.count))
+                continue
+            budget.check_deadline()
+            cached = None
+            if tsdb.device_cache is not None:
+                cached = tsdb.device_cache.batch_for(
+                    plan.store, plan.metric, series_list, piece.fetch_lo,
+                    piece.fetch_hi, build=False)
+                clock.mark("gather")
+            batch = self._device_batch(series_list, piece.fetch_lo,
+                                       piece.fetch_hi, cached, clock)
+            edges = FixedWindows(plan.interval_ms, piece.first_ms,
+                                 piece.count).window_edges(dev)
+            _wts, v, m = run_downsample_grid(spec.downsample, *batch, edges)
+            self._bump("aggCacheComputedWindows", float(piece.count))
+            if piece.block is not None:
+                tsdb.agg_cache.store_block(plan, piece, series_list,
+                                           v.cpu().numpy(), m.cpu().numpy())
+            vs.append(v)
+            ms.append(m)
+        wts = window_timestamps(windows.window_edges(dev))
+        out = run_grid_tail(spec, wts, torch.cat(vs, dim=1),
+                            torch.cat(ms, dim=1), gid, num_groups)
+        clock.mark("kernels")
+        if plan.cached_windows:
+            self.exec_stats["aggCacheHit"] = 1.0
+        return out
 
     def _run_batched(self, spec: PipelineSpec, seg: Segment, series_list,
                      gid, num_groups: int, windows, n_pad: int, budget,
@@ -889,9 +1003,13 @@ class QueryRunner:
         offsets = group_offsets(gid, len(kept)).to(dev)
         clock.mark("h2d")
 
+        psp = obs_trace.begin("pipeline", aggregator=sub.aggregator,
+                              downsample=None)
         u, out, uoff = run_union_pipeline(self._spec_for(sub), d_ts, d_val,
                                           d_mask, offsets, int_mode)
         clock.mark("kernels")
+        obs_trace.device_wait(psp, (u, out, uoff))
+        obs_trace.end(psp)
 
         u = u.cpu().numpy()
         out = out.cpu().numpy()
@@ -1011,7 +1129,11 @@ class QueryRunner:
             if sub.pre_aggregate and tsdb.rollup_store is not None:
                 pre = tsdb.rollup_store.peek_lane("", sub.aggregator, True)
                 store = pre if pre is not None else store
-        groups = self._group(self._resolve_series(sub, store), sub)
+        with obs_trace.stage("scan", kind=seg.kind) as sp:
+            series_tags = self._resolve_series(sub, store)
+            groups = self._group(series_tags, sub)
+            obs_trace.annotate(sp, series=len(series_tags),
+                               groups=len(groups))
         if sub.downsample_spec is not None:
             return self._run_grouped(query, sub, seg, groups, global_notes,
                                      store, budget)
@@ -1131,15 +1253,33 @@ class _ExecConsults:
         return plan_tiled(self.tsdb, s=ctx.s, w=ctx.wp, g_pad=ctx.g_pad,
                           acc_cell_bytes=acc_cell)
 
-    def device_batch(self, build: bool):
-        """The device cache's batch, or None.  The cache holds the raw
-        store's columns only: a rollup lane or pre-aggregate store is
-        never looked up."""
+    def agg_plan(self, platform: str):
+        """The aggregate cache's rewrite plan and decision (the
+        reference's :1704-1710)."""
+        ctx = self.ctx
+        tsdb = self.tsdb
+        step = self.spec.downsample
+        metric = self.series_list[0].key.metric
+        # a recompute from the device cache is a hit, and is priced so
+        full_hit = (tsdb.device_cache is not None and self.store is tsdb.store
+                    and tsdb.device_cache.holds(self.store, metric))
+        return tsdb.agg_cache.plan(
+            self.store, metric, self.series_list, self.windows,
+            self.seg.start_ms, self.seg.end_ms, ctx.ds_fn, step.fill_policy,
+            step.fill_value, platform, ctx.s, ctx.n_max, ctx.g_pad,
+            ctx.has_rate, total_points=ctx.total_points, full_hit=full_hit)
+
+    def device_batch(self, build: bool, ts_base: int | None = None):
+        """The device cache's batch, or None; with `ts_base` its
+        timestamps as int32 offsets (the reference's :1712-1716).  The
+        cache holds the raw store's columns only: a rollup lane or
+        pre-aggregate store is never looked up."""
         tsdb = self.tsdb
         if self.store is not tsdb.store:
             return None
         cached = tsdb.device_cache.batch_for(
             tsdb.store, self.series_list[0].key.metric, self.series_list,
-            self.seg.start_ms, self.seg.end_ms, build=build)
+            self.seg.start_ms, self.seg.end_ms, build=build,
+            ts_base=ts_base)
         self.clock.mark("gather")
         return cached

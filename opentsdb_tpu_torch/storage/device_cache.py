@@ -26,13 +26,19 @@ Only the float lane is cached, as in the reference: the downsample
 kernels convert every value to float64, so a hit gives the answer a miss
 gives.
 
+With a ``ts_base`` (the planner's ``precompact_base`` of a fixed grid
+that spans less than 2^31 ms) the gather writes the batch's timestamps as
+int32 offsets from the base, the pads at ``I32_PAD_TS`` (G1's int32 form,
+the reference's :443-483), and K1 and K4 read them in their int32 forms:
+13 bytes a slot instead of 17, and the batch budget prices it so.
+
 Differences from the reference: the buffers hold exactly the metric's
 points (no power-of-two padding, 16 B a point) and a batch's N is the
 longest requested run, the N that ops.pipeline.build_batch_direct gives;
-the int32 ``ts_base`` form of the gather, ``peek`` and the prometheus
-counters are not ported (ROADMAP A5, B10).  A query that streams (the
-planner's streamed route) does not build a cold entry inline: it queues
-the build for ``refresh``, as the reference does.
+``peek`` (ROADMAP A, slice 8c) and the prometheus counters (slice 8d) are
+not ported.  A query that streams (the planner's streamed route) does not
+build a cold entry inline: it queues the build for ``refresh``, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -44,10 +50,15 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.ops import kernels
+from opentsdb_tpu_torch.ops.downsample import I32_PAD_TS
 from opentsdb_tpu_torch.ops.pipeline import PAD_TS
 
 _BYTES_PER_POINT = 16    # int64 ts + float64 val
-_BATCH_BYTES_PER_POINT = 17    # ts + val + mask of the gathered batch
+# ts + val + mask of a gathered batch slot: 8 + 8 + 1, or 4 + 8 + 1 with
+# int32 offsets; the budget must not decline a batch the smaller layout
+# fits
+_BATCH_BYTES_PER_POINT = 17
+_BATCH_BYTES_PER_POINT_I32 = 13
 _MAX_REBUILDS = 4    # stale entries one refresh pass rebuilds
 
 
@@ -110,7 +121,8 @@ class DeviceSeriesCache:
     # -- query path ------------------------------------------------------
 
     def batch_for(self, store, metric: int, series_list, start_ms: int,
-                  end_ms: int, build: bool = True):
+                  end_ms: int, build: bool = True,
+                  ts_base: int | None = None):
         """Device (ts[S, N], val[S, N], mask[S, N]) of the series' windows
         in [start_ms, end_ms], or None on a miss (stale, a series the entry
         does not hold, unresolved duplicates, over budget, or a cold entry
@@ -118,7 +130,8 @@ class DeviceSeriesCache:
         path.  A cold entry is built inline, or with `build=False` queued
         for ``refresh`` and counted a miss: the streamed route passes it,
         since its chunks overlap copies with the folds and a blocking
-        upload of the whole metric first would cost more."""
+        upload of the whole metric first would cost more.  With `ts_base`
+        the timestamps come as int32 offsets from it (gather_windows)."""
         ekey = (id(store), metric)
         with self._lock:
             entry = self._entries.get(ekey)
@@ -156,7 +169,9 @@ class DeviceSeriesCache:
             starts[i] = entry.offsets[row] + lo
             lengths[i] = hi - lo
         n = int(lengths.max(initial=0))
-        if s * n * _BATCH_BYTES_PER_POINT > self.batch_max_bytes:
+        per_point = (_BATCH_BYTES_PER_POINT if ts_base is None
+                     else _BATCH_BYTES_PER_POINT_I32)
+        if s * n * per_point > self.batch_max_bytes:
             self._count("misses")
             return None
         with self._lock:
@@ -166,7 +181,16 @@ class DeviceSeriesCache:
         # starts and lengths travel in one copy
         runs = torch.from_numpy(np.stack([starts, lengths])).to(self.device)
         return gather_windows(entry.ts_dev, entry.val_dev, runs[0], runs[1],
-                              n)
+                              n, ts_base)
+
+    def holds(self, store, metric: int) -> bool:
+        """Whether the metric's entry is on the device and not queued for
+        a rebuild: a consult would gather rather than build (the
+        aggregate cache prices its plans by it).  Series versions are
+        checked by ``batch_for`` alone."""
+        ekey = (id(store), metric)
+        with self._lock:
+            return ekey in self._entries and ekey not in self._stale
 
     def _count(self, name: str) -> None:
         with self._lock:
@@ -291,54 +315,69 @@ class DeviceSeriesCache:
 
 
 # shape: ts_buf[P] i64, val_buf[P] f64, starts[S] i64, lengths[S] i64
-# shape: -> ([S,N] i64, [S,N] f64, [S,N] bool)
+# shape: -> ([S,N] i64|i32, [S,N] f64, [S,N] bool)
 def gather_windows(ts_buf: torch.Tensor, val_buf: torch.Tensor,
-                   starts: torch.Tensor, lengths: torch.Tensor, n: int):
+                   starts: torch.Tensor, lengths: torch.Tensor, n: int,
+                   ts_base: int | None = None):
     """G1 -> (ts[S, N], val[S, N], mask[S, N]): row i holds the buffers'
     points [starts[i], starts[i] + lengths[i]) as a prefix, the rest
     PAD_TS and 0.0 with the mask off.  Buffer indexes are clamped to
-    [0, P - 1], as the reference clamps them.
+    [0, P - 1], as the reference clamps them.  With `ts_base`, ts is int32
+    offsets clip(ts - ts_base, 0, I32_PAD_TS) and the pads I32_PAD_TS.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_gather(ts_buf, val_buf, starts, lengths, n)
     if ts_buf.device.type == "cpu":
-        return gather_windows_plain(ts_buf, val_buf, starts, lengths, n)
+        return gather_windows_plain(ts_buf, val_buf, starts, lengths, n,
+                                    ts_base)
     dev = kernels.require_cuda(ts_buf, val_buf, starts, lengths)
     s, p = starts.numel(), ts_buf.numel()
     if p == 0:
-        return _pads(s, n, dev)
-    out_ts = torch.empty((s, n), dtype=torch.int64, device=dev)
+        return _pads(s, n, dev, ts_base)
+    i32 = ts_base is not None
+    out_ts = torch.empty((s, n), dtype=torch.int32 if i32 else torch.int64,
+                         device=dev)
     out_val = torch.empty((s, n), dtype=torch.float64, device=dev)
     out_mask = torch.empty((s, n), dtype=torch.bool, device=dev)
     if s == 0 or n == 0:
         return out_ts, out_val, out_mask
     kernels.launch(
         "gather_windows", dev, kernels.ptr(ts_buf), kernels.ptr(val_buf), p,
-        kernels.ptr(starts), kernels.ptr(lengths), s, n, kernels.ptr(out_ts),
-        kernels.ptr(out_val), kernels.ptr(out_mask))
+        kernels.ptr(starts), kernels.ptr(lengths), s, n,
+        int(ts_base) if i32 else 0, int(i32), kernels.ptr(out_ts),
+        kernels.ptr(out_val), kernels.ptr(out_mask), i32=i32)
     return out_ts, out_val, out_mask
 
 
 def gather_windows_plain(ts_buf: torch.Tensor, val_buf: torch.Tensor,
-                         starts: torch.Tensor, lengths: torch.Tensor, n: int):
+                         starts: torch.Tensor, lengths: torch.Tensor, n: int,
+                         ts_base: int | None = None):
     """Plain PyTorch version of G1, the reference's algorithm: an [S, N]
-    index grid, clamped, gathered, and masked to each row's length."""
+    index grid, clamped, gathered, and masked to each row's length; with
+    `ts_base` the timestamps re-based, clipped and cast to int32."""
     s, p = starts.numel(), ts_buf.numel()
     dev = ts_buf.device
     if p == 0:
-        return _pads(s, n, dev)
+        return _pads(s, n, dev, ts_base)
     j = torch.arange(n, dtype=torch.int64, device=dev)
     idx = (starts[:, None] + j[None, :]).clamp(0, p - 1)
     mask = j[None, :] < lengths[:, None]
-    ts = torch.where(mask, ts_buf[idx], PAD_TS)
+    if ts_base is None:
+        ts = torch.where(mask, ts_buf[idx], PAD_TS)
+    else:
+        off = (ts_buf[idx] - int(ts_base)).clamp(0, I32_PAD_TS)
+        ts = torch.where(mask, off, I32_PAD_TS).to(torch.int32)
     val = torch.where(mask, val_buf[idx], 0.0)
     return ts, val, mask
 
 
-def _pads(s: int, n: int, dev):
-    return (torch.full((s, n), PAD_TS, dtype=torch.int64, device=dev),
-            torch.zeros((s, n), dtype=torch.float64, device=dev),
+def _pads(s: int, n: int, dev, ts_base: int | None = None):
+    if ts_base is None:
+        ts = torch.full((s, n), PAD_TS, dtype=torch.int64, device=dev)
+    else:
+        ts = torch.full((s, n), I32_PAD_TS, dtype=torch.int32, device=dev)
+    return (ts, torch.zeros((s, n), dtype=torch.float64, device=dev),
             torch.zeros((s, n), dtype=torch.bool, device=dev))
 
 

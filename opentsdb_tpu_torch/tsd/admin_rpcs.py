@@ -1,12 +1,16 @@
-"""The admin handlers the port serves: version, aggregators, and the
-telnet `help` and `exit` commands.
+"""The admin handlers the port serves: version, aggregators, the
+latency report, and the telnet `help` and `exit` commands.
 
 Port of those handlers of opentsdb_tpu/tsd/admin_rpcs.py (OpenTSDB
 src/tsd/RpcManager.java :585-740: Version, ListAggregators, Help, Exit).
 The version payload has the reference's keys (RpcManager.java:660-669,
 the BuildData the reference generates at build time), filled for this
 package: its name and version, and the git revision of the checkout it
-runs from where there is one.
+runs from where there is one.  Of the reference's ``DiagRpc``
+(admin_rpcs.py:238-260) the port serves ``/api/diag/latency``; the event
+ring, the slow-query captures and the health verdicts (``/api/diag``,
+``/api/diag/slow``, ``/api/diag/health``) answer 501 until the flight
+recorder is ported (ROADMAP A, slice 8d).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import subprocess
 
 from opentsdb_tpu_torch import __version__
 from opentsdb_tpu_torch.ops.aggregators import agg_names
-from opentsdb_tpu_torch.tsd.http import HttpQuery
+from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
+                                         NotPortedError)
 from opentsdb_tpu_torch.tsd.rpcs import HttpRpc, TelnetRpc, allowed_methods
 
 REPO = "opentsdb_tpu_torch"
@@ -99,3 +104,34 @@ class ExitRpc(TelnetRpc):
     def execute_telnet(self, tsdb, conn, words) -> str | None:
         conn.close_after_write = True
         return "exiting\n"
+
+
+class DiagRpc(HttpRpc):
+    """``GET /api/diag/latency``: the always-on per-phase latency profiles
+    (obs/latattr.py), ``?since=<seq>`` for the profiles touched after a
+    sequence number, ``?fingerprint=`` and ``?tenant=`` to narrow to one
+    key; 404 with ``tsd.latattr.enable`` off."""
+
+    def execute_http(self, tsdb, query: HttpQuery) -> None:
+        allowed_methods(query, "GET")
+        sub = query.api_subpath()
+        endpoint = sub[0] if sub else ""
+        if endpoint != "latency":
+            raise NotPortedError(
+                "/api/diag%s is not ported yet (ROADMAP A, slice 8d "
+                "(observability))" % ("/" + endpoint if endpoint else ""))
+        engine = tsdb.latattr
+        if engine is None:
+            raise BadRequestError("Latency attribution is disabled",
+                                  status=404,
+                                  details="Set tsd.latattr.enable=true")
+        raw = query.get_query_string_param("since")
+        try:
+            since = int(raw) if raw else 0
+        except ValueError:
+            raise BadRequestError("'since' must be an integer sequence "
+                                  "number")
+        query.send_reply(engine.report(
+            since=since,
+            fingerprint=query.get_query_string_param("fingerprint"),
+            tenant=query.get_query_string_param("tenant")))

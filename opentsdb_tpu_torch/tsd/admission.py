@@ -31,11 +31,15 @@ what the daemon admits:
   permit.  The server flips the token when the client hangs up and when
   a drain runs out of patience (``CancellationHandle``).
 
-Differences: the reference's spans, latency stamps, prometheus families
-and flight-recorder events are slice 8b; the shed, degrade and cancel
-counts here are ``collect_stats`` tallies.  Its aggregate-cache discount
-of the predicted cost waits for the aggregate cache (slice 8b), and there
-are no fault sites (slice 9).
+The verdict is an ``admission`` span of the request's trace, the clamped
+tenant keys its latency profile, and the time from the parse mark to the
+permit is its ``admission_wait`` phase (obs/latattr.py).  A plan the
+aggregate cache covers is priced on its uncovered windows only.
+
+Differences: the reference's prometheus families and flight-recorder
+events are slice 8d; the shed, degrade and cancel counts here are
+``collect_stats`` tallies.  There is no mesh, so its discount has no mesh
+clause, and there are no fault sites (slice 9).
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ import time
 import zlib
 from collections import deque
 
+from opentsdb_tpu_torch.obs import latattr
+from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.query.limits import (
     Deadline, QueryException, active_deadline)
 from opentsdb_tpu_torch.uid import NoSuchUniqueName
@@ -146,9 +152,11 @@ def estimate_plan_cost_ms(tsdb, ts_query) -> float:
     (:148): an estimate, never a timer.  Series counts are unfiltered
     (an upper bound), point counts extrapolate from a bounded sample, the
     group count is one (or every series under "none"); a plan the rollup
-    lanes cover is priced at their assembly plus the tail, and a plan
-    past the device budget at its tiled overhead besides.  0.0 when
-    nothing is predictable (unknown metrics, tsuid sub queries)."""
+    lanes cover is priced at their assembly plus the tail, a plan the
+    aggregate cache partly covers on the points of its uncovered windows
+    (the rewritten plan, :215-235), and a plan past the device budget at
+    its tiled overhead besides.  0.0 when nothing is predictable (unknown
+    metrics, tsuid sub queries)."""
     from opentsdb_tpu_torch.ops import costmodel as cm
     from opentsdb_tpu_torch.ops.streaming import (is_sketch_ds, lanes_for,
                                                   pad_pow2, SKETCH_K)
@@ -193,6 +201,20 @@ def estimate_plan_cost_ms(tsdb, ts_query) -> float:
                     total_s += cm.predict_lane(s, w, k)
                     total_s += sum(cm.stage_breakdown(
                         s, 8, w, g, ds_fn, bool(sub.rate)).values())
+                    continue
+            # the rewritten plan, not the original: windows that valid
+            # aggregate blocks cover never dispatch.  Only a plan the
+            # planner can rewrite (a fixed grid that does not stream)
+            # takes the discount, or the gate would under-price the
+            # heaviest queries it exists to refuse
+            agg = tsdb.agg_cache
+            if (agg is not None and not ds.use_calendar
+                    and points <= tsdb.config.get_int(
+                        "tsd.query.streaming.point_threshold")):
+                points *= max(1.0 - agg.coverage(
+                    tsdb.store, metric_uid, ds.interval_ms, ds.function,
+                    ts_query.start_time, ts_query.end_time), 0.0)
+                if points < 1:
                     continue
         n = pad_pow2(max(int(math.ceil(points / s)), 1))
         total_s += sum(cm.stage_breakdown(s, n, w, g, ds_fn,
@@ -706,38 +728,58 @@ def admit(tsdb, ts_query, http_query=None) -> Permit:
     if priority not in CLASSES:
         priority = CLASSES[0]
     tenant = clamp_tenant(tsdb.config, tenant_raw)
-    if deadline is not None:
-        # a request dead before admission raises its own 413 or 503
-        deadline.check()
-    note = None
-    cost_ms = 1.0
-    if (gate.enabled and gate.fair_share
-            and not (deadline is not None and deadline.bounded)
-            and gate.contended()):
-        # the DRR drain needs a real cost while the gate is contended
-        cost_ms = estimate_plan_cost_ms(tsdb, ts_query)
-    if gate.enabled and deadline is not None and deadline.bounded:
-        predicted_ms = estimate_plan_cost_ms(tsdb, ts_query)
-        cost_ms = predicted_ms
-        queue_ms = gate.queue_wait_estimate_ms()
-        remaining_ms = deadline.remaining_ms()
-        if predicted_ms + queue_ms > remaining_ms:
-            if _degrade_allowed(tsdb) and not fanout:
-                note = try_degrade(tsdb, ts_query, remaining_ms, queue_ms)
-            if note is None:
-                raise gate._shed(
-                    "predicted_cost",
-                    "Sorry, this query's predicted cost (%d ms) cannot "
-                    "fit in its remaining deadline (%d ms after an "
-                    "estimated %d ms queue wait). Please decrease your "
-                    "time range or coarsen the downsample interval." % (
-                        predicted_ms, remaining_ms, queue_ms),
-                    tenant=tenant)
-            gate.count_degraded()
-    permit = gate.acquire(deadline, priority, tenant=tenant,
-                          cost_ms=cost_ms)
-    permit.degrade_note = note
-    permit.tenant = tenant
+    # the request's latency profile is keyed by the clamped tenant, set
+    # before the verdict so that a shed request profiles under it too
+    latattr.set_tenant(tenant)
+    with obs_trace.stage("admission", priority=priority,
+                         tenant=tenant) as span:
+        if deadline is not None:
+            # a request dead before admission raises its own 413 or 503
+            deadline.check()
+        note = None
+        cost_ms = 1.0
+        if (gate.enabled and gate.fair_share
+                and not (deadline is not None and deadline.bounded)
+                and gate.contended()):
+            # the DRR drain needs a real cost while the gate is contended
+            cost_ms = estimate_plan_cost_ms(tsdb, ts_query)
+        if gate.enabled and deadline is not None and deadline.bounded:
+            predicted_ms = estimate_plan_cost_ms(tsdb, ts_query)
+            cost_ms = predicted_ms
+            queue_ms = gate.queue_wait_estimate_ms()
+            remaining_ms = deadline.remaining_ms()
+            obs_trace.annotate(span, predicted_ms=round(predicted_ms, 3),
+                               queue_wait_estimate_ms=round(queue_ms, 3),
+                               remaining_ms=round(remaining_ms, 3))
+            if predicted_ms + queue_ms > remaining_ms:
+                if _degrade_allowed(tsdb) and not fanout:
+                    note = try_degrade(tsdb, ts_query, remaining_ms,
+                                       queue_ms)
+                if note is None:
+                    obs_trace.annotate(span, decision="shed")
+                    raise gate._shed(
+                        "predicted_cost",
+                        "Sorry, this query's predicted cost (%d ms) cannot "
+                        "fit in its remaining deadline (%d ms after an "
+                        "estimated %d ms queue wait). Please decrease your "
+                        "time range or coarsen the downsample interval." % (
+                            predicted_ms, remaining_ms, queue_ms),
+                        tenant=tenant)
+                gate.count_degraded()
+        t0 = time.monotonic()
+        try:
+            permit = gate.acquire(deadline, priority, tenant=tenant,
+                                  cost_ms=cost_ms)
+        except QueryException:
+            latattr.mark("admission_wait")
+            raise
+        permit.degrade_note = note
+        permit.tenant = tenant
+        # everything since the parse mark (the estimate, the ladder and
+        # the gate's wait) is admission
+        latattr.mark("admission_wait")
+        obs_trace.annotate(span, decision="degraded" if note else "admitted",
+                           wait_ms=round((time.monotonic() - t0) * 1e3, 3))
     return permit
 
 

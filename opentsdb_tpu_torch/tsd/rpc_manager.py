@@ -9,9 +9,13 @@ gets one Deadline (``_mint_deadline``, the reference's :288): the smaller
 of ``tsd.query.timeout`` and the client's ``X-TSDB-Deadline-Ms``, made the
 responder thread's ambient deadline for the request and bound to the
 server's cancellation handle, so a client that hangs up flips its token.
-Not ported: tracing and latency stamps (slice 8b), authentication, CORS,
-plugins, the query-stats registry, the flight recorder and the UI routes
-(ROADMAP A4).
+With ``tsd.trace.enable`` each request gets a span tree rooted here
+(obs/trace.py; an ``X-TSDB-Trace-Id`` header names it), and with
+``tsd.latattr.enable`` its phase stamps (obs/latattr.py, the reference's
+:251), folded into the TSDB's latency profiles after the trailing
+"flush" mark.  Not ported: authentication, CORS, plugins, the
+query-stats registry, the flight recorder and the UI routes (ROADMAP A,
+slices 8d and 10 on).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import logging
 import math
 
+from opentsdb_tpu_torch.obs import latattr
+from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.query import limits
 from opentsdb_tpu_torch.query.limits import QueryException
 from opentsdb_tpu_torch.tsd import admin_rpcs, admission, rpcs
@@ -67,6 +73,8 @@ class RpcManager:
                 http["api/histogram"] = histos
         if mode in ("rw", "ro") and enable_api:
             http["api/query"] = rpcs.QueryRpc()
+        if enable_api:
+            http["api/diag"] = admin_rpcs.DiagRpc()
 
     # -- dispatch (RpcHandler.messageReceived :125) --
 
@@ -83,16 +91,45 @@ class RpcManager:
                     remote: str = "unknown") -> HttpQuery:
         """Route one request under its own Deadline, active for the
         request (``limits.active_deadline``) and bound to the server's
-        cancellation handle when the request carries one."""
+        cancellation handle when the request carries one; inside its
+        trace and phase stamps when those are on."""
+        cfg = self.tsdb.config
+        trace = None
+        if cfg.get_bool("tsd.trace.enable"):
+            trace = obs_trace.Trace(
+                "http", trace_id=request.header(obs_trace.TRACE_HEADER),
+                device_time=cfg.get_bool("tsd.trace.device_time"))
+            trace.root.tags["method"] = request.method
+            trace.root.tags["path"] = request.path
+            obs_trace.activate(trace)
         deadline = self._mint_deadline(request)
         limits.activate_deadline(deadline)
         handle = getattr(request, "cancel_handle", None)
         if handle is not None:
             handle.bind(deadline)
+        stamps = None
+        if self.tsdb.latattr is not None:
+            stamps = latattr.PhaseStamps(
+                trace_id=trace.trace_id if trace is not None else None)
+            latattr.activate(stamps)
         try:
-            return self._dispatch_http(request, remote)
+            query = self._dispatch_http(request, remote)
         finally:
             limits.deactivate_deadline()
+            if stamps is not None:
+                latattr.deactivate()
+            if trace is not None:
+                obs_trace.deactivate()
+                trace.finish()
+        if stamps is not None:
+            # the trailing mark takes the handler's tail, so the phases
+            # sum to the handler's wall time; the route label is clamped
+            # to the route table
+            stamps.mark("flush")
+            route = query.base_route()
+            stamps.route = route if route in self.http_commands else "other"
+            self.tsdb.latattr.observe(stamps)
+        return query
 
     def _mint_deadline(self, request: HttpRequest) -> limits.Deadline:
         """min(tsd.query.timeout, X-TSDB-Deadline-Ms); 0 or absent on both

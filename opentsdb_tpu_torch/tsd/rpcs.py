@@ -9,11 +9,15 @@ query-string grammar and the POST JSON body).  Telnet puts are handled
 one line at a time; the reference's batched native put is a speed mode
 over its C++ engine, with the same answers, and is not ported.  The
 /api/query sub-endpoints last, exp, gexp and explain, and deleting data
-through a query, answer 501 naming the ROADMAP item that ports them.  A
+through a query, answer 501 naming the ROADMAP slice that ports them.  A
 query passes the admission gate (tsd/admission.py, the reference's
 rpcs.py:484) before the runner and releases its permit after its
 response is written; a shed answers 503 with Retry-After, a degraded
-answer is a 200 whose trailer carries ``partialResults``.
+answer is a 200 whose trailer carries ``partialResults``.  The handlers
+mark their request's phases (obs/latattr.py: parse, dispatch, serialize)
+where the reference does (:201, :227, :278, :478, :542), and a query's
+serialization is a span of its trace; ``show_stats`` carries the trace
+in the summary.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import contextlib
 
 from opentsdb_tpu_torch.models.tsquery import (
     TSQuery, parse_m_subquery, parse_tsuid_subquery)
+from opentsdb_tpu_torch.obs import latattr
+from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.tsd import admission
 from opentsdb_tpu_torch.tsd.http import (BadRequestError, HttpQuery,
                                          NotPortedError)
@@ -108,9 +114,11 @@ class PutDataPointRpc(TelnetRpc, HttpRpc):
     def execute_http(self, tsdb, query: HttpQuery) -> None:
         allowed_methods(query, "POST")
         dps = query.serializer.parse_put_v1()
+        latattr.mark("parse")
         if not dps:
             raise BadRequestError("No datapoints found in content")
         success, errors = self.ingest_points(tsdb, dps)
+        latattr.mark("dispatch")
         self._respond_put(query, success, errors, dps)
 
     def ingest_points(self, tsdb, dps: list[dict]
@@ -254,8 +262,12 @@ class HistogramDataPointRpc(_OneByOneRpc):
                                       dict(dp["tags"]))
 
 
-# /api/query sub-endpoints the port does not serve yet: ROADMAP items
-_NOT_PORTED = {"last": "A4", "exp": "A6", "gexp": "A6", "explain": "A9"}
+# /api/query sub-endpoints the port does not serve yet: the ROADMAP slice
+# of queue A that ports each
+_ADMIN_DATA = "A, slices 10 on (admin and data endpoints)"
+_EXPRESSIONS = "A, slices 10 on (expressions)"
+_NOT_PORTED = {"last": _ADMIN_DATA, "exp": _EXPRESSIONS,
+               "gexp": _EXPRESSIONS, "explain": "A, slice 8c (explain)"}
 
 
 class QueryRpc(HttpRpc):
@@ -282,8 +294,9 @@ class QueryRpc(HttpRpc):
                     "Deleting data is not enabled",
                     details="Set tsd.http.query.allow_delete=true")
             raise NotPortedError("deleting data through /api/query is "
-                                 "not ported yet (ROADMAP A4)")
+                                 "not ported yet (ROADMAP %s)" % _ADMIN_DATA)
         ts_query.validate()
+        latattr.mark("parse")
         # admission (tsd/admission.py) before any device work: a shed
         # raises 503 with Retry-After; the degradation ladder may coarsen
         # or cut ts_query.  The permit is held until the response is
@@ -298,7 +311,11 @@ class QueryRpc(HttpRpc):
             after_write.append(permit.release)
         with permit if after_write is None else contextlib.nullcontext():
             results = tsdb.new_query_runner().run(ts_query)
-            payload = query.serializer.format_query_v1(ts_query, results)
+            with obs_trace.stage("serialize") as ssp:
+                payload = query.serializer.format_query_v1(ts_query,
+                                                           results)
+                obs_trace.annotate(ssp, results=len(payload))
+            latattr.mark("serialize")
             partial = None
             if permit.degrade_note:
                 # the 200 says out loud that the ladder degraded it
@@ -313,6 +330,11 @@ class QueryRpc(HttpRpc):
                 }
                 if partial:
                     summary.update(partial)
+                trace = obs_trace.active()
+                if trace is not None and ts_query.show_stats:
+                    # the span tree as of now: the http root is still
+                    # open and renders its elapsed time
+                    summary["trace"] = trace.to_json()
                 payload.append({"statsSummary": summary})
             query.send_reply(payload)
 

@@ -10,8 +10,10 @@ durability (``UNPORTED``), are refused with a non-default value by
 the ROADMAP item that ports them.  Every other key is stored and ignored:
 the reference's TPU strategy keys (``tsd.query.mesh.*``, the kernel
 modes, ``tsd.query.host_lane.max_points``: the port answers every plan on
-the card) and its aggregate cache's ``tsd.query.cache.*`` change no
-answer.
+the card) change no answer.  The aggregate cache's ``tsd.query.cache.*``
+keys (storage/agg_cache.py), request tracing's ``tsd.trace.*`` and
+latency attribution's ``tsd.latattr.*`` are read, with the reference's
+defaults.
 """
 
 from __future__ import annotations
@@ -76,6 +78,21 @@ DEFAULTS: dict[str, str] = {
     "tsd.core.auto_create_tagks": "true",
     "tsd.core.auto_create_tagvs": "true",
     "tsd.core.uid.random_metrics": "false",
+    # request spans (obs/trace.py) and latency attribution
+    # (obs/latattr.py, /api/diag/latency)
+    "tsd.trace.enable": "true",
+    "tsd.trace.device_time": "true",
+    "tsd.latattr.enable": "true",
+    "tsd.latattr.max_profiles": "256",
+    # the aggregate cache (storage/agg_cache.py)
+    "tsd.query.cache.enable": "true",
+    "tsd.query.cache.mb": "256",
+    "tsd.query.cache.device_mb": "64",
+    "tsd.query.cache.block_windows": "32",
+    "tsd.query.cache.min_repeats": "2",
+    "tsd.query.cache.promote_hits": "2",
+    "tsd.query.cache.amortize_horizon": "32",
+    "tsd.query.cache.dispatch_overhead_us": "150",
     # the device series cache (storage/device_cache.py)
     "tsd.query.device_cache.enable": "true",
     "tsd.query.device_cache.mb": "4096",

@@ -60,8 +60,10 @@ from torch_parity import ATOL, RTOL
 BASE = 1_356_998_400
 AUTO = {"tsd.core.auto_create_metrics": True}
 # both packages price small plans onto the batched route, which skips the
-# device cache's consult (plandecision.py): the cache's cases turn it off
-NO_BATCH = {"tsd.query.batch.enable": False}
+# device cache's consult (plandecision.py), and consult the aggregate
+# cache before it: the device cache's cases turn both off
+NO_BATCH = {"tsd.query.batch.enable": False,
+            "tsd.query.cache.enable": False}
 REF_ONLY = {"tsd.query.mesh.enable": False}
 OFF = {"tsd.query.device_cache.enable": False}
 QUERY = "avg:1m-avg:dc.m{host=*}"

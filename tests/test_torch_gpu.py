@@ -494,6 +494,78 @@ def test_gather_windows_kernel_matches_plain(cuda_device):
             assert_exact(a.cpu().numpy(), b.cpu().numpy())
 
 
+def test_int32_gather_kernel_matches_plain(cuda_device):
+    """G1's int32 form against its plain version: offsets, values and
+    masks exact, a base past some points clipping them to 0, and counted
+    under gather_windows.i32."""
+    rng = np.random.default_rng(33)
+    p = 100_000
+    ts_buf = np.cumsum(rng.integers(1, 5000, p)) + T0
+    val_buf = rng.normal(0.0, 1e3, p)
+    lengths = rng.integers(0, 2000, 300)
+    lengths[::17] = 0
+    starts = rng.integers(0, p - 2000, 300)
+    args = _on(cuda_device, ts_buf, val_buf, starts, lengths)
+    n = int(lengths.max()) + 5
+    for base in (T0, int(ts_buf[p // 2])):
+        kernels.reset_launches()
+        got = tdc.gather_windows(*args, n, base)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["gather_windows"] == 1
+        assert kernels.LAUNCHES["gather_windows.i32"] == 1
+        assert got[0].dtype == torch.int32
+        want = tdc.gather_windows_plain(*args, n, base)
+        for a, b in zip(got, want):
+            assert_exact(a.cpu().numpy(), b.cpu().numpy())
+
+
+ORDER_FUNCS = ["first", "last", "diff", "mult", "median", "p95", "ep99r7"]
+
+
+@pytest.mark.parametrize("kind", ["moments", "order"])
+def test_int32_window_kernels_match_plain_and_int64(cuda_device, kind):
+    """K1's and K4's int32 forms against their plain versions (rtol 1e-9,
+    masks exact) and bit for bit against their int64 forms on the same
+    points."""
+    ts, val, mask = sorted_batch(np.random.default_rng(17), 64, 512)
+    ts32 = np.clip(ts - T0, 0, tds.I32_PAD_TS).astype(np.int32)
+    d_ts, d_ts32, d_val, d_mask = _on(cuda_device, ts, ts32, val, mask)
+    edges = PLANS["fixed"].window_edges(cuda_device)
+    edges32 = tds.compact_edges(edges, T0)
+    fn = tds.window_moments if kind == "moments" else tds.window_order
+    plain = tds.window_moments_plain if kind == "moments" \
+        else tds.window_order_plain
+    for func in (FUNCS if kind == "moments" else ORDER_FUNCS):
+        kernels.reset_launches()
+        got = fn(d_ts32, d_val, d_mask, edges32, func)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[fn.__name__ + ".i32"] == 1
+        want = plain(d_ts32, d_val, d_mask, edges32, func)
+        assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+        assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+        wide = fn(d_ts, d_val, d_mask, edges, func)
+        assert torch.equal(got[1], wide[1])
+        assert torch.equal(got[0].nan_to_num(7.5), wide[0].nan_to_num(7.5))
+
+
+@pytest.mark.parametrize("func", ["avg", "squareSum", "median"])
+def test_wide_dynamic_range_kernels_are_exact(cuda_device, func):
+    """-1e15 in the first 1m window, then one point in each of the next
+    four: K1 and K4 give the exact values in both forms."""
+    wide = [-1e15, -35.48827592954828, 2.0, 1.25, 0.1]
+    want = [v * v for v in wide] if func == "squareSum" else wide
+    ts = (T0 + 30_000 + np.arange(5, dtype=np.int64) * 60_000)[None, :]
+    edges = tds.FixedWindows.for_range(T0, T0 + 299_999,
+                                       60_000).window_edges(cuda_device)
+    val, mask = _on(cuda_device, np.array([wide]), np.ones((1, 5), bool))
+    for batch_ts, base in ((ts, None), ((ts - T0).astype(np.int32), T0)):
+        (d_ts,) = _on(cuda_device, batch_ts)
+        _, out, out_mask = tds.downsample(d_ts, val, mask, func, edges,
+                                          ts_base=base)
+        assert out_mask.all()
+        assert out[0].cpu().tolist() == want
+
+
 def test_warm_query_on_card_matches_cold(cuda_device):
     """A grouped query answers alike cold (the entry built inline, then
     gathered), warm (gathered from the entry) and with the cache off (the
@@ -512,12 +584,15 @@ def test_warm_query_on_card_matches_cold(cuda_device):
                        rng.normal(10, 2, k), np.zeros(k, np.int64),
                        np.zeros(k, bool)))
     # a plan this small prices onto the batched route, which skips the
-    # device cache: the cache's case turns batching off
+    # device cache, and a repeat may take the aggregate cache's rewrite:
+    # the cache's case turns both off
     cached = load_state(uid_maps, series, config=Config(
-        {"tsd.query.batch.enable": False}), device=cuda_device)
+        {"tsd.query.batch.enable": False,
+         "tsd.query.cache.enable": False}), device=cuda_device)
     host = load_state(uid_maps, series, config=Config(
         {"tsd.query.device_cache.enable": False,
-         "tsd.query.batch.enable": False}), device=cuda_device)
+         "tsd.query.batch.enable": False,
+         "tsd.query.cache.enable": False}), device=cuda_device)
     for m in ("sum:5m-avg:rate:m{g=*}", "p99:5m-median:m{g=*}"):
         q = TSQuery(start="1356998400", end="1357002000",
                     queries=[parse_m_subquery(m)])

@@ -7,8 +7,11 @@ RouteContext carries neither) and to the port's: the path, every
 fingerprint field but ``modes`` and ``calibration`` (the port has no
 kernel modes and one cost table) and the consults made, in order, must be
 equal.  The matrix reaches every arm the port has: the rollup lane
-(served whole and striped), tiled, refused, batched, the device cache,
-streamed, rollup_avg and resident.  The batched arm is pinned with
+(served whole and striped), tiled, refused, the aggregate cache's
+rewrite (consulted before the batched arm, and not at all for a streamed
+plan, a calendar grid or a rollup segment), batched, the device cache
+(its consult carrying the int32 base), streamed, rollup_avg and
+resident.  The batched arm is pinned with
 ``batch_factor`` (0 never batches, 1e12 always does), since each package
 prices it on its own cost table.
 """
@@ -28,10 +31,11 @@ BASE_CTX = dict(
     n_max=100, wp=64, groups=2, g_pad=2, total_points=800,
     sketchable=False, stream_ok=True, windows_fixed=True,
     store_is_raw=True, has_store=True, platform="cpu", state_mb=6144,
-    point_threshold=8_000_000, batch_ok=False, batch_factor=0.0)
+    point_threshold=8_000_000, batch_ok=False, batch_factor=0.0,
+    ts_base=None)
 # the reference's context fields that the port has no use for
 REF_ONLY_CTX = dict(use_mesh=False, n_chips=1, cpu_lane_ok=False,
-                    host_lane_max=0, ts_base=None)
+                    host_lane_max=0)
 
 # name: (context overrides, the TSDB's subsystems, consult answers, path)
 MATRIX = {
@@ -75,6 +79,31 @@ MATRIX = {
     "rollup segment, cache hit": (
         dict(seg_kind="rollup", store_is_raw=False), {"cache": True},
         {"cache": True}, "resident"),
+    "device cache, int32 base": (dict(ts_base=1_356_998_400_000),
+                                 {"cache": True}, {"cache": True},
+                                 "resident"),
+    "agg rewrite": (dict(batch_ok=True, batch_factor=1e12),
+                    {"cache": True, "agg": True}, {"agg": True,
+                                                   "cache": True},
+                    "agg_rewrite"),
+    "agg recomputes, batched": (dict(batch_ok=True, batch_factor=1e12),
+                                {"cache": True, "agg": True},
+                                {"cache": True}, "batched"),
+    "agg recomputes, device cache": (dict(ts_base=1_356_998_400_000),
+                                     {"cache": True, "agg": True},
+                                     {"cache": True}, "resident"),
+    "agg not consulted, streamed": (dict(total_points=9_000_000),
+                                    {"cache": True, "agg": True},
+                                    {"agg": True}, "streamed"),
+    "agg not consulted, calendar": (dict(windows_fixed=False),
+                                    {"cache": True, "agg": True},
+                                    {"agg": True, "cache": True},
+                                    "resident"),
+    "agg not consulted, rollup segment": (
+        dict(seg_kind="rollup", store_is_raw=False),
+        {"cache": True, "agg": True}, {"agg": True}, "resident"),
+    "lane before agg": (dict(), {"lanes": True, "agg": True},
+                        {"lane": True, "agg": True}, "rollup_lane"),
     "resident": (dict(), {}, {}, "resident"),
     "resident, no ds batch arm": (dict(batch_ok=True, batch_factor=1e12,
                                        has_store=False), {"cache": True},
@@ -118,10 +147,16 @@ class _Consults:
 
     def agg_plan(self, platform):
         self.calls.append(("agg_plan", platform))
-        return None, None
+        note = {"decision": "recompute", "reason": "below_min_repeats",
+                "cachedWindows": 0, "computedWindows": 64}
+        if not self.answers.get("agg"):
+            return None, note
+        note = dict(note, decision="rewrite", reason="reuse",
+                    cachedWindows=62, computedWindows=2)
+        return SimpleNamespace(decision=note), note
 
     def device_batch(self, build, ts_base=None):
-        self.calls.append(("device_batch", build))
+        self.calls.append(("device_batch", build, ts_base))
         return object() if self.answers.get("cache") else None
 
 
@@ -130,7 +165,8 @@ def _tsdb(ref: bool, parts: dict):
         config=RefConfig({}) if ref else Config({}),
         rollup_lanes=object() if parts.get("lanes") else None,
         device_cache=object() if parts.get("cache") else None,
-        spill_pool=None, agg_cache=None)
+        spill_pool=None,
+        agg_cache=object() if parts.get("agg") else None)
 
 
 @pytest.mark.parametrize("name", list(MATRIX))

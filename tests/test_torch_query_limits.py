@@ -44,9 +44,11 @@ from opentsdb_tpu_torch.utils.config import Config
 
 BASE = 1_356_998_400
 HIST_CONFIG = '{"SimpleHistogramDecoder": 0}'
-# the budgets' cases run both packages off the batched route and without
-# admission, whose deadline check would answer first
+# the budgets' cases run both packages off the batched route and the
+# aggregate cache's rewrite, and without admission, whose deadline check
+# would answer first
 BOTH_OFF = {"tsd.query.batch.enable": False,
+            "tsd.query.cache.enable": False,
             "tsd.query.admission.enable": False}
 REF_OFF = {"tsd.query.mesh.enable": False, **BOTH_OFF}
 

@@ -35,8 +35,10 @@ LANES = {
     "tsd.rollup.block_windows": 8,
     "tsd.rollup.delay_ms": 0,
     # the lanes' fallbacks take the exact path in both packages, not the
-    # batched route that a small plan prices onto
+    # batched route that a small plan prices onto, nor the aggregate
+    # cache's rewrite
     "tsd.query.batch.enable": False,
+    "tsd.query.cache.enable": False,
 }
 
 

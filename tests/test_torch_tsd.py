@@ -199,7 +199,43 @@ def test_not_ported_query_endpoints_answer_501():
     # deleting through a query is allowed by the config, but not ported
     status, body = _send(port, HttpRequest, (
         "http", "DELETE", "/api/query?%s&m=sum:sys.cpu" % _Q, None))
-    assert status == 501 and "ROADMAP A4" in body["error"]["details"]
+    assert status == 501 and "ROADMAP A, slices 10 on (admin and data " \
+        "endpoints)" in body["error"]["details"]
+
+
+def _roadmap_slices() -> set[str]:
+    """The queue-A slice headings of ROADMAP.md, as a 501 names them:
+    "A, slice 8c", "A, slices 10 on"."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "ROADMAP.md")
+    with open(path) as fh:
+        text = fh.read()
+    return {"A, s" + m.group(1).lower()
+            for m in re.finditer(r"^\d+\. \*\*S(lices? [0-9a-z]+(?: on)?)",
+                                 text, re.M)}
+
+
+def test_not_ported_501s_name_existing_roadmap_slices():
+    """Fault C4: each 501 named a ROADMAP item (A4, A6, A9) from before
+    queue A had numbered slices; every 501 now names a slice heading that
+    ROADMAP.md has."""
+    slices = _roadmap_slices()
+    assert "A, slice 8c" in slices and "A, slices 10 on" in slices
+    _, port = _managers(**{"tsd.http.query.allow_delete": True})
+    sends = [("GET", uri) for uri in (
+        "/api/query/last?timeseries=sys.cpu", "/api/query/exp",
+        "/api/query/gexp?start=1h-ago&exp=x",
+        "/api/query/explain?start=1h-ago&m=sum:sys.cpu",
+        "/api/diag", "/api/diag/slow", "/api/diag/health")]
+    sends.append(("DELETE", "/api/query?%s&m=sum:sys.cpu" % _Q))
+    for method, uri in sends:
+        status, body = _send(port, HttpRequest, ("http", method, uri, None))
+        assert status == 501, uri
+        details = body["error"]["details"]
+        named = details.split("ROADMAP ", 1)[1].split(" (", 1)[0]
+        assert named in slices, (uri, details)
 
 
 @pytest.mark.parametrize("mode", ["ro", "wo"])
