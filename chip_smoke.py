@@ -4,10 +4,10 @@ against its plain PyTorch version on the card, then answer queries end to
 end through the port's TSDB: grouped downsample queries, materialized,
 streamed and tiled past the device budget, queries without a downsample
 (the union path), histograms through the daemon, rollups with their
-striped lane serving, and a dashboard fleet through the daemon's
-admission gate and dispatch batcher.
+striped lane serving, a dashboard fleet through the daemon's
+admission gate and dispatch batcher, and the device mesh.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--mesh-only]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -255,7 +255,32 @@ days), 1h windows.  Phases:
    default: agg on, batching on), 3 s warm-up and 8 s timed: QPS, p50,
    p99, each query's request phases from /api/diag/latency and the
    responder thread's CPU a query; every body equal to the hits arm's.
-   Launch counts are reset before (b) and read after (d).
+   Launch counts are reset before (b) and read after (d).  Since phase
+   18 came, (d) runs at 1 and 8 responders only.
+18. the device mesh (after phase 17, on the headline TSDB's state).  (a)
+   T1's square and centred modes (the mesh's squareSum and dev partials)
+   against their plain versions on a 256-row tile of the 1m grid (holes
+   as in phase 14), the centred pass around the tile's own mean; counts
+   and presence exact, sums at rtol 1e-9; each timed against its byte
+   bound, the plain version and one index_add_.  (b) The shared-device
+   combine of four shards' partials timed against one
+   torch.stack(...).sum(0) a lane; then `sum:1h-avg`, `dev:1h-avg`,
+   `squareSum:1h-avg`, `p95:1h-avg`, `first:1h-avg` and
+   `sum:1h-max:rate` (`{group=*}`) as device-cache hits on a TSDB whose
+   mesh is four shards on cuda:0, each equal to the single-device hit
+   (rtol 1e-9), its wall beside the single-device wall, and through
+   /api/query on that TSDB's daemon, the body equal to the same answer.
+   (c) The same, HTTP included, on a one-device NCCL mesh
+   (torch.cuda.nccl), and, where two or more cards are visible, on a mesh
+   of them (else a line says that multi-GPU speed is not measured).  (d)
+   `sum:1h-avg` streamed on the four-shard mesh (the cache detached, the
+   default threshold).  (e)
+   The rollup job's 1h lanes on a (2, 2) mesh on cuda:0 against the
+   one-card job's (and, with four or more cards, on a (2, 2) mesh of
+   four of them): counts, minima and maxima exact, sums at rtol 1e-9.
+   Launch counts are reset before (b) and read after (e); T1's square
+   and centred modes must have launched.  `--mesh-only` runs the build
+   and this phase alone on the headline TSDB.
 
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
@@ -323,6 +348,8 @@ REPLACES = {
     "window_moments.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "window_order.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "grid_fill_rate.stacked": "opentsdb_tpu/ops/pipeline.py:225",
+    "tile_partials.square": "opentsdb_tpu/parallel/sharded.py:223",
+    "tile_partials.centred": "opentsdb_tpu/parallel/sharded.py:223",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -979,14 +1006,14 @@ def ingest_arm(tsdb, m: str, median_wall: dict, checks: Checks) -> None:
                                "that differs from a miss, or a lost write")
 
 
-def e2e_phase(dev, ts, val, checks: Checks):
+def headline_tsdb(dev, ts, val):
+    """A TSDB on `dev` holding the headline batch as metric `m` (`host`
+    and `group` tags), the threshold raised and the aggregate cache off;
+    returns (tsdb, the metric's UID)."""
     from opentsdb_tpu_torch.core import TSDB
-    from opentsdb_tpu_torch.ops import kernels
-    from opentsdb_tpu_torch.query.planner import PHASES
     from opentsdb_tpu_torch.storage.memstore import SeriesKey
     from opentsdb_tpu_torch.utils.config import Config
 
-    t0 = time.perf_counter()
     tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True,
                         "tsd.core.histograms.config": HIST_CONFIG,
                         **AGG_OFF, **MATERIALIZE}),
@@ -1000,7 +1027,19 @@ def e2e_phase(dev, ts, val, checks: Checks):
             k_group: tsdb.tag_values.get_or_create_id(
                 "g%03d" % (i * GROUPS // S))})
         tsdb.store.add_batch(key, ts[i], val[i], False)
+    return tsdb, metric
+
+
+def e2e_phase(dev, ts, val, checks: Checks):
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.query.planner import PHASES
+    from opentsdb_tpu_torch.storage.memstore import SeriesKey
+
+    t0 = time.perf_counter()
+    tsdb, metric = headline_tsdb(dev, ts, val)
     ingest_s = time.perf_counter() - t0
+    k_host = tsdb.tag_names.get_id("host")
+    k_group = tsdb.tag_names.get_id("group")
     points = tsdb.store.total_datapoints
     print("e2e ingest %.3f s, %d series, %d points" % (ingest_s, S, points))
     if points != S * N:
@@ -2825,11 +2864,11 @@ def config_phase(dev, cid: int, checks: Checks, seed: int) -> None:
     del grids, acc, feed
 
 
-def _fold_tiles(tiling, spec, wts, v, m, gid, rows, extreme, plain=False):
-    """K2, then T1 (or its plain version) over the [rows]-row tiles of the
-    grid -> the [GROUPS, W] partial moments."""
+def _fold_tiles(tiling, spec, wts, v, m, gid, rows, mode, plain=False):
+    """K2, then T1 (or its plain version) in `mode` over the [rows]-row
+    tiles of the grid -> the [GROUPS, W] partial moments."""
     from opentsdb_tpu_torch.ops import group_agg as ga
-    acc = tiling.new_lane_fold(GROUPS, v.shape[1], extreme, v.device)
+    acc = tiling.new_lane_fold(GROUPS, v.shape[1], mode, v.device)
     fold = tiling.tile_partials_plain if plain else tiling.tile_partials
     for lo in range(0, v.shape[0], rows):
         contrib, part, actual = tiling.tile_contrib(spec, wts, v[lo:lo + rows],
@@ -2870,14 +2909,13 @@ def tile_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     print("tile_partials grid [%d, %d] (1m windows), %.1f%% of cells empty"
           % (S, w, 100.0 * float((~m).double().mean())))
     for rate in (None, RateOptions()):
-        for extreme, aggs in ((False, ("sum", "count", "avg")),
-                              (True, ("min", "max"))):
+        for mode, aggs in (("additive", ("sum", "count", "avg")),
+                           ("extreme", ("min", "max"))):
             spec = PipelineSpec(aggs[0], rate=rate)
-            got = _fold_tiles(tiling, spec, wts, v, m, gid, rows, extreme)
-            want = _fold_tiles(tiling, spec, wts, v, m, gid, rows, extreme,
+            got = _fold_tiles(tiling, spec, wts, v, m, gid, rows, mode)
+            want = _fold_tiles(tiling, spec, wts, v, m, gid, rows, mode,
                                plain=True)
-            case = "%s%s" % ("extreme" if extreme else "additive",
-                             " rate" if rate is not None else "")
+            case = "%s%s" % (mode, " rate" if rate is not None else "")
             for lane in want:
                 if lane == "tot":
                     checks.values("tile_partials", case + " tot", got[lane],
@@ -2898,7 +2936,7 @@ def tile_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     for agg in ("sum", "count", "avg", "min", "max"):
         spec = PipelineSpec(agg)
         acc = _fold_tiles(tiling, spec, wts, mi, mim, gid, rows,
-                          tiling.is_extreme(agg))
+                          tiling.lane_mode(agg))
         out, mask_g = tiling.finish_lane_fold(acc, agg)
         contrib, part, actual = tiling.tile_contrib(spec, wts, mi, mim)
         want, want_mask = ga.group_moments(agg, contrib, part, actual,
@@ -2915,11 +2953,11 @@ def tile_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     t_off = ga.group_offsets(gid[:rows], GROUPS).to(dev)
     g_tile = int(np.unique(gid[:rows]).size)
     times = {}
-    for extreme in (False, True):
-        acc = tiling.new_lane_fold(GROUPS, w, extreme, dev)
+    for mode in ("additive", "extreme"):
+        acc = tiling.new_lane_fold(GROUPS, w, mode, dev)
         ok = part & ~torch.isnan(contrib)
         grows = torch.from_numpy(gid[:rows]).to(dev)
-        if extreme:
+        if mode == "extreme":
             idx = grows[:, None].expand(-1, w)
             lo_src = torch.where(ok, contrib, math.inf)
             hi_src = torch.where(ok, contrib, -math.inf)
@@ -2952,10 +2990,9 @@ def tile_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         }
         print("time tile_partials %s tile [%d, %d], %d groups: kernel %.4f "
               "ms  plain %.4f ms  bound %.4f ms (bytes)  library %.4f ms (%s)"
-              % ("extreme" if extreme else "additive", rows, w, g_tile,
-                 t["ms"], t["plain_ms"], t["bound_ms"], t["library_ms"],
-                 what))
-        times["extreme" if extreme else "additive"] = t
+              % (mode, rows, w, g_tile, t["ms"], t["plain_ms"],
+                 t["bound_ms"], t["library_ms"], what))
+        times[mode] = t
     return {"tile_partials": times["additive"]}
 
 
@@ -3857,7 +3894,7 @@ def admission_phase(tsdb, server, checks: Checks, admission) -> None:
 
 # Phase 17: the cache-hit path.  The follow-up's responder counts, its
 # arms' warm-up and timed seconds, and (c)'s queries.
-FOLLOWUP_THREADS = (1, 2, 4, 8)
+FOLLOWUP_THREADS = (1, 8)
 FOLLOWUP_WARMUP_S, FOLLOWUP_WINDOW_S = 3.0, 8.0
 AGG_QUERIES = ("sum:1h-avg:m{group=*}", "max:1m-max:m{group=*}")
 
@@ -4271,6 +4308,314 @@ def cache_hit_phase(dev, tsdb, checks: Checks,
     return launches, costs
 
 
+# -- phase 18: the device mesh ------------------------------------------------
+
+MESH_QUERIES = ["sum:1h-avg:m{group=*}", "dev:1h-avg:m{group=*}",
+                "squareSum:1h-avg:m{group=*}", "p95:1h-avg:m{group=*}",
+                "first:1h-avg:m{group=*}", "sum:1h-max:rate:m{group=*}"]
+MESH_SHARDS = 4          # the virtual mesh: four shards on cuda:0
+MESH_ROWS = 256          # (a)'s tile
+
+
+def mesh_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """Phase 18 (a): T1's square and centred modes against their plain
+    versions on a 256-row tile of the headline batch's 1m grid (holes
+    masked as in phase 14), the centred pass around the tile's own mean;
+    each timed against its byte bound, the plain version and one
+    index_add_ of its precomputed operand."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import tiling
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+
+    rows = MESH_ROWS
+    d_ts = torch.from_numpy(ts[:rows]).to(dev)
+    d_h = torch.from_numpy(h[:rows]).to(dev)
+    cols = torch.arange(N, device=dev)[None, :]
+    rix = torch.arange(rows, device=dev)[:, None]
+    mask = (d_h % 11 != 0) & ((cols // 512) % 13 != rix % 13)
+    plan = ds.FixedWindows.for_range(START, END, 60_000)
+    edges = plan.window_edges(dev)
+    w = plan.count
+    v, m = ds.window_moments(d_ts, torch.from_numpy(val[:rows]).to(dev),
+                             mask, edges, "sum")
+    del d_ts, d_h, cols, rix, mask
+    contrib, part, actual = tiling.tile_contrib(PipelineSpec("sum"),
+                                                edges[:-1], v, m)
+    off = ga.group_offsets(gid[:rows], GROUPS).to(dev)
+    g_tile = int(np.unique(gid[:rows]).size)
+    grows = torch.from_numpy(gid[:rows]).to(dev)
+    ok = part & ~torch.isnan(contrib)
+    x = torch.where(ok, contrib, 0.0)
+    first = tiling.new_lane_fold(GROUPS, w, "additive", dev)
+    tiling.tile_partials(contrib, part, actual, off, first)
+    mean = first["tot"] / first["cnt"].clamp(min=1)
+    times = {}
+    for mode in ("square", "centred"):
+        name = "tile_partials." + mode
+        extra = {"mean": mean} if mode == "centred" else {}
+        got = tiling.new_lane_fold(GROUPS, w, mode, dev)
+        want = tiling.new_lane_fold(GROUPS, w, mode, dev)
+        tiling.tile_partials(contrib, part, actual, off, got, **extra)
+        tiling.tile_partials_plain(contrib, part, actual, off, want, **extra)
+        for lane in want:
+            if lane in ("cnt", "present"):
+                checks.exact(name, "tile " + lane, got[lane], want[lane],
+                             lane)
+            else:
+                checks.values(name, "tile " + lane, got[lane], want[lane])
+        if mode == "square":
+            operand = torch.cat([ok.double(), actual.double(), x * x],
+                                dim=1)
+            # the tile read once (contrib, participate and present: 10 B
+            # a cell), cnt, present and sq of its groups read and written
+            # once
+            nbytes = rows * w * 10 + 2 * g_tile * w * 24
+        else:
+            c = torch.where(ok, contrib - mean[grows], 0.0)
+            operand = c * c
+            # contrib and participate read once (9 B a cell; the centred
+            # branch reads no presence), the mean and m2 read, m2 written
+            nbytes = rows * w * 9 + g_tile * w * 24
+        into = torch.zeros((GROUPS, operand.shape[1]), dtype=torch.float64,
+                           device=dev)
+        acc = tiling.new_lane_fold(GROUPS, w, mode, dev)
+        t = {
+            "ms": time_ms(lambda: tiling.tile_partials(
+                contrib, part, actual, off, acc, **extra)),
+            "plain_ms": time_ms(lambda: tiling.tile_partials_plain(
+                contrib, part, actual, off, acc, **extra)),
+            "bound_ms": bound_ms(nbytes, 3.0 * rows * w),
+            "library_ms": time_ms(lambda: into.index_add_(0, grows,
+                                                          operand)),
+        }
+        print("time %s tile [%d, %d], %d groups: kernel %.4f ms  plain %.4f "
+              "ms  bound %.4f ms (bytes)  library %.4f ms (index_add_ of the "
+              "precomputed %s)"
+              % (name, rows, w, g_tile, t["ms"], t["plain_ms"], t["bound_ms"],
+                 t["library_ms"], "counts, presence and squares"
+                 if mode == "square" else "centred squares"))
+        times[name] = t
+    return times
+
+
+def _mesh_tsdb(tsdb, mesh, **over):
+    """The headline TSDB's state in a TSDB of its own over `mesh` (the
+    device cache on, its first query building the entry inline)."""
+    from opentsdb_tpu_torch.core import load_state
+    from opentsdb_tpu_torch.utils.config import Config
+    uid_maps = {kind: tsdb.uid_table(kind).snapshot()
+                for kind in ("metric", "tagk", "tagv")}
+    series = [(s.key.metric, dict(s.key.tags), *s.arrays())
+              for s in tsdb.store.all_series()]
+    return load_state(uid_maps, series, config=Config(
+        {"tsd.core.auto_create_metrics": True, **AGG_OFF, **MATERIALIZE,
+         **over}), device=tsdb.device, mesh=mesh)
+
+
+def _same_json(checks, label, got: list, want: list) -> None:
+    """An HTTP body against the in-process answer's JSON: groups and
+    timestamps equal, values at rtol 1e-9."""
+    if [(a["tags"], list(a["dps"])) for a in got] \
+            != [(b["tags"], list(b["dps"])) for b in want] or not got:
+        checks.failures.append("%s: groups or timestamps differ" % label)
+        return
+    gv = torch.tensor([float(v) for a in got for v in a["dps"].values()],
+                      dtype=torch.float64)
+    wv = torch.tensor([float(v) for b in want for v in b["dps"].values()],
+                      dtype=torch.float64)
+    checks.values("e2e mesh", label, gv, wv)
+
+
+def _combine_times(mesh, dev, checks: Checks) -> dict:
+    """The shared-device combine of four shards' sum:1h-avg partials
+    (cnt, present, tot at 100 x 283) by CUDA events, against its byte
+    bound and one torch.stack(...).sum(0) a lane."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.parallel import sharded
+    w = ds.FixedWindows.for_range(START, END, INTERVAL_MS).count
+    gen = torch.Generator(device=dev).manual_seed(18)
+    accs = [{"cnt": torch.randint(0, 11, (GROUPS, w), generator=gen,
+                                  device=dev),
+             "present": torch.randint(0, 11, (GROUPS, w), generator=gen,
+                                      device=dev),
+             "tot": torch.rand((GROUPS, w), generator=gen, device=dev,
+                               dtype=torch.float64)}
+            for _ in range(mesh.size)]
+    got = sharded._combine(mesh, accs)
+    for lane in got:
+        want = torch.stack([a[lane] for a in accs]).sum(0)
+        checks.values("e2e mesh", "combine " + lane, got[lane], want)
+    lanes = len(accs[0])
+    t = {"ms": time_ms(lambda: sharded._combine(mesh, accs)),
+         "library_ms": time_ms(lambda: [torch.stack(
+             [a[k] for a in accs]).sum(0) for k in accs[0]]),
+         "bound_ms": bound_ms((mesh.size + 1) * lanes * GROUPS * w * 8,
+                              (mesh.size - 1) * lanes * GROUPS * w)}
+    print("time mesh combine (%d shards, %d lanes of [%d, %d]): %.4f ms  "
+          "bound %.4f ms (bytes)  library %.4f ms (torch.stack(...).sum(0) "
+          "a lane)" % (mesh.size, lanes, GROUPS, w, t["ms"], t["bound_ms"],
+                       t["library_ms"]))
+    return t
+
+
+def mesh_phase(dev, tsdb, ts, val, h, checks: Checks) -> dict:
+    """Phase 18 (b)-(e) on the headline TSDB's state (the threshold raised
+    as in phase 4); returns the launch counts of their main path."""
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.parallel import make_mesh
+    from opentsdb_tpu_torch.parallel.distributed import host_major_devices
+    from opentsdb_tpu_torch.rollup.job import run_rollup_job
+    from opentsdb_tpu_torch.utils.config import DEFAULTS
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("mesh: %d card visible: multi-GPU speed is not measured (a "
+              "mesh of distinct devices needs two or more cards); the "
+              "meshes below are four shards on cuda:0 and one-device NCCL"
+              % cards)
+    cfg = tsdb.config
+    key = "tsd.query.streaming.point_threshold"
+    threshold = cfg.get_string(key)
+    cfg.override_config(key, MATERIALIZE[key])
+    # the single-device answers and walls: the headline TSDB off its
+    # default mesh (every card, where there are two or more)
+    cfg.override_config("tsd.query.mesh.enable", "false")
+    tsdb.dispatch_batcher = None
+    virtual = make_mesh(devices=[dev] * MESH_SHARDS)
+    one = make_mesh(devices=[dev])
+    print("mesh (b): %d shards on %s, backend %s; (c): %s, backend %s"
+          % (virtual.size, virtual.owner, virtual.backend, one.devices[0],
+             one.backend))
+    if virtual.backend != "shared" or one.backend != "nccl":
+        checks.failures.append("mesh backends %s and %s, not shared and "
+                               "nccl" % (virtual.backend, one.backend))
+    combine = _combine_times(virtual, dev, checks)
+    mtsdb = _mesh_tsdb(tsdb, virtual)
+    ntsdb = _mesh_tsdb(tsdb, one)
+    arms = [("(b) 4 shards", mtsdb), ("(c) NCCL", ntsdb)]
+    if cards >= 2:
+        # the distinct-device mesh over every card, against one card
+        arms.append(("%d cards" % cards, _mesh_tsdb(
+            tsdb, make_mesh(devices=host_major_devices()))))
+    kernels.reset_launches()
+    singles = {}
+    for m in MESH_QUERIES:
+        want, wall, _ = _timed_run(tsdb, m)
+        singles[m] = want
+        for arm, other in arms:
+            got, mwall, st = _timed_run(other, m)
+            _same_answer(checks, "mesh %s %s" % (arm, m), got, want,
+                         exact=False)
+            if st.get("meshDevices") != float(other.query_mesh().size) \
+                    or st.get("deviceCacheHit") != 1.0:
+                checks.failures.append("mesh %s %s: not a meshed hit (%s)"
+                                       % (arm, m, st.get("meshDevices")))
+            bitwise = torch.equal(*(torch.tensor(
+                [v for r in res for _, v in r.dps],
+                dtype=torch.float64).nan_to_num(-1.5)
+                for res in (got, want)))
+            print("e2e mesh %-12s %-30s wall %.1f ms (median of 3) against "
+                  "%.1f ms on one device | gather %.1f h2d %.1f kernels %.1f "
+                  "extract %.1f ms | bitwise %s | combine %.4f ms"
+                  % (arm, m, mwall, wall, st["gatherMs"], st["h2dMs"],
+                     st["kernelsMs"], st["extractMs"], bitwise,
+                     combine["ms"]))
+    # (b) and (c) through /api/query on each meshed TSDB's daemon
+    for arm, other in arms:
+        with Serving(other) as server:
+            for m in MESH_QUERIES:
+                path = "/api/query?start=%d&end=%d&m=%s" % (
+                    START // 1000, END // 1000,
+                    m.replace("{", "%7B").replace("}", "%7D"))
+                t0 = time.perf_counter()
+                status, _, body = _http_get(server.port, path)
+                wall = (time.perf_counter() - t0) * 1e3
+                if status != 200:
+                    checks.failures.append("mesh HTTP %s %s: %d"
+                                           % (arm, m, status))
+                    continue
+                _same_json(checks, "mesh http %s %s" % (arm, m),
+                           json.loads(body),
+                           [r.to_json() for r in singles[m]])
+                print("e2e mesh http %-12s %-30s wall %.1f ms, %d bytes"
+                      % (arm, m, wall, len(body)))
+    # (d) one streamed query on the mesh: the cache detached, the default
+    # threshold
+    mtsdb = _mesh_tsdb(tsdb, virtual, **{key: DEFAULTS[key]})
+    mtsdb.device_cache = None
+    m = MESH_QUERIES[0]
+    got, wall, st = _timed_run(mtsdb, m)
+    _same_answer(checks, "mesh (d) streamed " + m, got, singles[m],
+                 exact=False)
+    print("e2e mesh (d) streamed %-30s wall %.1f ms (median of 3) | %d "
+          "chunks, %s devices | pack %.1f h2d %.1f fold %.1f ms"
+          % (m, wall, st.get("streamedChunks", 0), st.get("meshDevices"),
+             st.get("streamPackMs", 0.0), st.get("streamH2dMs", 0.0),
+             st.get("streamFoldMs", 0.0)))
+    if st.get("meshDevices") != float(MESH_SHARDS) \
+            or not st.get("streamedChunks"):
+        checks.failures.append("mesh (d): the query did not stream on the "
+                               "mesh")
+    del mtsdb, ntsdb, arms
+    torch.cuda.empty_cache()
+    # (e) the rollup job on the one-device NCCL mesh, on a (2, 2) mesh (and
+    # on four distinct cards, where there are) against the one-card job
+    # with no mesh (one L1 launch a batch)
+    meshes = [None, one, make_mesh(devices=[dev] * 4, shape=(2, 2))]
+    if cards >= 4:
+        meshes.append(make_mesh(devices=host_major_devices()[:4],
+                                shape=(2, 2)))
+    cells = []
+    for mesh in meshes:
+        rtsdb = _rollup_tsdb(dev, ts, val, h)
+        if mesh is None:
+            rtsdb.config.override_config("tsd.query.mesh.enable", "false")
+        t0 = time.perf_counter()
+        written = run_rollup_job(rtsdb, intervals=["1h"], mesh=mesh)
+        print("e2e mesh (e) rollup job 1h on %s: %d cells a lane in %.3f s"
+              % ("one card, no mesh" if mesh is None
+                 else "a %s mesh on %s (%s)"
+                 % (mesh.shape, ", ".join(sorted({str(d)
+                                                  for d in mesh.devices})),
+                    mesh.backend), written["1h"], time.perf_counter() - t0))
+        cells.append({(lane, rtsdb.tsuid(s.key)): s.arrays()
+                      for lane in ("sum", "count", "min", "max")
+                      for s in rtsdb.rollup_store.lane("1h",
+                                                       lane).all_series()})
+        del rtsdb
+    for other in cells[1:]:
+        if sorted(cells[0]) != sorted(other) or not cells[0]:
+            checks.failures.append("mesh (e): the lanes hold other series")
+            continue
+        for exact, lanes in ((True, ("count", "min", "max")),
+                             (False, ("sum",))):
+            keys = sorted(k for k in cells[0] if k[0] in lanes)
+            got = [torch.from_numpy(other[k][i]).double() for k in keys
+                   for i in (0, 1)]
+            want = [torch.from_numpy(cells[0][k][i]).double() for k in keys
+                    for i in (0, 1)]
+            label = "mesh (e) rollup %s" % "/".join(lanes)
+            if exact:
+                checks.exact("e2e mesh", label, torch.cat(got),
+                             torch.cat(want), "cells")
+            else:
+                checks.values("e2e mesh", label, torch.cat(got),
+                              torch.cat(want))
+    launches = dict(kernels.LAUNCHES)
+    print("mesh launches %s" % json.dumps(launches))
+    for name in ("tile_partials", "tile_partials.square",
+                 "tile_partials.centred", "window_moments", "grid_fill_rate",
+                 "group_order", "stream_fold", "stream_finish",
+                 "lane_partials", "gather_windows"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the mesh "
+                                   "path" % name)
+    cfg.override_config(key, threshold)
+    cfg.override_config("tsd.query.mesh.enable", "true")
+    return launches
+
+
 def cost_constants(dev, times: dict, measured: dict) -> dict:
     """The `cuda` table of ops/costmodel.py from this run: per-point and
     per-cell kernel times at the headline batch, the host launch floor,
@@ -4315,6 +4660,11 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0,
                         help="mixed into the data of phases 11-13 (0: "
                         "bench_configs' own chunks)")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="build the kernels and run phase 18 alone on "
+                        "the headline TSDB (every visible card: with two "
+                        "or more it times their mesh against one card); "
+                        "prints no result line")
     # phase 16's clients run in a child process of their own
     parser.add_argument("--fleet-client", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -4342,6 +4692,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     checks = Checks()
     ts, val, gid, h = headline_batch()
+    if args.mesh_only:
+        tsdb, _ = headline_tsdb(dev, ts, val)
+        tsdb.new_query_runner().run(_query(MESH_QUERIES[0]))
+        t_phase = time.perf_counter()
+        mesh_kernel_phase(dev, ts, val, gid, h, checks)
+        mesh_phase(dev, tsdb, ts, val, h, checks)
+        print("phase 18 wall %.1f s" % (time.perf_counter() - t_phase))
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
     times = kernel_phase(dev, ts, val, gid, h, checks)
     torch.cuda.empty_cache()
     times.update(order_kernel_phase(dev, ts, val, gid, h, checks))
@@ -4388,6 +4749,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     hit_launches, hit_costs = cache_hit_phase(dev, tsdb, checks, times)
     print("phase 17 wall %.1f s" % (time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    times.update(mesh_kernel_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(dev, tsdb, ts, val, h, checks)
+    print("phase 18 wall %.1f s" % (time.perf_counter() - t_phase))
     del tsdb
     torch.cuda.empty_cache()
     rollup_launches, lane_costs, rtsdb = rollup_e2e_phase(dev, ts, val, h,
@@ -4414,13 +4781,14 @@ def main(argv=None) -> int:
                      **hit_costs})))
 
     # Each kernel's launches on the main path: the grouped, union, daemon,
-    # streamed, rollup, tiled, striped, fleet and cache-hit phases, their
-    # counts reset just before each.
+    # streamed, rollup, tiled, striped, fleet, cache-hit and mesh phases,
+    # their counts reset just before each.
     for name in launches:
         launches[name] += (union_launches[name] + daemon_launches[name]
                            + stream_launches[name] + rollup_launches[name]
                            + tiled_launches[name] + striped_launches[name]
-                           + fleet_launches[name] + hit_launches[name])
+                           + fleet_launches[name] + hit_launches[name]
+                           + mesh_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name.split(".")[0],

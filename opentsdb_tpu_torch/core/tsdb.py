@@ -1,4 +1,5 @@
-"""TSDB facade: write path, UID dictionaries, query entry — on one device.
+"""TSDB facade: write path, UID dictionaries, query entry — on one device
+or a mesh of devices.
 
 A slim port of opentsdb_tpu/core/tsdb.py (OpenTSDB TSDB.java :87 — the
 three UID dictionaries :297-302, ``addPoint`` :1051-1136 with timestamp/tag
@@ -17,7 +18,10 @@ closed by ``shutdown``.  With ``tsd.rollups.enable`` the TSDB takes
 written rollups (``add_aggregate_point``, TSDB.java:1359-1457)
 into its RollupStore; with ``tsd.rollup.enable`` the maintenance thread
 builds rollup lanes (storage/rollup.py) that hear of every write through
-the store's mutation listener.  The admission gate (tsd/admission.py)
+the store's mutation listener.  Grouped queries of at least
+``tsd.query.mesh.min_series`` series, and the rollup job, run over the
+device mesh (``query_mesh``, parallel/) when there is one.  The admission
+gate (tsd/admission.py)
 bounds the queries the daemon runs at once, and the dispatch batcher
 (query/batcher.py, ``tsd.query.batch.enable``) stacks concurrent small
 grouped queries into one launch of each kernel.  No WAL, no replication,
@@ -40,6 +44,7 @@ from opentsdb_tpu_torch.histogram import (HistogramCodecManager,
                                           HistogramStore, SimpleHistogram)
 from opentsdb_tpu_torch.obs.latattr import LatencyAttribution
 from opentsdb_tpu_torch.ops.aggregators import AGGREGATORS
+from opentsdb_tpu_torch.parallel.mesh import normalize_device
 from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.rollup import RollupConfig, RollupStore
 from opentsdb_tpu_torch.storage.agg_cache import AggregateCache
@@ -52,6 +57,7 @@ from opentsdb_tpu_torch.uid import UniqueId, UniqueIdType
 from opentsdb_tpu_torch.utils.config import Config, refuse_unported
 
 SECOND_MASK = 0xFFFFFFFF00000000  # Const.java:19 — set bits mean milliseconds
+_UNSET = object()
 
 
 def normalize_timestamp_ms(timestamp: int | float) -> int:
@@ -102,10 +108,19 @@ def parse_value(value) -> tuple[bool, int | float]:
 class TSDB:
     """The top-level handle: storage + UID dictionaries + write/query APIs."""
 
-    def __init__(self, config: Config | None = None, device=None):
+    def __init__(self, config: Config | None = None, device=None,
+                 mesh=None):
         self.config = config or Config()
         refuse_unported(self.config)
         self.device = resolve_device(device)
+        # an explicit device mesh (parallel/mesh.py) whose owner is this
+        # device; without one, query_mesh builds the default
+        if mesh is not None and normalize_device(mesh.owner) \
+                != normalize_device(self.device):
+            raise ValueError("the mesh's owner %s is not the TSDB's device "
+                             "%s" % (mesh.owner, self.device))
+        self._mesh = mesh
+        self._default_mesh = _UNSET
         self.metrics = UniqueId(
             UniqueIdType.METRIC,
             width=self.config.get_int("tsd.storage.uid.width.metric"),
@@ -485,6 +500,30 @@ class TSDB:
         from opentsdb_tpu_torch.query.planner import QueryRunner
         return QueryRunner(self)
 
+    def query_mesh(self):
+        """The device mesh serving grouped queries and the rollup job, or
+        None (the reference's :947-965): None with
+        ``tsd.query.mesh.enable`` off; the mesh given to the TSDB, if any;
+        else one over every visible CUDA device with this TSDB's first
+        (None with fewer than two, and on the CPU).  The reference takes
+        its mesh from the visible devices only; its tests get a mesh on
+        one host from virtual devices, the port's from ``mesh=``."""
+        if not self.config.get_bool("tsd.query.mesh.enable"):
+            return None
+        if self._mesh is not None:
+            return self._mesh
+        if self._default_mesh is _UNSET:
+            from opentsdb_tpu_torch.parallel import make_mesh
+            from opentsdb_tpu_torch.parallel.distributed import (
+                host_major_devices)
+            own = normalize_device(self.device)
+            devices = ([d for d in host_major_devices() if d == own]
+                       + [d for d in host_major_devices() if d != own]
+                       if own.type == "cuda" else [])
+            self._default_mesh = (make_mesh(devices=devices)
+                                  if len(devices) > 1 else None)
+        return self._default_mesh
+
     # -- UID admin ------------------------------------------------------- #
 
     def uid_table(self, kind: str) -> UniqueId:
@@ -495,7 +534,7 @@ class TSDB:
 
 
 def load_state(uid_maps: dict, series, config: Config | None = None,
-               device=None, histograms=()) -> TSDB:
+               device=None, histograms=(), mesh=None) -> TSDB:
     """A TSDB holding the given state under the same UIDs.
 
     `uid_maps` is {kind: {name: uid}} for the kinds "metric", "tagk" and
@@ -507,7 +546,7 @@ def load_state(uid_maps: dict, series, config: Config | None = None,
     them), and needs `config` to configure histograms.  TSUIDs of the new
     TSDB match the source's.
     """
-    tsdb = TSDB(config, device=device)
+    tsdb = TSDB(config, device=device, mesh=mesh)
     for kind, mapping in uid_maps.items():
         tsdb.uid_table(kind).restore(mapping)
 

@@ -15,7 +15,9 @@ stripe replays.  ``coalesce_worthwhile`` (:682) is the batched arm's
 verdict (query/plandecision.py): a plan whose predicted compute and
 stack/unpack traffic stay within ``tsd.query.batch.amortize_factor`` x the
 stacked-dispatch floor is dispatch-bound and goes through the dispatch
-batcher.  The reference's mode-selection half has no counterpart: the
+batcher.  ``per_chip`` is the share of a plan's rows, bytes or cells that
+one device of the mesh holds: the routing verdict's budgets and
+admission's out-of-core pricing read it under the mesh.  The reference's mode-selection half has no counterpart: the
 port has one kernel per function.
 
 The one table, ``CUDA_COSTS``, holds constants measured on an NVIDIA
@@ -85,6 +87,13 @@ def features_tiled(spill_bytes: int, n_stripes: int) -> dict[str, float]:
     mb = spill_bytes / 2.0 ** 20
     return {"spill_write_mb": mb, "spill_read_mb": mb,
             "tile_dispatch": float(n_stripes)}
+
+
+def per_chip(amount: int, n_chips: int) -> int:
+    """One chip's share of `amount` (rows, cells or bytes) when a mesh of
+    `n_chips` devices shards the rows (the reference's ``// n_chips``,
+    plandecision.py:128-147)."""
+    return amount // max(n_chips, 1)
 
 
 def predict_tiled(spill_bytes: int, n_stripes: int) -> float:

@@ -23,7 +23,9 @@ that adds to it.  A launch of K1, K4 or K2 over a stacked batch of more
 than one member (the dispatch batcher's, B14) is counted under its name
 and again under ``<name>.stacked``; a launch of G1, K1 or K4 over int32
 timestamp offsets (B10, the device cache's re-based hit) under its name
-and again under ``<name>.i32``.
+and again under ``<name>.i32``; a launch of T1 in its square or centred
+mode (the mesh's squareSum and dev partials, B15) under its name and
+again under ``tile_partials.square`` or ``tile_partials.centred``.
 """
 
 from __future__ import annotations
@@ -119,22 +121,25 @@ SIGNATURES: dict[str, tuple] = {
     # fill_mode, fill_value, out, out_mask, stream
     "stream_finish": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _F64,
                       _I32, _F64, _P, _P, _P),
-    # contrib, participate, present, offsets, g, w, extreme, cnt, pres, tot,
-    # lo, hi, stream
-    "tile_partials": (_P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P, _P,
-                      _P),
+    # contrib, participate, present, offsets, mean, g, w, mode, cnt, pres,
+    # tot, lo, hi, sq, stream (mode: 0 additive, 1 extreme, 2 square,
+    # 3 centred)
+    "tile_partials": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
+                      _P, _P, _P),
 }
 
-# The kernels with a member-strided (stacked) form, and those with a form
-# over int32 timestamp offsets.
+# The kernels with a member-strided (stacked) form, those with a form
+# over int32 timestamp offsets, and the modes counted on their own.
 STACKED = ("window_moments", "window_order", "grid_fill_rate")
 I32 = ("gather_windows", "window_moments", "window_order")
+MODES = ("tile_partials.square", "tile_partials.centred")
 
-# Launch counts per kernel, and per stacked and int32 form, bumped only by
-# launch().
+# Launch counts per kernel, and per stacked and int32 form and counted
+# mode, bumped only by launch().
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
 LAUNCHES.update({name + ".stacked": 0 for name in STACKED})
 LAUNCHES.update({name + ".i32": 0 for name in I32})
+LAUNCHES.update({name: 0 for name in MODES})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -244,12 +249,14 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def launch(name: str, device: torch.device, *args,
-           stacked: bool = False, i32: bool = False) -> None:
+           stacked: bool = False, i32: bool = False,
+           mode: str | None = None) -> None:
     """Launch kernel `name` on the current stream of `device` with the
     C arguments `args` (the stream is appended); count it, and under
     ``<name>.stacked`` too when `stacked` (a batch of several members),
-    under ``<name>.i32`` when `i32` (int32 timestamp offsets); raise on a
-    CUDA error from the launch."""
+    under ``<name>.i32`` when `i32` (int32 timestamp offsets), under
+    ``<name>.<mode>`` when that is one of MODES; raise on a CUDA error
+    from the launch."""
     lib = library(name)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -263,3 +270,5 @@ def launch(name: str, device: torch.device, *args,
         LAUNCHES[name + ".stacked"] += 1
     if i32:
         LAUNCHES[name + ".i32"] += 1
+    if mode is not None and name + "." + mode in LAUNCHES:
+        LAUNCHES[name + "." + mode] += 1

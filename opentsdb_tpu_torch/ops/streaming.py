@@ -763,14 +763,17 @@ _PAD_TS = 2 ** 63 - 1
 
 def stream_grid(series_list, start_ms: int, end_ms: int, fix: bool, windows,
                 device, step, sketch: bool, chunk_points: int,
-                max_len: int | None = None):
+                max_len: int | None = None, mesh=None):
     """The finished [S, W] downsample grid of `series_list` over [start_ms,
-    end_ms], streamed -> ((wts[W], v[S, W], m[S, W]), info).
+    end_ms], streamed -> ((wts[W], v[S, W], m[S, W]), info); with `mesh`,
+    each row shard's grid (a list of (wts, v, m), the mesh's
+    ShardedStreamAccumulator.finish) in place of the one grid.
 
     Bounded [S, n_chunk] chunks are copied out of the store
     (Series.window_chunk, a timestamp cursor a series) into a ChunkFeed's
     pinned buffers, copied to the device while the previous chunk folds,
-    folded into a StreamAccumulator (S2, S1) and finished (S3) by `step`
+    folded into a StreamAccumulator (S2, S1; one a row shard of `mesh`,
+    parallel/sharded.py) and finished (S3) by `step`
     (function, fill_policy, fill_value).  The streamed route and each
     tile of a tiled plan run this loop.  `max_len` is the longest row's
     point count, counted here when not given.  `info` holds the chunk
@@ -786,6 +789,16 @@ def stream_grid(series_list, start_ms: int, end_ms: int, fix: bool, windows,
     n_chunks = -(-max_len // n_chunk)
     use_slice = isinstance(windows, FixedWindows)
     feed = ChunkFeed(device, s, n_chunk)
+
+    def make_acc(wslice):
+        if mesh is not None:
+            from opentsdb_tpu_torch.parallel.sharded import (
+                ShardedStreamAccumulator)
+            return ShardedStreamAccumulator(mesh, s, windows, sketch=sketch,
+                                            lanes=lanes, window_slice=wslice)
+        return StreamAccumulator.create(s, windows, device, sketch=sketch,
+                                        lanes=lanes, window_slice=wslice)
+
     acc = None
     cursors: list = [None] * s
     for _ in range(n_chunks):
@@ -815,8 +828,7 @@ def stream_grid(series_list, start_ms: int, end_ms: int, fix: bool, windows,
                 # their own cursors, so later spans vary; a chunk that
                 # still overflows takes the full-grid fold
                 wslice = 2 * ((tmax - tmin) // windows.interval_ms + 2)
-            acc = StreamAccumulator.create(s, windows, device, sketch=sketch,
-                                           lanes=lanes, window_slice=wslice)
+            acc = make_acc(wslice)
         w0 = None
         if acc.window_slice is not None and \
                 (tmax - tmin) // windows.interval_ms + 2 <= acc.window_slice:
@@ -825,8 +837,7 @@ def stream_grid(series_list, start_ms: int, end_ms: int, fix: bool, windows,
         acc.update(d_ts, d_val, d_mask, w0=w0)
         feed.folded()
     if acc is None:     # no chunk held a point: an empty state
-        acc = StreamAccumulator.create(s, windows, device, sketch=sketch,
-                                       lanes=lanes)
+        acc = make_acc(None)
     oob = acc.oob_count()
     h2d_ms, fold_ms = feed.timings()
     if oob:

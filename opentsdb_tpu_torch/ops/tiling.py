@@ -32,7 +32,9 @@ The striped lane serve folds the aggregators of ``LANE_FOLDABLE``
 instead of replaying them: ``run_lane_fold`` runs K2 on a tile, then T1
 (csrc/tile_partials.cu) adds the tile's rows into [G, W] partial moments
 held on the device, which ``finish_lane_fold`` turns into
-moment_group_reduce's answer.
+moment_group_reduce's answer.  T1's square and centred modes (squareSum's
+sum of squares, dev's second pass around a given mean) serve the mesh's
+per-shard partials (parallel/sharded.py).
 
 Deliberate differences: refusals are tallies on the TSDB
 (``tiled_refusals``), not prometheus counters; no admission or explain
@@ -75,6 +77,12 @@ STRIPE_CELL_BYTES = 24
 LANE_FOLDABLE = frozenset({"sum", "zimsum", "count", "avg",
                            "min", "mimmin", "max", "mimmax"})
 _EXTREME = frozenset({"min", "mimmin", "max", "mimmax"})
+# T1's modes, in the order of its `enum Mode`, and each one's lanes.
+FOLD_MODES = ("additive", "extreme", "square", "centred")
+FOLD_LANES = {"additive": ("cnt", "present", "tot"),
+              "extreme": ("cnt", "present", "lo", "hi"),
+              "square": ("cnt", "present", "sq"),
+              "centred": ("m2",)}
 
 
 @dataclass(frozen=True)
@@ -163,72 +171,99 @@ def tile_contrib(spec, wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor):
     return grid_fill_rate(wts, v, m, policy, spec.rate)
 
 
-def new_lane_fold(num_groups: int, w: int, extreme: bool, device) -> dict:
-    """Zeroed [G, W] partial moments for run_lane_fold: cnt and present
-    (int64), and tot (additive) or lo and hi (extreme)."""
+def new_lane_fold(num_groups: int, w: int, mode: str, device) -> dict:
+    """Zeroed [G, W] partial moments for T1 in `mode` (FOLD_MODES): cnt
+    and present (int64) with tot (additive), lo and hi (extreme) or sq
+    (square); m2 alone (centred, dev's second pass)."""
+    if mode not in FOLD_MODES:
+        raise ValueError("a lane fold is one of %s, not %r"
+                         % (", ".join(FOLD_MODES), mode))
+
     def full(value, dtype):
         return torch.full((num_groups, w), value, dtype=dtype, device=device)
 
+    if mode == "centred":
+        return {"m2": full(0.0, torch.float64)}
     acc = {"cnt": full(0, torch.int64), "present": full(0, torch.int64)}
-    if extreme:
+    if mode == "extreme":
         acc["lo"] = full(math.inf, torch.float64)
         acc["hi"] = full(-math.inf, torch.float64)
+    elif mode == "square":
+        acc["sq"] = full(0.0, torch.float64)
     else:
         acc["tot"] = full(0.0, torch.float64)
     return acc
 
 
+def fold_mode(acc: dict) -> str:
+    """The T1 mode of a new_lane_fold accumulator, by its lanes."""
+    if "m2" in acc:
+        return "centred"
+    if "lo" in acc:
+        return "extreme"
+    return "square" if "sq" in acc else "additive"
+
+
 # shape: contrib[S,W] f64, participate[S,W] bool, present[S,W] bool,
-# shape: offsets[G+1] i64 -> None (acc [G,W] updated in place)
+# shape: offsets[G+1] i64, mean[G,W] f64|None -> None (acc [G,W] in place)
 def tile_partials(contrib: torch.Tensor, participate: torch.Tensor,
                   present: torch.Tensor, offsets: torch.Tensor,
-                  acc: dict) -> None:
+                  acc: dict, mean: torch.Tensor | None = None) -> None:
     """T1: add one tile's rows into the partial moments `acc`
-    (new_lane_fold) in place.  Group g is rows [offsets[g],
-    offsets[g+1]) of the tile.  Per (group, window): cnt counts the
-    participating non-NaN cells, tot adds them (lo and hi take their
-    extremes), present counts the cells that hold a real value."""
+    (new_lane_fold) in place, in the accumulator's mode.  Group g is rows
+    [offsets[g], offsets[g+1]) of the tile.  Per (group, window), over
+    the participating non-NaN cells: cnt counts them, tot adds them, lo
+    and hi take their extremes, sq adds their squares, m2 their squared
+    distances from the cell's `mean` (the centred mode, which takes it);
+    present counts the cells that hold a real value."""
     s, w = contrib.shape
     g = offsets.numel() - 1
+    mode = fold_mode(acc)
+    lanes = [acc[k] for k in FOLD_LANES[mode]]
     if participate.shape != (s, w) or present.shape != (s, w) \
-            or acc["cnt"].shape != (g, w):
+            or any(x.shape != (g, w) for x in lanes) \
+            or (mode == "centred") != (mean is not None) \
+            or (mean is not None and mean.shape != (g, w)):
         raise ValueError("tile_partials takes [S, W] grids, offsets[G + 1] "
-                         "and [G, W] accumulators")
-    extreme = "lo" in acc
-    f64_lanes = ("lo", "hi") if extreme else ("tot",)
+                         "and [G, W] accumulators, and a [G, W] mean in "
+                         "the centred mode only")
     if contrib.dtype != torch.float64 \
             or participate.dtype != torch.bool \
             or present.dtype != torch.bool \
             or offsets.dtype != torch.int64 \
-            or acc["cnt"].dtype != torch.int64 \
-            or acc["present"].dtype != torch.int64 \
-            or any(acc[k].dtype != torch.float64 for k in f64_lanes):
+            or any(x.dtype != (torch.int64 if k in ("cnt", "present")
+                               else torch.float64)
+                   for k, x in zip(FOLD_LANES[mode], lanes)) \
+            or (mean is not None and mean.dtype != torch.float64):
         raise ValueError("tile_partials takes contrib f64, participate and "
                          "present bool, offsets int64, cnt and present "
-                         "int64 and %s f64" % "/".join(f64_lanes))
+                         "int64 and the other lanes and the mean f64")
     if contrib.device.type == "cpu":
-        tile_partials_plain(contrib, participate, present, offsets, acc)
+        tile_partials_plain(contrib, participate, present, offsets, acc,
+                            mean)
         return
-    lanes = [acc["cnt"], acc["present"]] + (
-        [acc["lo"], acc["hi"]] if extreme else [acc["tot"]])
+    extra = [] if mean is None else [mean]
     dev = kernels.require_cuda(contrib, participate, present, offsets,
-                               *lanes)
+                               *lanes, *extra)
     if g == 0 or w == 0:
         return
-    tot = acc["lo"] if extreme else acc["tot"]
-    lo = acc["lo"] if extreme else acc["tot"]
-    hi = acc["hi"] if extreme else acc["tot"]
+
+    def lane(key):
+        return kernels.ptr(acc[key]) if key in acc else None
+
     kernels.launch(
         "tile_partials", dev, kernels.ptr(contrib), kernels.ptr(participate),
-        kernels.ptr(present), kernels.ptr(offsets), g, w, int(extreme),
-        kernels.ptr(acc["cnt"]), kernels.ptr(acc["present"]),
-        kernels.ptr(tot), kernels.ptr(lo), kernels.ptr(hi))
+        kernels.ptr(present), kernels.ptr(offsets),
+        None if mean is None else kernels.ptr(mean), g, w,
+        FOLD_MODES.index(mode), lane("cnt"), lane("present"), lane("tot"),
+        lane("lo"), lane("hi"), lane("m2" if mode == "centred" else "sq"),
+        mode=mode)
 
 
 def tile_partials_plain(contrib, participate, present, offsets,
-                        acc: dict) -> None:
+                        acc: dict, mean: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of T1: index_add_ and scatter_reduce_ of the
-    tile's member rows onto the accumulators, row by row."""
+    tile's member rows onto the accumulators."""
     dev = contrib.device
     g = offsets.numel() - 1
     lo_row, hi_row = int(offsets[0]), int(offsets[-1])
@@ -236,6 +271,10 @@ def tile_partials_plain(contrib, participate, present, offsets,
     rows = torch.repeat_interleave(torch.arange(g, device=dev), sizes)
     x = contrib[lo_row:hi_row]
     ok = participate[lo_row:hi_row] & ~torch.isnan(x)
+    if "m2" in acc:
+        c = torch.where(ok, x - mean[rows], 0.0)
+        acc["m2"].index_add_(0, rows, c * c)
+        return
     acc["cnt"].index_add_(0, rows, ok.to(torch.int64))
     acc["present"].index_add_(0, rows,
                               present[lo_row:hi_row].to(torch.int64))
@@ -245,8 +284,12 @@ def tile_partials_plain(contrib, participate, present, offsets,
                                   "amin", include_self=True)
         acc["hi"].scatter_reduce_(0, idx, torch.where(ok, x, -math.inf),
                                   "amax", include_self=True)
+        return
+    v = torch.where(ok, x, 0.0)
+    if "sq" in acc:
+        acc["sq"].index_add_(0, rows, v * v)
     else:
-        acc["tot"].index_add_(0, rows, torch.where(ok, x, 0.0))
+        acc["tot"].index_add_(0, rows, v)
 
 
 # shape: wts[W] i64, v[S,W] f64, m[S,W] bool, offsets[G+1] i64 -> None
@@ -258,11 +301,13 @@ def run_lane_fold(spec, acc: dict, wts: torch.Tensor, v: torch.Tensor,
     tile_partials(contrib, participate, actual, offsets, acc)
 
 
-def finish_lane_fold(acc: dict, agg_name: str):
+def finish_lane_fold(acc: dict, agg_name: str, m2: torch.Tensor | None = None):
     """(out[G, W] f64, out_mask[G, W] bool) from folded partial moments:
-    moment_group_reduce's arithmetic (avg is tot / max(cnt, 1); every
-    answer but count is NaN where cnt is 0), the mask where some member
-    held a real value."""
+    moment_group_reduce's arithmetic and K3's finish (avg is tot /
+    max(cnt, 1); squareSum the sum of squares; dev sqrt(m2 / (cnt - 1))
+    from the centred pass's `m2` where cnt >= 2, else 0; every answer but
+    count is NaN where cnt is 0), the mask where some member held a real
+    value."""
     cnt = acc["cnt"]
     if agg_name in ("min", "mimmin"):
         out = acc["lo"]
@@ -272,6 +317,11 @@ def finish_lane_fold(acc: dict, agg_name: str):
         out = cnt.to(torch.float64)
     elif agg_name == "avg":
         out = acc["tot"] / cnt.clamp(min=1).to(torch.float64)
+    elif agg_name == "squareSum":
+        out = acc["sq"]
+    elif agg_name == "dev":
+        out = torch.where(cnt >= 2, torch.sqrt(
+            m2 / (cnt - 1).clamp(min=1).to(torch.float64)), 0.0)
     else:
         out = acc["tot"]
     if agg_name != "count":
@@ -279,8 +329,11 @@ def finish_lane_fold(acc: dict, agg_name: str):
     return out, acc["present"] > 0
 
 
-def is_extreme(agg_name: str) -> bool:
-    return agg_name in _EXTREME
+def lane_mode(agg_name: str) -> str:
+    """The T1 mode whose lanes finish `agg_name` (dev: its first pass)."""
+    if agg_name in _EXTREME:
+        return "extreme"
+    return "square" if agg_name == "squareSum" else "additive"
 
 
 # -- the executor -----------------------------------------------------------

@@ -7,27 +7,31 @@ takes a ``RouteContext`` snapshot of the segment and a consults provider
 comes with it, slice 8c) and returns a ``PlanDecision``: its path, in the
 reference's order of arms (rollup lane, then tiled or refused over the
 budget, the aggregate cache's rewrite, batched, the device cache,
-streamed, rollup_avg, resident), and a fingerprint over the discrete
-routing facts (``_finish``, ``_fingerprint``).  The aggregate cache
+streamed, rollup_avg, mesh, resident), and a fingerprint over the
+discrete routing facts (``_finish``, ``_fingerprint``).  A segment of at
+least ``tsd.query.mesh.min_series`` series on a TSDB with a device mesh
+(``RouteContext.use_mesh``) keeps the rollup lanes, the aggregate cache
+and the batched arm off and takes the ``mesh`` path, or streams over the
+mesh; its budgets are per chip (:128-147).  The aggregate cache
 (storage/agg_cache.py) is consulted before the batched arm is priced
 (:311-324): a warm rewrite skips the batch build and the gather too; a
 movingAverage<N> downsample is not consulted, since its pieces would
 each restart the average (the reference consults it, and answers a
 repeat differently with the cache on).  A
 device-cache consult passes the context's ``ts_base``, so a hit's batch
-comes as int32 offsets.  Differences: there is no mesh (slice 9) and no
-host lane (every plan is answered on the card), so the context carries
-neither and the fingerprint's ``mesh`` and ``hostSmall`` are always
-false; the port has one kernel per function and no modes, so the
-fingerprint has no ``modes`` field and its ``calibration`` reads
-"default".
+comes as int32 offsets.  Differences: there is no host lane (every plan
+is answered on the card), so the context carries none and the
+fingerprint's ``hostSmall`` is always false; the port has one kernel per
+function and no modes, so the fingerprint has no ``modes`` field and its
+``calibration`` reads "default".
 
 The budget verdicts:
 
 * ``acc_cell_bytes`` (:117): streaming-state bytes a (series, window) cell.
 * ``grid_budget_for`` and ``streaming_budget_for``: the materialized
-  grid's and the streaming state's decisions; a plan is held to the
-  streaming budget when it streams, else to the grid budget (:255-259).
+  grid's and the streaming state's decisions, per chip under the mesh
+  (costmodel.per_chip); a plan is held to the streaming budget when it
+  streams, else to the grid budget (:255-259).
 * ``size_lane_stripes`` (:152): the striped serve of a rollup-lane plan
   whose grid is over the budget.
 
@@ -77,6 +81,9 @@ class RouteContext:
     batch_factor: float = 0.0
     # the int32 base of a device-cache hit (ops.downsample.precompact_base)
     ts_base: int | None = None
+    # the segment runs over the device mesh, of n_chips devices
+    use_mesh: bool = False
+    n_chips: int = 1
 
 
 @dataclass
@@ -103,22 +110,24 @@ def acc_cell_bytes(ds_fn: str | None, sketchable: bool) -> int:
         + (4 * SKETCH_K if sketchable else 0)
 
 
-def grid_budget_for(state_mb: int, s: int, wp: int,
-                    seg_kind: str) -> GridBudgetDecision:
+def grid_budget_for(state_mb: int, s: int, wp: int, seg_kind: str,
+                    n_chips: int = 1) -> GridBudgetDecision:
     """The materialized grid's decision: three grid lanes live through a
-    dispatch, and a rollup-avg read carries a second grid, its count
-    lane's."""
+    dispatch, per chip when the mesh shards the rows, and a rollup-avg
+    read (never sharded) carries a second grid, its count lane's."""
     lanes = 2 if seg_kind == "rollup_avg" else 1
-    return grid_budget("grid", state_mb, s * wp * GRID_CELL_BYTES * lanes,
-                       s, wp)
+    chips = 1 if seg_kind == "rollup_avg" else n_chips
+    return grid_budget("grid", state_mb, cm.per_chip(
+        s * wp * GRID_CELL_BYTES * lanes, chips), s, wp)
 
 
 def streaming_budget_for(state_mb: int, s: int, wp: int, ds_fn: str | None,
-                         sketchable: bool) -> GridBudgetDecision:
-    """The streaming accumulator's decision."""
-    return grid_budget("streaming", state_mb,
-                       s * wp * acc_cell_bytes(ds_fn, sketchable), s, wp,
-                       sketch=sketchable)
+                         sketchable: bool,
+                         n_chips: int = 1) -> GridBudgetDecision:
+    """The streaming accumulator's decision, per chip under the mesh."""
+    return grid_budget("streaming", state_mb, cm.per_chip(
+        s * wp * acc_cell_bytes(ds_fn, sketchable), n_chips), s, wp,
+        sketch=sketchable)
 
 
 def size_lane_stripes(tsdb, plan, s: int, wp: int, g_pad: int,
@@ -155,9 +164,10 @@ def _fingerprint(fields: dict) -> str:
 
 
 def _finish(pd: PlanDecision, ctx: RouteContext) -> PlanDecision:
-    """The fingerprint of a decision, refused or served (:194).  The port
-    has no mesh, no host lane, no modes and one cost table: ``mesh`` and
-    ``hostSmall`` are false, there is no ``modes`` field, and the
+    """The fingerprint of a decision, refused or served (:194): ``mesh``
+    is the context's use of the mesh, whatever the path, as in the
+    reference.  The port has no host lane, no modes and one cost table:
+    ``hostSmall`` is false, there is no ``modes`` field, and the
     ``calibration`` is "default"."""
     fields = {
         "path": pd.path,
@@ -169,7 +179,7 @@ def _finish(pd: PlanDecision, ctx: RouteContext) -> PlanDecision:
         "s": ctx.s, "n": pd.n_pad, "w": ctx.wp,
         "g": pd.g_dec, "gPad": ctx.g_pad,
         "stream": pd.would_stream,
-        "mesh": False,
+        "mesh": ctx.use_mesh,
         "hostSmall": False,
         "deviceCache": bool(pd.cached),
         "calibration": "default",
@@ -208,17 +218,18 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
     """
     would_stream = (ctx.stream_ok
                     and ctx.total_points > ctx.point_threshold)
-    grid_gbd = grid_budget_for(ctx.state_mb, ctx.s, ctx.wp, ctx.seg_kind)
+    grid_gbd = grid_budget_for(ctx.state_mb, ctx.s, ctx.wp, ctx.seg_kind,
+                               ctx.n_chips)
     gbd = (streaming_budget_for(ctx.state_mb, ctx.s, ctx.wp, ctx.ds_fn,
-                                ctx.sketchable)
+                                ctx.sketchable, ctx.n_chips)
            if would_stream else grid_gbd)
 
     # the rollup lanes first: a plan over the budget is striped, or takes
-    # the exact path counted a miss
+    # the exact path counted a miss; a meshed plan never reads them
     lane_plan = None
     if (getattr(tsdb, "rollup_lanes", None) is not None
             and ctx.seg_kind == "raw" and ctx.store_is_raw
-            and ctx.s > 0 and ctx.windows_fixed):
+            and not ctx.use_mesh and ctx.s > 0 and ctx.windows_fixed):
         lane_plan = consults.rollup_plan()
         if lane_plan is not None:
             lane_gbd = grid_budget("grid", ctx.state_mb,
@@ -252,11 +263,13 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
     # batched arm and the device cache: a warm rewrite skips the batch
     # build and the gather.  A movingAverage<N> downsample is never
     # rewritten: a piece's average would restart without the N - 1
-    # windows before it (the reference consults it, and differs)
+    # windows before it (the reference consults it, and differs); nor is
+    # a meshed plan
     agg_plan = agg_note = None
     if (tiled_plan is None and lane_plan is None
             and getattr(tsdb, "agg_cache", None) is not None
-            and not would_stream and ctx.seg_kind == "raw"
+            and not would_stream and not ctx.use_mesh
+            and ctx.seg_kind == "raw"
             and ctx.store_is_raw and ctx.windows_fixed
             and ma_window(ctx.ds_fn or "") is None):
         agg_plan, agg_note = consults.agg_plan(ctx.platform)
@@ -267,11 +280,12 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
     # fused multi-query dispatch (query/batcher.py), priced before the
     # device cache's consult: a dispatch-bound plan goes through the
     # batcher, which stacks concurrent compatible plans into one launch
-    # of each kernel; a compute-bound plan dispatches now
+    # of each kernel; a compute-bound plan dispatches now; a meshed plan
+    # is never batched
     batched = False
     if (tiled_plan is None and lane_plan is None and agg_plan is None
-            and ctx.batch_ok
-            and not would_stream and ctx.seg_kind == "raw" and ctx.has_store
+            and ctx.batch_ok and not would_stream and not ctx.use_mesh
+            and ctx.seg_kind == "raw" and ctx.has_store
             and ctx.ds_fn is not None):
         compute_s = sum(cm.stage_breakdown(
             ctx.s, n_pad, ctx.wp, g_dec, ctx.ds_fn, ctx.has_rate).values())
@@ -303,6 +317,8 @@ def plan_decision(tsdb, ctx: RouteContext, consults) -> PlanDecision:
         path = "streamed"
     elif ctx.seg_kind == "rollup_avg":
         path = "rollup_avg"
+    elif ctx.use_mesh:
+        path = "mesh"
     else:
         path = "resident"
     pd = PlanDecision(

@@ -50,8 +50,14 @@ dispatch batcher (query/batcher.py), which stacks concurrent compatible
 plans into one launch of each kernel.  A device-cache hit on a fixed grid
 that spans less than 2^31 ms gathers its timestamps as int32 offsets from
 the first window (``precompact_base``; G1's, K1's and K4's int32 forms).
-One pure function, query/plandecision.py ``plan_decision``, picks among
-these routes, fed by ``_ExecConsults``.  Each sub query's points are
+A segment of at least ``tsd.query.mesh.min_series`` series on a TSDB
+with a device mesh (``TSDB.query_mesh``) runs over it (the mesh arm, the
+reference's :625-641): its rows split over the mesh's shards (a device
+cache hit's batch re-laid over them), each shard's K1 or K4, K2 and T1
+partials combined over the mesh (parallel/sharded.py); a streamed one
+folds each shard's rows on its device.  One pure function,
+query/plandecision.py ``plan_decision``, picks among these routes, fed by
+``_ExecConsults``.  Each sub query's points are
 charged to its scan budget (query/limits.py ``QueryBudget``, on the
 request's deadline inside the daemon) before any batch or chunk is
 built.
@@ -97,8 +103,11 @@ from opentsdb_tpu_torch.ops.pipeline import (
 from opentsdb_tpu_torch.ops.streaming import (
     STREAMABLE_DS, is_sketch_ds, pad_pow2, stream_grid)
 from opentsdb_tpu_torch.ops.tiling import (
-    LANE_FOLDABLE, count_refusal, finish_lane_fold, is_extreme,
+    LANE_FOLDABLE, count_refusal, finish_lane_fold, lane_mode,
     new_lane_fold, plan_tiled, run_lane_fold, run_tiled)
+from opentsdb_tpu_torch.parallel.sharded import (
+    shard_bounds, shard_rows_device, sharded_grid_tail,
+    sharded_query_pipeline)
 from opentsdb_tpu_torch.query import plandecision as pdn
 from opentsdb_tpu_torch.query.limits import (QueryBudget, active_deadline,
                                              grid_budget)
@@ -510,6 +519,11 @@ class QueryRunner:
             self.exec_stats["sketchHazardExact"] = 1.0
         clock.mark("build")
 
+        # the device mesh serves a segment of at least min_series series
+        # (the reference's :453-459)
+        mesh = tsdb.query_mesh()
+        use_mesh = mesh is not None and len(series_list) >= \
+            tsdb.config.get_int("tsd.query.mesh.min_series")
         # sized as the reference sizes them: its padded window and group
         # counts, so that the two route and refuse the same plans
         batcher = tsdb.dispatch_batcher
@@ -531,7 +545,8 @@ class QueryRunner:
             batch_factor=tsdb.config.get_float(
                 "tsd.query.batch.amortize_factor"),
             ts_base=precompact_base(
-                windows, getattr(windows, "first_window_ms", None)))
+                windows, getattr(windows, "first_window_ms", None)),
+            use_mesh=use_mesh, n_chips=mesh.size if use_mesh else 1)
         pd = pdn.plan_decision(tsdb, ctx, _ExecConsults(
             self, ctx, spec, seg, windows, store, series_list, clock))
         self.decisions.append(pd)
@@ -584,11 +599,13 @@ class QueryRunner:
                 spec, *batches, gid, len(kept), edges)
             clock.mark("kernels")
         elif pd.path == "streamed":
+            if use_mesh:
+                self.exec_stats["meshDevices"] = float(mesh.size)
             out_ts, out_val, out_mask = self._stream_grouped(
                 spec, seg, series_list, n_max, gid, len(kept), windows,
-                sketchable, clock)
+                sketchable, clock, mesh if use_mesh else None)
         else:
-            # resident: the device cache's batch, or the host build
+            # resident or mesh: the device cache's batch, or the host build
             ts_base = None
             if pd.cached is not None:
                 self.exec_stats["deviceCacheHit"] = 1.0
@@ -597,12 +614,20 @@ class QueryRunner:
                     # re-based, inside the downsample
                     ts_base = ctx.ts_base
                     self.exec_stats["tsCompacted"] = 1.0
-            d_ts, d_val, d_mask = self._device_batch(
-                series_list, start_ms, end_ms, pd.cached, clock)
-            edges = windows.window_edges(dev)
+            on_mesh = pd.path == "mesh"
+            batch = self._device_batch(series_list, start_ms, end_ms,
+                                       pd.cached, clock,
+                                       mesh if on_mesh else None, gid)
+            edges = windows.window_edges(mesh.owner if on_mesh else dev)
             clock.mark("h2d")
-            out_ts, out_val, out_mask = run_group_pipeline(
-                spec, d_ts, d_val, d_mask, gid, len(kept), edges, ts_base)
+            if on_mesh:
+                # the reference's :625-641: the answer lands on the owner
+                self.exec_stats["meshDevices"] = float(mesh.size)
+                out_ts, out_val, out_mask = sharded_query_pipeline(
+                    mesh, spec, len(kept), batch, edges, ts_base)
+            else:
+                out_ts, out_val, out_mask = run_group_pipeline(
+                    spec, *batch, gid, len(kept), edges, ts_base)
             clock.mark("kernels")
         latattr.mark("dispatch")
         obs_trace.device_wait(psp, (out_ts, out_val, out_mask))
@@ -624,17 +649,22 @@ class QueryRunner:
         return results
 
     def _device_batch(self, series_list, lo_ms: int, hi_ms: int, cached,
-                      clock: "_PhaseClock"):
+                      clock: "_PhaseClock", mesh=None, gid=None):
         """The (ts, val, mask) batch of [lo_ms, hi_ms] on the device: the
         device cache's gather when it answered (`cached`), else the host
-        build, uploaded."""
-        if cached is not None:
+        build, uploaded; with a `mesh`, its rows split over the mesh's
+        shards (RowShards, a hit's batch re-laid: views on a shared
+        device) and each block uploaded to its shard's device."""
+        if cached is None:
+            ts, val, mask, _ = build_batch_direct(
+                series_list, lo_ms, hi_ms, self.tsdb.config.fix_duplicates)
+            clock.mark("build")
+            cached = tuple(torch.from_numpy(x) for x in (ts, val, mask))
+            if mesh is None:
+                return tuple(x.to(self.tsdb.device) for x in cached)
+        if mesh is None:
             return cached
-        ts, val, mask, _ = build_batch_direct(
-            series_list, lo_ms, hi_ms, self.tsdb.config.fix_duplicates)
-        clock.mark("build")
-        dev = self.tsdb.device
-        return tuple(torch.from_numpy(x).to(dev) for x in (ts, val, mask))
+        return shard_rows_device(mesh, *cached, gid)
 
     def _run_agg_rewrite(self, spec: PipelineSpec, plan, series_list, gid,
                          num_groups: int, windows: FixedWindows, budget,
@@ -772,7 +802,7 @@ class QueryRunner:
 
     def _stream_grouped(self, spec: PipelineSpec, seg: Segment, series_list,
                         max_len: int, gid, num_groups: int, windows,
-                        sketch: bool, clock: "_PhaseClock"):
+                        sketch: bool, clock: "_PhaseClock", mesh=None):
         """The streamed route (the reference's ``_stream_grouped``,
         :1228): the chunk loop of ops.streaming.stream_grid (bounded
         [S, n_chunk] chunks copied out of the store into pinned buffers,
@@ -780,24 +810,33 @@ class QueryRunner:
         and S1 and finished by S3), then the grid tail.  The [S, N] batch
         is never built; the host holds two chunks.  Like the reference's
         scan over live rows, the pass has no snapshot isolation: a write
-        landing mid-query may or may not be seen (SaltScanner.java:269)."""
-        (wts, v, m), _ = self._stream_grid(spec, seg, series_list, windows,
-                                           sketch, max_len)
+        landing mid-query may or may not be seen (SaltScanner.java:269).
+        With `mesh` (the reference's :1254-1310) each row shard's block of
+        a chunk folds on its shard's device and the tail is the mesh's
+        (parallel/sharded.py ShardedStreamAccumulator)."""
+        grid, _ = self._stream_grid(spec, seg, series_list, windows, sketch,
+                                    max_len, mesh)
         clock.mark("stream")
-        out = run_grid_tail(spec, wts, v, m, gid, num_groups)
+        if mesh is not None:
+            out = sharded_grid_tail(mesh, spec, num_groups, grid, gid,
+                                    shard_bounds(mesh, len(series_list)))
+        else:
+            out = run_grid_tail(spec, *grid, gid, num_groups)
         clock.mark("kernels")
         return out
 
     def _stream_grid(self, spec: PipelineSpec, seg: Segment, series_list,
-                     windows, sketch: bool, max_len: int | None = None):
+                     windows, sketch: bool, max_len: int | None = None,
+                     mesh=None):
         """The finished [S, W] grid of `series_list` through the chunk
-        loop, its chunk count and split added to exec_stats."""
+        loop (each row shard's, with `mesh`), its chunk count and split
+        added to exec_stats."""
         tsdb = self.tsdb
         grid, info = stream_grid(
             series_list, seg.start_ms, seg.end_ms,
             tsdb.config.fix_duplicates, windows, tsdb.device, spec.downsample,
             sketch, tsdb.config.get_int("tsd.query.streaming.chunk_points"),
-            max_len)
+            max_len, mesh)
         self._bump("streamedChunks", float(info["chunks"]))
         self._bump("streamHostBytes", float(info["hostBytes"]))
         self._bump("streamPackMs", info["packMs"])
@@ -926,7 +965,7 @@ class QueryRunner:
         wp = pad_pow2(w)
         fold_rows = (budget_bytes - 3 * g_pad * wp * 8) // (wp * 19)
         if agg in LANE_FOLDABLE and fold_rows >= 1:
-            acc = new_lane_fold(num_groups, w, is_extreme(agg), dev)
+            acc = new_lane_fold(num_groups, w, lane_mode(agg), dev)
             fold_rows = min(int(fold_rows), s)
             for t_lo in range(0, s, fold_rows):
                 t_hi = min(t_lo + fold_rows, s)

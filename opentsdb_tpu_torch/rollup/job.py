@@ -1,16 +1,17 @@
 """Offline rollup builder: raw store -> the sum, count, min and max lanes
-of each rollup interval, on one card.
+of each rollup interval, over the device mesh.
 
 Port of opentsdb_tpu/rollup/job.py, the batch form of feeding
 TSDB.addAggregatePoint from an external rollup pipeline (OpenTSDB
-src/core/TSDB.java:1359-1457).  The reference computes each batch's
-windows across a device mesh (parallel.sharded.sharded_rollup, queue B15,
-slice 9); the port computes the same sum, count, min and max of every
-(series, window) cell with L1 lane_partials (run_lane_partials) on the
-TSDB's device, an [S, N] batch of at most ``batch_series`` series at a
-time, and
-writes the four lanes as the reference does (job.py:72-88): a cell with
-no point in range writes nothing.
+src/core/TSDB.java:1359-1457).  L1 lane_partials computes the sum, count,
+min and max of each (series, window) cell of a batch of at most
+``batch_series`` series.  On a mesh (the one given, else the TSDB's query
+mesh) the batch is cut into (series, time) blocks (parallel/sharded.py
+``shard_series``), L1 runs on each block and the blocks combine over the
+time axis (``sharded_rollup``, the reference's psum / pmin / pmax); with
+no mesh, L1 runs once on the whole batch on the TSDB's device.  The four
+lanes are written as the reference writes them (job.py:72-88): a cell
+with no point in range writes nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from opentsdb_tpu_torch.ops.downsample import FixedWindows
 from opentsdb_tpu_torch.ops.pipeline import (build_batch_direct,
                                              run_lane_partials)
+from opentsdb_tpu_torch.parallel import shard_series, sharded_rollup
 
 
 def _data_range(all_series) -> tuple[int, int] | None:
@@ -35,10 +37,12 @@ def _data_range(all_series) -> tuple[int, int] | None:
 
 def run_rollup_job(tsdb, intervals: list[str] | None = None,
                    start_ms: int | None = None, end_ms: int | None = None,
-                   batch_series: int = 1024) -> dict[str, int]:
+                   mesh=None, batch_series: int = 1024) -> dict[str, int]:
     """Roll every raw series up into the given intervals (every configured
     interval but the default one when None) over [start_ms, end_ms] (the
-    data's range when None); returns the cells written per interval.
+    data's range when None) on `mesh` (the TSDB's query mesh when None;
+    with neither, on the TSDB's device alone); returns the cells written
+    per interval.
 
     Writes the sum, count, min and max lanes of each interval, so that any
     lane-served downsample function, and avg from sum and count, can be
@@ -56,7 +60,9 @@ def run_rollup_job(tsdb, intervals: list[str] | None = None,
         start_ms = found[0] if start_ms is None else start_ms
         end_ms = found[1] if end_ms is None else end_ms
 
-    dev = tsdb.device
+    if mesh is None:
+        mesh = tsdb.query_mesh()
+    dev = tsdb.device if mesh is None else mesh.owner
     lanes = tsdb.rollup_store
     written: dict[str, int] = {}
     for interval in intervals:
@@ -69,9 +75,17 @@ def run_rollup_job(tsdb, intervals: list[str] | None = None,
             chunk = all_series[base:base + batch_series]
             ts, val, mask, _ = build_batch_direct(chunk, start_ms, end_ms,
                                                   True)
-            tot, cnt, lo, hi = (x.cpu().numpy() for x in run_lane_partials(
-                torch.from_numpy(ts).to(dev), torch.from_numpy(val).to(dev),
-                torch.from_numpy(mask).to(dev), edges))
+            if mesh is None:
+                tot, cnt, lo, hi = (x.cpu().numpy() for x in
+                                    run_lane_partials(*(
+                                        torch.from_numpy(x).to(dev)
+                                        for x in (ts, val, mask)), edges))
+            else:
+                parts = sharded_rollup(
+                    mesh, shard_series(mesh, ts, val, mask), edges)
+                tot, cnt, lo, hi = (np.concatenate([p[q].cpu().numpy()
+                                                    for p in parts])
+                                    for q in range(4))
             for i, series in enumerate(chunk):
                 has = cnt[i] > 0
                 if not has.any():

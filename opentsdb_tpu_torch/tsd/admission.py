@@ -34,12 +34,16 @@ what the daemon admits:
 The verdict is an ``admission`` span of the request's trace, the clamped
 tenant keys its latency profile, and the time from the parse mark to the
 permit is its ``admission_wait`` phase (obs/latattr.py).  A plan the
-aggregate cache covers is priced on its uncovered windows only.
+aggregate cache covers is priced on its uncovered windows only, unless
+the device mesh would serve it (the planner never rewrites a meshed
+plan, :216-226).
 
 Differences: the reference's prometheus families and flight-recorder
 events are slice 8d; the shed, degrade and cancel counts here are
-``collect_stats`` tallies.  There is no mesh, so its discount has no mesh
-clause, and there are no fault sites (slice 9).
+``collect_stats`` tallies; a meshed plan's out-of-core overhead is priced
+only when its state is over the budget per chip, as the routing verdict
+tiles it (the reference prices the whole state); there are no fault
+sites (slice 9).
 """
 
 from __future__ import annotations
@@ -163,6 +167,8 @@ def estimate_plan_cost_ms(tsdb, ts_query) -> float:
     from opentsdb_tpu_torch.ops.tiling import size_tiles
 
     fix = tsdb.config.fix_duplicates
+    mesh = tsdb.query_mesh()
+    min_series = tsdb.config.get_int("tsd.query.mesh.min_series")
     total_s = 0.0
     for sub in ts_query.queries:
         if not sub.metric:
@@ -175,6 +181,9 @@ def estimate_plan_cost_ms(tsdb, ts_query) -> float:
             metric_uid, _COST_SAMPLE_SERIES)
         if not s:
             continue
+        # the planner shards such a plan over the mesh
+        meshed = mesh is not None and s >= min_series
+        n_chips = mesh.size if meshed else 1
         pts = sum(sr.window_count(ts_query.start_time, ts_query.end_time,
                                   fix) for sr in sample)
         points = pts * s / len(sample)
@@ -204,13 +213,14 @@ def estimate_plan_cost_ms(tsdb, ts_query) -> float:
                     continue
             # the rewritten plan, not the original: windows that valid
             # aggregate blocks cover never dispatch.  Only a plan the
-            # planner can rewrite (a fixed grid that does not stream)
-            # takes the discount, or the gate would under-price the
-            # heaviest queries it exists to refuse
+            # planner can rewrite (a fixed grid that does not stream, off
+            # the mesh) takes the discount, or the gate would under-price
+            # the heaviest queries it exists to refuse
             agg = tsdb.agg_cache
             if (agg is not None and not ds.use_calendar
                     and points <= tsdb.config.get_int(
-                        "tsd.query.streaming.point_threshold")):
+                        "tsd.query.streaming.point_threshold")
+                    and not meshed):
                 points *= max(1.0 - agg.coverage(
                     tsdb.store, metric_uid, ds.interval_ms, ds.function,
                     ts_query.start_time, ts_query.end_time), 0.0)
@@ -229,7 +239,7 @@ def estimate_plan_cost_ms(tsdb, ts_query) -> float:
             "tsd.query.streaming.sketch_percentiles"))
         per_cell = 8 + 8 * len(lanes_for([ds_fn])) \
             + (4 * SKETCH_K if sketch else 0)
-        if s * w * per_cell > state_mb * 2 ** 20:
+        if cm.per_chip(s * w * per_cell, n_chips) > state_mb * 2 ** 20:
             plan = size_tiles(
                 s, w, state_mb * 2 ** 20, per_cell, g,
                 tsdb.config.get_int("tsd.query.spill.max_tiles"))

@@ -8,12 +8,13 @@ that the port does not have yet, and that would change an answer or
 durability (``UNPORTED``), are refused with a non-default value by
 ``refuse_unported``, which the TSDB and the daemon call: the error names
 the ROADMAP item that ports them.  Every other key is stored and ignored:
-the reference's TPU strategy keys (``tsd.query.mesh.*``, the kernel
-modes, ``tsd.query.host_lane.max_points``: the port answers every plan on
-the card) change no answer.  The aggregate cache's ``tsd.query.cache.*``
-keys (storage/agg_cache.py), request tracing's ``tsd.trace.*`` and
-latency attribution's ``tsd.latattr.*`` are read, with the reference's
-defaults.
+the reference's TPU strategy keys (the kernel modes,
+``tsd.query.host_lane.max_points``: the port answers every plan on the
+card) change no answer.  The aggregate cache's ``tsd.query.cache.*``
+keys (storage/agg_cache.py), request tracing's ``tsd.trace.*``, latency
+attribution's ``tsd.latattr.*`` and the device mesh's
+``tsd.query.mesh.*`` (parallel/, core/tsdb.py ``query_mesh``) are read,
+with the reference's defaults.
 """
 
 from __future__ import annotations
@@ -84,6 +85,9 @@ DEFAULTS: dict[str, str] = {
     "tsd.trace.device_time": "true",
     "tsd.latattr.enable": "true",
     "tsd.latattr.max_profiles": "256",
+    # the device mesh (parallel/, core/tsdb.py query_mesh)
+    "tsd.query.mesh.enable": "true",
+    "tsd.query.mesh.min_series": "8",
     # the aggregate cache (storage/agg_cache.py)
     "tsd.query.cache.enable": "true",
     "tsd.query.cache.mb": "256",
@@ -134,6 +138,11 @@ UNPORTED: dict[str, tuple[str, str]] = {
     "tsd.network.cluster.peers": ("", _SLICE9_CLUSTER),
     "tsd.network.cluster.self": ("", _SLICE9_CLUSTER),
     "tsd.network.cluster.shard.enable": ("false", _SLICE9_CLUSTER),
+    # a mesh over several hosts (the reference's jax.distributed); the
+    # port's mesh spans the CUDA devices of one process
+    "tsd.network.distributed.coordinator": ("", _SLICE9_CLUSTER),
+    "tsd.network.distributed.num_processes": ("0", _SLICE9_CLUSTER),
+    "tsd.network.distributed.process_id": ("", _SLICE9_CLUSTER),
 }
 
 

@@ -128,3 +128,32 @@ def test_kernel_library_refuses_without_cuda():
         with pytest.raises(RuntimeError):
             kernels.library(name)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_parallel_package_is_within_the_boundary():
+    """The device mesh's package is among the files scanned above, and a
+    meshed query answers in a process where jax and the JAX package are
+    blocked, as the single-device one does."""
+    names = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert {os.path.join("parallel", f) for f in (
+        "__init__.py", "mesh.py", "collectives.py", "sharded.py",
+        "distributed.py")} <= names
+    script = _BLOCKED_RUN.replace(
+        'tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True}), '
+        'device="cpu")',
+        'from opentsdb_tpu_torch.parallel import make_mesh\n'
+        'tsdb = TSDB(Config({"tsd.core.auto_create_metrics": True, '
+        '"tsd.query.mesh.min_series": 0}), device="cpu", '
+        'mesh=make_mesh(devices=["cpu"] * 4))')
+    script = script.replace(
+        "res = tsdb.new_query_runner().run(q)",
+        "runner = tsdb.new_query_runner()\nres = runner.run(q)\n"
+        "assert runner.exec_stats['meshDevices'] == 4.0")
+    assert "make_mesh" in script and "meshDevices" in script
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == \
+        "[('1356998400', 3.0), ('1356998430', 12.0)]"

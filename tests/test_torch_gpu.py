@@ -935,12 +935,13 @@ def test_streamed_queries_on_card_match_cpu(cuda_device):
 # -- T1 tile_partials and the tiled route ---------------------------------
 
 
-def _fold_pair(dev, spec, v, m, gid, g, rows, extreme):
-    """The tiles of `rows` rows folded by K2 + T1 on `dev` -> acc."""
+def _fold_pair(dev, spec, v, m, gid, g, rows):
+    """The tiles of `rows` rows folded by K2 + T1 on `dev`, in the mode of
+    the spec's aggregator -> acc."""
     from opentsdb_tpu_torch.ops import tiling
     s, w = v.shape
     wts = torch.arange(w, dtype=torch.int64, device=dev) * 60_000 + T0
-    acc = tiling.new_lane_fold(g, w, extreme, dev)
+    acc = tiling.new_lane_fold(g, w, tiling.lane_mode(spec.aggregator), dev)
     for lo in range(0, s, rows):
         tiling.run_lane_fold(
             spec, acc, wts, *_on(dev, v[lo:lo + rows], m[lo:lo + rows]),
@@ -967,8 +968,8 @@ def test_tile_partials_kernel_matches_plain(cuda_device, extreme, rate):
     spec = tpipe.PipelineSpec("max" if extreme else "sum",
                               rate=None if rate is None
                               else RateOptions(*rate))
-    card = _fold_pair(cuda_device, spec, v, m, gid, 9, 20, extreme)
-    cpu = _fold_pair("cpu", spec, v, m, gid, 9, 20, extreme)
+    card = _fold_pair(cuda_device, spec, v, m, gid, 9, 20)
+    cpu = _fold_pair("cpu", spec, v, m, gid, 9, 20)
     for k in cpu:
         if k == "tot":
             assert_values(card[k].cpu().numpy(), cpu[k].numpy())
@@ -983,8 +984,7 @@ def test_tile_fold_kernel_equals_group_moments(cuda_device, agg):
     from opentsdb_tpu_torch.ops import tiling
     v, m, gid = _lane_tiles(np.random.default_rng(32), int_values=True)
     spec = tpipe.PipelineSpec(agg)
-    acc = _fold_pair(cuda_device, spec, v, m, gid, 9, 32,
-                     tiling.is_extreme(agg))
+    acc = _fold_pair(cuda_device, spec, v, m, gid, 9, 32)
     out, mask = tiling.finish_lane_fold(acc, agg)
     wts = torch.arange(v.shape[1], dtype=torch.int64,
                        device=cuda_device) * 60_000 + T0
@@ -1168,3 +1168,114 @@ def test_batcher_on_card_stacks_and_matches_solo(cuda_device):
             *_on(cuda_device, m[5]))
         for a, b in zip(got, solo):
             assert np.array_equal(a, b.cpu().numpy(), equal_nan=True)
+
+
+# -- the device mesh (parallel/): T1's square and centred modes, the
+#    sharded pipeline on a virtual and a one-device NCCL mesh
+
+
+@pytest.mark.parametrize("mode", ["square", "centred"])
+def test_tile_partials_modes_kernel_match_plain(cuda_device, mode):
+    """T1's square and centred modes against their plain versions:
+    counts and presence exact, sums, squares and centred squares at rtol
+    1e-9; each launch counted under its mode."""
+    from opentsdb_tpu_torch.ops import tiling
+    rng = np.random.default_rng(41)
+    s, w, g = 300, 130, 7
+    contrib = rng.normal(30.0, 12.0, (s, w))
+    contrib[rng.random((s, w)) < 0.1] = np.nan
+    part = rng.random((s, w)) < 0.85
+    present = rng.random((s, w)) < 0.8
+    gid = np.sort(rng.integers(0, g, s))
+    mean = rng.normal(30.0, 5.0, (g, w))
+    off = tga.group_offsets(gid, g)
+    extra = {"mean": t(mean)} if mode == "centred" else {}
+    want = tiling.new_lane_fold(g, w, mode, "cpu")
+    tiling.tile_partials(t(contrib), t(part), t(present), off, want,
+                         **extra)
+    got = tiling.new_lane_fold(g, w, mode, cuda_device)
+    kernels.reset_launches()
+    tiling.tile_partials(*_on(cuda_device, contrib, part, present),
+                         off.to(cuda_device), got,
+                         **{k: v.to(cuda_device) for k, v in extra.items()})
+    assert kernels.LAUNCHES["tile_partials." + mode] == 1
+    for lane in want:
+        if lane in ("cnt", "present"):
+            assert_exact(got[lane].cpu().numpy(), want[lane].numpy())
+        else:
+            assert_values(got[lane].cpu().numpy(), want[lane].numpy())
+
+
+@pytest.mark.parametrize("shards", [4, 1])
+@pytest.mark.parametrize("agg", ["sum", "avg", "dev", "squareSum", "max",
+                                 "p95", "first", "movingAverage3"])
+def test_sharded_pipeline_on_card_matches_one_device(cuda_device, shards,
+                                                     agg):
+    """sharded_query_pipeline on four shards of the card (the shared
+    combine) and on a one-device NCCL mesh against run_group_pipeline on
+    the card: masks exact, values at rtol 1e-9; with one shard, bit for
+    bit."""
+    from opentsdb_tpu_torch.parallel import (make_mesh, shard_rows,
+                                             sharded_query_pipeline)
+    mesh = make_mesh(devices=[cuda_device] * shards)
+    assert mesh.backend == ("shared" if shards > 1 else "nccl")
+    ts, val, mask = sorted_batch(np.random.default_rng(43), 13, 200)
+    gid = np.array([0, 0, 0, 1, 1, 3, 3, 3, 3, 4, 4, 4, 4])
+    spec = tpipe.PipelineSpec(agg, tpipe.DownsampleStep("avg", "none"),
+                              RateOptions() if agg == "max" else None)
+    edges = PLANS["fixed"].window_edges(cuda_device)
+    got = sharded_query_pipeline(mesh, spec, 5,
+                                 shard_rows(mesh, ts, val, mask, gid), edges)
+    want = tpipe.run_group_pipeline(spec, *_on(cuda_device, ts, val, mask),
+                                    gid, 5, edges)
+    assert_exact(got[0].cpu().numpy(), want[0].cpu().numpy())
+    assert_exact(got[2].cpu().numpy(), want[2].cpu().numpy())
+    if shards == 1:
+        assert_exact(got[1].cpu().numpy(), want[1].cpu().numpy())
+    else:
+        assert_values(got[1].cpu().numpy(), want[1].cpu().numpy())
+
+
+def test_sharded_rollup_on_card_matches_lane_partials(cuda_device):
+    """The (2, 2) virtual mesh's rollup against one L1 over the batch:
+    counts and extremes exact, sums at rtol 1e-9."""
+    from opentsdb_tpu_torch.ops.lanes import lane_partials
+    from opentsdb_tpu_torch.parallel import (make_mesh, shard_series,
+                                             sharded_rollup)
+    ts, val, mask = sorted_batch(np.random.default_rng(44), 9, 300)
+    edges = PLANS["fixed"].window_edges(cuda_device)
+    mesh = make_mesh(devices=[cuda_device] * 4, shape=(2, 2))
+    parts = sharded_rollup(mesh, shard_series(mesh, ts, val, mask), edges)
+    got = [torch.cat([p[q] for p in parts]).cpu().numpy() for q in range(4)]
+    want = [x.cpu().numpy() for x in lane_partials(
+        *_on(cuda_device, ts, val, mask), edges)]
+    for q, (a, b) in enumerate(zip(got, want)):
+        if q == 0:
+            assert_values(a, b)
+        else:
+            assert_exact(a, b)
+
+
+@pytest.mark.parametrize("agg", ["sum", "dev", "p95", "movingAverage3"])
+def test_sharded_pipeline_over_distinct_cards(cuda_device, agg):
+    """Every visible card a shard, combined through NCCL, against one
+    card (skips with fewer than two cards)."""
+    from opentsdb_tpu_torch.parallel import (make_mesh, shard_rows,
+                                             sharded_query_pipeline)
+    from opentsdb_tpu_torch.parallel.distributed import host_major_devices
+    cards = host_major_devices()
+    if len(cards) < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(devices=cards)
+    assert mesh.backend == "nccl"
+    ts, val, mask = sorted_batch(np.random.default_rng(45), 13, 200)
+    gid = np.array([0, 0, 0, 1, 1, 3, 3, 3, 3, 4, 4, 4, 4])
+    spec = tpipe.PipelineSpec(agg, tpipe.DownsampleStep("avg", "none"))
+    edges = PLANS["fixed"].window_edges(cards[0])
+    got = sharded_query_pipeline(mesh, spec, 5,
+                                 shard_rows(mesh, ts, val, mask, gid), edges)
+    want = tpipe.run_group_pipeline(spec, *_on(cards[0], ts, val, mask),
+                                    gid, 5, edges)
+    assert all(x.device == cards[0] for x in got)
+    assert_exact(got[2].cpu().numpy(), want[2].cpu().numpy())
+    assert_values(got[1].cpu().numpy(), want[1].cpu().numpy())

@@ -2,8 +2,9 @@
 
 The same matrix of RouteContexts and consults goes to the reference's
 plan_decision (opentsdb_tpu/query/plandecision.py:239, with no mesh and
-cpu_lane_ok False: the port has neither a mesh nor a host lane, and its
-RouteContext carries neither) and to the port's: the path, every
+cpu_lane_ok False: the port has no host lane, and its RouteContext
+carries none; the mesh's arm is tests/test_torch_mesh_query.py's) and to
+the port's: the path, every
 fingerprint field but ``modes`` and ``calibration`` (the port has no
 kernel modes and one cost table) and the consults made, in order, must be
 equal.  The matrix reaches every arm the port has: the rollup lane
@@ -210,8 +211,9 @@ def test_fingerprint_is_stable_and_discrete():
 
 
 def test_fingerprint_has_no_mesh_or_host_lane():
-    """Every verdict the port gives, refused or served, fingerprints
-    ``mesh`` and ``hostSmall`` as false: it has neither."""
+    """Every verdict the port gives off the mesh, refused or served,
+    fingerprints ``mesh`` and ``hostSmall`` as false (it has no host
+    lane)."""
     for over, parts, answers, _ in MATRIX.values():
         pd = pdn.plan_decision(_tsdb(False, parts),
                                pdn.RouteContext(**dict(BASE_CTX, **over)),

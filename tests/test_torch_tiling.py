@@ -388,7 +388,7 @@ def test_tile_partials_plain_matches_reference_lane_fold(agg, extreme, rate):
     ref = rtiling.run_lane_fold(
         RefSpec(aggregator=agg, rate=RefRate() if rate else None), g,
         extreme, wts, v, m, gid)
-    acc = tiling.new_lane_fold(g, v.shape[1], extreme, "cpu")
+    acc = tiling.new_lane_fold(g, v.shape[1], tiling.lane_mode(agg), "cpu")
     tiling.run_lane_fold(PipelineSpec(agg, rate=RateOptions() if rate
                                       else None), acc,
                          torch.from_numpy(wts), torch.from_numpy(v),
@@ -415,7 +415,8 @@ def test_tile_partials_checks_dtypes(bad):
             "participate": torch.from_numpy(m),
             "present": torch.from_numpy(m),
             "offsets": ga.group_offsets(gid, 5)}
-    acc = tiling.new_lane_fold(5, v.shape[1], extreme, "cpu")
+    acc = tiling.new_lane_fold(5, v.shape[1],
+                               "extreme" if extreme else "additive", "cpu")
     if bad in args:
         wrong = {"contrib": torch.float32, "participate": torch.uint8,
                  "offsets": torch.int32}[bad]
@@ -437,7 +438,7 @@ def test_tile_fold_equals_group_reduce_over_the_whole_grid(agg):
     g = 5
     spec = PipelineSpec(agg)
     tw, tv, tm = (torch.from_numpy(x) for x in (wts, v, m))
-    acc = tiling.new_lane_fold(g, v.shape[1], tiling.is_extreme(agg), "cpu")
+    acc = tiling.new_lane_fold(g, v.shape[1], tiling.lane_mode(agg), "cpu")
     for lo in range(0, 17, 5):
         tiling.run_lane_fold(spec, acc, tw, tv[lo:lo + 5], tm[lo:lo + 5],
                              ga.group_offsets(gid[lo:lo + 5], g))
