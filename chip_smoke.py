@@ -350,6 +350,10 @@ REPLACES = {
     "grid_fill_rate.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "tile_partials.square": "opentsdb_tpu/parallel/sharded.py:223",
     "tile_partials.centred": "opentsdb_tpu/parallel/sharded.py:223",
+    "point_group_moments": "opentsdb_tpu/parallel/sharded.py:52",
+    "point_group_moments.extreme": "opentsdb_tpu/parallel/sharded.py:86",
+    "point_group_moments.square": "opentsdb_tpu/parallel/sharded.py:86",
+    "point_group_moments.centred": "opentsdb_tpu/parallel/sharded.py:86",
 }
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
@@ -4616,6 +4620,307 @@ def mesh_phase(dev, tsdb, ts, val, h, checks: Checks) -> dict:
     return launches
 
 
+# -- phase 19: the group downsample (P1) and explain ----------------------
+
+P1_NAMES = {"additive": "point_group_moments",
+            "extreme": "point_group_moments.extreme",
+            "square": "point_group_moments.square",
+            "centred": "point_group_moments.centred"}
+# the operations a point of each mode takes (adds, compares, multiplies)
+P1_OPS = {"additive": 2.0, "extreme": 3.0, "square": 3.0, "centred": 4.0}
+
+
+def _p1_batch(dev, ts, val, h):
+    """The headline batch on `dev` for P1: holes where h % 11 == 0 and
+    NaN values where h % 97 == 0 (both take no part)."""
+    d_h = torch.from_numpy(h).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_val = torch.where(d_h % 97 == 0, math.nan, d_val)
+    mask = d_h % 11 != 0
+    del d_h
+    return torch.from_numpy(ts).to(dev), d_val, mask
+
+
+def _interleaved_gid(gid) -> np.ndarray:
+    """The headline gid permuted: every group's rows spread over the
+    batch, in no order."""
+    return gid[np.random.default_rng(19).permutation(gid.size)]
+
+
+def _p1_library(mode, d_ts, d_val, mask, edges, gid_t, mean, g, w):
+    """The library yardstick of one mode, its operand precomputed: one
+    index_add_ (the sums and the counts as two columns) or one
+    scatter_reduce_ (amin over the values and their negatives, so that
+    one call gives both extremes) over the flat gid x W + window
+    segment ids."""
+    win = torch.searchsorted(edges, d_ts, right=True) - 1
+    ok = mask & ~torch.isnan(d_val) & (win >= 0) & (win < w)
+    seg = torch.where(ok, gid_t[:, None] * w + win, g * w).reshape(-1)
+    del win
+    x = torch.where(ok, d_val, 0.0).reshape(-1)
+    if mode == "extreme":
+        both = torch.cat([torch.where(ok.reshape(-1), x, math.inf),
+                          torch.where(ok.reshape(-1), -x, math.inf)])
+        seg2 = torch.cat([seg, seg + g * w + 1])
+        into = torch.full((2 * (g * w + 1),), math.inf,
+                          dtype=torch.float64, device=d_ts.device)
+        return lambda: into.scatter_reduce_(0, seg2, both, "amin",
+                                            include_self=True)
+    if mode == "centred":
+        mu = torch.cat([mean.reshape(-1), mean.new_zeros(1)])[seg]
+        c = torch.where(ok.reshape(-1), x - mu, 0.0)
+        operand = (c * c)[:, None]
+    else:
+        operand = torch.stack([x * x if mode == "square" else x,
+                               ok.reshape(-1).double()], dim=1)
+    into = torch.zeros((g * w + 1, operand.shape[1]), dtype=torch.float64,
+                       device=d_ts.device)
+    return lambda: into.index_add_(0, seg, operand)
+
+
+def group_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """Phase 19 (a): P1 against its plain version on the headline batch
+    (100 groups) at 1h windows (W = 283) and at 1m windows, on the
+    headline gid and on a permuted, interleaved one, every mode: counts
+    and extremes exact, sums at rtol 1e-9.  At 1h on the headline gid
+    each mode is timed against its byte bound, the plain version and
+    the library yardstick (``_p1_library``)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import lanes
+
+    d_ts, d_val, mask = _p1_batch(dev, ts, val, h)
+    times = {}
+    for label, interval in (("1h", INTERVAL_MS), ("1m", 60_000)):
+        plan = ds.FixedWindows.for_range(START, END, interval)
+        edges = plan.window_edges(dev)
+        w = plan.count
+        for gname, g_host in (("headline", gid),
+                              ("interleaved", _interleaved_gid(gid))):
+            gid_t = torch.from_numpy(g_host).to(dev)
+            members, offsets = lanes.group_members(gid_t, GROUPS)
+            first = lanes.point_group_moments_plain(
+                d_ts, d_val, mask, edges, members, offsets, "additive")
+            mean = first["tot"] / first["cnt"].clamp(min=1)
+            for mode, name in P1_NAMES.items():
+                mu = mean if mode == "centred" else None
+                got = lanes.point_group_moments(
+                    d_ts, d_val, mask, edges, members, offsets, mode, mu)
+                want = lanes.point_group_moments_plain(
+                    d_ts, d_val, mask, edges, members, offsets, mode, mu)
+                case = "%s %s gid %s" % (label, gname, mode)
+                for lane in want:
+                    if lane in ("cnt", "lo", "hi"):
+                        checks.exact(name, case + " " + lane, got[lane],
+                                     want[lane], lane)
+                    else:
+                        checks.values(name, case + " " + lane, got[lane],
+                                      want[lane])
+                del got, want
+                if label != "1h" or gname != "headline":
+                    continue
+                lanes_out = len(lanes.P1_LANES[mode])
+                # val and mask read once (9 B a point; ts only at the
+                # window edges), each [G, W] lane written once, the mean
+                # read in the centred mode
+                nbytes = S * N * 9 + GROUPS * w * 8 * (
+                    lanes_out + (mode == "centred"))
+                library = _p1_library(mode, d_ts, d_val, mask, edges, gid_t,
+                                      mean, GROUPS, w)
+                t = {
+                    "ms": time_ms(lambda: lanes.point_group_moments(
+                        d_ts, d_val, mask, edges, members, offsets, mode,
+                        mu)),
+                    "plain_ms": time_ms(lambda: lanes.point_group_moments_plain(
+                        d_ts, d_val, mask, edges, members, offsets, mode,
+                        mu), reps=3),
+                    "bound_ms": bound_ms(nbytes, P1_OPS[mode] * S * N),
+                    "library_ms": time_ms(library),
+                }
+                del library
+                print("time %s [%d, %d] -> [%d, %d]: kernel %.4f ms  plain "
+                      "%.4f ms  bound %.4f ms (bytes)  library %.4f ms (%s "
+                      "over gid x W + window)"
+                      % (name, S, N, GROUPS, w, t["ms"], t["plain_ms"],
+                         t["bound_ms"], t["library_ms"],
+                         "one scatter_reduce_ amin of values and negatives"
+                         if mode == "extreme" else "one index_add_"))
+                times[name] = t
+            del first, mean, members, offsets, gid_t
+            torch.cuda.empty_cache()
+    return times
+
+
+def _plain_group_downsample(agg, d_ts, d_val, mask, edges, gid_t):
+    """The plain composition on the card: P1's plain version over the
+    whole batch (a centred second pass for dev), then the reference's
+    finish."""
+    from opentsdb_tpu_torch.ops import lanes
+    from opentsdb_tpu_torch.ops.tiling import finish_lane_fold, lane_mode
+    members, offsets = lanes.group_members(gid_t, GROUPS)
+    acc = lanes.point_group_moments_plain(d_ts, d_val, mask, edges, members,
+                                          offsets, lane_mode(agg))
+    m2 = None
+    if agg == "dev":
+        mean = acc["tot"] / acc["cnt"].clamp(min=1).double()
+        m2 = lanes.point_group_moments_plain(
+            d_ts, d_val, mask, edges, members, offsets, "centred", mean)["m2"]
+    out, om = finish_lane_fold(dict(acc, present=acc["cnt"]), agg, m2)
+    return torch.where(om, out, math.nan), om
+
+
+def group_mesh_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """Phase 19 (b): ``sharded_group_downsample`` for each of the ten
+    SHARDED_AGGS over the whole headline batch at 1h windows, on the
+    interleaved gid, on four shards of cuda:0 shaped (4, 1) and (2, 2),
+    on a one-device NCCL mesh and, with two or more cards, on a mesh of
+    every card: each answer equal to the one-device answer (counts
+    exact, values at rtol 1e-9) and to the plain composition; then
+    ``dryrun_multichip(4, ["cuda:0"] * 4)``.  Returns the launch counts of
+    this main path (reset just before it)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.parallel import (SHARDED_AGGS, make_mesh,
+                                             shard_series,
+                                             sharded_group_downsample)
+    from opentsdb_tpu_torch.parallel.distributed import host_major_devices
+    from opentsdb_tpu_torch.tools.dryrun import dryrun_multichip
+
+    cards = torch.cuda.device_count()
+    d_ts, d_val, mask = _p1_batch(dev, ts, val, h)
+    edges = ds.FixedWindows.for_range(START, END, INTERVAL_MS).window_edges(
+        dev)
+    g_host = _interleaved_gid(gid)
+    gid_t = torch.from_numpy(g_host).to(dev)
+    plain = {agg: _plain_group_downsample(agg, d_ts, d_val, mask, edges,
+                                          gid_t)
+             for agg in sorted(SHARDED_AGGS)}
+    host = [x.cpu().numpy() for x in (d_ts, d_val, mask)]
+    del d_ts, d_val, mask
+    torch.cuda.empty_cache()
+    meshes = [("one-device NCCL", make_mesh(devices=[dev])),
+              ("(4, 1) on %s" % dev, make_mesh(devices=[dev] * 4,
+                                               shape=(4, 1))),
+              ("(2, 2) on %s" % dev, make_mesh(devices=[dev] * 4,
+                                               shape=(2, 2)))]
+    if cards >= 2:
+        meshes.append(("%d cards" % cards,
+                       make_mesh(devices=host_major_devices())))
+    else:
+        print("group downsample: %d card visible: multi-GPU is not measured "
+              "(a mesh of distinct devices needs two or more cards)" % cards)
+    kernels.reset_launches()
+    one = {}
+    for label, mesh in meshes:
+        blocks = shard_series(mesh, *host)
+        for agg in sorted(SHARDED_AGGS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, out, om = sharded_group_downsample(mesh, agg, blocks, g_host,
+                                                  GROUPS, edges)
+            out, om = out.to(dev), om.to(dev)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            want, want_mask = plain[agg]
+            case = "%s %s" % (label, agg)
+            checks.exact("e2e group", case + " mask", om, want_mask)
+            if agg == "count":
+                checks.exact("e2e group", case + " plain", out, want,
+                             "counts")
+            else:
+                checks.values("e2e group", case + " plain", out, want)
+            if agg in one:
+                checks.exact("e2e group", case + " one-device mask", om,
+                             one[agg][1])
+                if agg == "count":
+                    checks.exact("e2e group", case + " one-device", out,
+                                 one[agg][0], "counts")
+                else:
+                    checks.values("e2e group", case + " one-device", out,
+                                  one[agg][0])
+            else:
+                one[agg] = (out, om)
+            print("e2e group downsample %-26s %-9s wall %.2f ms (%s, %d "
+                  "live cells)" % (label, agg, wall, mesh.backend,
+                                   int(om.sum())))
+        del blocks
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        dryrun_multichip(4, [dev] * 4)
+        print("dryrun_multichip(4, [%s] * 4) ok in %.2f s"
+              % (dev, time.perf_counter() - t0))
+    except AssertionError as e:
+        checks.failures.append("dryrun_multichip: %s" % e)
+    launches = dict(kernels.LAUNCHES)
+    print("group launches %s" % json.dumps(
+        {k: v for k, v in launches.items() if v}))
+    for name in ("point_group_moments", "point_group_moments.additive",
+                 "point_group_moments.extreme", "point_group_moments.square",
+                 "point_group_moments.centred"):
+        if launches[name] < 1:
+            checks.failures.append("kernel %s never launched on the group "
+                                   "downsample path" % name)
+    return launches
+
+
+def explain_phase(tsdb, checks: Checks) -> None:
+    """Phase 19 (c): /api/query/explain over HTTP for phase 4's seven
+    queries on the headline TSDB, as device-cache hits, as misses with
+    the cache detached and streamed (the default threshold, the cache
+    detached): each explained path and fingerprint equal to those of the
+    same query then executed (the runner's verdict).  The launch counts
+    are reset before each arm's explains and read after them: explain
+    launches nothing."""
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.utils.config import DEFAULTS
+
+    cfg = tsdb.config
+    key = "tsd.query.streaming.point_threshold"
+    threshold = cfg.get_string(key)
+    cache = tsdb.device_cache
+    arms = (("hit", MATERIALIZE[key], cache),
+            ("miss", MATERIALIZE[key], None),
+            ("streamed", DEFAULTS[key], None))
+    with Serving(tsdb) as server:
+        for arm, limit, attached in arms:
+            cfg.override_config(key, limit)
+            tsdb.device_cache = attached
+            explained = {}
+            kernels.reset_launches()
+            for m in STREAM_QUERIES:
+                # the range in ms, as _query gives it to the runner
+                path = "/api/query/explain?start=%d&end=%d&m=%s" % (
+                    START, END, m.replace("{", "%7B").replace("}", "%7D"))
+                t0 = time.perf_counter()
+                status, _, body = _http_get(server.port, path)
+                wall = (time.perf_counter() - t0) * 1e3
+                if status != 200:
+                    checks.failures.append("explain %s %s: %d %s"
+                                           % (arm, m, status, body[:200]))
+                    continue
+                seg = json.loads(body)["subQueries"][0]["segments"][0]
+                explained[m] = (seg["path"], seg["fingerprint"], wall)
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            if launched:
+                checks.failures.append("explain %s launched kernels: %s"
+                                       % (arm, launched))
+            for m, (path, fp, wall) in explained.items():
+                runner = tsdb.new_query_runner()
+                runner.run(_query(m))
+                pd = runner.decisions[0]
+                same = pd.path == path and pd.fingerprint == fp
+                print("explain %-8s %-34s wall %.1f ms | %s %s | executed "
+                      "%s %s | %s" % (arm, m, wall, path, fp, pd.path,
+                                      pd.fingerprint,
+                                      "same" if same else "DIFFERENT"))
+                if not same:
+                    checks.failures.append(
+                        "explain %s %s: explained %s %s, executed %s %s"
+                        % (arm, m, path, fp, pd.path, pd.fingerprint))
+    tsdb.device_cache = cache
+    cfg.override_config(key, threshold)
+
+
 def cost_constants(dev, times: dict, measured: dict) -> dict:
     """The `cuda` table of ops/costmodel.py from this run: per-point and
     per-cell kernel times at the headline batch, the host launch floor,
@@ -4699,6 +5004,10 @@ def main(argv=None) -> int:
         mesh_kernel_phase(dev, ts, val, gid, h, checks)
         mesh_phase(dev, tsdb, ts, val, h, checks)
         print("phase 18 wall %.1f s" % (time.perf_counter() - t_phase))
+        t_phase = time.perf_counter()
+        group_kernel_phase(dev, ts, val, gid, h, checks)
+        group_mesh_phase(dev, ts, val, gid, h, checks)
+        print("phase 19 (a, b) wall %.1f s" % (time.perf_counter() - t_phase))
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)
         print(smi)
@@ -4755,6 +5064,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh_launches = mesh_phase(dev, tsdb, ts, val, h, checks)
     print("phase 18 wall %.1f s" % (time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    times.update(group_kernel_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
+    group_launches = group_mesh_phase(dev, ts, val, gid, h, checks)
+    torch.cuda.empty_cache()
+    explain_phase(tsdb, checks)
+    print("phase 19 wall %.1f s" % (time.perf_counter() - t_phase))
     del tsdb
     torch.cuda.empty_cache()
     rollup_launches, lane_costs, rtsdb = rollup_e2e_phase(dev, ts, val, h,
@@ -4781,14 +5098,14 @@ def main(argv=None) -> int:
                      **hit_costs})))
 
     # Each kernel's launches on the main path: the grouped, union, daemon,
-    # streamed, rollup, tiled, striped, fleet, cache-hit and mesh phases,
-    # their counts reset just before each.
+    # streamed, rollup, tiled, striped, fleet, cache-hit, mesh and group
+    # downsample phases, their counts reset just before each.
     for name in launches:
         launches[name] += (union_launches[name] + daemon_launches[name]
                            + stream_launches[name] + rollup_launches[name]
                            + tiled_launches[name] + striped_launches[name]
                            + fleet_launches[name] + hit_launches[name]
-                           + mesh_launches[name])
+                           + mesh_launches[name] + group_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name.split(".")[0],

@@ -25,7 +25,9 @@ and again under ``<name>.stacked``; a launch of G1, K1 or K4 over int32
 timestamp offsets (B10, the device cache's re-based hit) under its name
 and again under ``<name>.i32``; a launch of T1 in its square or centred
 mode (the mesh's squareSum and dev partials, B15) under its name and
-again under ``tile_partials.square`` or ``tile_partials.centred``.
+again under ``tile_partials.square`` or ``tile_partials.centred``; a
+launch of P1 under its name and again under
+``point_group_moments.<mode>``, each of its four modes.
 """
 
 from __future__ import annotations
@@ -126,13 +128,20 @@ SIGNATURES: dict[str, tuple] = {
     # 3 centred)
     "tile_partials": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                       _P, _P, _P),
+    # ts, val, mask, edges, members, offsets, mean, n, g, w, val_is_int,
+    # mode, cnt, tot, lo, hi, sq, stream (mode as tile_partials; the
+    # centred mode writes its m2 to sq)
+    "point_group_moments": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
+                            _I32, _I32, _P, _P, _P, _P, _P, _P),
 }
 
 # The kernels with a member-strided (stacked) form, those with a form
 # over int32 timestamp offsets, and the modes counted on their own.
 STACKED = ("window_moments", "window_order", "grid_fill_rate")
 I32 = ("gather_windows", "window_moments", "window_order")
-MODES = ("tile_partials.square", "tile_partials.centred")
+MODES = ("tile_partials.square", "tile_partials.centred",
+         "point_group_moments.additive", "point_group_moments.extreme",
+         "point_group_moments.square", "point_group_moments.centred")
 
 # Launch counts per kernel, and per stacked and int32 form and counted
 # mode, bumped only by launch().

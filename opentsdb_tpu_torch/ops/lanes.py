@@ -1,4 +1,5 @@
-"""The rollup kernels: L1 lane_partials and L2 rollup_avg.
+"""The rollup kernels, L1 lane_partials and L2 rollup_avg, and P1
+point_group_moments.
 
 Port of the device half of opentsdb_tpu/ops/pipeline.py's rollup
 programs:
@@ -13,12 +14,23 @@ programs:
   window's sum over a sum lane divided by its sum over a count lane, then
   the fill policy.
 
-Both take the windows as the int64 edge vector e[W+1] that K1 takes
+* ``point_group_moments`` (P1, csrc/point_group_moments.cu) is the
+  device half of opentsdb_tpu/parallel/sharded.py's
+  ``sharded_group_downsample`` (:129, with ``_group_moments`` :52 and the
+  segment reductions of ``_finish`` :86): a time-sorted [S, N] batch of
+  raw points straight to [G, W] group-window moments, the rows of a group
+  anywhere in the batch (``group_members`` lists them), in one of T1's
+  modes (additive, extreme, square, centred).
+
+All take the windows as the int64 edge vector e[W+1] that K1 takes
 (ops/downsample.py), and each has its plain PyTorch version beside it
-(``lane_partials_plain``, ``rollup_avg_plain``), which CPU tensors run.
+(``lane_partials_plain``, ``rollup_avg_plain``,
+``point_group_moments_plain``), which CPU tensors run.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -155,3 +167,151 @@ def rollup_avg_plain(ts_s: torch.Tensor, val_s: torch.Tensor,
     ok = msum & mcnt & (cnts > 0)
     v = torch.where(ok, sums / torch.where(ok, cnts, 1.0), torch.nan)
     return apply_fill(v, ok, fill_policy, fill_value)
+
+
+# P1's modes (T1's, in its order) and the [G, W] lanes each writes
+P1_MODES = ("additive", "extreme", "square", "centred")
+P1_LANES = {"additive": ("cnt", "tot"), "extreme": ("cnt", "lo", "hi"),
+            "square": ("cnt", "sq"), "centred": ("m2",)}
+_P1_IDENTITY = {"cnt": 0, "tot": 0.0, "lo": math.inf, "hi": -math.inf,
+                "sq": 0.0, "m2": 0.0}
+
+
+def new_group_moments(num_groups: int, w: int, mode: str, device) -> dict:
+    """P1's [G, W] lanes of `mode` holding the identities of cells no
+    point reached: cnt 0 (int64), tot, sq and m2 0, lo +inf, hi -inf."""
+    if mode not in P1_LANES:
+        raise ValueError("P1 modes are %s, not %r"
+                         % (", ".join(P1_MODES), mode))
+    return {lane: torch.full(
+        (num_groups, w), _P1_IDENTITY[lane],
+        dtype=torch.int64 if lane == "cnt" else torch.float64,
+        device=device) for lane in P1_LANES[mode]}
+
+
+# shape: gid[S] i64 -> ([M] i64, [G+1] i64)
+def group_members(gid: torch.Tensor, num_groups: int):
+    """The stable member list of each group, on gid's device with no
+    host sync: (members[M], offsets[G + 1]) int64, group g's rows being
+    members[offsets[g]:offsets[g + 1]] in row order.  gid may be in any
+    order; rows whose gid lies outside [0, G) belong to no group."""
+    if gid.dim() != 1:
+        raise ValueError("gid must be 1-D")
+    gid = gid.to(torch.int64)
+    key = torch.where((gid >= 0) & (gid < num_groups), gid, num_groups)
+    ordered, members = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(ordered, torch.arange(
+        num_groups + 1, dtype=torch.int64, device=gid.device))
+    return members.contiguous(), offsets.contiguous()
+
+
+def _check_members(ts, members, offsets, mode, mean, w) -> int:
+    g = offsets.numel() - 1
+    if mode not in P1_LANES:
+        raise ValueError("P1 modes are %s, not %r"
+                         % (", ".join(P1_MODES), mode))
+    if members.dim() != 1 or offsets.dim() != 1 or g < 0 \
+            or members.dtype != torch.int64 \
+            or offsets.dtype != torch.int64:
+        raise ValueError("members[M] and offsets[G + 1] are 1-D int64 "
+                         "(group_members)")
+    if ts.dtype != torch.int64:
+        raise TypeError("P1 takes int64 timestamps")
+    if (mode == "centred") != (mean is not None) \
+            or (mean is not None and (mean.shape != (g, w)
+                                      or mean.dtype != torch.float64)):
+        raise ValueError("P1 takes a [G, W] f64 mean in the centred mode "
+                         "only")
+    return g
+
+
+# shape: ts[S,N] i64, val[S,N] f64|i64, mask[S,N] bool, edges[W+1] i64,
+# shape: members[M] i64, offsets[G+1] i64, mean[G,W] f64|None
+# shape: -> {lane: [G,W]}
+def point_group_moments(ts: torch.Tensor, val: torch.Tensor,
+                        mask: torch.Tensor, edges: torch.Tensor,
+                        members: torch.Tensor, offsets: torch.Tensor,
+                        mode: str, mean: torch.Tensor | None = None) -> dict:
+    """P1 -> the [G, W] lanes of `mode` (P1_LANES): per (group, window),
+    over the member rows' points whose mask is set, that fall inside the
+    windows and whose value (as f64) is not NaN: cnt counts them, tot adds
+    them, lo and hi take their extremes, sq adds their squares, m2 their
+    squared distances from the cell's `mean` (the centred mode, which
+    takes it).  Group g is rows members[offsets[g]:offsets[g + 1]]
+    (``group_members``); rows are time-sorted, as every batch of the
+    store is.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    check_batch(ts, val, mask, edges)
+    w = edges.numel() - 1
+    g = _check_members(ts, members, offsets, mode, mean, w)
+    if ts.device.type == "cpu":
+        return point_group_moments_plain(ts, val, mask, edges, members,
+                                         offsets, mode, mean)
+    extra = [] if mean is None else [mean]
+    dev = kernels.require_cuda(ts, val, mask, edges, members, offsets,
+                               *extra)
+    out = {lane: torch.empty((g, w), dtype=torch.int64 if lane == "cnt"
+                             else torch.float64, device=dev)
+           for lane in P1_LANES[mode]}
+    if g == 0:
+        return out
+
+    def lane(key):
+        return kernels.ptr(out[key]) if key in out else None
+
+    kernels.launch(
+        "point_group_moments", dev, kernels.ptr(ts), kernels.ptr(val),
+        kernels.ptr(mask), kernels.ptr(edges), kernels.ptr(members),
+        kernels.ptr(offsets), None if mean is None else kernels.ptr(mean),
+        ts.shape[1], g, w, int(val.dtype == torch.int64),
+        P1_MODES.index(mode), lane("cnt"), lane("tot"), lane("lo"),
+        lane("hi"), lane("m2" if mode == "centred" else "sq"), mode=mode)
+    return out
+
+
+def point_group_moments_plain(ts: torch.Tensor, val: torch.Tensor,
+                              mask: torch.Tensor, edges: torch.Tensor,
+                              members: torch.Tensor, offsets: torch.Tensor,
+                              mode: str,
+                              mean: torch.Tensor | None = None) -> dict:
+    """Plain PyTorch version of P1, the reference's algorithm: window ids
+    by searchsorted, each point's cell (group x W + window), index_add_
+    for the counts and sums, scatter_reduce_ for the extremes."""
+    check_batch(ts, val, mask, edges)
+    w = edges.numel() - 1
+    g = _check_members(ts, members, offsets, mode, mean, w)
+    dev = ts.device
+    s = ts.shape[0]
+    # each row's group, G for rows of none
+    sizes = offsets[1:] - offsets[:-1]
+    row_group = torch.full((s,), g, dtype=torch.int64, device=dev)
+    row_group[members[:int(offsets[-1])]] = torch.repeat_interleave(
+        torch.arange(g, dtype=torch.int64, device=dev), sizes)
+    vf = val.to(torch.float64)
+    win = torch.searchsorted(edges, ts, right=True) - 1
+    ok = mask & ~torch.isnan(vf) & (win >= 0) & (win < w) \
+        & (row_group < g)[:, None]
+    cell = torch.where(ok, row_group[:, None] * w + win, g * w).reshape(-1)
+    ok = ok.reshape(-1)
+    flat = vf.reshape(-1)
+    out = new_group_moments(g, w, mode, dev)
+    if mode == "centred":
+        mu = torch.cat([mean.reshape(-1), mean.new_zeros(1)])[cell]
+        c = torch.where(ok, flat - mu, 0.0)
+        src = {"m2": c * c}
+    else:
+        x = torch.where(ok, flat, 0.0)
+        src = {"cnt": ok.to(torch.int64), "tot": x, "sq": x * x,
+               "lo": torch.where(ok, flat, math.inf),
+               "hi": torch.where(ok, flat, -math.inf)}
+    for lane, acc in out.items():
+        full = torch.cat([acc.reshape(-1), acc.new_full(
+            (1,), _P1_IDENTITY[lane])])
+        if lane in ("lo", "hi"):
+            full.scatter_reduce_(0, cell, src[lane],
+                                 "amin" if lane == "lo" else "amax",
+                                 include_self=True)
+        else:
+            full.index_add_(0, cell, src[lane])
+        out[lane] = full[:-1].reshape(g, w)
+    return out

@@ -130,28 +130,36 @@ def count_refusal(tsdb, reason: str) -> None:
         tsdb.tiled_refusals[reason] = tsdb.tiled_refusals.get(reason, 0) + 1
 
 
-def plan_tiled(tsdb, *, s: int, w: int, g_pad: int,
-               acc_cell_bytes: int) -> TilePlan | None:
+def plan_tiled(tsdb, *, s: int, w: int, g_pad: int, acc_cell_bytes: int,
+               state_mb: int | None = None,
+               observe: bool = True) -> TilePlan | None:
     """Size a tiled execution of an over-budget [s, w] plan (w and g_pad
     padded as the reference pads them); None, with the reason tallied,
     when the pool is off, no split fits, or the partial grids exceed the
-    pool's budgets."""
+    pool's budgets.  `state_mb` replaces the configured budget (explain's
+    what-if); with ``observe=False`` (explain's dry run) no refusal is
+    tallied."""
+    def refuse(reason: str) -> None:
+        if observe:
+            count_refusal(tsdb, reason)
+
     pool = tsdb.spill_pool
     if pool is None:
-        count_refusal(tsdb, "disabled")
+        refuse("disabled")
         return None
     config = tsdb.config
-    budget_bytes = config.get_int("tsd.query.streaming.state_mb") * 2 ** 20
-    plan = size_tiles(s, w, budget_bytes, acc_cell_bytes, g_pad,
+    if state_mb is None:
+        state_mb = config.get_int("tsd.query.streaming.state_mb")
+    plan = size_tiles(s, w, state_mb * 2 ** 20, acc_cell_bytes, g_pad,
                       config.get_int("tsd.query.spill.max_tiles"))
     if plan is None:
-        count_refusal(tsdb, "no_fit")
+        refuse("no_fit")
         return None
     # one stripe entry of slack: demotion moves whole entries, so up to
     # one entry of disk room can go unused at the boundary
     entry_bytes = plan.tile_rows * plan.stripe_w * SPILL_CELL_BYTES
     if plan.spill_bytes + entry_bytes > pool.host_budget + pool.disk_budget:
-        count_refusal(tsdb, "pool_budget")
+        refuse("pool_budget")
         return None
     return plan
 

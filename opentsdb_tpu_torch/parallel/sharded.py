@@ -36,10 +36,16 @@ the mesh's collectives (parallel/collectives.py).
   then sum, sum, min and max over the time axis to each series shard's
   first device.
 
+* **Group downsample** (``sharded_group_downsample``, :129): raw points
+  straight to [G, W] group-window moments for any gid (not sorted, not
+  contiguous), P1 (csrc/point_group_moments.cu) on each (series, time)
+  block, the partial lanes summed (min, max) to the owner; dev takes a
+  second, centred P1 pass around the combined mean.  Its caller is the
+  driver entry (tools/dryrun.py), as the reference's is
+  __graft_entry__.py.
+
 Results live on the owner (shard 0's device), where the reference
-replicates them.  The reference's ``sharded_group_downsample`` (:129, raw
-points to group-window moments for any gid) has no serving caller and is
-not ported (ROADMAP queue B).
+replicates them.
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ import torch
 
 from opentsdb_tpu_torch.ops.aggregators import (family, ma_window,
                                                 moving_average_rows)
-from opentsdb_tpu_torch.ops.downsample import FILL_NONE
+from opentsdb_tpu_torch.ops.downsample import FILL_NONE, window_timestamps
 from opentsdb_tpu_torch.ops.group_agg import group_offsets, group_order
+from opentsdb_tpu_torch.ops.lanes import (group_members, new_group_moments,
+                                          point_group_moments)
 from opentsdb_tpu_torch.ops.pipeline import (_require_downsample,
                                              check_ported,
                                              run_downsample_grid,
@@ -62,6 +70,12 @@ from opentsdb_tpu_torch.ops.streaming import StreamAccumulator
 from opentsdb_tpu_torch.ops.tiling import (finish_lane_fold, lane_mode,
                                            new_lane_fold, tile_contrib,
                                            tile_partials)
+
+# The aggregators whose answer combines from partial moments over the mesh
+# (the reference's :43): sharded_group_downsample answers these.
+SHARDED_AGGS = frozenset({
+    "sum", "zimsum", "count", "avg", "min", "mimmin", "max", "mimmax",
+    "dev", "squareSum"})
 
 
 def shard_bounds(mesh, s: int) -> list[tuple[int, int]]:
@@ -322,3 +336,69 @@ def sharded_rollup(mesh, shards: SeriesTimeShards,
             for q, op in enumerate(("sum", "sum", "min", "max"))))
     return out
 
+
+
+# shape: gid[S] any, edges[W+1] i64 -> ([W] i64, [G,W] f64, [G,W] bool)
+def sharded_group_downsample(mesh, agg_name: str, shards: SeriesTimeShards,
+                             gid, num_groups: int, edges: torch.Tensor):
+    """Raw points to group-window aggregates over the mesh (the
+    reference's :129) -> (wts[W], out[G, W], out_mask[G, W]) on the
+    owner.  Row r of the batch that `shards` cuts (``shard_series``)
+    belongs to group gid[r] (host, [S], any order; rows outside [0, G)
+    to none); each (series, time) block runs P1 on its device over the
+    block's rows, and the partial lanes combine over the mesh (counts
+    and sums added, extremes taken); dev runs a second, centred P1 pass
+    around the combined mean, broadcast to every block, and sums its
+    m2.  The finish is the reference's ``_finish``: count is the count
+    as f64, avg tot / max(cnt, 1), dev sqrt(m2 / (cnt - 1)) where cnt >=
+    2 else 0, and every answer, count included, is NaN where no point
+    counted (out_mask = cnt > 0).  An aggregator outside SHARDED_AGGS
+    raises KeyError."""
+    if agg_name not in SHARDED_AGGS:
+        raise KeyError("Aggregator %r has no cross-chip decomposition"
+                       % agg_name)
+    coll = mesh.collectives
+    gid = np.asarray(gid, np.int64)
+    w = edges.numel() - 1
+    edges_at = coll.broadcast(edges.to(mesh.owner))
+    n_t = mesh.shape[1]
+    # (block, its device, its edges, its members and offsets), flat in
+    # the mesh's order; None for a block that holds no point
+    blocks = []
+    for i, (r0, r1) in enumerate(shards.row_bounds):
+        groups = {}
+        for j, (c0, c1) in enumerate(shards.col_bounds):
+            dev = mesh.device_at(i, j)
+            if r1 == r0 or c1 == c0:
+                blocks.append((None, dev, None, None))
+                continue
+            if dev not in groups:
+                groups[dev] = group_members(
+                    torch.from_numpy(gid[r0:r1]).to(dev), num_groups)
+            blocks.append((shards.blocks[i][j], dev, edges_at[i * n_t + j],
+                           groups[dev]))
+
+    def pass_over(mode: str, means=None) -> dict:
+        parts = []
+        for k, (block, dev, e, members) in enumerate(blocks):
+            if block is None:
+                parts.append(new_group_moments(num_groups, w, mode, dev))
+            else:
+                parts.append(point_group_moments(
+                    *block, e, *members, mode,
+                    None if means is None else means[k]))
+        return _combine(mesh, parts)
+
+    mode = lane_mode(agg_name)
+    combined = pass_over(mode)
+    m2 = None
+    if agg_name == "dev":
+        mean = combined["tot"] / combined["cnt"].clamp(min=1).to(
+            torch.float64)
+        m2 = pass_over("centred", coll.broadcast(mean))["m2"]
+    # finish_lane_fold's mask reads the count of present members; here
+    # a cell is present where a point counted
+    out, out_mask = finish_lane_fold(
+        dict(combined, present=combined["cnt"]), agg_name, m2)
+    out = torch.where(out_mask, out, math.nan)
+    return window_timestamps(edges_at[0]), out, out_mask

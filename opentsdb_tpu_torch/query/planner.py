@@ -519,34 +519,10 @@ class QueryRunner:
             self.exec_stats["sketchHazardExact"] = 1.0
         clock.mark("build")
 
-        # the device mesh serves a segment of at least min_series series
-        # (the reference's :453-459)
+        ctx = route_context(tsdb, seg, spec, windows, kept, store,
+                            sketchable)
         mesh = tsdb.query_mesh()
-        use_mesh = mesh is not None and len(series_list) >= \
-            tsdb.config.get_int("tsd.query.mesh.min_series")
-        # sized as the reference sizes them: its padded window and group
-        # counts, so that the two route and refuse the same plans
-        batcher = tsdb.dispatch_batcher
-        ctx = pdn.RouteContext(
-            seg_kind=seg.kind, ds_fn=ds_fn, aggregator=sub.aggregator,
-            has_rate=spec.rate is not None, s=len(series_list),
-            n_max=int(n_max), wp=pad_pow2(windows.count), groups=len(kept),
-            g_pad=pad_pow2(len(kept)), total_points=int(points),
-            sketchable=sketchable,
-            stream_ok=seg.kind != "rollup_avg" and (ds_fn in STREAMABLE_DS
-                                                    or sketchable),
-            windows_fixed=isinstance(windows, FixedWindows),
-            store_is_raw=store is tsdb.store, has_store=store is not None,
-            platform=dev.type,
-            state_mb=tsdb.config.get_int("tsd.query.streaming.state_mb"),
-            point_threshold=tsdb.config.get_int(
-                "tsd.query.streaming.point_threshold"),
-            batch_ok=batcher is not None and batcher.enabled,
-            batch_factor=tsdb.config.get_float(
-                "tsd.query.batch.amortize_factor"),
-            ts_base=precompact_base(
-                windows, getattr(windows, "first_window_ms", None)),
-            use_mesh=use_mesh, n_chips=mesh.size if use_mesh else 1)
+        use_mesh = ctx.use_mesh
         pd = pdn.plan_decision(tsdb, ctx, _ExecConsults(
             self, ctx, spec, seg, windows, store, series_list, clock))
         self.decisions.append(pd)
@@ -1228,6 +1204,49 @@ class QueryRunner:
         for sub in query.queries:
             out.extend(self.run_sub(query, sub))
         return out
+
+
+def route_context(tsdb, seg: Segment, spec: PipelineSpec, windows, kept,
+                  store, sketchable: bool, state_mb: int | None = None,
+                  platform: str | None = None) -> pdn.RouteContext:
+    """The routing verdict's snapshot of one grouped segment (the
+    reference's RouteContext), as the executor and explain
+    (query/explain.py) both build it, so that both get one verdict.
+    `kept` holds (group key, members, point counts) of the groups with
+    points; `state_mb` and `platform` replace the configured budget and
+    the TSDB's device type (explain's what-ifs).  Sized as the reference
+    sizes it: its padded window and group counts, so that the two route
+    and refuse the same plans.  The device mesh serves a segment of at
+    least ``tsd.query.mesh.min_series`` series (the reference's
+    :453-459)."""
+    config = tsdb.config
+    s = sum(len(members) for _, members, _ in kept)
+    ds_fn = spec.downsample.function
+    mesh = tsdb.query_mesh()
+    use_mesh = mesh is not None \
+        and s >= config.get_int("tsd.query.mesh.min_series")
+    batcher = tsdb.dispatch_batcher
+    return pdn.RouteContext(
+        seg_kind=seg.kind, ds_fn=ds_fn, aggregator=spec.aggregator,
+        has_rate=spec.rate is not None, s=s,
+        n_max=int(max(max(c) for _, _, c in kept)),
+        wp=pad_pow2(windows.count), groups=len(kept),
+        g_pad=pad_pow2(len(kept)),
+        total_points=int(sum(sum(c) for _, _, c in kept)),
+        sketchable=sketchable,
+        stream_ok=seg.kind != "rollup_avg" and (ds_fn in STREAMABLE_DS
+                                                or sketchable),
+        windows_fixed=isinstance(windows, FixedWindows),
+        store_is_raw=store is tsdb.store, has_store=store is not None,
+        platform=platform or tsdb.device.type,
+        state_mb=(config.get_int("tsd.query.streaming.state_mb")
+                  if state_mb is None else state_mb),
+        point_threshold=config.get_int("tsd.query.streaming.point_threshold"),
+        batch_ok=batcher is not None and batcher.enabled,
+        batch_factor=config.get_float("tsd.query.batch.amortize_factor"),
+        ts_base=precompact_base(windows,
+                                getattr(windows, "first_window_ms", None)),
+        use_mesh=use_mesh, n_chips=mesh.size if use_mesh else 1)
 
 
 def extract_dps(out_ts: np.ndarray, out_val: np.ndarray, out_mask: np.ndarray,

@@ -43,8 +43,8 @@ is reused, and only the uncovered pieces are computed.
 Differences: blocks are keyed on the platform (the TSDB's device type)
 with no mode-policy epoch (the port has one kernel a function, no modes);
 the device tier holds torch tensors on the card; the reference's
-registry counters are ``collect_stats`` tallies (ROADMAP A, slice 8d);
-there is no explain dry run (``plan``'s ``observe``, slice 8c).  When
+registry counters are ``collect_stats`` tallies (ROADMAP A, slice 8d).
+``plan`` has the reference's dry run (``observe=False``), for explain.  When
 the device cache holds the metric's entry, ``plan`` prices the recompute
 as the hit it would be (a gather, no host build) and the rewrite with a
 gather a piece it computes and a dispatch a block it replays; the
@@ -249,13 +249,21 @@ class AggregateCache:
              start_ms: int, end_ms: int, ds_fn: str, fill_policy: str,
              fill_value, platform: str, s: int, n_max: int, g_pad: int,
              has_rate: bool, total_points: int = 0,
-             full_hit: bool = False):
+             full_hit: bool = False, observe: bool = True):
         """The rewrite decision for one fixed-grid downsample segment ->
         (RewritePlan or None, decision dict).  None means recompute
         monolithically; the decision dict comes back either way (the
         pipeline span's ``agg_cache`` tag).  `full_hit` says that the
         device cache holds the metric's entry, so the recompute would be
-        a hit (``_price``)."""
+        a hit (``_price``).
+
+        ``observe=False`` is explain's dry run (the reference's :387-484):
+        the same verdict from the same state, with no bookkeeping: the
+        repeat count is read but not advanced, LRU recency and
+        ``_planned_gen`` stay, stale blocks are left for the real pass to
+        reap, and no hit, miss or rewrite is counted.  The executor's own
+        ``plan`` prices with the count before its increment, so a dry run
+        at the same instant gives the same decision."""
         interval = windows.interval_ms
         first = windows.first_window_ms
         w = windows.count
@@ -291,15 +299,18 @@ class AggregateCache:
         missing: list[PlanPiece] = []
         with self._lock:
             gen0 = self._gen
-            # blocks built from this plan are invalidated by any later
-            # write: stop coalescing marks at this generation
-            self._planned_gen = max(self._planned_gen, gen0)
-            # pop-then-set keeps the counts in recency order, so overflow
-            # evicts the stalest families
-            repeats = self._repeats.pop(family, 0)
-            self._repeats[family] = repeats + 1
-            while len(self._repeats) > _MAX_FAMILIES:
-                self._repeats.pop(next(iter(self._repeats)))
+            if observe:
+                # blocks built from this plan are invalidated by any later
+                # write: stop coalescing marks at this generation
+                self._planned_gen = max(self._planned_gen, gen0)
+                # pop-then-set keeps the counts in recency order, so
+                # overflow evicts the stalest families
+                repeats = self._repeats.pop(family, 0)
+                self._repeats[family] = repeats + 1
+                while len(self._repeats) > _MAX_FAMILIES:
+                    self._repeats.pop(next(iter(self._repeats)))
+            else:
+                repeats = self._repeats.get(family, 0)
             for k in range(k_lo, k_hi + 1):
                 piece = PlanPiece(
                     first_ms=k * bw * interval, count=bw,
@@ -312,10 +323,12 @@ class AggregateCache:
                     piece.rows = np.fromiter(
                         (entry.rows[srs] for srs in series_list),
                         np.int64, count=len(series_list))
-                    self._blocks[key] = self._blocks.pop(key)   # LRU
+                    if observe:
+                        self._blocks[key] = self._blocks.pop(key)   # LRU
                     if entry.val_dev is not None:
-                        self._dev_tick += 1
-                        entry.dev_tick = self._dev_tick
+                        if observe:
+                            self._dev_tick += 1
+                            entry.dev_tick = self._dev_tick
                         piece.cached = (entry.val_dev, entry.mask_dev)
                         piece.tier = "agg_device"
                     else:
@@ -324,7 +337,7 @@ class AggregateCache:
                     hits.append(piece)
                     hit_entries.append((key, entry))
                 else:
-                    if entry is not None:
+                    if entry is not None and observe:
                         # stale or missing rows: make room for the rebuild
                         self._drop_locked(key)
                     missing.append(piece)
@@ -344,14 +357,15 @@ class AggregateCache:
 
         def commit(reason: str) -> RewritePlan:
             decision.update(decision="rewrite", reason=reason)
-            with self._lock:
-                # arm the ingest-side marks before the executor reads
-                # any store data
-                self._maybe_cached = True
-                self.rewrites += 1
-                self.hits += len(hits)
-                self.misses += len(missing)
-                self._note_serves_locked(hit_entries)
+            if observe:
+                with self._lock:
+                    # arm the ingest-side marks before the executor reads
+                    # any store data
+                    self._maybe_cached = True
+                    self.rewrites += 1
+                    self.hits += len(hits)
+                    self.misses += len(missing)
+                    self._note_serves_locked(hit_entries)
             return RewritePlan(pieces=pieces, gen0=gen0, family=family,
                                store=store, metric=metric,
                                interval_ms=interval, platform=platform,

@@ -35,8 +35,8 @@ the reference's :443-483), and K1 and K4 read them in their int32 forms:
 Differences from the reference: the buffers hold exactly the metric's
 points (no power-of-two padding, 16 B a point) and a batch's N is the
 longest requested run, the N that ops.pipeline.build_batch_direct gives;
-``peek`` (ROADMAP A, slice 8c) and the prometheus counters (slice 8d) are
-not ported.  A query that streams (the planner's streamed route) does not
+the prometheus counters (slice 8d) are not ported.  ``peek`` answers
+explain's "warm or cold" without touching anything.  A query that streams (the planner's streamed route) does not
 build a cold entry inline: it queues the build for ``refresh``, as the
 reference does.
 """
@@ -182,6 +182,52 @@ class DeviceSeriesCache:
         runs = torch.from_numpy(np.stack([starts, lengths])).to(self.device)
         return gather_windows(entry.ts_dev, entry.val_dev, runs[0], runs[1],
                               n, ts_base)
+
+    def peek(self, store, metric: int, series_list, start_ms: int,
+             end_ms: int, build: bool = True,
+             ts_base: int | None = None) -> bool:
+        """Whether ``batch_for`` would answer this request with a device
+        batch, as of now, read-only (the reference's :208): no build, no
+        gather, no staleness mark, no queued build, no hit or miss, no
+        LRU touch.  Explain's arm of the routing verdict.  A cold entry
+        with `build` is predicted from the inline build's preconditions
+        (no build running, the metric's point and byte budgets) without
+        a snapshot; duplicates are found by the same ``window_bounds``
+        probe ``batch_for`` makes."""
+        ekey = (id(store), metric)
+        with self._lock:
+            entry = self._entries.get(ekey)
+            building = ekey in self._building
+        if entry is None:
+            if not build or building:
+                return False
+            series_objs = store.series_for_metric(metric)
+            total = sum(len(s) for s in series_objs)
+            if not series_objs or total > self.build_max_points \
+                    or total * _BYTES_PER_POINT > self.max_bytes:
+                return False
+            rows = {s.key: s for s in series_objs}
+            resolve = rows.get
+        else:
+            def resolve(key):
+                row = entry.row.get(key)
+                return None if row is None else entry.series_objs[row]
+        n = 0
+        for series in series_list:
+            if resolve(series.key) is not series:
+                return False
+            try:
+                lo, hi, version = series.window_bounds(
+                    start_ms, end_ms, self.fix_duplicates)
+            except ValueError:
+                return False
+            if entry is not None \
+                    and version != entry.versions[entry.row[series.key]]:
+                return False
+            n = max(n, hi - lo)
+        per_point = (_BATCH_BYTES_PER_POINT if ts_base is None
+                     else _BATCH_BYTES_PER_POINT_I32)
+        return len(series_list) * n * per_point <= self.batch_max_bytes
 
     def holds(self, store, metric: int) -> bool:
         """Whether the metric's entry is on the device and not queued for

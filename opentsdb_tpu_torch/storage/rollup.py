@@ -41,7 +41,8 @@ device or replays it through the spill pool (ops/tiling.py).
 Deliberate differences from the reference: a block holds exactly
 ``tsd.rollup.block_windows`` cells (no power-of-two rounding); blocks live
 on the host, as the reference's do; there are no prometheus counters and
-no flight recorder, the tallies stay in ``collect_stats``.
+no flight recorder, the tallies stay in ``collect_stats``.  ``plan``
+has the reference's dry run (``observe=False``), for explain.
 """
 
 from __future__ import annotations
@@ -256,23 +257,39 @@ class RollupLanes:
 
     def plan(self, metric: int, series_list, windows: FixedWindows,
              start_ms: int, end_ms: int, ds_fn: str, n_max: int,
-             groups: int, has_rate: bool, total_points: int = 0):
+             groups: int, has_rate: bool, total_points: int = 0,
+             observe: bool = True, note: dict | None = None):
         """The lane-serve verdict on one fixed-grid segment: a LanePlan, or
         None for the exact path (a function no lane derives, an interval
         or origin no lane divides, no full window, or blocks missing or
         stale).  Every consult that a lane could serve records a demand
-        observation priced by the cost model, which ``refresh`` ranks."""
+        observation priced by the cost model, which ``refresh`` ranks.
+
+        ``observe=False`` is explain's dry run (query/explain.py, the
+        reference's :341-344): the same verdict from the same state, with
+        nothing recorded: no demand, no LRU bump, no miss, no
+        ``_planned_gen`` advance, and stale or incomplete blocks left for
+        the real pass to reap.  `note`, when given, receives the
+        decision as the reference reports it (decision, reason, lane,
+        coverage, the predictions; cells and blocks when served)."""
+        decision = {} if note is None else note
+        decision.update(decision="fallback", reason="", lane="",
+                        coverage=0.0)
         if not self.derivable(ds_fn):
+            decision["reason"] = "not_derivable"
             return None
         interval = windows.interval_ms
         first = windows.first_window_ms
         picked = self.lane_for(interval, first)
         if picked is None:
+            decision["reason"] = "no_lane_divides"
             return None
         label, lane_ms = picked
         k = interval // lane_ms
+        decision["lane"] = label
         wf_lo, wf_hi = self._full_windows(windows, start_ms, end_ms)
         if wf_hi < wf_lo:
+            decision["reason"] = "no_full_windows"
             return None
         c_lo = (first + wf_lo * interval) // lane_ms
         c_hi = (first + (wf_hi + 1) * interval) // lane_ms - 1
@@ -280,6 +297,7 @@ class RollupLanes:
         bw = self.block_windows
         b_lo, b_hi = c_lo // bw, c_hi // bw
         if b_hi - b_lo + 1 > _MAX_BLOCK_WALK:
+            decision["reason"] = "too_many_blocks"
             return None
 
         # what the lane saves against the exact plan
@@ -290,6 +308,8 @@ class RollupLanes:
         pred_lane = sum(full.values()) - full["downsample"] \
             + cm.predict_lane(s, wf_hi - wf_lo + 1, k)
         saving = max(pred_full - pred_lane, 0.0)
+        decision["predictedLaneMs"] = round(pred_lane * 1e3, 3)
+        decision["predictedFullMs"] = round(pred_full * 1e3, 3)
 
         # under the lock: the generation snapshot, validity and the LRU
         # bump; blocks are immutable once stored, so the row work runs
@@ -297,19 +317,21 @@ class RollupLanes:
         candidates: list = []
         missing = 0
         with self._lock:
-            self._planned_gen = max(self._planned_gen, self._gen)
-            self._note_demand_locked(metric, lane_ms, s, start_ms, end_ms,
-                                     saving)
+            if observe:
+                self._planned_gen = max(self._planned_gen, self._gen)
+                self._note_demand_locked(metric, lane_ms, s, start_ms,
+                                         end_ms, saving)
             for b in range(b_lo, b_hi + 1):
                 key = (metric, lane_ms, b)
                 entry = self._blocks.get(key)
                 if entry is None or not self._valid_locked(entry):
-                    if entry is not None:
+                    if entry is not None and observe:
                         self._drop_locked(key)
                     missing += 1
                     continue
-                self._blocks.pop(key)
-                self._blocks[key] = entry
+                if observe:
+                    self._blocks.pop(key)
+                    self._blocks[key] = entry
                 candidates.append((key, entry, b))
         segments: list = []
         incomplete: list = []
@@ -325,14 +347,18 @@ class RollupLanes:
             hi_cell = min(c_hi, (b + 1) * bw - 1)
             segments.append((entry, rows, lo_cell - b * bw,
                              hi_cell - b * bw + 1, lo_cell - c_lo))
-        if incomplete:
-            with self._lock:
-                for key in incomplete:
-                    self._drop_locked(key)
         if missing:
-            with self._lock:
-                self.misses += 1
+            decision["reason"] = "cold"
+            decision["coverage"] = round(
+                1.0 - missing / (b_hi - b_lo + 1), 4)
+            if observe:
+                with self._lock:
+                    for key in incomplete:
+                        self._drop_locked(key)
+                    self.misses += 1
             return None
+        decision.update(decision="lane", reason="served", coverage=1.0,
+                        cells=n_cells, blocks=len(segments))
         return LanePlan(k=k, wf_lo=wf_lo, wf_hi=wf_hi, n_cells=n_cells,
                         segments=segments, lane=label)
 

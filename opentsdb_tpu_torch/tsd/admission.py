@@ -30,6 +30,8 @@ what the daemon admits:
   token: a cancelled or expired query leaves the queue without taking a
   permit.  The server flips the token when the client hangs up and when
   a drain runs out of patience (``CancellationHandle``).
+* **Preview.**  ``preview`` is the verdict ``admit`` would give, with
+  nothing acquired or counted: explain's admission section.
 
 The verdict is an ``admission`` span of the request's trace, the clamped
 tenant keys its latency profile, and the time from the parse mark to the
@@ -48,6 +50,7 @@ sites (slice 9).
 
 from __future__ import annotations
 
+import copy
 import math
 import threading
 import time
@@ -791,6 +794,46 @@ def admit(tsdb, ts_query, http_query=None) -> Permit:
         obs_trace.annotate(span, decision="degraded" if note else "admitted",
                            wait_ms=round((time.monotonic() - t0) * 1e3, 3))
     return permit
+
+
+def preview(tsdb, ts_query, deadline_ms: int | None = None) -> dict:
+    """The verdict ``admit`` would give this query now, for explain (the
+    reference's query/explain.py ``_admission_preview``, :343): the same
+    ``estimate_plan_cost_ms`` and queue-wait estimate, against
+    `deadline_ms` (a what-if), else the active request deadline, else
+    ``tsd.query.timeout``; the degradation ladder runs on a deep copy.
+    No permit is taken and no shed or degrade is counted."""
+    gate = gate_for(tsdb)
+    predicted_ms = estimate_plan_cost_ms(tsdb, ts_query)
+    queue_ms = gate.queue_wait_estimate_ms()
+    if deadline_ms is not None:
+        remaining_ms = float(deadline_ms)
+    else:
+        deadline = active_deadline()
+        if deadline is not None and deadline.bounded:
+            remaining_ms = deadline.remaining_ms()
+        else:
+            remaining_ms = float(tsdb.config.get_int("tsd.query.timeout"))
+    bounded = remaining_ms > 0 and math.isfinite(remaining_ms)
+    out = {
+        "enabled": gate.enabled,
+        "predictedMs": round(predicted_ms, 3),
+        "queueWaitEstimateMs": round(queue_ms, 3),
+        "remainingMs": round(remaining_ms, 3) if bounded else None,
+        "verdict": "admit",
+    }
+    if gate.enabled and bounded and predicted_ms + queue_ms > remaining_ms:
+        note = None
+        if _degrade_allowed(tsdb):
+            note = try_degrade(tsdb, copy.deepcopy(ts_query), remaining_ms,
+                               queue_ms)
+        if note is None:
+            out["verdict"] = "shed"
+            out["retryAfterS"] = gate.retry_after_s()
+        else:
+            out["verdict"] = "degrade"
+            out["degraded"] = note
+    return out
 
 
 def _degrade_allowed(tsdb) -> bool:

@@ -8,8 +8,11 @@ QueryRpc.java :89: the GET
 query-string grammar and the POST JSON body).  Telnet puts are handled
 one line at a time; the reference's batched native put is a speed mode
 over its C++ engine, with the same answers, and is not ported.  The
-/api/query sub-endpoints last, exp, gexp and explain, and deleting data
-through a query, answer 501 naming the ROADMAP slice that ports them.  A
+/api/query sub-endpoints last, exp and gexp, and deleting data through a
+query, answer 501 naming the ROADMAP slice that ports them.
+/api/query/explain answers the routing verdict of a query without
+running it (``handle_explain``, query/explain.py): no admission permit,
+no kernel, bounded by the request's deadline.  A
 query passes the admission gate (tsd/admission.py, the reference's
 rpcs.py:484) before the runner and releases its permit after its
 response is written; a shed answers 503 with Retry-After, a degraded
@@ -267,7 +270,7 @@ class HistogramDataPointRpc(_OneByOneRpc):
 _ADMIN_DATA = "A, slices 10 on (admin and data endpoints)"
 _EXPRESSIONS = "A, slices 10 on (expressions)"
 _NOT_PORTED = {"last": _ADMIN_DATA, "exp": _EXPRESSIONS,
-               "gexp": _EXPRESSIONS, "explain": "A, slice 8c (explain)"}
+               "gexp": _EXPRESSIONS}
 
 
 class QueryRpc(HttpRpc):
@@ -280,6 +283,9 @@ class QueryRpc(HttpRpc):
             raise NotPortedError("/api/query/%s is not ported yet "
                                  "(ROADMAP %s)"
                                  % (endpoint, _NOT_PORTED[endpoint]))
+        if endpoint == "explain":
+            self.handle_explain(tsdb, query)
+            return
         self.handle_query(tsdb, query)
 
     def handle_query(self, tsdb, query: HttpQuery) -> None:
@@ -337,6 +343,49 @@ class QueryRpc(HttpRpc):
                     summary["trace"] = trace.to_json()
                 payload.append({"statsSummary": summary})
             query.send_reply(payload)
+
+    def handle_explain(self, tsdb, query: HttpQuery) -> None:
+        """/api/query/explain (the reference's :609-660): the /api/query
+        request, GET or POST, plus what-ifs (``what_if=key=value`` query
+        parameters, or a ``whatIf`` object in the POST body), answered
+        with the routing verdict of each sub query; 404 when
+        ``tsd.explain.enable`` is off, 400 on a what-if the grammar or the
+        port refuses.  It takes no admission permit, so an overloaded
+        daemon can still be explained; the request deadline still bounds
+        the walk."""
+        allowed_methods(query, "GET", "POST")
+        if not tsdb.config.get_bool("tsd.explain.enable"):
+            raise BadRequestError(
+                "The explain endpoint is disabled", status=404,
+                details="Set tsd.explain.enable=true")
+        from opentsdb_tpu_torch.query import explain
+        if query.method == "POST":
+            ts_query = query.serializer.parse_query_v1()
+            raw_what_if = query.json_body().get("whatIf") or {}
+            if not isinstance(raw_what_if, dict):
+                raise BadRequestError("whatIf must be a JSON object")
+        else:
+            ts_query = self.parse_query_string(query)
+            raw_what_if = {}
+            for spec in query.get_query_string_params("what_if"):
+                if "=" not in spec:
+                    raise BadRequestError(
+                        "what_if must be key=value, got %r" % spec)
+                key, value = spec.split("=", 1)
+                raw_what_if[key.strip()] = value
+        ts_query.validate()
+        latattr.mark("parse")
+        try:
+            what_if = explain.parse_what_if(raw_what_if)
+        except explain.WhatIfError as e:
+            raise BadRequestError(str(e))
+        with obs_trace.stage("explain") as span:
+            report = explain.explain_query(tsdb, ts_query, what_if)
+            obs_trace.annotate(span, sub_queries=len(report["subQueries"]),
+                               what_if=what_if.active)
+        # the whole walk is the request's plan phase
+        latattr.mark("plan")
+        query.send_reply(report)
 
     @staticmethod
     def parse_query_string(query: HttpQuery) -> TSQuery:

@@ -46,6 +46,9 @@ DEFAULTS: dict[str, str] = {
     "tsd.query.degrade": "error",
     "tsd.diag.tenants": "",
     "tsd.diag.tenant_buckets": "16",
+    # /api/query/explain (query/explain.py)
+    "tsd.explain.enable": "true",
+    "tsd.explain.include_candidates": "true",
     # fused multi-query dispatch (query/batcher.py)
     "tsd.query.batch.enable": "true",
     "tsd.query.batch.hold_ms": "2",

@@ -219,10 +219,16 @@ def test_not_ported_501_is_not_logged_as_an_internal_error(caplog):
     _, port = _managers()
     with caplog.at_level(logging.DEBUG, logger="tsd.rpc"):
         for uri in ("/api/query/last?timeseries=svc.lat",
-                    "/api/query/exp",
-                    "/api/query/explain?start=1h-ago&m=sum:svc.lat"):
+                    "/api/query/exp"):
             status, body = _http(port, HttpRequest, "GET", uri)
             assert status == 501 and "ROADMAP" in body["error"]["details"]
+        # explain is served since slice 8c: an unknown metric is the
+        # client's 404, as /api/query answers it, not an internal error
+        for uri in ("/api/query/explain?start=1h-ago&m=sum:svc.lat",
+                    "/api/query?start=1h-ago&m=sum:svc.lat"):
+            status, body = _http(port, HttpRequest, "GET", uri)
+            assert status == 404, body
+            assert "No such name" in body["error"]["message"]
     assert not [r for r in caplog.records if r.levelno >= logging.ERROR]
 
 

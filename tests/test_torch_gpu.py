@@ -1279,3 +1279,93 @@ def test_sharded_pipeline_over_distinct_cards(cuda_device, agg):
     assert all(x.device == cards[0] for x in got)
     assert_exact(got[2].cpu().numpy(), want[2].cpu().numpy())
     assert_values(got[1].cpu().numpy(), want[1].cpu().numpy())
+
+
+@pytest.mark.parametrize("long_runs", [False, True])
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("mode", ["additive", "extreme", "square",
+                                  "centred"])
+def test_point_group_moments_kernel_matches_plain(cuda_device, mode,
+                                                  int_values, long_runs):
+    """P1 against its plain version on an interleaved gid (every third row
+    of none): counts and extremes exact, sums, squares and centred
+    squares at rtol 1e-9, in the warp form (long runs) and the thread
+    form; each launch counted under its mode."""
+    from opentsdb_tpu_torch.ops import lanes
+    rng = np.random.default_rng(45)
+    s, n, g = 37, 4096 if long_runs else 600, 5
+    ts, val, mask = sorted_batch(rng, s, n, int_values=int_values)
+    gid = (np.arange(s) * 3) % (g + 2) - 1     # interleaved, some of none
+    # 4 windows of ~1,000 points a row, or 61 of ~10
+    plan = tds.FixedWindows.for_range(T0, T0 + 3_600_000,
+                                      900_000 if long_runs else 60_000)
+    edges = plan.window_edges("cpu")
+    w = plan.count
+    mean = rng.normal(50.0, 5.0, (g, w)) if mode == "centred" else None
+    members, offsets = lanes.group_members(t(gid), g)
+    want = lanes.point_group_moments(
+        t(ts), t(val), t(mask), edges, members, offsets, mode,
+        None if mean is None else t(mean))
+    d_members, d_offsets = lanes.group_members(t(gid).to(cuda_device), g)
+    assert torch.equal(d_members.cpu(), members)
+    kernels.reset_launches()
+    got = lanes.point_group_moments(
+        *_on(cuda_device, ts, val, mask), edges.to(cuda_device), d_members,
+        d_offsets, mode, None if mean is None else t(mean).to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["point_group_moments"] == 1
+    assert kernels.LAUNCHES["point_group_moments." + mode] == 1
+    for lane in want:
+        if lane in ("cnt", "lo", "hi"):
+            assert_exact(got[lane].cpu().numpy(), want[lane].numpy())
+        else:
+            assert_values(got[lane].cpu().numpy(), want[lane].numpy())
+
+
+@pytest.mark.parametrize("agg", ["sum", "count", "avg", "min", "mimmax",
+                                 "dev", "squareSum"])
+def test_sharded_group_downsample_on_card_matches_cpu(cuda_device, agg):
+    """sharded_group_downsample on a (2, 2) mesh of the card and on a
+    one-device NCCL mesh against the plain composition on the CPU: masks
+    exact, values at rtol 1e-9."""
+    from opentsdb_tpu_torch.parallel import (make_mesh, shard_series,
+                                             sharded_group_downsample)
+    ts, val, mask = sorted_batch(np.random.default_rng(46), 11, 700)
+    gid = np.arange(11) % 3
+    edges = PLANS["fixed"].window_edges("cpu")
+    cpu = make_mesh(devices=["cpu"])
+    want = sharded_group_downsample(cpu, agg, shard_series(cpu, ts, val,
+                                                           mask), gid, 3,
+                                    edges)
+    for mesh in (make_mesh(devices=[cuda_device] * 4, shape=(2, 2)),
+                 make_mesh(devices=[cuda_device])):
+        got = sharded_group_downsample(
+            mesh, agg, shard_series(mesh, ts, val, mask), gid, 3,
+            edges.to(cuda_device))
+        assert_exact(got[0].cpu().numpy(), want[0].numpy())
+        assert_exact(got[2].cpu().numpy(), want[2].numpy())
+        assert_values(got[1].cpu().numpy(), want[1].numpy())
+
+
+@pytest.mark.parametrize("fn", ["avg", "squareSum", "median", "first"])
+def test_k1_and_k4_hold_the_wide_range_exact_values(cuda_device, fn):
+    """The wide dynamic-range regime (tests/test_torch_dynamic_range.py)
+    on the card: K1 and K4 give the exact values after a -1e15 point."""
+    later = [-35.48827592954828, 2.0, 1.25, 0.1]
+    t0 = 1_356_998_400_000
+    ts = torch.tensor([[t0 + 60_000 * k for k in range(5)]],
+                      dtype=torch.int64, device=cuda_device)
+    val = torch.tensor([[-1e15] + later], dtype=torch.float64,
+                       device=cuda_device)
+    mask = torch.ones_like(ts, dtype=torch.bool)
+    edges = tds.FixedWindows.for_range(t0, t0 + 299_000,
+                                       60_000).window_edges(cuda_device)
+    kernels.reset_launches()
+    _, out, out_mask = tds.downsample(ts, val, mask, fn, edges)
+    name = "window_moments" if fn in ("avg", "squareSum") else "window_order"
+    assert kernels.LAUNCHES[name] == 1
+    assert bool(out_mask.all())
+    first = 1e30 if fn == "squareSum" else -1e15
+    exact = [v * v for v in later] if fn == "squareSum" else later
+    np.testing.assert_array_equal(out[0].cpu().numpy(),
+                                  np.array([first] + exact))

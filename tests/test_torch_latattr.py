@@ -7,8 +7,8 @@ once with non-negative deltas, folded into profiles keyed by (route,
 plan fingerprint, tenant) and served at /api/diag/latency.  Not carried
 over: the reference's 3% overhead pin (a timing bound on a shared CPU is
 not a parity check), its flight-recorder cases (ROADMAP A, slice 8d) and
-its explain and expression routes (the port answers 501 there, which
-still folds one profile).
+its expression routes (the port answers 501 there, which still folds
+one profile).
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def test_ambient_stamps_follow_the_handler_thread():
 
 ROUTES = [
     ("GET", QUERY_URI, None, 200),
-    ("GET", EXPLAIN_URI, None, 501),
+    ("GET", EXPLAIN_URI, None, 200),
     ("POST", "/api/put", PUT_BODY, 204),
     ("GET", "/api/diag", None, 501),
 ]

@@ -191,11 +191,19 @@ def test_version_has_the_reference_keys():
 def test_not_ported_query_endpoints_answer_501():
     _, port = _managers(**{"tsd.http.query.allow_delete": True})
     for uri in ("/api/query/last?timeseries=sys.cpu",
-                "/api/query/exp", "/api/query/gexp?start=1h-ago&exp=x",
-                "/api/query/explain?start=1h-ago&m=sum:sys.cpu"):
+                "/api/query/exp", "/api/query/gexp?start=1h-ago&exp=x"):
         status, body = _send(port, HttpRequest, ("http", "GET", uri, None))
         assert status == 501, uri
         assert "ROADMAP" in body["error"]["details"]
+    # explain is served since slice 8c
+    for step in SEQUENCE[:3]:
+        _send(port, HttpRequest, step)
+    status, body = _send(port, HttpRequest, (
+        "http", "GET", "/api/query/explain?%s&m=sum:1m-avg:sys.cpu" % _Q,
+        None))
+    assert status == 200, body
+    assert body["subQueries"][0]["segments"][0]["path"] in (
+        "resident", "batched")
     # deleting through a query is allowed by the config, but not ported
     status, body = _send(port, HttpRequest, (
         "http", "DELETE", "/api/query?%s&m=sum:sys.cpu" % _Q, None))
@@ -227,7 +235,6 @@ def test_not_ported_501s_name_existing_roadmap_slices():
     sends = [("GET", uri) for uri in (
         "/api/query/last?timeseries=sys.cpu", "/api/query/exp",
         "/api/query/gexp?start=1h-ago&exp=x",
-        "/api/query/explain?start=1h-ago&m=sum:sys.cpu",
         "/api/diag", "/api/diag/slow", "/api/diag/health")]
     sends.append(("DELETE", "/api/query?%s&m=sum:sys.cpu" % _Q))
     for method, uri in sends:
