@@ -24,9 +24,15 @@ days), 1h windows.  Phases:
    masks exact.  Times are the median of 7 CUDA-event timed runs.
    Then K4 window_order (every order and rank downsample function, the
    fills for p99 and first, and "0all" p99 and median: 65,536-point
-   runs), K5 group_order (every order and rank aggregator over the 100
-   groups, median and ep99r7 over all 1024 rows as one group) and MA
-   moving_average after K1's and K3's sums.
+   runs), then mult's classes at the headline shape (the headline batch,
+   whose every window overflows to +inf; a copy with zeros, inf values,
+   negative values and factors of 1e-300 sprinkled over it; a near-1
+   copy whose products stay finite), each case's cells counted by class
+   (finite, +-inf, +-0, NaN), the last two held to the plain version on
+   the CPU (classes exact), each timed against torch.segment_reduce
+   prod; K5 group_order (every order and rank aggregator over the 100
+   groups, median and ep99r7 over all 1024 rows as one group, mult timed)
+   and MA moving_average after K1's and K3's sums.
 3. G1 gather_windows, the device cache's gather, against its plain
    version on the headline batch's columns as one packed buffer: (a) the
    full range, 1024 rows x 65,536 points; (b) the last 6 h; (c) the rows
@@ -60,7 +66,10 @@ days), 1h windows.  Phases:
    one group over the last 6 h (the fan-in of `sum:metric` over a fleet);
    (c) on an integer copy of 64 rows in 8 groups near 2^53 (int mode,
    exact but for dev, a truncated float); R point_rate (d) on the headline
-   batch under every rate option set, float and all-integer.  Then U3
+   batch under every rate option set, float and all-integer; U1 (e) on
+   awkward shapes over the last 6 h (groups of 1, 2, 3, 5 and 1013 rows
+   with all-masked rows, 64 equal rows, every point repeated in its row),
+   exactly.  U1 is timed on (a) and (b) against torch.unique.  Then U3
    union_order (first last diff mult median p99 ep99r3 ep99r7) and MA
    after U2's sums, in the same cases (a) to (c), (c) exact.
 6. end to end, union: the same TSDB plus an integer metric `mi` (64
@@ -671,7 +680,9 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         "library_ms": time_ms(lambda: torch.segment_reduce(
             flat, "prod", lengths=lengths)),
     }
-    del lengths, flat
+    del flat
+    mult_class_phase(dev, ts, val, h, d_ts, d_mask, edges, lengths, checks)
+    del lengths
     extra = {f: time_ms(lambda f=f: ds.window_order(d_ts, d_val, d_mask,
                                                     edges, f))
              for f in ("first", "median", "p95", "ep99r7")}
@@ -731,6 +742,12 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     print("time group_order p99 over %d groups %.4f ms"
           % (GROUPS, time_ms(lambda: ga.group_order("p99", contrib, part,
                                                     present, offsets))))
+    print("time group_order mult (the shared ordered product) over %d "
+          "groups %.4f ms, 1024 rows one group %.4f ms"
+          % (GROUPS, time_ms(lambda: ga.group_order("mult", contrib, part,
+                                                    present, offsets)),
+             time_ms(lambda: ga.group_order("mult", contrib, part, present,
+                                            one))))
 
     # MA at the grid position: K3's group sums over the windows with data
     gsum, _ = ga.group_moments("sum", contrib, part, present, offsets)
@@ -1232,6 +1249,110 @@ def _union_cases(name, d_ts, d_val, d_mask, offsets,
     return u, uoff
 
 
+def union_shape_cases(dev, b_ts, b_mask, checks: Checks) -> None:
+    """(e) U1's awkward shapes over the last 6 h, each against the plain
+    version exactly: groups of 1, 2, 3, 5 and 1013 rows with all-masked
+    rows among them; 64 equal rows in one group; every point repeated
+    within its row, 100 groups."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import union_agg as ua
+
+    pad = np.iinfo(np.int64).max
+    e_ts, e_mask = b_ts.copy(), b_mask.copy()
+    e_mask[[1, 7, 12, S - 3]] = False         # all masked
+    e_ts[[1, 7, 12, S - 3]] = pad
+    sizes = np.array([1, 2, 3, 5, S - 11])
+    rep = np.repeat(b_ts[:, : b_ts.shape[1] // 2], 2, axis=1)
+    rep_mask = np.repeat(b_mask[:, : b_ts.shape[1] // 2], 2, axis=1)
+    cases = {
+        "(e) groups of 1, 2, 3, 5, 1013": (
+            e_ts, e_mask, np.repeat(np.arange(5), sizes)),
+        "(e) 64 equal rows": (np.tile(b_ts[:1], (64, 1)),
+                              np.tile(b_mask[:1], (64, 1)),
+                              np.zeros(64, np.int64)),
+        "(e) repeats within rows": (rep, rep_mask,
+                                    (np.arange(S) * GROUPS) // S),
+    }
+    for name, (c_ts, c_mask, c_gid) in cases.items():
+        d = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (c_ts, c_mask)]
+        offsets = ga.group_offsets(c_gid, int(c_gid.max()) + 1).to(dev)
+        u, uoff = ua.union_merge(d[0], d[1], offsets)
+        pu, puoff = ua.union_merge_plain(d[0], d[1], offsets)
+        checks.exact("union_merge", name + " u", u, pu, "timestamps")
+        checks.exact("union_merge", name + " uoff", uoff, puoff, "offsets")
+        print("%-15s %-44s U=%d %s" % (
+            "union_merge", name, u.numel(),
+            "ok" if torch.equal(u, pu) and torch.equal(uoff, puoff)
+            else "FAIL"))
+
+
+def _classes(x) -> dict:
+    """Cells of a float64 tensor by the classes of a product."""
+    return {"finite": int((torch.isfinite(x) & (x != 0)).sum()),
+            "+inf": int((x == math.inf).sum()),
+            "-inf": int((x == -math.inf).sum()),
+            "+0": int(((x == 0) & ~torch.signbit(x)).sum()),
+            "-0": int(((x == 0) & torch.signbit(x)).sum()),
+            "NaN": int(torch.isnan(x).sum())}
+
+
+def _class_codes(x):
+    return torch.where(torch.isnan(x), 1, torch.where(
+        torch.isinf(x), 2 + torch.signbit(x).long(), torch.where(
+            x == 0, 4 + torch.signbit(x).long(), 0)))
+
+
+def mult_class_phase(dev, ts, val, h, d_ts, d_mask, edges, lengths,
+                     checks: Checks) -> None:
+    """K4 mult's classes at the headline shape.  (i) The headline batch:
+    every window's product overflows to +inf.  (ii) Classes: zeros,
+    infinite values, negative values and factors of 1e-300 sprinkled over
+    the batch, so that windows overflow before or after a zero or an inf
+    value and a few pass near the subnormals (the ordered walk inside the
+    kernel).  (iii) A near-1 copy (values in [0.99, 1.01]) whose products
+    stay finite.  (ii) and (iii) are held to the plain version on the CPU,
+    which multiplies each run in its order (on the card scatter_reduce_
+    multiplies in no set order): classes exact, finite values at rtol
+    1e-9.  Each case is timed against torch.segment_reduce prod of the
+    same runs (masked or NaN slots as 1, outside the timed call)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+
+    cls = val.copy()
+    cls[h % 5 == 0] *= -1.0
+    cls[h % 1009 == 3] = 0.0
+    cls[h % 2003 == 5] = math.inf
+    cls[h % 4099 == 11] = 1e-300
+    near = 1.0 + ((h % 1000) - 500).astype(np.float64) * 2e-5
+    c_ts = torch.from_numpy(ts)
+    c_mask = torch.ones((S, N), dtype=torch.bool)
+    c_edges = edges.cpu()
+    for name, v in (("headline", val), ("classes", cls), ("near-1", near)):
+        d_v = torch.from_numpy(v).to(dev)
+        got, got_mask = ds.window_order(d_ts, d_v, d_mask, edges, "mult")
+        torch.cuda.synchronize()
+        counts = _classes(got)
+        print("window_order mult %-8s cells: %s" % (
+            name, ", ".join("%s %d" % kv for kv in counts.items())))
+        if name != "headline":
+            want, want_mask = ds.window_order_plain(
+                c_ts, torch.from_numpy(v), c_mask, c_edges, "mult")
+            case = "mult %s at the headline shape" % name
+            checks.exact("window_order", case, got_mask, want_mask)
+            checks.exact("window_order", case + " classes",
+                         _class_codes(got.cpu()), _class_codes(want),
+                         "classes")
+            checks.values("window_order", case, got, want)
+        flat = torch.where(torch.isnan(d_v), 1.0, d_v).reshape(-1)
+        k_ms = time_ms(lambda: ds.window_order(d_ts, d_v, d_mask, edges,
+                                               "mult"))
+        lib_ms = time_ms(lambda: torch.segment_reduce(flat, "prod",
+                                                      lengths=lengths))
+        print("time window_order mult %-8s %.4f ms, torch.segment_reduce "
+              "prod %.4f ms" % (name, k_ms, lib_ms))
+        del d_v, flat, got
+
+
 def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     from opentsdb_tpu_torch.ops import group_agg as ga
     from opentsdb_tpu_torch.ops import rate as rt
@@ -1282,11 +1403,16 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     b_ms = time_ms(lambda: ua.union_reduce(*bd, one, u, uoff, "sum",
                                            "lerp"))
     m_ms = time_ms(lambda: ua.union_merge(bd[0], bd[2], one))
+    b_keys = bd[0][bd[2]]
+    m_lib = time_ms(lambda: torch.unique(b_keys))
     print("time (b) ungrouped 6h: %d rows x %d points, U=%d, %.3e "
-          "member-slot pairs | union_merge %.4f ms, union_reduce sum %.4f ms"
-          " (ops bound %.4f ms)" % (S, b_ts.shape[1], u.numel(), pairs,
-                                    m_ms, b_ms, bound_ms(0.0, pairs)))
-    del bd, u, uoff
+          "member-slot pairs | union_merge %.4f ms (10 merge rounds; "
+          "torch.unique of the %d timestamps %.4f ms), union_reduce sum "
+          "%.4f ms (ops bound %.4f ms)"
+          % (S, b_ts.shape[1], u.numel(), pairs, m_ms, b_keys.numel(),
+             m_lib, b_ms, bound_ms(0.0, pairs)))
+    del bd, u, uoff, b_keys
+    union_shape_cases(dev, b_ts, b_mask, checks)
 
     # (c) an integer copy of 64 rows in 8 groups, values near 2^53
     c_val = (h[:INT_ROWS] % 1_000).astype(np.int64) + 2**53 - 500
@@ -1403,8 +1529,11 @@ def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     extra = {f: time_ms(lambda f=f: ua.union_order(
         d_ts, d_val, d_mask, offsets, u, uoff, f, "zim"))
         for f in ("first", "p99")}
-    print("time union_order (a) first %.4f ms, p99 %.4f ms"
-          % (extra["first"], extra["p99"]))
+    extra["mult"] = time_ms(lambda: ua.union_order(
+        d_ts, d_val, d_mask, offsets, u, uoff, "mult", "lerp"))
+    print("time union_order (a) first %.4f ms, p99 %.4f ms, mult (the "
+          "shared ordered product) %.4f ms"
+          % (extra["first"], extra["p99"], extra["mult"]))
     sums = ua.union_reduce(d_ts, d_val, d_mask, offsets, u, uoff, "sum",
                            "lerp")
     ma = {
@@ -4993,6 +5122,10 @@ def main(argv=None) -> int:
     t_start = t0 = time.perf_counter()
     kernels.load_all()
     print("kernel build %.2f s" % (time.perf_counter() - t0))
+    # the redesigned kernels' registers, shared memory and spills
+    for name in ("window_order", "union_merge"):
+        for line in kernels.resources(name):
+            print("ptxas %s %s" % (name, line))
 
     dev = torch.device("cuda")
     checks = Checks()

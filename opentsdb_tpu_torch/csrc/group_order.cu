@@ -47,11 +47,11 @@ group_order_kernel(const double* __restrict__ contrib, const uint8_t* __restrict
   const int64_t gi = cell / w;
   const int col = (int)(cell - gi * w);
   const int64_t r0 = offsets[gi], r1 = offsets[gi + 1];
-  auto get = [&](int64_t i, double& v) {
+  auto get = [&](int64_t i, double& v) {  // both loads issued together
     const int64_t k = (r0 + i) * w + col;
-    if (!participate[k]) return false;
+    const uint8_t part = participate[k];
     v = contrib[k];
-    return !isnan(v);
+    return part && !isnan(v);
   };
   int64_t cnt;
   const double res = order_stats::warp_order<double>(get, r1 - r0, code, q, est, hist[warp],

@@ -108,11 +108,11 @@ reduce_kernel(const int64_t* __restrict__ offsets, const int64_t* __restrict__ u
   const int64_t slot = (int64_t)blockIdx.x * WARPS + warp;
   if (slot >= len) return;  // a whole warp leaves together
   const int64_t gi = group_of(uoff, g, k0 + slot);
-  auto get = [&](int64_t i, V& v) {
+  auto get = [&](int64_t i, V& v) {  // both loads issued together
     const int64_t cell = i * tile + slot;
-    if (!flags[cell]) return false;
+    const uint8_t flag = flags[cell];
     v = scratch[cell];
-    return !skipped(v);
+    return flag && !skipped(v);
   };
   int64_t cnt;
   const V res = order_stats::warp_order<V>(get, offsets[gi + 1] - offsets[gi], code, q, est,

@@ -210,14 +210,20 @@ def order_reduce(name: str, values: torch.Tensor,
     give NaN where nothing participates; int64 values keep Java long
     arithmetic (mult and diff wrap), the median is the exact long, and a
     percentile is computed over the values as float64 and truncated
-    (Aggregators.java:685).  first/last/diff/none take the rows in order."""
+    (Aggregators.java:685).  first/last/diff/none take the rows in order,
+    and so does mult: with an overflow to inf and a zero in one column the
+    order decides between NaN and 0, and prod(dim=0) of a single column
+    multiplies in vector lanes, so the product is the last row of a
+    cumulative product, which the CPU takes row after row."""
     is_float = values.is_floating_point()
     ok = mask & ~torch.isnan(values) if is_float else mask
     n = ok.sum(dim=0)
     s = values.shape[0]
     if name == "mult":
-        out = torch.where(ok, values,
-                          torch.ones((), dtype=values.dtype)).prod(dim=0)
+        ones = torch.ones((), dtype=values.dtype)
+        out = torch.cumprod(torch.where(ok, values, ones), dim=0)[-1] \
+            if s else torch.ones(values.shape[1:], dtype=values.dtype,
+                                 device=values.device)
     elif name in ("first", "last", "diff", "none"):
         oki = ok.to(torch.int8)
         first_i = torch.argmax(oki, dim=0)

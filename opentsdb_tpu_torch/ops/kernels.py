@@ -45,8 +45,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _REPO = os.path.dirname(os.path.dirname(_CSRC))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills, kept beside the library (resources()).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -74,10 +76,10 @@ SIGNATURES: dict[str, tuple] = {
     # reset_value, out_ts, out_val, out_mask, stream
     "point_rate": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64, _I64,
                    _P, _P, _P, _P),
-    # ts, mask, offsets, s, n, g, merged, first, scans, scans_len, u, uoff,
-    # stream
-    "union_merge": (_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _I64, _P, _P,
-                    _P),
+    # ts, mask, offsets, s, n, g, rounds, merged, first, scans, scans_len,
+    # u, uoff, stream
+    "union_merge": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _I64, _P,
+                    _P, _P),
     # ts, val, mask, offsets, u, uoff, s, n, g, total, agg, policy,
     # val_is_int, counts, out, stream
     "union_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
@@ -210,10 +212,26 @@ def build(names=None) -> dict[str, str]:
             failures.append("%s.cu (exit %d):\n%s" % (
                 name, proc.returncode, out.decode(errors="replace")))
         else:
+            with open(paths[name] + ".log", "wb") as fh:
+                fh.write(out)
             os.replace(tmp, paths[name])
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return paths
+
+
+def resources(name: str) -> list[str]:
+    """ptxas's report for each kernel of csrc/<name>.cu's current build:
+    lines "<kernel> <registers, shared memory, spills>"."""
+    with open(library_path(name) + ".log", errors="replace") as fh:
+        lines = fh.read().splitlines()
+    out, kernel = [], None
+    for line in lines:
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("spill" in line or "Used" in line):
+            out.append("%s %s" % (kernel, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -46,9 +46,10 @@ from opentsdb_tpu_torch.ops.rate import PAD_TS
 # Cells of [members, slots] a tile of the plain version materialises
 # (the reference's ceiling, union_agg.py:123).
 _UNION_TILE_CELLS = 1 << 24
-# Merged positions a block of U1's compaction owns (csrc/union_merge.cu
-# TILE; the kernel refuses a scratch buffer sized for another).
-_MERGE_TILE = 4096
+# Merged slots a block of U1's merge rounds and compaction owns
+# (csrc/union_merge.cu TILE; the kernel refuses a scratch buffer sized for
+# another).
+_MERGE_TILE = 2304
 
 
 def interpolate(policy: str, int_mode: bool, x, x0, y0, x1, y1, exemplar):
@@ -91,8 +92,13 @@ def union_merge(ts: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor):
     """U1 -> (u[U], uoff[G + 1]): group g's union timestamps, ascending
     and unique, are u[uoff[g]:uoff[g+1]].
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel,
-    then read U back to size u (one synchronisation).
+    CPU tensors run the plain version.  CUDA tensors launch the kernel: it
+    merges each group's rows pairwise over ceil(log2 S_g) rounds of the
+    largest group (one read of the offsets), ping-ponging between the
+    merged sequence and u itself, so its scratch is S*N int64 of merged
+    timestamps and S*N bytes of run-start flags (0.61 GB at 1024 x 65,536
+    points), as the all-pairs ranking it replaced took.  U is read back to
+    size u (one synchronisation).
     """
     _check_rows(ts, mask, offsets)
     if ts.device.type == "cpu":
@@ -105,15 +111,18 @@ def union_merge(ts: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor):
     uoff = torch.zeros(g + 1, dtype=torch.int64, device=dev)
     if cap == 0 or g == 0:
         return u[:0], uoff
+    rows = int((offsets[1:] - offsets[:-1]).max())
+    rounds = max(1, (rows - 1).bit_length())
     # scratch: the merged sequence and its run-start flags, then the row
-    # point offsets[S + 1] and the scanned per-tile flag counts
+    # point offsets[S + 1], the tile counts and each tile boundary's
+    # partition (six words)
     merged = torch.empty(cap, dtype=torch.int64, device=dev)
     first = torch.empty(cap, dtype=torch.uint8, device=dev)
-    scans = torch.empty(s + 1 + cap // _MERGE_TILE + 2, dtype=torch.int64,
-                        device=dev)
+    tiles = -(-cap // _MERGE_TILE) + 1
+    scans = torch.empty(s + 1 + 7 * tiles, dtype=torch.int64, device=dev)
     kernels.launch(
         "union_merge", dev, kernels.ptr(ts), kernels.ptr(mask),
-        kernels.ptr(offsets), s, n, g, kernels.ptr(merged),
+        kernels.ptr(offsets), s, n, g, rounds, kernels.ptr(merged),
         kernels.ptr(first), kernels.ptr(scans), scans.numel(),
         kernels.ptr(u), kernels.ptr(uoff))
     return u[:int(uoff[g])], uoff

@@ -26,6 +26,7 @@ from opentsdb_tpu_torch.ops import union_agg as tua
 from opentsdb_tpu_torch.ops.rate import RateOptions
 from opentsdb_tpu_torch.storage import device_cache as tdc
 
+import mult_runs as mr
 from torch_parity import (assert_exact, assert_values, cuda_device,  # noqa: F401
                           sorted_batch, t)
 
@@ -1369,3 +1370,166 @@ def test_k1_and_k4_hold_the_wide_range_exact_values(cuda_device, fn):
     exact = [v * v for v in later] if fn == "squareSum" else later
     np.testing.assert_array_equal(out[0].cpu().numpy(),
                                   np.array([first] + exact))
+
+
+# -- the ordered product and the staged runs of K4, K5 and U3; U1's merge ----
+# The plain versions run on the CPU copy here: they multiply in the run's
+# order there, as the reference does (tests/test_torch_mult_order.py).
+
+def _runs_batch(dev, lengths, seed, int_values=False):
+    """One row a run length, a window of 10 min holding the whole run
+    (1 ms apart), with holes and NaN values; -> device and CPU batches and
+    edges."""
+    rng = np.random.default_rng(seed)
+    n = max(lengths)
+    ts = np.full((len(lengths), n), np.iinfo(np.int64).max, np.int64)
+    val = np.zeros((len(lengths), n), np.int64 if int_values else np.float64)
+    mask = np.zeros((len(lengths), n), bool)
+    for r, k in enumerate(lengths):
+        ts[r, :k] = mr.T0 + 1_000 + np.arange(k)
+        val[r, :k] = (rng.integers(-1000, 1000, k) if int_values
+                      else 1.0 + rng.normal(0.0, 1e-3, k))
+        mask[r, :k] = rng.random(k) >= 0.1
+    if not int_values:
+        val[rng.random(val.shape) < 0.02] = np.nan
+    plan = tds.FixedWindows.for_range(mr.T0, mr.T0 + 3 * 600_000 - 1, 600_000)
+    return (_on(dev, ts, val, mask), [t(x) for x in (ts, val, mask)],
+            plan.window_edges(dev), plan.window_edges("cpu"))
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_window_order_mult_classes_kernel_matches_plain(cuda_device,
+                                                        interleaved):
+    """Every class of the ordered product, each run in a window: classes
+    exact, finite values at rtol 1e-9, against the plain version and the
+    ordered walk."""
+    batch = mr.k4_batch(mr.NAMES, interleaved)
+    nw = len(mr.NAMES)
+    plan = tds.FixedWindows.for_range(mr.T0, mr.T0 + nw * mr.WINDOW_MS - 1,
+                                      mr.WINDOW_MS)
+    got, got_mask = tds.window_order(*_on(cuda_device, *batch),
+                                     plan.window_edges(cuda_device), "mult")
+    want, want_mask = tds.window_order_plain(*[t(x) for x in batch],
+                                             plan.window_edges("cpu"), "mult")
+    assert_exact(got_mask.cpu().numpy(), want_mask.numpy())
+    mr.assert_same_product(got.cpu().numpy(), want.numpy())
+    mr.assert_same_product(got.cpu().numpy(),
+                           [[mr.ordered_product(mr.RUNS[k])
+                             for k in mr.NAMES]])
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+def test_window_order_long_runs_kernel_matches_plain(cuda_device,
+                                                     int_values):
+    """Runs of 200 (a warp's shared stage), 300 and 2,000 (the block's
+    stage), 6,000 and 65,536 points (the block's selection in device
+    memory, narrowed into shared memory), and the headline's 231 in
+    [100, 150), whose product overflows; mult reads every run in place."""
+    lengths = [200, 300, 2_000, 6_000, 65_536, 231]
+    dev_b, cpu_b, edges, cpu_edges = _runs_batch(cuda_device, lengths, 41,
+                                                 int_values)
+    if not int_values:
+        head = np.array(mr.headline_like(5, 231))
+        dev_b[1][5, :231] = torch.from_numpy(head).to(cuda_device)
+        cpu_b[1][5, :231] = torch.from_numpy(head)
+    for func in ("first", "last", "diff", "mult", "median", "p99", "p50",
+                 "ep99r7", "ep50r3", "ep999r3"):
+        got = tds.window_order(*dev_b, edges, func)
+        want = tds.window_order_plain(*cpu_b, cpu_edges, func)
+        assert_exact(got[1].cpu().numpy(), want[1].numpy())
+        if func == "mult":
+            mr.assert_same_product(got[0].cpu().numpy(), want[0].numpy())
+        else:
+            assert_values(got[0].cpu().numpy(), want[0].numpy())
+
+
+def test_window_order_stacked_and_int32_equal_solo_and_int64(cuda_device):
+    """Bit for bit, each family (scan, product, selection) on runs of every
+    path: a stacked member's cells are its solo cells, the int32 form's
+    cells the int64 form's."""
+    lengths = [200, 2_000, 6_000, 40]
+    dev_b, _, edges, _ = _runs_batch(cuda_device, lengths, 43)
+    ts, val, mask = dev_b
+    q = 2
+    st_ts, st_val, st_mask = (torch.cat([x, x.flip(0)]) for x in dev_b)
+    shifted = edges + 60_000
+    st_edges = torch.stack([edges, shifted])
+    ts32 = torch.where(ts == np.iinfo(np.int64).max, tds.I32_PAD_TS,
+                       ts - mr.T0).to(torch.int32)
+    edges32 = tds.compact_edges(edges, mr.T0)
+    for func in ("first", "diff", "mult", "median", "ep99r7", "p50"):
+        solo = tds.window_order(ts, val, mask, edges, func)
+        flip = tds.window_order(ts.flip(0).contiguous(),
+                                val.flip(0).contiguous(),
+                                mask.flip(0).contiguous(), shifted, func)
+        stacked = tds.window_order(st_ts, st_val, st_mask, st_edges, func)
+        s = len(lengths)
+        assert torch.equal(stacked[0][:s].view(torch.int64),
+                           solo[0].view(torch.int64)), func
+        assert torch.equal(stacked[0][s:q * s].view(torch.int64),
+                           flip[0].view(torch.int64)), func
+        narrow = tds.window_order(ts32, val, mask, edges32, func)
+        assert torch.equal(narrow[0].view(torch.int64),
+                           solo[0].view(torch.int64)), func
+        assert torch.equal(narrow[1], solo[1])
+
+
+def test_group_and_union_order_mult_classes_kernels_match_plain(cuda_device):
+    """K5 down the columns of two groups, U3 at the slot of a group a run
+    (float, then int64 wrap): the same classes as K4's."""
+    a = mr.k5_columns(mr.NAMES, False)
+    b = mr.k5_columns(mr.NAMES, True)
+    contrib = np.concatenate([a[0], b[0]])
+    part = np.concatenate([a[1], b[1]])
+    gid = np.repeat(np.arange(2, dtype=np.int64), [len(a[0]), len(b[0])])
+    offsets = tga.group_offsets(gid, 2)
+    c, p = _on(cuda_device, contrib, part)
+    got = tga.group_order("mult", c, p, p, offsets.to(cuda_device))
+    want = tga.group_order_plain("mult", t(contrib), t(part), t(part),
+                                 offsets)
+    mr.assert_same_product(got[0].cpu().numpy(), want[0].numpy())
+    for interleaved in (False, True):
+        batch = mr.u3_groups([mr.RUNS[k] for k in mr.NAMES], interleaved)
+        g, m, _ = batch[0].shape
+        flat = [x.reshape(g * m, 1) for x in batch]
+        offsets = np.arange(g + 1, dtype=np.int64) * m
+        _, out, _ = tua.union_aggregate(*_on(cuda_device, *flat, offsets),
+                                        "mult", "lerp")
+        _, want, _ = tua.union_aggregate(*[t(x) for x in flat], t(offsets),
+                                         "mult", "lerp")
+        mr.assert_same_product(out.cpu().numpy(), want.numpy())
+    runs = [[2**40 + 1, 2**30 + 3, 123_457, -7, 2**62 - 1], [-(2**63), 3],
+            [0, 2**62, 5], [9] * 40]
+    batch = mr.u3_groups(runs, False, np.int64)
+    g, m, _ = batch[0].shape
+    flat = [x.reshape(g * m, 1) for x in batch]
+    offsets = np.arange(g + 1, dtype=np.int64) * m
+    _, out, _ = tua.union_aggregate(*_on(cuda_device, *flat, offsets), "mult",
+                                    "lerp")
+    _, want, _ = tua.union_aggregate(*[t(x) for x in flat], t(offsets),
+                                     "mult", "lerp")
+    assert_exact(out.cpu().numpy(), want.numpy())
+
+
+def test_union_merge_awkward_shapes_kernel_matches_plain(cuda_device):
+    """Groups of 1, 2, 3, 5 and 1024 rows, empty and all-masked rows,
+    repeats within and across rows, equal rows, rows outside every group;
+    then 40 equal rows of 900 points in one group (several tiles, six
+    rounds) and a random batch: u and uoff exactly the plain version's."""
+    ts, mask, gid, ng = mr.u1_batch()
+    rng = np.random.default_rng(12)
+    row = np.sort(rng.choice(10**6, 900, replace=False)) + mr.T0
+    r_ts, _, r_mask = sorted_batch(rng, 40, 700)
+    r_mask = np.arange(700)[None, :] < r_mask.sum(axis=1, keepdims=True)
+    r_ts = np.where(r_mask, np.sort(r_ts, axis=1), np.iinfo(np.int64).max)
+    cases = [(ts, mask, tga.group_offsets(gid, ng)),
+             (np.tile(row, (40, 1)), np.ones((40, 900), bool),
+              torch.tensor([0, 40])),
+             (r_ts, r_mask, tga.group_offsets(np.sort(rng.integers(0, 6, 40)),
+                                              6))]
+    for c_ts, c_mask, offsets in cases:
+        u, uoff = tua.union_merge(*_on(cuda_device, c_ts, c_mask),
+                                  offsets.to(cuda_device))
+        pu, puoff = tua.union_merge_plain(t(c_ts), t(c_mask), offsets)
+        assert_exact(uoff.cpu().numpy(), puoff.numpy())
+        assert_exact(u.cpu().numpy(), pu.numpy())
