@@ -7,7 +7,7 @@ streamed and tiled past the device budget, queries without a downsample
 striped lane serving, a dashboard fleet through the daemon's
 admission gate and dispatch batcher, and the device mesh.
 
-    python3 chip_smoke.py [--seed N] [--mesh-only]
+    python3 chip_smoke.py [--seed N] [--mesh-only | --fold-only]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -22,6 +22,11 @@ days), 1h windows.  Phases:
    the headline batch, each case against the plain version on the same
    inputs: values within rtol 1e-9 (plus atol 1e-9 for exact zeros),
    masks exact.  Times are the median of 7 CUDA-event timed runs.
+   K3's timed cases (fold_phase; `--fold-only` runs them and phase 18
+   (a) alone): (a) the headline grid in 100 groups, (b) the same grid as
+   one group of 1024 rows (fan-in), (c) the 1m grid [1024, 16,931] in
+   100 groups, each a wall (CUDA events around the Python call) and a
+   device time (torch.profiler's kernel durations) beside index_add_'s.
    Then K4 window_order (every order and rank downsample function, the
    fills for p99 and first, and "0all" p99 and median: 65,536-point
    runs), then mult's classes at the headline shape (the headline batch,
@@ -267,12 +272,13 @@ days), 1h windows.  Phases:
    Launch counts are reset before (b) and read after (d).  Since phase
    18 came, (d) runs at 1 and 8 responders only.
 18. the device mesh (after phase 17, on the headline TSDB's state).  (a)
-   T1's square and centred modes (the mesh's squareSum and dev partials)
-   against their plain versions on a 256-row tile of the 1m grid (holes
-   as in phase 14), the centred pass around the tile's own mean; counts
-   and presence exact, sums at rtol 1e-9; each timed against its byte
-   bound, the plain version and one index_add_.  (b) The shared-device
-   combine of four shards' partials timed against one
+   T1's four modes (square and centred: the mesh's squareSum and dev
+   partials) against their plain versions on a 256-row tile of the 1m
+   grid (holes as in phase 14), the centred pass around the tile's own
+   mean; counts, presence and extremes exact, sums at rtol 1e-9; each
+   timed as a wall and a device time against its byte bound, the plain
+   version and one index_add_ (scatter_reduce_ for the extremes).  (b)
+   The shared-device combine of four shards' partials timed against one
    torch.stack(...).sum(0) a lane; then `sum:1h-avg`, `dev:1h-avg`,
    `squareSum:1h-avg`, `p95:1h-avg`, `first:1h-avg` and
    `sum:1h-max:rate` (`{group=*}`) as device-cache hits on a TSDB whose
@@ -293,8 +299,12 @@ days), 1h windows.  Phases:
 
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
-JSON line, the card's name and power limit, and last the result line.  Any failed check exits 1 before
-the result line.
+JSON line (each kernel's wall `ms`, CUDA events around the Python call,
+and where measured its `device_ms`, torch.profiler's kernel durations,
+with `library_device_ms` beside `library_ms`; K3's timed cases as
+`group_moments.fanin` and `group_moments.1m`, carrying K3's launches),
+the card's name and power limit, and last the result line.  Any failed
+check exits 1 before the result line.
 """
 
 from __future__ import annotations
@@ -357,6 +367,8 @@ REPLACES = {
     "window_moments.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "window_order.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "grid_fill_rate.stacked": "opentsdb_tpu/ops/pipeline.py:225",
+    "group_moments.fanin": "opentsdb_tpu/ops/group_agg.py:420",
+    "group_moments.1m": "opentsdb_tpu/ops/group_agg.py:420",
     "tile_partials.square": "opentsdb_tpu/parallel/sharded.py:223",
     "tile_partials.centred": "opentsdb_tpu/parallel/sharded.py:223",
     "point_group_moments": "opentsdb_tpu/parallel/sharded.py:52",
@@ -474,6 +486,51 @@ def time_ms(fn, reps: int = 7) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float | None:
+    """Device time of one call of `fn`: the durations of the kernels and
+    memsets it puts on the card, as torch.profiler records them (CUPTI
+    activity) over `reps` calls after one warm-up, the host's time before
+    and between them left out.  Each kernel counts at its mean duration
+    times its launches a call, so a record the profiler misses does not
+    shorten the figure; a profile that holds no device record at all is
+    taken again, up to `tries` times.  None where none held any.  Each
+    call runs inside a record_function scope, so a kernel launched through
+    ctypes, outside any torch operator, has an operator to correlate with;
+    the scope's own span on the device timeline is not a kernel and is
+    left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    scope = "chip_smoke.call"
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                with record_function(scope):
+                    fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name != scope:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            return sum(sum(d) / len(d) * max(1, round(len(d) / reps))
+                       for d in by_name.values()) / 1e3
+    return None
+
+
+def both_ms(fn) -> tuple[float, float | None]:
+    """(wall, device): time_ms's CUDA events around the whole call, host
+    work included (median of 31), and device_ms's kernel time alone."""
+    return time_ms(fn, 31), device_ms(fn)
+
+
+def _fmt(x) -> str:
+    return "not measured" if x is None else "%.4f ms" % x
 
 
 def bound_ms(nbytes: float, flops: float) -> float:
@@ -612,20 +669,188 @@ def kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     checks.values("group_moments", "skew 1.0 groups vs numpy",
                   got[small_groups],
                   torch.from_numpy(exact_sum)[small_groups])
+    del skew, ones
+    times = {"window_moments": k1, "grid_fill_rate": k2}
+    times.update(fold_phase(dev, ts, val, gid, h, checks))
+    print_times(times)
+    return times
+
+
+def _k3_times(dev, contrib, part, present, offsets, gid, g) -> dict:
+    """K3 `sum` over [S, W] in `g` groups: wall and device time of the
+    kernel, the plain version and index_add_ of contrib (its yardstick
+    since PR 4), and the byte bound: contrib, participate and present
+    read once (10 B a cell), offsets, out and out_mask (9 B a group
+    cell)."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    s, w = contrib.shape
     d_gid = torch.from_numpy(gid).to(dev)
-    k3 = {
-        "ms": time_ms(lambda: ga.group_moments("sum", contrib, part, present,
-                                               offsets)),
+    ms, dms = both_ms(lambda: ga.group_moments("sum", contrib, part, present,
+                                               offsets))
+    lib, lib_dms = both_ms(lambda: torch.zeros(
+        (g, w), dtype=torch.float64, device=dev).index_add_(0, d_gid,
+                                                            contrib))
+    return {
+        "ms": ms, "device_ms": dms,
         "plain_ms": time_ms(lambda: ga.group_moments_plain(
             "sum", contrib, part, present, offsets)),
-        "bound_ms": bound_ms(S * w * (8 + 1 + 1) + (GROUPS + 1) * 8
-                             + GROUPS * w * (8 + 1), 2.0 * S * w),
-        "library_ms": time_ms(lambda: torch.zeros(
-            (GROUPS, w), dtype=torch.float64, device=dev).index_add_(
-                0, d_gid, contrib)),
+        "bound_ms": bound_ms(s * w * (8 + 1 + 1) + (g + 1) * 8
+                             + g * w * (8 + 1), 2.0 * s * w),
+        "library_ms": lib, "library_device_ms": lib_dms,
     }
-    times = {"window_moments": k1, "grid_fill_rate": k2, "group_moments": k3}
-    print_times(times)
+
+
+def _k3_checks(checks: Checks, name: str, case: str, contrib, part, present,
+               offsets) -> None:
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    for agg in FUNCS:
+        got = ga.group_moments(agg, contrib, part, present, offsets)
+        want = ga.group_moments_plain(agg, contrib, part, present, offsets)
+        checks.exact(name, "%s %s" % (case, agg), got[1], want[1])
+        checks.values(name, "%s %s" % (case, agg), got[0], want[0])
+
+
+def _host_us(fn, n: int = 2000) -> float:
+    """Host microseconds a call of `fn` (the mean of n back-to-back calls
+    on the host clock; the card, faster than the host here, keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / n * 1e6
+
+
+def host_split(dev, contrib, part, present, offsets, d_gid) -> None:
+    """Where the host's time of a K3 call goes, against index_add_'s: the
+    wrapper whole, its checks, its two outputs, kernels.launch, and the C
+    entry alone (ctypes and the CUDA launch); torch.zeros and index_add_."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import kernels
+    g, w = offsets.numel() - 1, contrib.shape[1]
+    out = torch.empty((g, w), dtype=torch.float64, device=dev)
+    mask = torch.empty((g, w), dtype=torch.bool, device=dev)
+    args = (contrib.data_ptr(), part.data_ptr(), present.data_ptr(),
+            offsets.data_ptr(), contrib.shape[0], g, w, 0, out.data_ptr(),
+            mask.data_ptr())
+    entry = getattr(kernels.library("group_moments"), "group_moments")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    into = torch.zeros((g, w), dtype=torch.float64, device=dev)
+
+    def checks():
+        ga._check_group_inputs(contrib, part, present, offsets)
+        kernels.require_cuda(contrib, part, present, offsets)
+    us = {
+        "wrapper": _host_us(lambda: ga.group_moments(
+            "sum", contrib, part, present, offsets)),
+        "checks": _host_us(checks),
+        "outputs": _host_us(lambda: (
+            torch.empty((g, w), dtype=torch.float64, device=dev),
+            torch.empty((g, w), dtype=torch.bool, device=dev))),
+        "launch": _host_us(lambda: kernels.launch("group_moments", dev,
+                                                  *args)),
+        "entry": _host_us(lambda: entry(*args, stream)),
+        "zeros": _host_us(lambda: torch.zeros((g, w), dtype=torch.float64,
+                                              device=dev)),
+        "index_add_": _host_us(lambda: into.index_add_(0, d_gid, contrib)),
+    }
+    print("host us a call, K3 sum [%d, %d] in %d groups: %s"
+          % (contrib.shape[0], w, g,
+             "  ".join("%s %.2f" % kv for kv in us.items())))
+
+
+def _t1_host_split(dev, contrib, part, actual, off, acc, mean,
+                   library) -> None:
+    """Where the host's time of a centred T1 call goes, against its
+    library call's: the wrapper whole, kernels.launch, the C entry alone
+    (ctypes and the CUDA launch)."""
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.ops import tiling
+    g, w = off.numel() - 1, contrib.shape[1]
+    args = (contrib.data_ptr(), part.data_ptr(), actual.data_ptr(),
+            off.data_ptr(), mean.data_ptr(), contrib.shape[0], g, w, 3, None,
+            None, None, None, None, acc["m2"].data_ptr())
+    entry = getattr(kernels.library("tile_partials"), "tile_partials")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    us = {
+        "wrapper": _host_us(lambda: tiling.tile_partials(
+            contrib, part, actual, off, acc, mean=mean)),
+        "launch": _host_us(lambda: kernels.launch("tile_partials", dev, *args,
+                                                  mode="centred")),
+        "entry": _host_us(lambda: entry(*args, stream)),
+        "library": _host_us(library),
+    }
+    print("host us a call, T1 centred [%d, %d] in %d groups: %s"
+          % (contrib.shape[0], w, g,
+             "  ".join("%s %.2f" % kv for kv in us.items())))
+
+
+def fold_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    """K3's timed cases, each as a wall (CUDA events around the Python
+    call) and a device time (torch.profiler's kernel durations), beside
+    index_add_'s two figures: (a) the headline, the [1024, 283] grid in
+    100 groups; (b) fan-in, the same grid as one group of 1024 rows (sum
+    and dev), every function held to the plain version; (c) the 1m grid
+    [1024, 16,931] in 100 groups, the grid of the tiled replay (holes as
+    in phase 14, through K1 and K2), every function held to the plain
+    version."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import tiling
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    # (a) and (b): K2 over K1's sum:1h-avg grid of the clean batch, as the
+    # main path's K3 call takes it
+    edges = ds.FixedWindows.for_range(START, END, INTERVAL_MS) \
+        .window_edges(dev)
+    v, m = ds.window_moments(d_ts, d_val, torch.ones((S, N), dtype=torch.bool,
+                                                     device=dev), edges, "avg")
+    contrib, part, present = ga.grid_fill_rate(edges[:-1], v, m, "lerp")
+    del v, m
+    s = contrib.shape[0]
+    times = {}
+    offsets = ga.group_offsets(gid, GROUPS).to(dev)
+    times["group_moments"] = _k3_times(dev, contrib, part, present, offsets,
+                                       gid, GROUPS)
+    host_split(dev, contrib, part, present, offsets,
+               torch.from_numpy(gid).to(dev))
+    one = np.zeros(s, dtype=np.int64)
+    fan = ga.group_offsets(one, 1).to(dev)
+    _k3_checks(checks, "group_moments.fanin", "%d rows one group" % s,
+               contrib, part, present, fan)
+    t = _k3_times(dev, contrib, part, present, fan, one, 1)
+    t["dev_ms"], t["dev_device_ms"] = both_ms(lambda: ga.group_moments(
+        "dev", contrib, part, present, fan))
+    times["group_moments.fanin"] = t
+
+    # (c) the 1m grid: K1 on the headline batch with phase 14's holes
+    d_h = torch.from_numpy(h).to(dev)
+    cols = torch.arange(N, device=dev)[None, :]
+    rix = torch.arange(S, device=dev)[:, None]
+    mask = (d_h % 11 != 0) & ((cols // 512) % 13 != rix % 13)
+    del d_h, cols, rix
+    plan = ds.FixedWindows.for_range(START, END, 60_000)
+    edges = plan.window_edges(dev)
+    v, m = ds.window_moments(d_ts, d_val, mask, edges, "sum")
+    del d_ts, d_val, mask
+    c1, p1, a1 = tiling.tile_contrib(PipelineSpec("sum"), edges[:-1], v, m)
+    del v, m
+    _k3_checks(checks, "group_moments.1m", "[%d, %d] %d groups"
+               % (s, plan.count, GROUPS), c1, p1, a1, offsets)
+    times["group_moments.1m"] = _k3_times(dev, c1, p1, a1, offsets, gid,
+                                          GROUPS)
+    for name, t in times.items():
+        print("time %-22s kernel wall %.4f ms device %s  library (index_add_)"
+              " wall %.4f ms device %s  bound %.4f ms (bytes)%s"
+              % (name, t["ms"], _fmt(t["device_ms"]), t["library_ms"],
+                 _fmt(t["library_device_ms"]), t["bound_ms"],
+                 "  dev wall %.4f ms device %s" % (t["dev_ms"],
+                                                   _fmt(t["dev_device_ms"]))
+                 if "dev_ms" in t else ""))
     return times
 
 
@@ -1837,9 +2062,12 @@ def _h_groups(tsdb):
 
 
 def _hist_times(fn, plain, library, nbytes) -> dict:
-    return {"ms": time_ms(fn), "plain_ms": time_ms(plain),
+    return {"ms": time_ms(fn), "device_ms": device_ms(fn),
+            "plain_ms": time_ms(plain),
             "bound_ms": bound_ms(nbytes, 0.0), "bound_by": "bytes",
-            "library_ms": None if library is None else time_ms(library)}
+            "library_ms": None if library is None else time_ms(library),
+            "library_device_ms": None if library is None
+            else device_ms(library)}
 
 
 def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
@@ -1902,10 +2130,12 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
             cells * 8 + buckets * 8 + percs.numel() * (8 + rows * 8))
         for kname, t in (("histogram_accumulate", h1),
                          ("histogram_percentile", h2)):
-            print("time %-20s %-30s kernel %.4f ms  plain %.4f ms  bound "
-                  "%.4f ms (bytes)  library %s"
-                  % (kname, name, t["ms"], t["plain_ms"], t["bound_ms"],
-                     "%.4f ms (index_add_)" % t["library_ms"]
+            print("time %-20s %-30s kernel %.4f ms (device %s)  plain "
+                  "%.4f ms  bound %.4f ms (bytes)  library %s"
+                  % (kname, name, t["ms"], _fmt(t["device_ms"]),
+                     t["plain_ms"], t["bound_ms"],
+                     "%.4f ms (device %s; index_add_)"
+                     % (t["library_ms"], _fmt(t["library_device_ms"]))
                      if t["library_ms"] is not None else "none"))
         out[name] = (h1, h2)
         del grid, want, pv, pwant
@@ -3110,21 +3340,24 @@ def tile_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                 into.index_add_(0, grows, stacked)
             lanes = 24
             what = "index_add_ of sums, counts and presence"
+        ms, dms = both_ms(lambda: tiling.tile_partials(contrib, part, actual,
+                                                       t_off, acc))
+        lib, lib_dms = both_ms(library)
         t = {
-            "ms": time_ms(lambda: tiling.tile_partials(contrib, part, actual,
-                                                       t_off, acc)),
+            "ms": ms, "device_ms": dms,
             "plain_ms": time_ms(lambda: tiling.tile_partials_plain(
                 contrib, part, actual, t_off, acc)),
             # the tile's cells read once (10 B), the accumulators of the
             # groups it holds read and written once
             "bound_ms": bound_ms(rows * w * 10 + 2 * g_tile * w * lanes,
                                  2.0 * rows * w),
-            "library_ms": time_ms(library),
+            "library_ms": lib, "library_device_ms": lib_dms,
         }
         print("time tile_partials %s tile [%d, %d], %d groups: kernel %.4f "
-              "ms  plain %.4f ms  bound %.4f ms (bytes)  library %.4f ms (%s)"
-              % (mode, rows, w, g_tile, t["ms"], t["plain_ms"],
-                 t["bound_ms"], t["library_ms"], what))
+              "ms (device %s)  plain %.4f ms  bound %.4f ms (bytes)  library "
+              "%.4f ms (device %s; %s)"
+              % (mode, rows, w, g_tile, t["ms"], _fmt(dms), t["plain_ms"],
+                 t["bound_ms"], t["library_ms"], _fmt(lib_dms), what))
         times[mode] = t
     return {"tile_partials": times["additive"]}
 
@@ -4451,11 +4684,14 @@ MESH_ROWS = 256          # (a)'s tile
 
 
 def mesh_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
-    """Phase 18 (a): T1's square and centred modes against their plain
-    versions on a 256-row tile of the headline batch's 1m grid (holes
-    masked as in phase 14), the centred pass around the tile's own mean;
-    each timed against its byte bound, the plain version and one
-    index_add_ of its precomputed operand."""
+    """Phase 18 (a): T1's four modes against their plain versions on a
+    256-row tile of the headline batch's 1m grid (holes masked as in
+    phase 14), the centred pass around the tile's own mean; each timed as
+    a wall (CUDA events around the call) and a device time
+    (torch.profiler's kernel durations) against its byte bound, the plain
+    version and one PyTorch call: index_add_ of its precomputed operand
+    (scatter_reduce_ amin and amax for the extremes).  Returns the square
+    and centred modes' figures (phase 14 gives the additive one's)."""
     from opentsdb_tpu_torch.ops import downsample as ds
     from opentsdb_tpu_torch.ops import group_agg as ga
     from opentsdb_tpu_torch.ops import tiling
@@ -4484,51 +4720,87 @@ def mesh_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     tiling.tile_partials(contrib, part, actual, off, first)
     mean = first["tot"] / first["cnt"].clamp(min=1)
     times = {}
-    for mode in ("square", "centred"):
+    for mode in ("additive", "extreme", "square", "centred"):
         name = "tile_partials." + mode
         extra = {"mean": mean} if mode == "centred" else {}
         got = tiling.new_lane_fold(GROUPS, w, mode, dev)
         want = tiling.new_lane_fold(GROUPS, w, mode, dev)
         tiling.tile_partials(contrib, part, actual, off, got, **extra)
         tiling.tile_partials_plain(contrib, part, actual, off, want, **extra)
+        # the additive and extreme modes count under the kernel's name
+        label = name if mode in ("square", "centred") else "tile_partials"
         for lane in want:
-            if lane in ("cnt", "present"):
-                checks.exact(name, "tile " + lane, got[lane], want[lane],
-                             lane)
+            if lane in ("cnt", "present", "lo", "hi"):
+                checks.exact(label, "tile %s %s" % (mode, lane), got[lane],
+                             want[lane], lane)
             else:
-                checks.values(name, "tile " + lane, got[lane], want[lane])
-        if mode == "square":
-            operand = torch.cat([ok.double(), actual.double(), x * x],
-                                dim=1)
-            # the tile read once (contrib, participate and present: 10 B
-            # a cell), cnt, present and sq of its groups read and written
-            # once
-            nbytes = rows * w * 10 + 2 * g_tile * w * 24
+                checks.values(label, "tile %s %s" % (mode, lane), got[lane],
+                              want[lane])
+        if mode == "extreme":
+            idx = grows[:, None].expand(-1, w)
+            lo_src = torch.where(ok, contrib, math.inf)
+            hi_src = torch.where(ok, contrib, -math.inf)
+            lo_acc = torch.full((GROUPS, w), math.inf, dtype=torch.float64,
+                                device=dev)
+            hi_acc = torch.full((GROUPS, w), -math.inf, dtype=torch.float64,
+                                device=dev)
+
+            def library():
+                lo_acc.scatter_reduce_(0, idx, lo_src, "amin")
+                hi_acc.scatter_reduce_(0, idx, hi_src, "amax")
+            # the tile read once (10 B a cell), cnt, present, lo and hi of
+            # its groups read and written once
+            nbytes = rows * w * 10 + 2 * g_tile * w * 32
+            what = "scatter_reduce_ amin and amax"
         else:
-            c = torch.where(ok, contrib - mean[grows], 0.0)
-            operand = c * c
-            # contrib and participate read once (9 B a cell; the centred
-            # branch reads no presence), the mean and m2 read, m2 written
-            nbytes = rows * w * 9 + g_tile * w * 24
-        into = torch.zeros((GROUPS, operand.shape[1]), dtype=torch.float64,
-                           device=dev)
+            if mode == "additive":
+                operand = torch.cat([x, ok.double(), actual.double()], dim=1)
+                # cnt, present and tot read and written once
+                nbytes = rows * w * 10 + 2 * g_tile * w * 24
+                what = "index_add_ of the stacked sums, counts and presence"
+            elif mode == "square":
+                operand = torch.cat([ok.double(), actual.double(), x * x],
+                                    dim=1)
+                # the tile read once (contrib, participate and present:
+                # 10 B a cell), cnt, present and sq of its groups read
+                # and written once
+                nbytes = rows * w * 10 + 2 * g_tile * w * 24
+                what = ("index_add_ of the precomputed counts, presence and "
+                        "squares")
+            else:
+                c = torch.where(ok, contrib - mean[grows], 0.0)
+                operand = c * c
+                # contrib and participate read once (9 B a cell; the
+                # centred branch reads no presence), the mean and m2
+                # read, m2 written
+                nbytes = rows * w * 9 + g_tile * w * 24
+                what = "index_add_ of the precomputed centred squares"
+            into = torch.zeros((GROUPS, operand.shape[1]),
+                               dtype=torch.float64, device=dev)
+
+            def library():
+                into.index_add_(0, grows, operand)
         acc = tiling.new_lane_fold(GROUPS, w, mode, dev)
+        ms, dms = both_ms(lambda: tiling.tile_partials(
+            contrib, part, actual, off, acc, **extra))
+        lib, lib_dms = both_ms(library)
         t = {
-            "ms": time_ms(lambda: tiling.tile_partials(
-                contrib, part, actual, off, acc, **extra)),
+            "ms": ms, "device_ms": dms,
             "plain_ms": time_ms(lambda: tiling.tile_partials_plain(
                 contrib, part, actual, off, acc, **extra)),
             "bound_ms": bound_ms(nbytes, 3.0 * rows * w),
-            "library_ms": time_ms(lambda: into.index_add_(0, grows,
-                                                          operand)),
+            "library_ms": lib, "library_device_ms": lib_dms,
         }
-        print("time %s tile [%d, %d], %d groups: kernel %.4f ms  plain %.4f "
-              "ms  bound %.4f ms (bytes)  library %.4f ms (index_add_ of the "
-              "precomputed %s)"
-              % (name, rows, w, g_tile, t["ms"], t["plain_ms"], t["bound_ms"],
-                 t["library_ms"], "counts, presence and squares"
-                 if mode == "square" else "centred squares"))
-        times[name] = t
+        if mode == "centred":
+            _t1_host_split(dev, contrib, part, actual, off, acc, mean,
+                           library)
+        print("time %s tile [%d, %d], %d groups: kernel wall %.4f ms device "
+              "%s  plain %.4f ms  bound %.4f ms (bytes)  library wall %.4f "
+              "ms device %s (%s)"
+              % (name, rows, w, g_tile, t["ms"], _fmt(dms), t["plain_ms"],
+                 t["bound_ms"], t["library_ms"], _fmt(lib_dms), what))
+        if label == name:
+            times[name] = t
     return times
 
 
@@ -5088,12 +5360,48 @@ def cost_constants(dev, times: dict, measured: dict) -> dict:
     return out
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name:
+    `..._cu_a5e3d54b20group_moments_kernelILi128ELi6ELb1EEEv...` ->
+    `group_moments_kernel<128, 6, 1>` (integers, and type codes as
+    letters: `window_order_kernel<2, l, d>`)."""
+    import re
+    # each digit run, and each of its tails, may be a name's length
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        at = m.start() + len(m.group(1))
+        name = mangled[at:at + int(m.group(1))]
+        if not name.endswith("_kernel"):
+            continue
+        rest, args = mangled[at + len(name):], []
+        if rest.startswith("I"):
+            for tok in re.finditer(r"L[a-z](\d+)E|([a-z])|(E)", rest[1:]):
+                if tok.group(3):
+                    break
+                args.append(tok.group(1) or tok.group(2))
+        return "%s<%s>" % (name, ", ".join(args)) if args else name
+    return mangled
+
+
+def ptxas_report(lines: list[str]) -> list[str]:
+    """kernels.resources' lines, one a kernel instance: its name and
+    template arguments, then ptxas's words for it."""
+    merged: dict[str, list[str]] = {}
+    for line in lines:
+        mangled, info = line.split(" ", 1)
+        merged.setdefault(_kernel_name(mangled), []).append(info)
+    return ["%s %s" % (k, "; ".join(v)) for k, v in merged.items()]
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="mixed into the data of phases 11-13 (0: "
                         "bench_configs' own chunks)")
+    parser.add_argument("--fold-only", action="store_true",
+                        help="build the kernels and run the grouped fold's "
+                        "timed cases alone: K3 (a)-(c) and T1's four modes "
+                        "on phase 18 (a)'s tile; prints no result line")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 18 alone on "
                         "the headline TSDB (every visible card: with two "
@@ -5123,13 +5431,22 @@ def main(argv=None) -> int:
     kernels.load_all()
     print("kernel build %.2f s" % (time.perf_counter() - t0))
     # the redesigned kernels' registers, shared memory and spills
-    for name in ("window_order", "union_merge"):
-        for line in kernels.resources(name):
+    for name in ("window_order", "union_merge", "group_moments",
+                 "tile_partials"):
+        for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
     dev = torch.device("cuda")
     checks = Checks()
     ts, val, gid, h = headline_batch()
+    if args.fold_only:
+        fold_phase(dev, ts, val, gid, h, checks)
+        torch.cuda.empty_cache()
+        mesh_kernel_phase(dev, ts, val, gid, h, checks)
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
     if args.mesh_only:
         tsdb, _ = headline_tsdb(dev, ts, val)
         tsdb.new_query_runner().run(_query(MESH_QUERIES[0]))
@@ -5239,16 +5556,22 @@ def main(argv=None) -> int:
                            + tiled_launches[name] + striped_launches[name]
                            + fleet_launches[name] + hit_launches[name]
                            + mesh_launches[name] + group_launches[name])
+    # A timed case of a kernel (group_moments.fanin, .1m) is not a form
+    # of its own: it carries the kernel's launches.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "opentsdb_tpu_torch/csrc/%s.cu" % name.split(".")[0],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name],
+         "launches": launches[name if name in launches
+                              else name.split(".")[0]],
          "max_abs_err": checks.worst[name]["abs"],
          "max_rel_err": checks.worst[name]["rel"],
          "max_err_of_limit": checks.worst[name]["to_limit"],
          "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
-         "library_ms": t["library_ms"]}
+         "library_ms": t["library_ms"],
+         "device_ms": t.get("device_ms"),
+         "library_device_ms": t.get("library_device_ms")}
         for name, t in times.items()]}))
     if checks.failures:
         for f in checks.failures:

@@ -33,116 +33,138 @@
 //
 // Design: the tile's rows arrive in group order (gid non-decreasing), so
 // the wrapper turns them into row offsets[G + 1] relative to the tile.
-// One thread owns one (group, window) cell: a block is one group and a
-// tile of THREADS consecutive windows, so a warp's loads coalesce along
-// W.  The thread starts from the accumulator, adds its group's rows in
-// row order and stores it back: no atomics, one answer on every run, and
-// the sums come out in the same order as K3 (group_moments.cu) adding the
-// whole grid's rows (the same expressions, so squares and centred squares
-// contract alike), so the fold of all tiles equals K3 bit for bit.
-// Groups with no row in the tile are left untouched.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// The fold is group_fold.cuh's, which K3 (group_moments.cu) shares: a
+// block is one group and a tile of windows, one thread owns one (group,
+// window) cell, and the group's rows are read directly or staged through
+// shared memory as the tile's mean group depth decides.
+// The thread starts from the accumulator, adds its group's rows in row
+// order and stores it back: no atomics, one answer on every run, and the
+// sums come out in the same order, through the same fold_row, as K3
+// adding the whole grid's rows, so the fold of all tiles equals K3 bit
+// for bit.  The mode is a template argument: an instance carries only its
+// own lanes, and the centred one stages no presence.  Groups with no row
+// in the tile are left untouched.
+#include "group_fold.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+using namespace group_fold;
 
 enum Mode { ADDITIVE = 0, EXTREME = 1, SQUARE = 2, CENTRED = 3 };
 
+template <int MODE>
+__host__ __device__ constexpr unsigned lanes() {
+  return MODE == CENTRED ? L_M2
+       : MODE == EXTREME ? (L_CNT | L_PRES | L_MIN | L_MAX)
+       : MODE == SQUARE  ? (L_CNT | L_PRES | L_SQ)
+                         : (L_CNT | L_PRES | L_SUM);
+}
+
+struct Lanes {
+  int64_t* cnt;
+  int64_t* pres;
+  double* tot;
+  double* lo;
+  double* hi;
+  double* sq;   // sq, or the centred mode's m2
+};
+
+template <int TW, int MODE, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
-tile_partials_kernel(const double* __restrict__ contrib,
-                     const uint8_t* __restrict__ participate,
-                     const uint8_t* __restrict__ present,
-                     const int64_t* __restrict__ offsets,
-                     const double* __restrict__ mean, int w, int mode,
-                     int64_t* __restrict__ cnt, int64_t* __restrict__ pres,
-                     double* __restrict__ tot, double* __restrict__ lo,
-                     double* __restrict__ hi, double* __restrict__ sq) {
+tile_partials_kernel(Grid a, const int64_t* __restrict__ offsets,
+                     const double* __restrict__ mean, Lanes acc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr unsigned L = lanes<MODE>();
   const int64_t g = blockIdx.x;
-  const int col = blockIdx.y * THREADS + threadIdx.x;
-  if (col >= w) return;
+  const int c0 = blockIdx.y * TW;
+  const int tw = min(TW, a.w - c0);
   const int64_t r0 = offsets[g], r1 = offsets[g + 1];
   if (r0 >= r1) return;
-  const int64_t cell = g * w + col;
-  if (mode == CENTRED) {
-    const double mu = mean[cell];
-    double m2 = sq[cell];
-    for (int64_t r = r0; r < r1; ++r) {
-      const int64_t i = r * w + col;
-      const double v = contrib[i];
-      if (participate[i] && !isnan(v)) {
-        const double c = v - mu;
-        m2 += c * c;
-      }
+  const bool mine = (int)threadIdx.x < tw;
+  const int64_t cell = g * a.w + c0 + threadIdx.x;
+  Cell<int64_t> c;
+  double mu = 0.0;
+  if (mine) {
+    if (L & L_CNT) c.cnt = acc.cnt[cell];
+    if (L & L_PRES) c.pres = acc.pres[cell];
+    if (L & L_SUM) c.sum = acc.tot[cell];
+    if (L & L_MIN) c.mn = acc.lo[cell];
+    if (L & L_MAX) c.mx = acc.hi[cell];
+    if (L & L_SQ) c.sq = acc.sq[cell];
+    if (L & L_M2) {
+      c.m2 = acc.sq[cell];
+      mu = mean[cell];
     }
-    sq[cell] = m2;
-    return;
   }
-  int64_t c = cnt[cell];
-  int64_t p = pres[cell];
-  if (mode == EXTREME) {
-    double mn = lo[cell], mx = hi[cell];
-    for (int64_t r = r0; r < r1; ++r) {
-      const int64_t i = r * w + col;
-      const double v = contrib[i];
-      p += present[i] ? 1 : 0;
-      if (participate[i] && !isnan(v)) {
-        c += 1;
-        mn = fmin(mn, v);
-        mx = fmax(mx, v);
-      }
-    }
-    lo[cell] = mn;
-    hi[cell] = mx;
-  } else if (mode == SQUARE) {
-    double s2 = sq[cell];
-    for (int64_t r = r0; r < r1; ++r) {
-      const int64_t i = r * w + col;
-      const double v = contrib[i];
-      p += present[i] ? 1 : 0;
-      if (participate[i] && !isnan(v)) {
-        c += 1;
-        s2 += v * v;
-      }
-    }
-    sq[cell] = s2;
-  } else {
-    double sum = tot[cell];
-    for (int64_t r = r0; r < r1; ++r) {
-      const int64_t i = r * w + col;
-      const double v = contrib[i];
-      p += present[i] ? 1 : 0;
-      if (participate[i] && !isnan(v)) {
-        c += 1;
-        sum += v;
-      }
-    }
-    tot[cell] = sum;
+  fold_rows<TW, MODE != CENTRED, L, STAGED>(c, smem, a, r0, r1, c0, tw, mu);
+  if (!mine) return;
+  if (L & L_CNT) acc.cnt[cell] = c.cnt;
+  if (L & L_PRES) acc.pres[cell] = c.pres;
+  if (L & L_SUM) acc.tot[cell] = c.sum;
+  if (L & L_MIN) acc.lo[cell] = c.mn;
+  if (L & L_MAX) acc.hi[cell] = c.mx;
+  if (L & L_SQ) acc.sq[cell] = c.sq;
+  if (L & L_M2) acc.sq[cell] = c.m2;
+}
+
+struct Args {
+  Grid a;
+  const int64_t* offsets;
+  const double* mean;
+  long long g;
+  Lanes acc;
+  cudaStream_t stream;
+  bool staged;
+};
+
+template <int TW, int MODE>
+int launch(const Args& k) {
+  const dim3 grid((unsigned)k.g, (unsigned)((k.a.w + TW - 1) / TW));
+  if (k.staged)
+    tile_partials_kernel<TW, MODE, true>
+        <<<grid, THREADS, smem_bytes<TW>(), k.stream>>>(k.a, k.offsets,
+                                                         k.mean, k.acc);
+  else
+    tile_partials_kernel<TW, MODE, false>
+        <<<grid, THREADS, 0, k.stream>>>(k.a, k.offsets, k.mean, k.acc);
+  return (int)cudaGetLastError();
+}
+
+template <int TW>
+int launch_tile(int mode, const Args& k) {
+  switch (mode) {
+    case ADDITIVE: return launch<TW, ADDITIVE>(k);
+    case EXTREME: return launch<TW, EXTREME>(k);
+    case SQUARE: return launch<TW, SQUARE>(k);
+    default: return launch<TW, CENTRED>(k);
   }
-  cnt[cell] = c;
-  pres[cell] = p;
 }
 
 }  // namespace
 
 // The lanes a mode does not use may be null (they are never touched);
 // mean is read in the centred mode only.
+// s: the tile's rows, whose mean a group decides the staging.
 extern "C" int tile_partials(const void* contrib, const void* participate,
                              const void* present, const void* offsets,
-                             const void* mean, long long g, int w, int mode,
+                             const void* mean, long long s, long long g,
+                             int w, int mode,
                              void* cnt, void* pres, void* tot, void* lo,
                              void* hi, void* sq, void* stream) {
   if (g <= 0 || w <= 0) return 0;
   if (mode < ADDITIVE || mode > CENTRED) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)g, (unsigned)((w + THREADS - 1) / THREADS));
-  tile_partials_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const double*)contrib, (const uint8_t*)participate,
-      (const uint8_t*)present, (const int64_t*)offsets, (const double*)mean,
-      w, mode, (int64_t*)cnt, (int64_t*)pres, (double*)tot, (double*)lo,
-      (double*)hi, (double*)sq);
-  return (int)cudaGetLastError();
+  const Args k{{(const double*)contrib, (const uint8_t*)participate,
+                (const uint8_t*)present, w},
+               (const int64_t*)offsets, (const double*)mean, g,
+               {(int64_t*)cnt, (int64_t*)pres, (double*)tot, (double*)lo,
+                (double*)hi, (double*)sq},
+               (cudaStream_t)stream, fold_staged(s, g)};
+  switch (fold_tile(g, w)) {
+    case 128: return launch_tile<128>(mode, k);
+    case 64: return launch_tile<64>(mode, k);
+    case 32: return launch_tile<32>(mode, k);
+    default: return launch_tile<16>(mode, k);
+  }
 }
 
 extern "C" const char* tile_partials_error(int code) {

@@ -41,14 +41,20 @@ def _check_grid(*pairs) -> None:
             raise TypeError("expected %s, got %s" % (dtype, t.dtype))
 
 
+_GROUP_DTYPES = (torch.float64, torch.bool, torch.bool, torch.int64)
+
+
 def _check_group_inputs(contrib, participate, present, offsets) -> None:
-    s, w = contrib.shape
-    if participate.shape != (s, w) or present.shape != (s, w) \
-            or offsets.dim() != 1 or offsets.numel() < 1:
+    shape = contrib.shape
+    if len(shape) != 2 or participate.shape != shape \
+            or present.shape != shape or offsets.dim() != 1 \
+            or offsets.numel() < 1:
         raise ValueError("the group reduces take contrib, participate and "
                          "present of one [S, W] shape and offsets[G + 1]")
-    _check_grid((contrib, torch.float64), (participate, torch.bool),
-                (present, torch.bool), (offsets, torch.int64))
+    if (contrib.dtype, participate.dtype, present.dtype,
+            offsets.dtype) != _GROUP_DTYPES:
+        _check_grid(*zip((contrib, participate, present, offsets),
+                         _GROUP_DTYPES))
 
 
 # shape: wts[W] i64, v[S,W] f64, m[S,W] bool
@@ -152,20 +158,20 @@ def group_moments(agg_name: str, contrib: torch.Tensor,
         raise KeyError("group_moments computes the moments, not %r"
                        % agg_name)
     _check_group_inputs(contrib, participate, present, offsets)
-    if contrib.device.type == "cpu":
+    if contrib.is_cpu:
         return group_moments_plain(agg_name, contrib, participate, present,
                                    offsets)
     dev = kernels.require_cuda(contrib, participate, present, offsets)
-    w = contrib.shape[1]
+    s, w = contrib.shape
     g = offsets.numel() - 1
     out = torch.empty((g, w), dtype=torch.float64, device=dev)
     out_mask = torch.empty((g, w), dtype=torch.bool, device=dev)
     if g == 0 or w == 0:
         return out, out_mask
     kernels.launch(
-        "group_moments", dev, kernels.ptr(contrib), kernels.ptr(participate),
-        kernels.ptr(present), kernels.ptr(offsets), g, w,
-        MOMENT_CODES[agg_name], kernels.ptr(out), kernels.ptr(out_mask))
+        "group_moments", dev, contrib.data_ptr(), participate.data_ptr(),
+        present.data_ptr(), offsets.data_ptr(), s, g, w,
+        MOMENT_CODES[agg_name], out.data_ptr(), out_mask.data_ptr())
     return out, out_mask
 
 

@@ -16,7 +16,11 @@ ops.lanes, ops.streaming, ops.tiling)
 allocates the outputs and any scratch with ``torch.empty``, checks
 device, dtype, shape and contiguity, calls ``launch``, and raises when
 the C entry returns a CUDA error.  A build or launch failure always
-raises: nothing here falls back to a plain version.
+raises: nothing here falls back to a plain version.  ``launch`` is the
+host's whole cost of reaching a kernel after the wrapper's checks: it
+reads a loaded library without the build lock, takes the current stream
+as a raw handle, and enters a device guard only for a device that is not
+the current one.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.  A launch of K1, K4 or K2 over a stacked batch of more
@@ -69,9 +73,9 @@ SIGNATURES: dict[str, tuple] = {
     # stream (wts: one row of w a member)
     "grid_fill_rate": (_P, _P, _P, _I64, _I32, _I64, _I32, _I32, _I32, _F64,
                        _F64, _I32, _P, _P, _P, _P),
-    # contrib, participate, present, offsets, g, w, agg, out, out_mask,
+    # contrib, participate, present, offsets, s, g, w, agg, out, out_mask,
     # stream
-    "group_moments": (_P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    "group_moments": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P, _P, _P),
     # ts, val, mask, s, n, val_is_int, counter, drop_resets, counter_max,
     # reset_value, out_ts, out_val, out_mask, stream
     "point_rate": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64, _I64,
@@ -125,11 +129,11 @@ SIGNATURES: dict[str, tuple] = {
     # fill_mode, fill_value, out, out_mask, stream
     "stream_finish": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _F64,
                       _I32, _F64, _P, _P, _P),
-    # contrib, participate, present, offsets, mean, g, w, mode, cnt, pres,
-    # tot, lo, hi, sq, stream (mode: 0 additive, 1 extreme, 2 square,
+    # contrib, participate, present, offsets, mean, s, g, w, mode, cnt,
+    # pres, tot, lo, hi, sq, stream (mode: 0 additive, 1 extreme, 2 square,
     # 3 centred)
-    "tile_partials": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
-                      _P, _P, _P),
+    "tile_partials": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
+                      _P, _P, _P, _P),
     # ts, val, mask, edges, members, offsets, mean, n, g, w, val_is_int,
     # mode, cnt, tot, lo, hi, sq, stream (mode as tile_partials; the
     # centred mode writes its m2 to sq)
@@ -154,6 +158,8 @@ LAUNCHES.update({name: 0 for name in MODES})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# name -> (C entry, its error-string function), set with _libs
+_entries: dict[str, tuple] = {}
 
 
 def reset_launches() -> None:
@@ -235,7 +241,12 @@ def resources(name: str) -> list[str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed.  A
+    loaded library is read without the lock, which guards the build and
+    the load."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -248,6 +259,7 @@ def library(name: str) -> ctypes.CDLL:
             err = getattr(lib, name + "_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            _entries[name] = (fn, err)
             _libs[name] = lib
         return lib
 
@@ -261,18 +273,21 @@ def load_all() -> None:
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:
     """All tensors on one CUDA device and contiguous; that device."""
-    dev = tensors[0].device
+    first = tensors[0]
+    index = first.get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError("CUDA kernels take tensors on one CUDA device, "
-                             "got %s and %s" % (dev, t.device))
+                             "got %s and %s" % (first.device, t.device))
         if not t.is_contiguous():
             raise ValueError("CUDA kernels take contiguous tensors")
-    return dev
+    return first.device
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's data pointer as a C entry's void* argument (ctypes
+    converts the int through the entry's argtypes)."""
+    return t.data_ptr()
 
 
 def launch(name: str, device: torch.device, *args,
@@ -284,12 +299,22 @@ def launch(name: str, device: torch.device, *args,
     under ``<name>.i32`` when `i32` (int32 timestamp offsets), under
     ``<name>.<mode>`` when that is one of MODES; raise on a CUDA error
     from the launch."""
-    lib = library(name)
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        rc = getattr(lib, name)(*args, stream)
+    entry = _entries.get(name)
+    if entry is None:
+        library(name)
+        entry = _entries[name]
+    fn, err = entry
+    # The device's current stream, read without a Stream object; the
+    # device guard only where the device is not already the current one.
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = getattr(lib, name + "_error")(rc).decode(errors="replace")
+        msg = err(rc).decode(errors="replace")
         raise RuntimeError("CUDA kernel %s failed to launch: %s (%d)"
                            % (name, msg, rc))
     LAUNCHES[name] += 1

@@ -83,6 +83,14 @@ FOLD_LANES = {"additive": ("cnt", "present", "tot"),
               "extreme": ("cnt", "present", "lo", "hi"),
               "square": ("cnt", "present", "sq"),
               "centred": ("m2",)}
+_LANE_SLOTS = {"additive": (0, 1, 2), "extreme": (0, 1, 3, 4),
+               "square": (0, 1, 5), "centred": (5,)}
+# T1's inputs' dtypes (contrib, participate, present, offsets) and its
+# lanes', by mode
+_FOLD_DTYPES = {mode: (torch.float64, torch.bool, torch.bool, torch.int64,
+                       *(torch.int64 if k in ("cnt", "present")
+                         else torch.float64 for k in keys))
+                for mode, keys in FOLD_LANES.items()}
 
 
 @dataclass(frozen=True)
@@ -235,18 +243,13 @@ def tile_partials(contrib: torch.Tensor, participate: torch.Tensor,
         raise ValueError("tile_partials takes [S, W] grids, offsets[G + 1] "
                          "and [G, W] accumulators, and a [G, W] mean in "
                          "the centred mode only")
-    if contrib.dtype != torch.float64 \
-            or participate.dtype != torch.bool \
-            or present.dtype != torch.bool \
-            or offsets.dtype != torch.int64 \
-            or any(x.dtype != (torch.int64 if k in ("cnt", "present")
-                               else torch.float64)
-                   for k, x in zip(FOLD_LANES[mode], lanes)) \
+    if (contrib.dtype, participate.dtype, present.dtype, offsets.dtype,
+            *(x.dtype for x in lanes)) != _FOLD_DTYPES[mode] \
             or (mean is not None and mean.dtype != torch.float64):
         raise ValueError("tile_partials takes contrib f64, participate and "
                          "present bool, offsets int64, cnt and present "
                          "int64 and the other lanes and the mean f64")
-    if contrib.device.type == "cpu":
+    if contrib.is_cpu:
         tile_partials_plain(contrib, participate, present, offsets, acc,
                             mean)
         return
@@ -255,17 +258,16 @@ def tile_partials(contrib: torch.Tensor, participate: torch.Tensor,
                                *lanes, *extra)
     if g == 0 or w == 0:
         return
-
-    def lane(key):
-        return kernels.ptr(acc[key]) if key in acc else None
-
+    # the C entry's six lane pointers (cnt, present, tot, lo, hi, sq or
+    # m2), null where the mode has no such lane
+    at = [None] * 6
+    for i, x in zip(_LANE_SLOTS[mode], lanes):
+        at[i] = x.data_ptr()
     kernels.launch(
-        "tile_partials", dev, kernels.ptr(contrib), kernels.ptr(participate),
-        kernels.ptr(present), kernels.ptr(offsets),
-        None if mean is None else kernels.ptr(mean), g, w,
-        FOLD_MODES.index(mode), lane("cnt"), lane("present"), lane("tot"),
-        lane("lo"), lane("hi"), lane("m2" if mode == "centred" else "sq"),
-        mode=mode)
+        "tile_partials", dev, contrib.data_ptr(), participate.data_ptr(),
+        present.data_ptr(), offsets.data_ptr(),
+        None if mean is None else mean.data_ptr(), s, g, w,
+        FOLD_MODES.index(mode), *at, mode=mode)
 
 
 def tile_partials_plain(contrib, participate, present, offsets,

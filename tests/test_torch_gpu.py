@@ -1533,3 +1533,136 @@ def test_union_merge_awkward_shapes_kernel_matches_plain(cuda_device):
         pu, puoff = tua.union_merge_plain(t(c_ts), t(c_mask), offsets)
         assert_exact(uoff.cpu().numpy(), puoff.numpy())
         assert_exact(u.cpu().numpy(), pu.numpy())
+
+
+# -- the grouped fold K3 and T1 share (csrc/group_fold.cuh) -----------------
+
+
+def _fold_grid(rng, s, w):
+    """contrib with NaNs, participate and present at random, [s, w]."""
+    contrib = rng.normal(30.0, 12.0, (s, w))
+    contrib[rng.random((s, w)) < 0.1] = np.nan
+    return contrib, rng.random((s, w)) < 0.85, rng.random((s, w)) < 0.8
+
+
+def _misaligned(dev, x, skip):
+    """x on `dev` as a contiguous view `skip` elements into a buffer, so
+    its data pointer is off the 16-byte (f64) or 4-byte (flag) grain."""
+    src = torch.from_numpy(np.ascontiguousarray(x))
+    buf = torch.empty(src.numel() + skip + 8, dtype=src.dtype, device=dev)
+    view = buf[skip:skip + src.numel()].view(src.shape)
+    view.copy_(src)
+    return view
+
+
+def _k3_both(dev, contrib, part, present, offsets, skips=(0, 0, 0)):
+    """Every moment function by K3 on the card (inputs at the given
+    misalignments) and by its plain version on the CPU."""
+    args = [_misaligned(dev, x, k) for x, k in zip((contrib, part, present),
+                                                  skips)]
+    for agg in FUNCS:
+        got = tga.group_moments(agg, *args, offsets.to(dev))
+        want = tga.group_moments_plain(agg, t(contrib), t(part), t(present),
+                                       offsets)
+        yield agg, got, want
+
+
+@pytest.mark.parametrize("skips", [(0, 0, 0), (1, 3, 2)])
+@pytest.mark.parametrize("w", [283, 1, 37])
+def test_group_moments_deep_group_kernel_matches_plain(cuda_device, w,
+                                                       skips):
+    """1024 rows as one group (a narrow window tile, the rows staged in
+    many chunks), W not a multiple of any tile, aligned and misaligned
+    inputs: every moment function equals the plain version (masks
+    exactly, values at rtol 1e-9)."""
+    contrib, part, present = _fold_grid(np.random.default_rng(51), 1024, w)
+    offsets = torch.tensor([0, 1024])
+    for agg, got, want in _k3_both(cuda_device, contrib, part, present,
+                                   offsets, skips):
+        assert_exact(got[1].cpu().numpy(), want[1].numpy())
+        assert_values(got[0].cpu().numpy(), want[0].numpy())
+
+
+def test_group_moments_empty_and_silent_groups(cuda_device):
+    """Empty groups (offsets[g] == offsets[g + 1]), a group whose cells
+    are all NaN and one whose cells all take no part: count gives 0, the
+    other functions NaN, and the mask holds presence alone."""
+    rng = np.random.default_rng(52)
+    contrib, part, present = _fold_grid(rng, 40, 150)
+    gid = np.repeat(np.array([1, 2, 4, 6]), 10)
+    contrib[10:20] = np.nan
+    part[20:30] = False
+    offsets = tga.group_offsets(gid, 9)
+    for agg, got, want in _k3_both(cuda_device, contrib, part, present,
+                                   offsets):
+        out, mask = got[0].cpu().numpy(), got[1].cpu().numpy()
+        assert_exact(mask, want[1].numpy())
+        assert_values(out, want[0].numpy())
+        silent = out[[0, 2, 3, 4, 5, 7, 8]]
+        if agg == "count":
+            assert (silent == 0).all()
+        else:
+            assert np.isnan(silent).all()
+        assert not mask[[0, 3, 5, 7, 8]].any() and mask[[2, 4]].any()
+
+
+@pytest.mark.parametrize("rows", [7, 64, 300])
+@pytest.mark.parametrize("agg", ["sum", "count", "avg", "min", "max"])
+def test_tile_fold_equals_group_moments_on_float_data(cuda_device, agg,
+                                                      rows):
+    """On float data (NaNs, holes) the fold of all tiles, finished, is K3
+    over the whole grid bit for bit, whatever the tile height: tiles of 7
+    and 64 rows split groups across tiles."""
+    from opentsdb_tpu_torch.ops import tiling
+    v, m, gid = _lane_tiles(np.random.default_rng(53), s=600, w=283)
+    spec = tpipe.PipelineSpec(agg)
+    acc = _fold_pair(cuda_device, spec, v, m, gid, 9, rows)
+    out, mask = tiling.finish_lane_fold(acc, agg)
+    wts = torch.arange(v.shape[1], dtype=torch.int64,
+                       device=cuda_device) * 60_000 + T0
+    contrib, part, actual = tiling.tile_contrib(
+        spec, wts, *_on(cuda_device, v, m))
+    want, want_mask = tga.group_moments(
+        agg, contrib, part, actual, tga.group_offsets(gid, 9).to(cuda_device))
+    assert_exact(out.cpu().numpy(), want.cpu().numpy())
+    assert_exact(mask.cpu().numpy(), want_mask.cpu().numpy())
+
+
+@pytest.mark.parametrize("rows", [5, 48, 200])
+@pytest.mark.parametrize("mode", ["additive", "extreme", "square",
+                                  "centred"])
+def test_tile_partials_modes_over_split_groups(cuda_device, mode, rows):
+    """T1's four modes over tiles of `rows` rows that split groups across
+    tiles (misaligned inputs, W = 283): the accumulators equal the plain
+    version's (counts, presence and extremes exactly, sums at rtol
+    1e-9), and each launch counts under its mode."""
+    from opentsdb_tpu_torch.ops import tiling
+    rng = np.random.default_rng(54)
+    s, w, g = 400, 283, 6
+    contrib, part, present = _fold_grid(rng, s, w)
+    gid = np.sort(rng.integers(0, g, s))
+    mean = rng.normal(30.0, 5.0, (g, w))
+    extra = {"mean": mean} if mode == "centred" else {}
+    got = tiling.new_lane_fold(g, w, mode, cuda_device)
+    want = tiling.new_lane_fold(g, w, mode, "cpu")
+    kernels.reset_launches()
+    for lo in range(0, s, rows):
+        sl = slice(lo, lo + rows)
+        off = tga.group_offsets(gid[sl], g)
+        tiling.tile_partials(
+            *[_misaligned(cuda_device, x[sl], k)
+              for x, k in ((contrib, 1), (part, 2), (present, 3))],
+            off.to(cuda_device), got,
+            **{k: t(x).to(cuda_device) for k, x in extra.items()})
+        tiling.tile_partials_plain(t(contrib[sl]), t(part[sl]),
+                                   t(present[sl]), off, want,
+                                   **{k: t(x) for k, x in extra.items()})
+    n = -(-s // rows)
+    assert kernels.LAUNCHES["tile_partials"] == n
+    if mode in ("square", "centred"):
+        assert kernels.LAUNCHES["tile_partials." + mode] == n
+    for lane in want:
+        if lane in ("cnt", "present", "lo", "hi"):
+            assert_exact(got[lane].cpu().numpy(), want[lane].numpy())
+        else:
+            assert_values(got[lane].cpu().numpy(), want[lane].numpy())
