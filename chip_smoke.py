@@ -7,7 +7,9 @@ streamed and tiled past the device budget, queries without a downsample
 striped lane serving, a dashboard fleet through the daemon's
 admission gate and dispatch batcher, and the device mesh.
 
-    python3 chip_smoke.py [--seed N] [--mesh-only | --fold-only]
+    python3 chip_smoke.py [--seed N]
+                          [--mesh-only | --fold-only
+                           | --fill-only [--k2-digests FILE]]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -27,6 +29,21 @@ days), 1h windows.  Phases:
    one group of 1024 rows (fan-in), (c) the 1m grid [1024, 16,931] in
    100 groups, each a wall (CUDA events around the Python call) and a
    device time (torch.profiler's kernel durations) beside index_add_'s.
+   K2 also at the widths where its chunks and segments end (W = 1, 2,
+   31-33, 127-129, 255-257, 385, 513, 1023-1025, 2047-2049, 16,931,
+   66,000) on rows with no present window, one, only windows in the last
+   chunk or the first and gap runs across every chunk edge, every policy
+   under every rate set.
+   K2's timed cases (fill_phase; `--fill-only` runs them and phase 7
+   alone, on the fleet built by load_state, and `--k2-digests FILE`
+   writes the sha256 of each case's outputs, or holds them to FILE's,
+   for a bit-for-bit check against another tree's K2): (a) the headline
+   grid [1024, 283] under lerp, every window present and with holes;
+   (b) that grid under a counter rate (counter_max, reset_value); (c)
+   the stacked grid of 16 headline panels [160, 60]; (d) one 256-row
+   tile of the 1m grid [256, 16,931] (phase 14's holes); (e) that whole
+   grid [1024, 16,931]; each held to the plain version, a wall and a
+   device time beside its byte bound.
    Then K4 window_order (every order and rank downsample function, the
    fills for p99 and first, and "0all" p99 and median: 65,536-point
    runs), then mult's classes at the headline shape (the headline batch,
@@ -91,7 +108,10 @@ days), 1h windows.  Phases:
    on the card, 4,096 series x 1,440 points x 32 buckets in 64 groups (nnz
    1.89e8, R = 92,160); (c) case (b) under a 1h downsample (R = 1,536,
    ~3,840 entries a cell).  Each case prints the kernel, bound, plain and
-   `index_add_` (the library call for H1) times.
+   `index_add_` (the library call for H1) times; H1's kernel time is its
+   query-path form (accumulate_rows_deferred: the flag left for the
+   answer's copy, no sync), beside the form that reads the flag at the
+   call.
 8. the daemon on the card: a TSDServer on 127.0.0.1 (an ephemeral port)
    over the same TSDB, configured for histograms.  The latency fleet,
    metric `h`: 256 series in 16 groups, a histogram of 32 fixed,
@@ -218,12 +238,15 @@ days), 1h windows.  Phases:
    headline panel (10 series of the batch over an hour, 256 points
    padded, 60 1m windows): each against its plain version (rtol 1e-9,
    masks exact) and the stacked answers against 16 solo dispatches bit
-   for bit; one stacked dispatch of sum:1m-avg must launch each of its
-   kernels once; one stacked dispatch against 16 solo ones on CUDA events
-   and on the host clock (the dispatch batcher's own dispatch: host
-   stack, copies, kernels, copy back), beside its byte bound; the two
-   shapes' host walls give the cost model's stacked_dispatch and
-   stacked_cell.  (b) plan_decision's path and fingerprint for
+   for bit; the stacked K2 at chunk-edge widths (16 members of 10 rows,
+   W = 16, 60, 128, 129, 1025, every policy and rate set) against its
+   plain version and each member's rows bit for bit its solo call's (its
+   time is phase 2's case (c)); one stacked dispatch of sum:1m-avg must
+   launch each of its kernels once; one stacked dispatch against 16 solo
+   ones on CUDA events and on the host clock (the dispatch batcher's own
+   dispatch: host stack, copies, kernels, copy back), beside its byte
+   bound; the two shapes' host walls give the cost model's
+   stacked_dispatch and stacked_cell.  (b) plan_decision's path and fingerprint for
    `sum:1h-avg:m{group=*}` (not batched) and a panel (batched).  (c) A
    TSDServer (8 responder threads) serves 16 client threads in a child
    process, each panel `sum:1m-avg:m{group=gNNN}` or
@@ -266,7 +289,7 @@ days), 1h windows.  Phases:
    tier's bytes.  (d) The default-route follow-up: phase
    16's fleet at 1, 2, 4 and 8 responder threads, three arms each (agg
    off and batching off: device-cache hits; agg off, batching on;
-   default: agg on, batching on), 3 s warm-up and 8 s timed: QPS, p50,
+   default: agg on, batching on), 2 s warm-up and 4 s timed: QPS, p50,
    p99, each query's request phases from /api/diag/latency and the
    responder thread's CPU a query; every body equal to the hits arm's.
    Launch counts are reset before (b) and read after (d).  Since phase
@@ -300,9 +323,11 @@ days), 1h windows.  Phases:
 Prints a line per case (worst absolute and relative error, and the worst
 error as a share of its limit), the `costmodel cuda` line, the `kernels`
 JSON line (each kernel's wall `ms`, CUDA events around the Python call,
-and where measured its `device_ms`, torch.profiler's kernel durations,
-with `library_device_ms` beside `library_ms`; K3's timed cases as
-`group_moments.fanin` and `group_moments.1m`, carrying K3's launches),
+and its `device_ms`, torch.profiler's kernel durations, with
+`library_device_ms` beside `library_ms` where measured; K3's timed cases
+as `group_moments.fanin` and `group_moments.1m` and K2's as
+`grid_fill_rate.holes`, `.rate`, `.tile` and `.1m`, carrying their
+kernel's launches),
 the card's name and power limit, and last the result line.  Any failed
 check exits 1 before the result line.
 """
@@ -367,6 +392,10 @@ REPLACES = {
     "window_moments.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "window_order.stacked": "opentsdb_tpu/ops/pipeline.py:225",
     "grid_fill_rate.stacked": "opentsdb_tpu/ops/pipeline.py:225",
+    "grid_fill_rate.holes": "opentsdb_tpu/ops/group_agg.py:354",
+    "grid_fill_rate.rate": "opentsdb_tpu/ops/rate.py:58",
+    "grid_fill_rate.tile": "opentsdb_tpu/ops/tiling.py:188",
+    "grid_fill_rate.1m": "opentsdb_tpu/ops/group_agg.py:354",
     "group_moments.fanin": "opentsdb_tpu/ops/group_agg.py:420",
     "group_moments.1m": "opentsdb_tpu/ops/group_agg.py:420",
     "tile_partials.square": "opentsdb_tpu/parallel/sharded.py:223",
@@ -376,6 +405,11 @@ REPLACES = {
     "point_group_moments.square": "opentsdb_tpu/parallel/sharded.py:86",
     "point_group_moments.centred": "opentsdb_tpu/parallel/sharded.py:86",
 }
+# K2's widths at the edges of its chunks and segments (a warp walks 128
+# windows a chunk; a row is cut into 1, 2, 4 or 8 segments of whole
+# chunks), the 1m grid's width, and a row whose segments pass 64 chunks
+K2_EDGE_WIDTHS = [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 385, 513,
+                  1023, 1024, 1025, 2047, 2048, 2049, 16_931, 66_000]
 PERCENTILES = [p + n + e for n in ("999", "99", "95", "90", "75", "50")
                for p, e in (("p", ""), ("ep", "r3"), ("ep", "r7"))]
 ORDER_DS = ["first", "last", "diff", "mult", "median"] + PERCENTILES
@@ -523,6 +557,12 @@ def device_ms(fn, reps: int = 20, tries: int = 3) -> float | None:
     return None
 
 
+def kernel_ms(fn) -> dict:
+    """A kernel row's own arm: time_ms's wall (median of 7) as `ms` and
+    device_ms's kernel time as `device_ms`."""
+    return {"ms": time_ms(fn), "device_ms": device_ms(fn)}
+
+
 def both_ms(fn) -> tuple[float, float | None]:
     """(wall, device): time_ms's CUDA events around the whole call, host
     work included (median of 31), and device_ms's kernel time alone."""
@@ -608,8 +648,8 @@ def kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                                      lengths.numel()))
     del pos, lengths, flat
     k1 = {
-        "ms": time_ms(lambda: ds.window_moments(d_ts, d_val, d_mask, edges,
-                                                "avg")),
+        **kernel_ms(lambda: ds.window_moments(d_ts, d_val, d_mask, edges,
+                                              "avg")),
         "plain_ms": time_ms(lambda: ds.window_moments_plain(
             d_ts, d_val, d_mask, edges, "avg")),
         "bound_ms": bound_ms(S * N * (8 + 1) + S * (w + 1) * 8
@@ -634,14 +674,21 @@ def kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                 checks.exact("grid_fill_rate", case, got[1], want[1])
                 checks.exact("grid_fill_rate", case, got[2], want[2])
                 checks.values("grid_fill_rate", case, got[0], want[0])
-    k2 = {
-        "ms": time_ms(lambda: ga.grid_fill_rate(wts, v, m, "lerp")),
-        "plain_ms": time_ms(lambda: ga.grid_fill_rate_plain(wts, v, m,
-                                                            "lerp")),
-        "bound_ms": bound_ms(S * w * (8 + 1) + w * 8 + S * w * (8 + 1 + 1),
-                             4.0 * S * w),
-        "library_ms": None,
-    }
+    # K2 at the widths where its chunks end, on rows empty, of one
+    # window, present only in the last chunk or the first, and with gap
+    # runs across every chunk edge
+    for ew in K2_EDGE_WIDTHS:
+        ev = k2_edge_grid(np.random.default_rng(ew), 64, ew, dev)
+        for policy in POLICIES:
+            for rname, rargs in RATE_SETS.items():
+                opts = None if rargs is None else RateOptions(*rargs)
+                got = ga.grid_fill_rate(*ev, policy, opts)
+                want = ga.grid_fill_rate_plain(*ev, policy, opts)
+                case = "edges W=%d policy=%s rate=%s" % (ew, policy, rname)
+                checks.exact("grid_fill_rate", case, got[1], want[1])
+                checks.exact("grid_fill_rate", case, got[2], want[2])
+                checks.values("grid_fill_rate", case, got[0], want[0])
+    del ev, got, want
 
     # K3 over the main path's contributions, and the skew case
     contrib, part, present = ga.grid_fill_rate(wts, v, m, "lerp")
@@ -670,7 +717,9 @@ def kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                   got[small_groups],
                   torch.from_numpy(exact_sum)[small_groups])
     del skew, ones
-    times = {"window_moments": k1, "grid_fill_rate": k2}
+    times = {"window_moments": k1}
+    times.update(fill_phase(dev, ts, val, h, checks))
+    torch.cuda.empty_cache()
     times.update(fold_phase(dev, ts, val, gid, h, checks))
     print_times(times)
     return times
@@ -854,6 +903,197 @@ def fold_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     return times
 
 
+def k2_edge_grid(rng, s: int, w: int, dev, t0: int = START):
+    """(wts, v, m) on `dev`: an [S, W] grid as FILL_NONE leaves it (NaN
+    where masked) for K2's chunk edges, as tests/torch_parity.py makes
+    it: row 0 has no present window, row 1 one, row 2 only windows in its
+    last chunk, row 3 gap runs across every chunk edge, row 4 every
+    window, row 5 its first and last, row 6 only windows in its first
+    chunk; the rest holes at random.  Values step down at times (counter
+    resets); one zero-width window step."""
+    s = max(s, 8)
+    wts = t0 + np.arange(w, dtype=np.int64) * 60_000
+    if w > 5:
+        wts[5] = wts[4]
+    v = np.cumsum(rng.normal(10.0, 30.0, (s, w)), axis=1)
+    mask = rng.random((s, w)) >= 0.35
+    last = (w - 1) // 128 * 128
+    mask[:3] = False
+    mask[1, w // 2] = True
+    mask[2, last:] = rng.random(w - last) >= 0.5
+    mask[2, w - 1] = True
+    mask[3] = True
+    for edge in range(32, w, 32):
+        mask[3, max(edge - 3, 1):edge + 3] = False
+    mask[4] = True
+    mask[5] = False
+    mask[5, [0, w - 1]] = True
+    mask[6] = False
+    mask[6, :min(128, w)] = rng.random(min(128, w)) >= 0.3
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (wts, np.where(mask, v, np.nan), mask))
+
+
+def fill_cases(dev, ts, val, h) -> dict:
+    """K2's timed cases (fill_phase) on `dev`: name -> (wts, v, m,
+    policy, rate options)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops.rate import RateOptions
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    edges = ds.FixedWindows.for_range(START, END, INTERVAL_MS) \
+        .window_edges(dev)
+    w = edges.numel() - 1
+    v, m = ds.window_moments(d_ts, d_val, torch.ones(
+        (S, N), dtype=torch.bool, device=dev), edges, "avg")
+    hole = (torch.arange(S * w, device=dev).reshape(S, w) * 7919) % 13 == 0
+    cases = {
+        "grid_fill_rate": (edges[:w], v, m, "lerp", None),
+        "grid_fill_rate.holes": (edges[:w], torch.where(hole, torch.nan, v),
+                                 m & ~hole, "lerp", None),
+        "grid_fill_rate.rate": (edges[:w], v, m, "lerp", RateOptions(
+            *RATE_SETS["counter_max_reset"])),
+    }
+    q_ts, q_val, q_mask, _, _, q_edges = _stacked_args(
+        _fleet_members("headline", ts, val, 16), dev)
+    qv, qm = ds.window_moments(q_ts, q_val, q_mask, q_edges, "avg")
+    cases["grid_fill_rate.stacked"] = (q_edges[:, :-1].contiguous(), qv, qm,
+                                       "lerp", None)
+    del q_ts, q_val, q_mask
+    d_h = torch.from_numpy(h).to(dev)
+    cols = torch.arange(N, device=dev)[None, :]
+    rix = torch.arange(S, device=dev)[:, None]
+    mask = (d_h % 11 != 0) & ((cols // 512) % 13 != rix % 13)
+    del d_h, cols, rix
+    e1 = ds.FixedWindows.for_range(START, END, 60_000).window_edges(dev)
+    v1, m1 = ds.window_moments(d_ts, d_val, mask, e1, "sum")
+    del d_ts, d_val, mask
+    cases["grid_fill_rate.tile"] = (e1[:-1], v1[:256], m1[:256], "lerp",
+                                    None)
+    cases["grid_fill_rate.1m"] = (e1[:-1], v1, m1, "lerp", None)
+    return cases
+
+
+def _k2_host_split(dev, wts, v, m) -> None:
+    """Where the host's time of a K2 call goes: the wrapper whole, its
+    checks, its outputs (one allocation carved in three; three
+    torch.empty beside it), kernels.launch, and the C entry alone."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import kernels
+    s, w = v.shape
+    contrib, part, present = ga.grid_fill_rate(wts, v, m, "lerp")
+    args = (v.data_ptr(), m.data_ptr(), wts.data_ptr(), s, w, s, 0, 0, 0,
+            0.0, 0.0, 0, contrib.data_ptr(), part.data_ptr(),
+            present.data_ptr())
+    entry = getattr(kernels.library("grid_fill_rate"), "grid_fill_rate")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    split = {"wrapper": lambda: ga.grid_fill_rate(wts, v, m, "lerp")}
+    if hasattr(ga, "_fill_outputs"):
+        split.update({
+            "checks": lambda: (ga._check_fill(wts, v, m, "lerp"),
+                               kernels.require_cuda(wts, v, m)),
+            "outputs": lambda: ga._fill_outputs(s, w, dev)})
+    split.update({
+        "three_empty": lambda: (
+            torch.empty((s, w), dtype=torch.float64, device=dev),
+            torch.empty((s, w), dtype=torch.bool, device=dev),
+            torch.empty((s, w), dtype=torch.bool, device=dev)),
+        "launch": lambda: kernels.launch("grid_fill_rate", dev, *args),
+        "entry": lambda: entry(*args, stream)})
+    print("host us a call, K2 lerp [%d, %d]: %s" % (s, w, "  ".join(
+        "%s %.2f" % (k, _host_us(fn)) for k, fn in split.items())))
+
+
+def fill_phase(dev, ts, val, h, checks: Checks,
+               digests: str | None = None) -> dict:
+    """K2's timed cases, each held to the plain version (masks exact,
+    values at rtol 1e-9) and timed as a wall and a device time beside its
+    byte bound (19 B a cell and a row of window timestamps a member) and
+    the plain version: (a) the headline grid [1024, 283] under lerp as
+    K1's sum:1h-avg leaves it (every window present; `grid_fill_rate`)
+    and with holes punched in (`.holes`); (b) the same grid under a
+    counter rate with counter_max and reset_value (`.rate`); (c) the
+    stacked grid of 16 headline panels [160, 60] (`.stacked`); (d) one
+    256-row tile of the 1m grid [256, 16,931] with phase 14's holes, the
+    tiled replay's call (`.tile`); (e) that whole grid [1024, 16,931]
+    (`.1m`).  With `digests`, each case's outputs' sha256 goes to that
+    JSON file, or, where the file exists, is held to the digests in it:
+    the same inputs through another tree's K2 give the same bits."""
+    import hashlib
+    from opentsdb_tpu_torch.ops import group_agg as ga
+
+    cases = fill_cases(dev, ts, val, h)
+    times, sums = {}, {}
+    for name, (wts, gv, gm, policy, opts) in cases.items():
+        got = ga.grid_fill_rate(wts, gv, gm, policy, opts)
+        want = ga.grid_fill_rate_plain(wts, gv, gm, policy, opts)
+        rows, cols = gv.shape
+        case = "[%d, %d] %s rate=%s" % (rows, cols, policy, opts is not None)
+        checks.exact(name, case, got[1], want[1])
+        checks.exact(name, case, got[2], want[2])
+        checks.values(name, case, got[0], want[0])
+        sums[name] = hashlib.sha256(b"".join(
+            x.cpu().numpy().tobytes() for x in got)).hexdigest()
+        del got, want
+        ms, dms = both_ms(lambda: ga.grid_fill_rate(wts, gv, gm, policy,
+                                                    opts))
+        members = wts.shape[0] if wts.dim() == 2 else 1
+        times[name] = {
+            "ms": ms, "device_ms": dms,
+            "plain_ms": time_ms(lambda: ga.grid_fill_rate_plain(
+                wts, gv, gm, policy, opts)),
+            # v, m read and contrib, participate, present written once (19
+            # B a cell), each member's window timestamps read once
+            "bound_ms": bound_ms(rows * cols * 19 + members * cols * 8,
+                                 4.0 * rows * cols),
+            "library_ms": None}
+        print("time %-22s %-28s kernel wall %.4f ms device %s  plain %.4f "
+              "ms  bound %.4f ms (bytes)" % (name, case, ms, _fmt(dms),
+                                             times[name]["plain_ms"],
+                                             times[name]["bound_ms"]))
+    # (64 rows: a kernel of a few us, so that the host sets the pace)
+    wts, gv, gm = cases["grid_fill_rate"][:3]
+    _k2_host_split(dev, wts, gv[:64], gm[:64])
+    if digests:
+        if os.path.exists(digests):
+            with open(digests) as fh:
+                before = json.load(fh)
+            for name, digest in sums.items():
+                same = before.get(name) == digest
+                print("k2 outputs %-22s %s %s" % (
+                    name, "equal bit for bit to" if same else "DIFFER from",
+                    digests))
+                if not same:
+                    checks.failures.append("%s: outputs differ from %s"
+                                           % (name, digests))
+        else:
+            with open(digests, "w") as fh:
+                json.dump(sums, fh, indent=1)
+            print("k2 outputs' digests written to %s" % digests)
+    return times
+
+
+def fleet_tsdb(dev):
+    """The latency fleet `h` (phase 8's series, tags and counts) in a
+    TSDB of its own through load_state, for phase 7 without the daemon."""
+    from opentsdb_tpu_torch.core import load_state
+    from opentsdb_tpu_torch.utils.config import Config
+    counts = histogram_fleet()
+    tags = [_h_tags(s) for s in range(H_SERIES)]
+    tagv = sorted({v for t in tags for v in t.values()})
+    uids = {"metric": {"h": 1}, "tagk": {"group": 1, "host": 2},
+            "tagv": {v: i + 1 for i, v in enumerate(tagv)}}
+    bounds = np.array(list(zip(H_EDGES, H_EDGES[1:])), dtype=np.float64)
+    ts = (H_START_S + np.arange(H_POINTS, dtype=np.int64) * H_STEP_S) * 1000
+    hist = [(1, {1: uids["tagv"][t["group"]], 2: uids["tagv"][t["host"]]},
+             ts, [(bounds, counts[s, i], 0, 0) for i in range(H_POINTS)])
+            for s, t in enumerate(tags)]
+    return load_state(uids, [], config=Config(
+        {"tsd.core.histograms.config": HIST_CONFIG}), device=dev,
+        histograms=hist)
+
+
 def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     """K4 window_order, K5 group_order and MA moving_average (downsample
     and grid positions) on the headline batch, each against its plain
@@ -897,8 +1137,8 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     k4_bytes = (S * N * (8 + 1) + S * (w + 1) * 8 + (w + 1) * 8
                 + S * w * (8 + 1))
     k4 = {
-        "ms": time_ms(lambda: ds.window_order(d_ts, d_val, d_mask, edges,
-                                              "mult")),
+        **kernel_ms(lambda: ds.window_order(d_ts, d_val, d_mask, edges,
+                                            "mult")),
         "plain_ms": time_ms(lambda: ds.window_order_plain(
             d_ts, d_val, d_mask, edges, "mult")),
         "bound_ms": bound_ms(k4_bytes, 1.0 * S * N),
@@ -955,8 +1195,8 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                   ga.group_order("ep99r7", contrib, part, present, one)[0][0],
                   lib)
     k5 = {
-        "ms": time_ms(lambda: ga.group_order("ep99r7", contrib, part,
-                                             present, one)),
+        **kernel_ms(lambda: ga.group_order("ep99r7", contrib, part,
+                                           present, one)),
         "plain_ms": time_ms(lambda: ga.group_order_plain(
             "ep99r7", contrib, part, present, one)),
         "bound_ms": bound_ms(S * w * (8 + 1 + 1) + 2 * 8 + w * (8 + 1),
@@ -1035,8 +1275,8 @@ def gather_phase(dev, ts, val, gid, checks: Checks) -> dict:
         del got, want
         points = int(lengths.sum())
         times[name] = {
-            "ms": time_ms(lambda: dc.gather_windows(ts_buf, val_buf, d_st,
-                                                    d_len, n)),
+            **kernel_ms(lambda: dc.gather_windows(ts_buf, val_buf, d_st,
+                                                  d_len, n)),
             "plain_ms": time_ms(lambda: dc.gather_windows_plain(
                 ts_buf, val_buf, d_st, d_len, n), 3),
             # each requested point read once from both buffers, each
@@ -1064,11 +1304,12 @@ def gather_phase(dev, ts, val, gid, checks: Checks) -> dict:
 
 def print_times(times: dict) -> None:
     for name, t in times.items():
-        print("time %-15s kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)  "
-              "library %s" % (name, t["ms"], t["plain_ms"], t["bound_ms"],
-                              t.get("bound_by", "bytes"),
-                              "%.4f ms" % t["library_ms"]
-                              if t["library_ms"] is not None else "none"))
+        print("time %-15s kernel %.4f ms (device %s)  plain %.4f ms  bound "
+              "%.4f ms (%s)  library %s"
+              % (name, t["ms"], _fmt(t.get("device_ms")), t["plain_ms"],
+                 t["bound_ms"], t.get("bound_by", "bytes"),
+                 "%.4f ms" % t["library_ms"]
+                 if t["library_ms"] is not None else "none"))
 
 
 def _query(m: str, start: int = START, end: int = END):
@@ -1595,7 +1836,7 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     s_g = S / GROUPS
     keys = torch.from_numpy(gid).to(dev)[:, None] * (1 << 42) + d_ts
     u1 = {
-        "ms": time_ms(lambda: ua.union_merge(d_ts, d_mask, offsets)),
+        **kernel_ms(lambda: ua.union_merge(d_ts, d_mask, offsets)),
         "plain_ms": time_ms(lambda: ua.union_merge_plain(d_ts, d_mask,
                                                          offsets), 3),
         # each timestamp read once, each union slot written once
@@ -1606,8 +1847,8 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     del keys
     u2_ops = n_slots * s_g   # one f64 add a member and slot at least
     u2 = {
-        "ms": time_ms(lambda: ua.union_reduce(d_ts, d_val, d_mask, offsets,
-                                              u, uoff, "sum", "lerp")),
+        **kernel_ms(lambda: ua.union_reduce(d_ts, d_val, d_mask, offsets,
+                                            u, uoff, "sum", "lerp")),
         "plain_ms": time_ms(lambda: ua.union_reduce_plain(
             d_ts, d_val, d_mask, offsets, u, uoff, "sum", "lerp"), 3),
         "bound_ms": bound_ms(S * N * 17 + n_slots * 16 + (GROUPS + 1) * 16,
@@ -1663,7 +1904,7 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     del i_val
     opts = rt.RateOptions()
     r = {
-        "ms": time_ms(lambda: rt.point_rate(d_ts, d_val, d_mask, opts)),
+        **kernel_ms(lambda: rt.point_rate(d_ts, d_val, d_mask, opts)),
         "plain_ms": time_ms(lambda: rt.point_rate_plain(d_ts, d_val, d_mask,
                                                         opts)),
         "bound_ms": bound_ms(S * N * 17 * 2, 3.0 * S * N),
@@ -1742,8 +1983,8 @@ def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     u3_bytes = S * N * 17 + n_slots * 16 + (GROUPS + 1) * 16
     u3_ops = n_slots * s_g
     u3 = {
-        "ms": time_ms(lambda: ua.union_order(d_ts, d_val, d_mask, offsets,
-                                             u, uoff, "median", "lerp")),
+        **kernel_ms(lambda: ua.union_order(d_ts, d_val, d_mask, offsets,
+                                           u, uoff, "median", "lerp")),
         "plain_ms": time_ms(lambda: ua.union_order_plain(
             d_ts, d_val, d_mask, offsets, u, uoff, "median", "lerp"), 3),
         "bound_ms": bound_ms(u3_bytes, u3_ops),
@@ -1762,7 +2003,7 @@ def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     sums = ua.union_reduce(d_ts, d_val, d_mask, offsets, u, uoff, "sum",
                            "lerp")
     ma = {
-        "ms": time_ms(lambda: ag.moving_average(sums, None, uoff, 5)),
+        **kernel_ms(lambda: ag.moving_average(sums, None, uoff, 5)),
         "plain_ms": time_ms(lambda: ag.moving_average_plain(sums, None,
                                                             uoff, 5)),
         # sums read once, out written once, the run offsets read once
@@ -2062,18 +2303,15 @@ def _h_groups(tsdb):
 
 
 def _hist_times(fn, plain, library, nbytes) -> dict:
-    return {"ms": time_ms(fn), "device_ms": device_ms(fn),
-            "plain_ms": time_ms(plain),
+    return {**kernel_ms(fn), "plain_ms": time_ms(plain),
             "bound_ms": bound_ms(nbytes, 0.0), "bound_by": "bytes",
             "library_ms": None if library is None else time_ms(library),
             "library_device_ms": None if library is None
             else device_ms(library)}
 
 
-def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
-    """H1 and H2 against their plain versions on the card, exactly, in
-    cases (a) to (c), with their times."""
-    from opentsdb_tpu_torch.histogram import kernels as hk
+def histogram_cases(dev, tsdb) -> dict:
+    """Phase 7's cases on `dev`: name -> (seg, cnt, rows, buckets, mid)."""
     from opentsdb_tpu_torch.histogram.store import assemble_columnar
 
     batch = assemble_columnar(_h_groups(tsdb), H_START_S * 1000,
@@ -2081,7 +2319,6 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
     seg = torch.from_numpy(batch["seg"]).to(dev)
     cnt = torch.from_numpy(batch["cnt"]).to(dev)
     mid = torch.from_numpy(batch["mid"]).to(dev)
-    percs = torch.tensor(H_PERCS, dtype=torch.float64, device=dev)
     r, b = batch["n_rows"], batch["n_buckets"]
     print("histogram (a) planner batch: R=%d B=%d nnz=%d" % (r, b,
                                                              seg.numel()))
@@ -2098,15 +2335,34 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
     cnt_b = torch.randint(0, 100, (seg_b.numel(),), generator=gen,
                           dtype=torch.int64, device=dev)
     mid_b = torch.arange(1, n_b + 1, dtype=torch.float64, device=dev) * 1.5
-    cases = {"(a) planner batch": (seg, cnt, r, b, mid),
-             "(b) synthetic %dx%d" % (n_s, n_t): (seg_b, cnt_b, n_g * n_t, n_b, mid_b),
-             "(c) synthetic, 1h downsample": (seg_c, cnt_b, n_g * n_t // 60,
-                                              n_b, mid_b)}
+    return {"(a) planner batch": (seg, cnt, r, b, mid),
+            "(b) synthetic %dx%d" % (n_s, n_t): (seg_b, cnt_b, n_g * n_t,
+                                                 n_b, mid_b),
+            "(c) synthetic, 1h downsample": (seg_c, cnt_b, n_g * n_t // 60,
+                                             n_b, mid_b)}
+
+
+def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
+    """H1 and H2 against their plain versions on the card, exactly, in
+    cases (a) to (c), with their times."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+
+    cases = histogram_cases(dev, tsdb)
+    percs = torch.tensor(H_PERCS, dtype=torch.float64, device=dev)
+    # the query path's form: the flag left for the answer's copy (a tree
+    # before it has only the form that reads it at the call)
+    deferred = getattr(hk, "accumulate_rows_deferred", None)
     out = {}
     for name, (sg, ct, rows, buckets, md) in cases.items():
         grid = hk.accumulate_rows(sg, ct, rows, buckets)
         want = hk.accumulate_rows_plain(sg, ct, rows, buckets)
         checks.exact("histogram_accumulate", name, grid, want, "int64 grids")
+        if deferred is not None:
+            host = deferred(sg, ct, rows, buckets).buffer.cpu()
+            checks.exact("histogram_accumulate", name + " deferred",
+                         host, torch.cat((want.cpu().reshape(-1),
+                                          torch.zeros(1, dtype=torch.int64))),
+                         "int64 grids and flag")
         pv = hk.percentile_rows(grid, md, percs)
         pwant = hk.percentile_rows_plain(grid, md, percs)
         checks.exact("histogram_percentile", name, pv, pwant,
@@ -2116,8 +2372,15 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
                  "ok" if torch.equal(grid, want) and torch.equal(pv, pwant)
                  else "FAIL"))
         cells = rows * buckets
+
+        def direct():
+            hk.accumulate_rows(sg, ct, rows, buckets)
+
+        def h1_call():
+            deferred(sg, ct, rows, buckets)
+
         h1 = _hist_times(
-            lambda: hk.accumulate_rows(sg, ct, rows, buckets),
+            direct if deferred is None else h1_call,
             lambda: hk.accumulate_rows_plain(sg, ct, rows, buckets),
             lambda: torch.zeros(cells, dtype=torch.int64,
                                 device=dev).index_add_(0, sg, ct),
@@ -2128,18 +2391,22 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
             lambda: hk.percentile_rows_plain(grid, md, percs), None,
             # each count read once, each answer written once
             cells * 8 + buckets * 8 + percs.numel() * (8 + rows * 8))
+        h1["direct_ms"] = h1["ms"] if deferred is None else time_ms(direct)
         for kname, t in (("histogram_accumulate", h1),
                          ("histogram_percentile", h2)):
             print("time %-20s %-30s kernel %.4f ms (device %s)  plain "
-                  "%.4f ms  bound %.4f ms (bytes)  library %s"
+                  "%.4f ms  bound %.4f ms (bytes)  library %s%s"
                   % (kname, name, t["ms"], _fmt(t["device_ms"]),
                      t["plain_ms"], t["bound_ms"],
                      "%.4f ms (device %s; index_add_)"
                      % (t["library_ms"], _fmt(t["library_device_ms"]))
-                     if t["library_ms"] is not None else "none"))
+                     if t["library_ms"] is not None else "none",
+                     "  %s form %.4f ms, read at the call %.4f ms"
+                     % ("deferred" if deferred else "one", t["ms"],
+                        t["direct_ms"]) if "direct_ms" in t else ""))
         out[name] = (h1, h2)
         del grid, want, pv, pwant
-    del seg_b, seg_c, cnt_b
+    del cases
     h1, h2 = out["(a) planner batch"]
     return {"histogram_accumulate": h1, "histogram_percentile": h2}
 
@@ -2334,8 +2601,8 @@ def lane_kernel_phase(dev, ts, val, h, checks: Checks) -> dict:
             checks.failures.append("segment_reduce lengths miss points")
         del pos
         t = {
-            "ms": time_ms(lambda: lanes.lane_partials(d_ts, d_val, d_mask,
-                                                      edges)),
+            **kernel_ms(lambda: lanes.lane_partials(d_ts, d_val, d_mask,
+                                                    edges)),
             "plain_ms": time_ms(lambda: lanes.lane_partials_plain(
                 d_ts, d_val, d_mask, edges)),
             "bound_ms": bound_ms(S * N * (8 + 1) + S * (w + 1) * 8
@@ -2388,8 +2655,8 @@ def lane_kernel_phase(dev, ts, val, h, checks: Checks) -> dict:
     del pos
     flat_s, flat_c = val_s.reshape(-1), val_c.double().reshape(-1)
     times["rollup_avg"] = {
-        "ms": time_ms(lambda: lanes.rollup_avg(ts_l, val_s, mask_l, ts_l,
-                                               val_c, mask_l, e1h)),
+        **kernel_ms(lambda: lanes.rollup_avg(ts_l, val_s, mask_l, ts_l,
+                                             val_c, mask_l, e1h)),
         "plain_ms": time_ms(lambda: lanes.rollup_avg_plain(
             ts_l, val_s, mask_l, ts_l, val_c, mask_l, e1h)),
         # each lane's val and mask read once, 9 B a cell each, ts only at
@@ -2828,8 +3095,8 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
                                                           "hi"}))
     slice_bytes = S * wc * 8 * 2 * 2     # n and total, read and written
     times = {"stream_fold": {
-        "ms": time_ms(lambda: st.stream_fold(state, c_ts, c_val, c_mask,
-                                             edges, w0)),
+        **kernel_ms(lambda: st.stream_fold(state, c_ts, c_val, c_mask,
+                                           edges, w0)),
         "plain_ms": time_ms(lambda: st.stream_fold_plain(
             plain_state, c_ts, c_val, c_mask, edges, w0)),
         "bound_ms": bound_ms(S * n_chunk * (8 + 1) + S * (wc + 1) * 8
@@ -2867,8 +3134,8 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
     plain_state = st.zero_state(s2, w2, dev, lanes=lanes2)
     lib_state = st.zero_state(s2, w2, dev, lanes=lanes2)
     t_c2 = {
-        "ms": time_ms(lambda: st.stream_fold(state, c_ts, c_val, c_mask,
-                                             edges, w0)),
+        **kernel_ms(lambda: st.stream_fold(state, c_ts, c_val, c_mask,
+                                           edges, w0)),
         "plain_ms": time_ms(lambda: st.stream_fold_plain(
             plain_state, c_ts, c_val, c_mask, edges, w0)),
         "bound_ms": bound_ms(s2 * C_CHUNK * (8 + 1) + s2 * (wc2 + 1) * 8
@@ -2901,8 +3168,8 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
     edges = windows.window_edges(dev)[w0:w0 + wc + 1]
     q_state, q_plain = states
     times["sketch_fold"] = {
-        "ms": time_ms(lambda: st.sketch_fold(q_state, c_ts, c_val, c_mask,
-                                             edges, w0)),
+        **kernel_ms(lambda: st.sketch_fold(q_state, c_ts, c_val, c_mask,
+                                           edges, w0)),
         "plain_ms": time_ms(lambda: st.sketch_fold_plain(
             q_plain, c_ts, c_val, c_mask, edges, w0)),
         "bound_ms": bound_ms(S * n_chunk * (8 + 1) + S * (wc + 1) * 8
@@ -2930,7 +3197,7 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
             checks.exact("stream_finish", case, got[1], want[1])
             checks.values("stream_finish", case, got[0], want[0])
     times["stream_finish"] = {
-        "ms": time_ms(lambda: st.stream_finish(fin, "sum")),
+        **kernel_ms(lambda: st.stream_finish(fin, "sum")),
         "plain_ms": time_ms(lambda: st.stream_finish_plain(fin, "sum")),
         "bound_ms": bound_ms(s2 * w2 * (8 + 8 + 8 + 1), 1.0 * s2 * w2),
         # no torch call finishes moment lanes by a function and a fill
@@ -3715,6 +3982,49 @@ def _host_wall_ms(fn, reps: int = 21) -> float:
     return statistics.median(walls)
 
 
+def _stacked_edge_checks(dev, checks: Checks) -> None:
+    """The stacked K2 at chunk-edge widths: 16 members of 10 rows, each
+    member's own window timestamps and k2_edge_grid's rows, under every
+    policy and rate option set, against the plain version (masks exact,
+    values at rtol 1e-9) and each member's rows bit for bit its solo
+    call's."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops.rate import RateOptions
+    for w in (16, 60, 128, 129, 1025):
+        grids = [k2_edge_grid(np.random.default_rng(100 + q), 10, w, dev,
+                              START + q * 7_000) for q in range(FLEET_Q)]
+        wts = torch.stack([g[0] for g in grids])
+        v = torch.cat([g[1] for g in grids])
+        m = torch.cat([g[2] for g in grids])
+        per = v.shape[0] // FLEET_Q
+        same = True
+        for policy in POLICIES:
+            for rname, rargs in RATE_SETS.items():
+                opts = None if rargs is None else RateOptions(*rargs)
+                got = ga.grid_fill_rate(wts, v, m, policy, opts)
+                want = ga.grid_fill_rate_plain(wts, v, m, policy, opts)
+                case = "edges [%d x %d, %d] %s rate=%s" % (
+                    FLEET_Q, per, w, policy, rname)
+                checks.exact("grid_fill_rate.stacked", case, got[1], want[1])
+                checks.exact("grid_fill_rate.stacked", case, got[2], want[2])
+                checks.values("grid_fill_rate.stacked", case, got[0],
+                              want[0])
+                for q, (g_wts, g_v, g_m) in enumerate(grids):
+                    solo = ga.grid_fill_rate(g_wts, g_v, g_m, policy, opts)
+                    for a, b in zip(got, solo):
+                        a = a[q * per:(q + 1) * per]
+                        same &= torch.equal(
+                            a.view(torch.int64) if a.is_floating_point()
+                            else a,
+                            b.view(torch.int64) if b.is_floating_point()
+                            else b)
+        checks.exact("grid_fill_rate.stacked",
+                     "edges W=%d vs %d solo" % (w, FLEET_Q),
+                     torch.tensor(same), torch.tensor(True), "bits")
+        print("stacked K2 edges W=%-5d rows vs %d solo calls: %s"
+              % (w, FLEET_Q, "bit for bit" if same else "DIFFERENT"))
+
+
 def stacked_kernel_phase(dev, ts, val, checks: Checks) -> tuple[dict, dict]:
     """Phase 16 (a): the member-strided K1, K4 and K2 and the stacked
     pipeline at Q = 16 for two panel shapes, against their plain versions
@@ -3804,6 +4114,8 @@ def stacked_kernel_phase(dev, ts, val, checks: Checks) -> tuple[dict, dict]:
             checks.exact("grid_fill_rate.stacked", case, got2[2], want2[2])
             checks.values("grid_fill_rate.stacked", case, got2[0],
                           want2[0])
+        if shape == "headline":
+            _stacked_edge_checks(dev, checks)
         offsets = pl.stacked_offsets(gid, groups).to(dev)
         c, part, pres = ga.grid_fill_rate(wts, v, m, "lerp")
         for agg, k3, plain3 in (("sum", ga.group_moments,
@@ -3872,8 +4184,8 @@ def stacked_kernel_phase(dev, ts, val, checks: Checks) -> tuple[dict, dict]:
               % (seg["mean"], seg["prod"], lengths.numel()))
         del pos, lengths, flat
         times["window_moments.stacked"] = {
-            "ms": time_ms(lambda: ds.window_moments(d_ts, d_val, d_mask,
-                                                    d_edges, "avg")),
+            **kernel_ms(lambda: ds.window_moments(d_ts, d_val, d_mask,
+                                                  d_edges, "avg")),
             "plain_ms": time_ms(lambda: ds.window_moments_plain(
                 d_ts, d_val, d_mask, d_edges, "avg")),
             "bound_ms": bound_ms(rows * n * 9 + rows * (w + 1) * 8
@@ -3883,8 +4195,8 @@ def stacked_kernel_phase(dev, ts, val, checks: Checks) -> tuple[dict, dict]:
         # K4 at mult, as the solo K4 row, against segment_reduce prod;
         # the fleet's order panels run it at p95
         times["window_order.stacked"] = {
-            "ms": time_ms(lambda: ds.window_order(d_ts, d_val, d_mask,
-                                                  d_edges, "mult")),
+            **kernel_ms(lambda: ds.window_order(d_ts, d_val, d_mask,
+                                                d_edges, "mult")),
             "plain_ms": time_ms(lambda: ds.window_order_plain(
                 d_ts, d_val, d_mask, d_edges, "mult")),
             "bound_ms": bound_ms(rows * n * 9 + rows * (w + 1) * 8
@@ -3896,13 +4208,7 @@ def stacked_kernel_phase(dev, ts, val, checks: Checks) -> tuple[dict, dict]:
                                                  d_edges, "p95")),
                  time_ms(lambda: ds.window_order_plain(
                      d_ts, d_val, d_mask, d_edges, "p95"))))
-        times["grid_fill_rate.stacked"] = {
-            "ms": time_ms(lambda: ga.grid_fill_rate(wts, v, m, "lerp")),
-            "plain_ms": time_ms(lambda: ga.grid_fill_rate_plain(
-                wts, v, m, "lerp")),
-            "bound_ms": bound_ms(rows * w * 9 + FLEET_Q * w * 8
-                                 + rows * w * 10, 4.0 * rows * w),
-            "library_ms": None}
+        # (K2's stacked row, this panel's grid, is fill_phase's case (c))
     print_times(times)
     (wall_a, cells_a), (wall_b, cells_b) = walls["dispatch"], \
         walls["headline"]
@@ -4261,7 +4567,8 @@ def admission_phase(tsdb, server, checks: Checks, admission) -> None:
 # Phase 17: the cache-hit path.  The follow-up's responder counts, its
 # arms' warm-up and timed seconds, and (c)'s queries.
 FOLLOWUP_THREADS = (1, 8)
-FOLLOWUP_WARMUP_S, FOLLOWUP_WINDOW_S = 3.0, 8.0
+# (shorter than phase 16's: the script's 1200 s limit)
+FOLLOWUP_WARMUP_S, FOLLOWUP_WINDOW_S = 2.0, 4.0
 AGG_QUERIES = ("sum:1h-avg:m{group=*}", "max:1m-max:m{group=*}")
 
 
@@ -4305,7 +4612,7 @@ def int32_kernel_phase(dev, ts, val, gid, h, checks: Checks,
             i64_ms = time_ms(lambda: dc.gather_windows(
                 ts_buf, val_buf, d_st, d_len, n))
             out["gather_windows.i32"] = {
-                "ms": time_ms(lambda: dc.gather_windows(
+                **kernel_ms(lambda: dc.gather_windows(
                     ts_buf, val_buf, d_st, d_len, n, base)),
                 "plain_ms": time_ms(lambda: dc.gather_windows_plain(
                     ts_buf, val_buf, d_st, d_len, n, base), 3),
@@ -4366,7 +4673,7 @@ def int32_kernel_phase(dev, ts, val, gid, h, checks: Checks,
             ("window_order", ds.window_order, ds.window_order_plain, "mult",
              1.0 * S * N)):
         out[kernel + ".i32"] = {
-            "ms": time_ms(lambda: fn(d_ts32, d_val, d_mask, edges32, func)),
+            **kernel_ms(lambda: fn(d_ts32, d_val, d_mask, edges32, func)),
             "plain_ms": time_ms(lambda: plain(d_ts32, d_val, d_mask,
                                               edges32, func)),
             "bound_ms": bound_ms(i32_bytes, flops),
@@ -4852,7 +5159,7 @@ def _combine_times(mesh, dev, checks: Checks) -> dict:
         want = torch.stack([a[lane] for a in accs]).sum(0)
         checks.values("e2e mesh", "combine " + lane, got[lane], want)
     lanes = len(accs[0])
-    t = {"ms": time_ms(lambda: sharded._combine(mesh, accs)),
+    t = {**kernel_ms(lambda: sharded._combine(mesh, accs)),
          "library_ms": time_ms(lambda: [torch.stack(
              [a[k] for a in accs]).sum(0) for k in accs[0]]),
          "bound_ms": bound_ms((mesh.size + 1) * lanes * GROUPS * w * 8,
@@ -5128,7 +5435,7 @@ def group_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                 library = _p1_library(mode, d_ts, d_val, mask, edges, gid_t,
                                       mean, GROUPS, w)
                 t = {
-                    "ms": time_ms(lambda: lanes.point_group_moments(
+                    **kernel_ms(lambda: lanes.point_group_moments(
                         d_ts, d_val, mask, edges, members, offsets, mode,
                         mu)),
                     "plain_ms": time_ms(lambda: lanes.point_group_moments_plain(
@@ -5402,6 +5709,15 @@ def main(argv=None) -> int:
                         help="build the kernels and run the grouped fold's "
                         "timed cases alone: K3 (a)-(c) and T1's four modes "
                         "on phase 18 (a)'s tile; prints no result line")
+    parser.add_argument("--fill-only", action="store_true",
+                        help="build the kernels and run K2's and H1's timed "
+                        "cases alone: K2 (a)-(e) (fill_phase) and phase 7 "
+                        "on the latency fleet built by load_state; prints "
+                        "no result line")
+    parser.add_argument("--k2-digests", metavar="FILE",
+                        help="with --fill-only: write the sha256 of K2's "
+                        "outputs in each case to FILE, or, where FILE "
+                        "exists, fail unless they equal its digests")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 18 alone on "
                         "the headline TSDB (every visible card: with two "
@@ -5432,13 +5748,21 @@ def main(argv=None) -> int:
     print("kernel build %.2f s" % (time.perf_counter() - t0))
     # the redesigned kernels' registers, shared memory and spills
     for name in ("window_order", "union_merge", "group_moments",
-                 "tile_partials"):
+                 "tile_partials", "grid_fill_rate", "histogram_accumulate"):
         for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
     dev = torch.device("cuda")
     checks = Checks()
     ts, val, gid, h = headline_batch()
+    if args.fill_only:
+        fill_phase(dev, ts, val, h, checks, args.k2_digests)
+        torch.cuda.empty_cache()
+        histogram_kernel_phase(dev, fleet_tsdb(dev), checks)
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
     if args.fold_only:
         fold_phase(dev, ts, val, gid, h, checks)
         torch.cuda.empty_cache()

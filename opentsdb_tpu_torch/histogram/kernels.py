@@ -5,17 +5,22 @@ one [rows, B] bucket grid whose rows are every group's data-bearing
 windows stacked (histogram/store.assemble_columnar), so one call of each
 kernel serves the whole query:
 
-* ``accumulate_rows`` (H1, csrc/histogram_accumulate.cu): the int64
-  scatter of nnz bucket entries onto the grid.
+* ``accumulate_rows_deferred`` (H1, csrc/histogram_accumulate.cu): the
+  int64 scatter of nnz bucket entries onto the grid, its stray-entry flag
+  left for the caller to read with its own copy (the query path);
+  ``accumulate_rows`` reads it at the call.
 * ``percentile_rows`` (H2, csrc/histogram_percentile.cu): the
   SimpleHistogram.percentile rule on every row: cumulative share along
   the bound-sorted buckets, the first bucket reaching p, its midpoint.
 
-Each has its plain PyTorch version beside it (``accumulate_rows_plain``,
+Each has its plain PyTorch version beside it
+(``accumulate_rows_deferred_plain`` and ``accumulate_rows_plain``,
 ``percentile_rows_plain``), which CPU tensors run.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,42 +42,87 @@ def _check_accumulate(seg, cnt, num_rows: int, num_buckets: int) -> int:
     return num_rows * num_buckets
 
 
-# shape: seg[nnz] i64, cnt[nnz] i64 -> [R,B] i64
-def accumulate_rows(seg: torch.Tensor, cnt: torch.Tensor, num_rows: int,
-                    num_buckets: int) -> torch.Tensor:
-    """H1 -> grid[num_rows, num_buckets] int64: every entry's count added
-    at cell seg[i] = row * num_buckets + bucket, a negative count too, as
-    the reference's segment sum adds it (a JSON bucket map may carry one).
-    Raises ValueError on a cell outside the grid (on the card after the
-    launch, reading the kernel's flag)."""
+class PendingGrid(NamedTuple):
+    """H1's answer before its stray-entry flag has been read: `buffer`
+    holds the grid's num_rows * num_buckets cells and then the flag,
+    nonzero where an entry fell outside the grid.  One copy of `buffer`
+    brings both to the host; `check` raises on the flag's value."""
+    buffer: torch.Tensor
+    num_rows: int
+    num_buckets: int
+
+    @property
+    def grid(self) -> torch.Tensor:
+        return self.buffer[:-1].view(self.num_rows, self.num_buckets)
+
+    @property
+    def flag(self) -> torch.Tensor:
+        return self.buffer[-1:]
+
+    def check(self, flag) -> None:
+        """Raise ValueError where `flag` (the flag's value, read back by
+        the caller) is nonzero."""
+        if int(flag):
+            raise _entry_error(self.num_rows * self.num_buckets)
+
+
+# shape: seg[nnz] i64, cnt[nnz] i64 -> buffer[R*B+1] i64
+def accumulate_rows_deferred(seg: torch.Tensor, cnt: torch.Tensor,
+                             num_rows: int, num_buckets: int) -> PendingGrid:
+    """H1 without a read of its flag: every entry's count added at cell
+    seg[i] = row * num_buckets + bucket of the grid, a negative count
+    too, as the reference's segment sum adds it (a JSON bucket map may
+    carry one); an entry outside the grid is left out and sets the flag.
+    On the card nothing waits for the kernel: the caller reads the flag
+    with the copy it makes of its answer and calls `check` before it
+    answers."""
     cells = _check_accumulate(seg, cnt, num_rows, num_buckets)
     if seg.device.type == "cpu":
-        return accumulate_rows_plain(seg, cnt, num_rows, num_buckets)
+        return accumulate_rows_deferred_plain(seg, cnt, num_rows,
+                                              num_buckets)
     dev = kernels.require_cuda(seg, cnt)
-    grid = torch.empty((num_rows, num_buckets), dtype=torch.int64,
-                       device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
     if cells == 0:
         if seg.numel():
             raise _entry_error(cells)
-        return grid
+        return PendingGrid(torch.zeros(1, dtype=torch.int64, device=dev),
+                           num_rows, num_buckets)
+    buf = torch.empty(cells + 1, dtype=torch.int64, device=dev)
     kernels.launch("histogram_accumulate", dev, kernels.ptr(seg),
-                   kernels.ptr(cnt), seg.numel(), cells, kernels.ptr(grid),
-                   kernels.ptr(flag))
-    if int(flag.item()):
-        raise _entry_error(cells)
-    return grid
+                   kernels.ptr(cnt), seg.numel(), cells, kernels.ptr(buf))
+    return PendingGrid(buf, num_rows, num_buckets)
+
+
+# shape: seg[nnz] i64, cnt[nnz] i64 -> [R,B] i64
+def accumulate_rows(seg: torch.Tensor, cnt: torch.Tensor, num_rows: int,
+                    num_buckets: int) -> torch.Tensor:
+    """H1 -> grid[num_rows, num_buckets] int64 (accumulate_rows_deferred),
+    raising ValueError at the call on an entry outside the grid: on the
+    card it waits for the kernel to read the flag."""
+    acc = accumulate_rows_deferred(seg, cnt, num_rows, num_buckets)
+    acc.check(acc.flag.item())
+    return acc.grid
+
+
+def accumulate_rows_deferred_plain(seg: torch.Tensor, cnt: torch.Tensor,
+                                   num_rows: int,
+                                   num_buckets: int) -> PendingGrid:
+    """Plain PyTorch version of H1's deferred form: index_add_ of the
+    entries inside the grid into a zeroed buffer, the flag set where
+    some entry lies outside."""
+    cells = _check_accumulate(seg, cnt, num_rows, num_buckets)
+    inside = (seg >= 0) & (seg < cells)
+    buf = torch.zeros(cells + 1, dtype=torch.int64, device=seg.device)
+    buf[:cells].index_add_(0, seg[inside], cnt[inside])
+    buf[cells] = int(not bool(inside.all()))
+    return PendingGrid(buf, num_rows, num_buckets)
 
 
 def accumulate_rows_plain(seg: torch.Tensor, cnt: torch.Tensor,
                           num_rows: int, num_buckets: int) -> torch.Tensor:
-    """Plain PyTorch version of H1: index_add_ into a zeroed grid."""
-    cells = _check_accumulate(seg, cnt, num_rows, num_buckets)
-    if seg.numel() and (int(seg.min()) < 0 or int(seg.max()) >= cells):
-        raise _entry_error(cells)
-    grid = torch.zeros(cells, dtype=torch.int64, device=seg.device)
-    grid.index_add_(0, seg, cnt)
-    return grid.reshape(num_rows, num_buckets)
+    """Plain PyTorch version of H1's form that raises at the call."""
+    acc = accumulate_rows_deferred_plain(seg, cnt, num_rows, num_buckets)
+    acc.check(acc.flag[0])
+    return acc.grid
 
 
 def _check_percentile(counts, mid, percs) -> None:

@@ -57,6 +57,35 @@ def _check_group_inputs(contrib, participate, present, offsets) -> None:
                          _GROUP_DTYPES))
 
 
+def _check_fill(wts, v, m, policy: str) -> int:
+    """K2's argument checks; the rows a member (S for a solo grid)."""
+    if policy not in POLICY_CODES:
+        raise ValueError("Invalid interpolation: " + policy)
+    if v.dim() != 2 or m.shape != v.shape or wts.dim() not in (1, 2) \
+            or wts.shape[-1] != v.shape[1]:
+        raise ValueError("grid_fill_rate takes v[S, W], m[S, W] and wts[W] "
+                         "or a stacked grid's wts[Q, W]")
+    rows = v.shape[0]
+    if wts.dim() == 2:
+        if wts.shape[0] < 1 or v.shape[0] % wts.shape[0]:
+            raise ValueError("a stacked grid holds S = Q x rows a member: "
+                             "%d rows for %d members"
+                             % (v.shape[0], wts.shape[0]))
+        rows = v.shape[0] // wts.shape[0]
+    _check_grid((v, torch.float64), (m, torch.bool), (wts, torch.int64))
+    return rows
+
+
+def _fill_outputs(s: int, w: int, dev):
+    """K2's contrib [S, W] f64, participate and present [S, W] bool,
+    carved from one allocation, contrib first (8-byte aligned)."""
+    cells = s * w
+    buf = torch.empty(-(-10 * cells // 8) * 8, dtype=torch.bool, device=dev)
+    return (buf.view(torch.float64).as_strided((s, w), (w, 1)),
+            buf.as_strided((s, w), (w, 1), 8 * cells),
+            buf.as_strided((s, w), (w, 1), 9 * cells))
+
+
 # shape: wts[W] i64, v[S,W] f64, m[S,W] bool
 # shape: -> ([S,W] f64, [S,W] bool, [S,W] bool)
 def grid_fill_rate(wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
@@ -72,27 +101,12 @@ def grid_fill_rate(wts: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     members (the dispatch batcher's, B14) passes wts [Q, W], each member's
     window timestamps; row r reads member r // (S // Q)'s.
     """
-    if policy not in POLICY_CODES:
-        raise ValueError("Invalid interpolation: " + policy)
-    if v.dim() != 2 or m.shape != v.shape or wts.dim() not in (1, 2) \
-            or wts.shape[-1] != v.shape[1]:
-        raise ValueError("grid_fill_rate takes v[S, W], m[S, W] and wts[W] "
-                         "or a stacked grid's wts[Q, W]")
-    rows = v.shape[0]
-    if wts.dim() == 2:
-        if wts.shape[0] < 1 or v.shape[0] % wts.shape[0]:
-            raise ValueError("a stacked grid holds S = Q x rows a member: "
-                             "%d rows for %d members"
-                             % (v.shape[0], wts.shape[0]))
-        rows = v.shape[0] // wts.shape[0]
-    _check_grid((v, torch.float64), (m, torch.bool), (wts, torch.int64))
+    rows = _check_fill(wts, v, m, policy)
     if v.device.type == "cpu":
         return grid_fill_rate_plain(wts, v, m, policy, rate_options)
     dev = kernels.require_cuda(wts, v, m)
     s, w = v.shape
-    contrib = torch.empty((s, w), dtype=torch.float64, device=dev)
-    participate = torch.empty((s, w), dtype=torch.bool, device=dev)
-    present = torch.empty((s, w), dtype=torch.bool, device=dev)
+    contrib, participate, present = _fill_outputs(s, w, dev)
     if s == 0 or w == 0:
         return contrib, participate, present
     ro = rate_options or RateOptions()

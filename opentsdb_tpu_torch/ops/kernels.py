@@ -107,8 +107,9 @@ SIGNATURES: dict[str, tuple] = {
     # out_ts, out_val, out_mask, stream
     "gather_windows": (_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,
                        _P, _P),
-    # seg, cnt, nnz, cells, grid, flag, stream
-    "histogram_accumulate": (_P, _P, _I64, _I64, _P, _P, _P),
+    # seg, cnt, nnz, cells, grid, stream (grid: cells + 1 int64, the
+    # stray-entry flag last)
+    "histogram_accumulate": (_P, _P, _I64, _I64, _P, _P),
     # counts, mid, percs, r, b, np, out, stream
     "histogram_percentile": (_P, _P, _P, _I64, _I32, _I32, _P, _P),
     # ts, val, mask, edges, s, n, w, val_is_int, sums, counts, mins, maxs,

@@ -86,7 +86,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from opentsdb_tpu_torch.histogram.kernels import (accumulate_rows,
+from opentsdb_tpu_torch.histogram.kernels import (accumulate_rows_deferred,
                                                   percentile_rows)
 from opentsdb_tpu_torch.histogram.store import assemble_columnar
 from opentsdb_tpu_torch.models.tsquery import TSQuery, TSSubQuery
@@ -1094,13 +1094,26 @@ class QueryRunner:
         d_percs = torch.tensor(percs, dtype=torch.float64, device=dev)
         clock.mark("h2d")
 
-        grid = accumulate_rows(seg, cnt, r, b)
-        pvals = percentile_rows(grid, mid, d_percs) if percs else None
+        acc = accumulate_rows_deferred(seg, cnt, r, b)
+        pvals = percentile_rows(acc.grid, mid, d_percs) if percs else None
         clock.mark("kernels")
 
-        counts_all = (grid.cpu().numpy() if sub.show_histogram_buckets
-                      else None)
-        pvals = None if pvals is None else pvals.cpu().numpy()
+        # H1's stray-entry flag comes back with the copy the answer needs
+        # (after the grid, or after H2's values), before any answer
+        counts_all = None
+        if sub.show_histogram_buckets:
+            host = acc.buffer.cpu().numpy()
+            acc.check(host[-1])
+            counts_all = host[:-1].reshape(r, b)
+            if pvals is not None:
+                pvals = pvals.cpu().numpy()
+        elif pvals is not None:
+            host = torch.cat((pvals.reshape(-1),
+                              acc.flag.view(torch.float64))).cpu().numpy()
+            acc.check(host[-1:].view(np.int64)[0])
+            pvals = host[:-1].reshape(pvals.shape)
+        else:
+            acc.check(acc.flag.item())
         for group_key, row_lo, row_hi, ts, used, _pts in batch["groups"]:
             members = groups[group_key]
             group_tags, agg_tags = compute_tags([t for _, t in members])

@@ -27,7 +27,8 @@ from opentsdb_tpu_torch.ops.rate import RateOptions
 from opentsdb_tpu_torch.storage import device_cache as tdc
 
 import mult_runs as mr
-from torch_parity import (assert_exact, assert_values, cuda_device,  # noqa: F401
+from torch_parity import (K2_EDGE_WIDTHS, assert_exact,  # noqa: F401
+                          assert_values, cuda_device, k2_edge_grid,
                           sorted_batch, t)
 
 pytestmark = pytest.mark.gpu
@@ -86,6 +87,60 @@ def test_grid_fill_rate_kernel_matches_plain(cuda_device, holes):
             for a, b in zip(got[1:], want[1:]):
                 assert_exact(a.cpu().numpy(), b.cpu().numpy())
             assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def _bits(x):
+    return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+
+@pytest.mark.parametrize("w", K2_EDGE_WIDTHS)
+def test_grid_fill_rate_chunk_edges_kernel_matches_plain(cuda_device, w):
+    """K2 at the widths where its chunks and segments end (a warp walks
+    128 windows a chunk; a row is cut into 1, 2, 4 or 8 segments), on
+    rows with no present window, one, only windows in the last chunk or
+    the first, and gap runs across every chunk edge: every policy under
+    every rate option set, one launch each."""
+    dv = _on(cuda_device, *k2_edge_grid(np.random.default_rng(w), 40, w))
+    for policy in POLICIES:
+        for rate_args in RATES:
+            opts = None if rate_args is None else RateOptions(*rate_args)
+            kernels.reset_launches()
+            got = tga.grid_fill_rate(*dv, policy, opts)
+            assert kernels.LAUNCHES["grid_fill_rate"] == 1
+            want = tga.grid_fill_rate_plain(*dv, policy, opts)
+            for a, b in zip(got[1:], want[1:]):
+                assert_exact(a.cpu().numpy(), b.cpu().numpy())
+            assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("w", [16, 60, 128, 129, 1025])
+def test_grid_fill_rate_stacked_rows_are_solo_rows(cuda_device, w):
+    """The stacked K2 (each member its own window timestamps) against its
+    plain version under every policy and rate option set, and each
+    member's rows bit for bit its solo call's."""
+    q, rows = 4, 10
+    grids = [k2_edge_grid(np.random.default_rng(100 + k), rows, w,
+                          t0=1_356_998_400_000 + k * 7_000) for k in range(q)]
+    wts, v, m = _on(cuda_device, np.stack([g[0] for g in grids]),
+                    np.concatenate([g[1] for g in grids]),
+                    np.concatenate([g[2] for g in grids]))
+    per = v.shape[0] // q
+    for policy in POLICIES:
+        for rate_args in RATES:
+            opts = None if rate_args is None else RateOptions(*rate_args)
+            kernels.reset_launches()
+            got = tga.grid_fill_rate(wts, v, m, policy, opts)
+            assert kernels.LAUNCHES["grid_fill_rate.stacked"] == 1
+            want = tga.grid_fill_rate_plain(wts, v, m, policy, opts)
+            for a, b in zip(got[1:], want[1:]):
+                assert_exact(a.cpu().numpy(), b.cpu().numpy())
+            assert_values(got[0].cpu().numpy(), want[0].cpu().numpy())
+            for k in range(q):
+                sl = slice(k * per, (k + 1) * per)
+                solo = tga.grid_fill_rate(wts[k], v[sl].contiguous(),
+                                          m[sl].contiguous(), policy, opts)
+                for a, b in zip(got, solo):
+                    assert torch.equal(_bits(a[sl]), _bits(b))
 
 
 def test_group_moments_kernel_matches_plain(cuda_device):
@@ -640,6 +695,92 @@ def test_histogram_accumulate_kernel_matches_plain(cuda_device):
     with pytest.raises(ValueError, match="outside the grid"):
         hk.accumulate_rows(*_on(cuda_device, np.array([0, 4]),
                                 np.array([1, 1])), 2, 2)
+
+
+@pytest.mark.parametrize("layout", ["runs", "cancelling runs", "tail"])
+def test_histogram_accumulate_runs_kernel_matches_plain(cuda_device,
+                                                        layout):
+    """H1 where a lane's entries (32 apart) hit one cell in runs, as a
+    coarse downsample's do: the runs' register sums equal index_add_'s
+    grid exactly, runs that cancel to zero included, and a ragged last
+    tile."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+    rng = np.random.default_rng(len(layout))
+    b = 32
+    nnz = 300_000 if layout != "tail" else 300_000 - 171
+    e = np.arange(nnz, dtype=np.int64)
+    # 32 buckets a point, 60 points a window, every 4th series a group
+    seg = ((e // (b * 60)) % 500) * b + e % b
+    cnt = rng.integers(-50, 100, nnz).astype(np.int64)
+    if layout == "cancelling runs":
+        cnt[b::2 * b] = -cnt[::2 * b][:cnt[b::2 * b].size]
+    args = _on(cuda_device, seg, cnt)
+    kernels.reset_launches()
+    got = hk.accumulate_rows(*args, 500, b)
+    assert kernels.LAUNCHES["histogram_accumulate"] == 1
+    want = hk.accumulate_rows_plain(*args, 500, b)
+    assert_exact(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_histogram_accumulate_deferred_flag_on_card(cuda_device):
+    """H1's deferred form launches once and does not raise at the call;
+    its flag, read with the grid in one copy, raises on a stray entry,
+    and the grid holds the other entries.  The query path raises the
+    same ValueError before any answer, after one launch."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+    from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
+    from opentsdb_tpu_torch.query import planner
+    from opentsdb_tpu_torch.utils.config import Config
+    seg = np.array([0, 3, 7, 2, 3], np.int64)
+    cnt = np.array([4, 1, 1, -2, 5], np.int64)
+    args = _on(cuda_device, seg, cnt)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="outside the grid of 6 cells"):
+        hk.accumulate_rows(*args, 2, 3)
+    assert kernels.LAUNCHES["histogram_accumulate"] == 1
+    kernels.reset_launches()
+    acc = hk.accumulate_rows_deferred(*args, 2, 3)
+    assert kernels.LAUNCHES["histogram_accumulate"] == 1
+    host = acc.buffer.cpu()
+    with pytest.raises(ValueError, match="outside the grid of 6 cells"):
+        acc.check(host[-1])
+    want = hk.accumulate_rows_deferred_plain(*(torch.from_numpy(x)
+                                               for x in (seg, cnt)), 2, 3)
+    assert_exact(host.numpy(), want.buffer.numpy())
+
+    uid_maps = {"metric": {"h": 1}, "tagk": {"host": 1},
+                "tagv": {"h%d" % i: i + 1 for i in range(4)}}
+    bounds = np.array([[2.0 ** k, 2.0 ** (k + 1)] for k in range(8)])
+    rng = np.random.default_rng(29)
+    ts = T0 + np.arange(60, dtype=np.int64) * 60_000
+    histograms = [(1, {1: i + 1}, ts,
+                   [(bounds, rng.integers(0, 50, 8).astype(np.int64), 0, 0)
+                    for _ in ts]) for i in range(4)]
+    tsdb = load_state(uid_maps, [], config=Config({
+        "tsd.core.histograms.config": '{"SimpleHistogramDecoder": 0}'}),
+        device=cuda_device, histograms=histograms)
+    assemble = planner.assemble_columnar
+
+    def with_stray(*a, **k):
+        batch = assemble(*a, **k)
+        batch["seg"] = np.append(batch["seg"], np.int64(
+            batch["n_rows"] * batch["n_buckets"]))
+        batch["cnt"] = np.append(batch["cnt"], np.int64(1))
+        return batch
+
+    for m in ("sum:percentiles[50,99]:h", "sum:show-histogram-buckets:h"):
+        q = TSQuery(start="1356998400", end="1357002000",
+                    queries=[parse_m_subquery(m)])
+        q.validate()
+        assert tsdb.new_query_runner().run(q)
+        planner.assemble_columnar = with_stray
+        try:
+            kernels.reset_launches()
+            with pytest.raises(ValueError, match="outside the grid of"):
+                tsdb.new_query_runner().run(q)
+            assert kernels.LAUNCHES["histogram_accumulate"] == 1
+        finally:
+            planner.assemble_columnar = assemble
 
 
 @pytest.mark.parametrize("b", [7, 32, 45])

@@ -21,7 +21,8 @@ from opentsdb_tpu.ops.aggregators import Aggregator
 from opentsdb_tpu_torch.ops import group_agg as tga
 from opentsdb_tpu_torch.ops.rate import RateOptions
 
-from torch_parity import assert_exact, assert_values, t
+from torch_parity import (K2_EDGE_WIDTHS, assert_exact, assert_values,
+                          k2_edge_grid, t)
 
 POLICIES = ["lerp", "zim", "max", "min", "prev"]
 RATES = {
@@ -86,6 +87,26 @@ def test_grid_fill_rate_matches_reference(policy, rate_name, holes):
     # non-participating cells carry no value (the port writes NaN there)
     assert_values(p_c.numpy(), r_c, where=r_p)
     assert np.isnan(p_c.numpy()[~r_p]).all()
+
+
+@pytest.mark.parametrize("rate_name", list(RATES))
+@pytest.mark.parametrize("w", K2_EDGE_WIDTHS)
+def test_grid_fill_rate_chunk_edges_match_reference(w, rate_name):
+    """The plain K2, the card tests' yardstick, against the reference at
+    the widths where the kernel's chunks end, with rows empty, of one
+    window, present only in the last chunk or the first, and with gap
+    runs across every chunk edge; every policy."""
+    wts, v, mask = k2_edge_grid(np.random.default_rng(w), 8, w)
+    rate_args = RATES[rate_name]
+    opts = None if rate_args is None else RateOptions(*rate_args)
+    for policy in POLICIES:
+        r_c, r_p, r_m = _ref_k2(wts, v, mask, policy, rate_args)
+        p_c, p_p, p_m = tga.grid_fill_rate(t(wts), t(v), t(mask), policy,
+                                           opts)
+        assert_exact(p_p.numpy(), r_p)
+        assert_exact(p_m.numpy(), r_m)
+        assert_values(p_c.numpy(), r_c, where=r_p)
+        assert np.isnan(p_c.numpy()[~r_p]).all()
 
 
 def _ref_k3(agg, contrib, participate, present, gid, g):

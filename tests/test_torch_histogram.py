@@ -385,6 +385,55 @@ def test_negative_count_is_refused_at_query_time():
         assert port == ref and port
 
 
+@pytest.mark.parametrize("m", [
+    "sum:percentiles[50,99]:svc.latency",
+    "sum:show-histogram-buckets:svc.latency",
+    "sum:5m-sum:percentiles[50]:show-histogram-buckets:svc.latency",
+])
+def test_stray_scatter_entry_fails_the_query(monkeypatch, m):
+    """A bucket entry outside the grid, built by hand into the planner's
+    batch, fails the histogram query with H1's ValueError before any
+    answer, whichever copy (H2's values, the grid, or both) brings the
+    deferred flag back; the query without it answers."""
+    from opentsdb_tpu_torch.query import planner
+    _, port = _ingest(_tsdbs(), _seed_latency())
+    q = TSQuery(start=str(BASE), end=str(BASE + 7200),
+                queries=[parse_m_subquery(m)])
+    q.validate()
+    assert port.new_query_runner().run(q)
+    assemble = planner.assemble_columnar
+
+    def with_stray(*args, **kwargs):
+        batch = assemble(*args, **kwargs)
+        cells = batch["n_rows"] * batch["n_buckets"]
+        batch["seg"] = np.append(batch["seg"], np.int64(cells))
+        batch["cnt"] = np.append(batch["cnt"], np.int64(1))
+        return batch
+
+    monkeypatch.setattr(planner, "assemble_columnar", with_stray)
+    with pytest.raises(ValueError, match="outside the grid of"):
+        port.new_query_runner().run(q)
+
+
+def test_deferred_accumulate_flags_instead_of_raising():
+    """H1's deferred form leaves the stray entry out of the grid and sets
+    the flag; `check` raises on it, as the direct form does at the
+    call."""
+    seg = torch.tensor([0, 5, 6, -1, 2], dtype=torch.int64)
+    cnt = torch.tensor([1, 2, 9, 9, -3], dtype=torch.int64)
+    acc = hk.accumulate_rows_deferred(seg, cnt, 2, 3)
+    assert acc.buffer.shape == (7,) and int(acc.flag[0]) == 1
+    np.testing.assert_array_equal(acc.grid.numpy(),
+                                  [[1, 0, -3], [0, 0, 2]])
+    with pytest.raises(ValueError, match="outside the grid of 6 cells"):
+        acc.check(acc.flag[0])
+    ok = hk.accumulate_rows_deferred(seg[:2], cnt[:2], 2, 3)
+    ok.check(ok.flag[0])
+    np.testing.assert_array_equal(ok.grid.numpy(),
+                                  hk.accumulate_rows(seg[:2], cnt[:2], 2,
+                                                     3).numpy())
+
+
 def test_phases_are_reported():
     _, port = _ingest(_tsdbs(), _seed_latency())
     q = TSQuery(start=str(BASE), end=str(BASE + 7200),

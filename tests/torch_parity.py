@@ -47,6 +47,42 @@ def sorted_batch(rng, s: int, n: int, t0: int = 1_356_998_400_000,
     return ts, val, mask
 
 
+# K2's widths at the edges of its chunks and segments (a warp walks 128
+# windows a chunk; a row is cut into 1, 2, 4 or 8 segments of whole
+# chunks), the 1m grid's width, and a row whose segments pass 64 chunks.
+K2_EDGE_WIDTHS = [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 385, 513,
+                  1023, 1024, 1025, 2047, 2048, 2049, 16_931, 66_000]
+
+
+def k2_edge_grid(rng, s: int, w: int, t0: int = 1_356_998_400_000):
+    """An [S, W] grid as FILL_NONE leaves it (NaN where masked) for K2's
+    chunk edges: row 0 has no present window, row 1 one, row 2 only
+    windows in its last chunk, row 3 gap runs across every chunk edge,
+    row 4 every window, row 5 only its first and last, row 6 only windows
+    in its first chunk; the rest holes at random.  Values step down at
+    times (counter resets); one zero-width window step (dt = 0)."""
+    s = max(s, 8)
+    wts = t0 + np.arange(w, dtype=np.int64) * 60_000
+    if w > 5:
+        wts[5] = wts[4]
+    v = np.cumsum(rng.normal(10.0, 30.0, (s, w)), axis=1)
+    mask = rng.random((s, w)) >= 0.35
+    last = (w - 1) // 128 * 128
+    mask[:3] = False
+    mask[1, w // 2] = True
+    mask[2, last:] = rng.random(w - last) >= 0.5
+    mask[2, w - 1] = True
+    mask[3] = True
+    for edge in range(32, w, 32):
+        mask[3, max(edge - 3, 1):edge + 3] = False
+    mask[4] = True
+    mask[5] = False
+    mask[5, [0, w - 1]] = True
+    mask[6] = False
+    mask[6, :min(128, w)] = rng.random(min(128, w)) >= 0.3
+    return wts, np.where(mask, v, np.nan), mask
+
+
 def assert_values(port, ref, where=None):
     """float64 values at RTOL/ATOL with NaN positions equal; `where`
     restricts the comparison to the cells that carry meaning."""
