@@ -9,7 +9,8 @@ admission gate and dispatch batcher, and the device mesh.
 
     python3 chip_smoke.py [--seed N]
                           [--mesh-only | --fold-only
-                           | --fill-only [--k2-digests FILE]]
+                           | --fill-only [--k2-digests FILE]
+                           | --union-only [--u3-digests FILE]]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -54,7 +55,12 @@ days), 1h windows.  Phases:
    the CPU (classes exact), each timed against torch.segment_reduce
    prod; K5 group_order (every order and rank aggregator over the 100
    groups, median and ep99r7 over all 1024 rows as one group, mult timed)
-   and MA moving_average after K1's and K3's sums.
+   and MA moving_average after K1's and K3's sums (1024 and 100 runs of
+   283 windows), movingAverage5 and 10 held to the plain version on the
+   CPU bit for bit, movingAverage5 timed at each position beside its byte
+   bound and its chain bound (the longest run's live slots times the
+   card's dependent float64 add latency, measured once a run by
+   csrc/moving_average.cu moving_average_chain).
 3. G1 gather_windows, the device cache's gather, against its plain
    version on the headline batch's columns as one packed buffer: (a) the
    full range, 1024 rows x 65,536 points; (b) the last 6 h; (c) the rows
@@ -93,7 +99,14 @@ days), 1h windows.  Phases:
    with all-masked rows, 64 equal rows, every point repeated in its row),
    exactly.  U1 is timed on (a) and (b) against torch.unique.  Then U3
    union_order (first last diff mult median p99 ep99r3 ep99r7) and MA
-   after U2's sums, in the same cases (a) to (c), (c) exact.
+   after U2's sums, in the same cases (a) to (c), (c) exact, MA bit for
+   bit the plain version on the CPU in each; U3's median timed in (a)
+   (first, p99 and mult beside it) and (b), MA's movingAverage5 in (a),
+   each a wall and a device time.  `--union-only` runs MA's positions,
+   U1's case (b), this phase and phase 6 alone, and `--u3-digests FILE`
+   writes the sha256 of U3's and MA's outputs in every case, or holds
+   them to FILE's (U3's mult reported only: its shallow groups take the
+   ordered walk itself).
 6. end to end, union: the same TSDB plus an integer metric `mi` (64
    series x 65,536 points in 8 groups) answers ten queries without a
    downsample over the last 6 h of the range (the union path emits a point
@@ -334,6 +347,7 @@ check exits 1 before the result line.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -397,6 +411,10 @@ REPLACES = {
     "grid_fill_rate.tile": "opentsdb_tpu/ops/tiling.py:188",
     "grid_fill_rate.1m": "opentsdb_tpu/ops/group_agg.py:354",
     "group_moments.fanin": "opentsdb_tpu/ops/group_agg.py:420",
+    "union_merge.fanin": "opentsdb_tpu/ops/union_agg.py:65",
+    "union_order.fanin": "opentsdb_tpu/ops/union_agg.py:209",
+    "moving_average.downsample": "opentsdb_tpu/ops/aggregators.py:177",
+    "moving_average.grid": "opentsdb_tpu/ops/aggregators.py:177",
     "group_moments.1m": "opentsdb_tpu/ops/group_agg.py:420",
     "tile_partials.square": "opentsdb_tpu/parallel/sharded.py:223",
     "tile_partials.centred": "opentsdb_tpu/parallel/sharded.py:223",
@@ -1095,10 +1113,8 @@ def fleet_tsdb(dev):
 
 
 def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
-    """K4 window_order, K5 group_order and MA moving_average (downsample
-    and grid positions) on the headline batch, each against its plain
-    version."""
-    from opentsdb_tpu_torch.ops import aggregators as ag
+    """K4 window_order and K5 group_order on the headline batch, each
+    against its plain version."""
     from opentsdb_tpu_torch.ops import downsample as ds
     from opentsdb_tpu_torch.ops import group_agg as ga
 
@@ -1156,17 +1172,6 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     print("time window_order by function: %s ms"
           % ", ".join("%s %.4f" % kv for kv in extra.items()))
 
-    # MA at the downsample position: K1's window sums over their mask
-    sums, sum_mask = ds.window_moments(d_ts, d_val, d_mask, edges, "sum")
-    offsets_r = torch.arange(S + 1, dtype=torch.int64, device=dev) * w
-    for nw in (5, 10):
-        got = ag.moving_average(sums.reshape(-1), sum_mask.reshape(-1),
-                                offsets_r, nw)
-        want = ag.moving_average_plain(sums.reshape(-1).cpu(),
-                                       sum_mask.reshape(-1).cpu(),
-                                       offsets_r.cpu(), nw)
-        checks.values("moving_average", "downsample movingAverage%d" % nw,
-                      got, want)
     v, m = ds.window_moments(d_ts, d_val, d_mask, edges, "avg")
     wts = edges[:w]
     del d_ts, d_val, d_mask
@@ -1214,17 +1219,6 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
              time_ms(lambda: ga.group_order("mult", contrib, part, present,
                                             one))))
 
-    # MA at the grid position: K3's group sums over the windows with data
-    gsum, _ = ga.group_moments("sum", contrib, part, present, offsets)
-    gcnt, _ = ga.group_moments("count", contrib, part, present, offsets)
-    for nw in (5, 10):
-        got = ag.moving_average_rows(gsum, gcnt > 0, nw)
-        want = ag.moving_average_plain(gsum.reshape(-1).cpu(),
-                                       (gcnt > 0).reshape(-1).cpu(),
-                                       torch.arange(GROUPS + 1) * w,
-                                       nw).reshape(GROUPS, w)
-        checks.values("moving_average", "grid movingAverage%d" % nw, got,
-                      want)
     times = {"window_order": k4, "group_order": k5}
     print_times(times)
     return times
@@ -1305,11 +1299,15 @@ def gather_phase(dev, ts, val, gid, checks: Checks) -> dict:
 def print_times(times: dict) -> None:
     for name, t in times.items():
         print("time %-15s kernel %.4f ms (device %s)  plain %.4f ms  bound "
-              "%.4f ms (%s)  library %s"
+              "%.4f ms (%s)%s  library %s"
               % (name, t["ms"], _fmt(t.get("device_ms")), t["plain_ms"],
                  t["bound_ms"], t.get("bound_by", "bytes"),
-                 "%.4f ms" % t["library_ms"]
-                 if t["library_ms"] is not None else "none"))
+                 "  chain bound %s" % _fmt(t["chain_bound_ms"])
+                 if "chain_bound_ms" in t else "",
+                 "none" if t["library_ms"] is None else "%.4f ms%s" % (
+                     t["library_ms"], " (device %s)" % _fmt(
+                         t["library_device_ms"])
+                     if "library_device_ms" in t else "")))
 
 
 def _query(m: str, start: int = START, end: int = END):
@@ -1868,16 +1866,16 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     pairs = u.numel() * S
     b_ms = time_ms(lambda: ua.union_reduce(*bd, one, u, uoff, "sum",
                                            "lerp"))
-    m_ms = time_ms(lambda: ua.union_merge(bd[0], bd[2], one))
-    b_keys = bd[0][bd[2]]
-    m_lib = time_ms(lambda: torch.unique(b_keys))
+    fanin = union_fanin_merge(dev, b_ts, b_mask)
+    m = fanin["union_merge.fanin"]
     print("time (b) ungrouped 6h: %d rows x %d points, U=%d, %.3e "
-          "member-slot pairs | union_merge %.4f ms (10 merge rounds; "
-          "torch.unique of the %d timestamps %.4f ms), union_reduce sum "
-          "%.4f ms (ops bound %.4f ms)"
-          % (S, b_ts.shape[1], u.numel(), pairs, m_ms, b_keys.numel(),
-             m_lib, b_ms, bound_ms(0.0, pairs)))
-    del bd, u, uoff, b_keys
+          "member-slot pairs | union_merge %.4f ms, device %s (10 merge "
+          "rounds; torch.unique of the %d timestamps %.4f ms), union_reduce "
+          "sum %.4f ms (ops bound %.4f ms)"
+          % (S, b_ts.shape[1], u.numel(), pairs, m["ms"],
+             _fmt(m["device_ms"]), int(b_mask.sum()), m["library_ms"], b_ms,
+             bound_ms(0.0, pairs)))
+    del bd, u, uoff
     union_shape_cases(dev, b_ts, b_mask, checks)
 
     # (c) an integer copy of 64 rows in 8 groups, values near 2^53
@@ -1911,16 +1909,19 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
     }
-    times = {"union_merge": u1, "union_reduce": u2, "point_rate": r}
+    times = {"union_merge": u1, "union_merge.fanin": fanin[
+        "union_merge.fanin"], "union_reduce": u2, "point_rate": r}
     print_times(times)
     return times
 
 
 def _union_order_cases(name, d_ts, d_val, d_mask, offsets, checks: Checks,
-                       exact_ints: bool):
+                       exact_ints: bool, digests: dict | None = None):
     """U1, then U3 under each of UNION_ORDER (each with its own
     interpolation policy) and MA after U2's sums (movingAverage,
-    movingAverage10), each against its plain version; returns (u, uoff)."""
+    movingAverage10), each against its plain version (MA's on the CPU, bit
+    for bit); with `digests`, each output's sha256 goes into it.  Returns
+    (u, uoff)."""
     from opentsdb_tpu_torch.ops import aggregators as ag
     from opentsdb_tpu_torch.ops import union_agg as ua
 
@@ -1929,6 +1930,8 @@ def _union_order_cases(name, d_ts, d_val, d_mask, offsets, checks: Checks,
         policy = ag.get_agg(agg).interpolation
         got = ua.union_order(d_ts, d_val, d_mask, offsets, u, uoff, agg,
                              policy)
+        if digests is not None:
+            digests["union_order %s %s" % (name, agg)] = _digest(got)
         if exact_ints:
             # the plain version on the CPU: torch's division by a scalar on
             # the card multiplies by the reciprocal, which a truncated
@@ -1956,19 +1959,21 @@ def _union_order_cases(name, d_ts, d_val, d_mask, offsets, checks: Checks,
         # the kernel's running sums do, and a window sum is a difference
         # of running sums that cancellation magnifies
         want = ag.moving_average_plain(sums.cpu(), None, uoff.cpu(), nw)
-        case = "%s union movingAverage%d" % (name, nw)
-        if exact_ints:
-            checks.exact("moving_average", case, got, want, "int64 values")
-        else:
-            checks.values("moving_average", case, got, want)
+        _ma_exact(checks, "%s union movingAverage%d" % (name, nw), got,
+                  want)
+        if digests is not None:
+            digests["moving_average %s union %d" % (name, nw)] = _digest(got)
     return u, uoff
 
 
-def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+def union_order_phase(dev, ts, val, gid, h, checks: Checks,
+                      digests: dict | None = None) -> dict:
     """U3 union_order and MA at the union position: (a) the headline batch
     in its 100 groups, (b) all 1024 rows as one group over the last 6 h,
-    (c) 64 integer rows near 2^53 in 8 groups, exact."""
-    from opentsdb_tpu_torch.ops import aggregators as ag
+    (c) 64 integer rows near 2^53 in 8 groups, exact.  Timed: U3's median
+    in (a) (`union_order`, first, p99 and mult beside it) and (b)
+    (`union_order.fanin`), MA's movingAverage5 in (a) (`moving_average`,
+    with its chain bound)."""
     from opentsdb_tpu_torch.ops import group_agg as ga
     from opentsdb_tpu_torch.ops import union_agg as ua
 
@@ -1977,7 +1982,7 @@ def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
     offsets = ga.group_offsets(gid, GROUPS).to(dev)
     u, uoff = _union_order_cases("(a) headline", d_ts, d_val, d_mask,
-                                 offsets, checks, False)
+                                 offsets, checks, False, digests)
     n_slots = u.numel()
     s_g = S / GROUPS
     u3_bytes = S * N * 17 + n_slots * 16 + (GROUPS + 1) * 16
@@ -1992,35 +1997,35 @@ def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         else "operations",
         "library_ms": None,
     }
-    extra = {f: time_ms(lambda f=f: ua.union_order(
-        d_ts, d_val, d_mask, offsets, u, uoff, f, "zim"))
-        for f in ("first", "p99")}
-    extra["mult"] = time_ms(lambda: ua.union_order(
-        d_ts, d_val, d_mask, offsets, u, uoff, "mult", "lerp"))
-    print("time union_order (a) first %.4f ms, p99 %.4f ms, mult (the "
-          "shared ordered product) %.4f ms"
-          % (extra["first"], extra["p99"], extra["mult"]))
+    extra = {f: kernel_ms(lambda f=f, p=p: ua.union_order(
+        d_ts, d_val, d_mask, offsets, u, uoff, f, p))
+        for f, p in (("first", "zim"), ("p99", "zim"), ("mult", "lerp"))}
+    print("time union_order (a) %s" % ", ".join(
+        "%s %.4f ms (device %s)" % (f, t["ms"], _fmt(t["device_ms"]))
+        for f, t in extra.items()))
     sums = ua.union_reduce(d_ts, d_val, d_mask, offsets, u, uoff, "sum",
                            "lerp")
-    ma = {
-        **kernel_ms(lambda: ag.moving_average(sums, None, uoff, 5)),
-        "plain_ms": time_ms(lambda: ag.moving_average_plain(sums, None,
-                                                            uoff, 5)),
-        # sums read once, out written once, the run offsets read once
-        "bound_ms": bound_ms(n_slots * 16 + (GROUPS + 1) * 8,
-                             2.0 * n_slots),
-        "library_ms": None,
-    }
+    ma = ma_row(dev, sums, None, uoff)
     del u, uoff, sums
 
     b_ts, b_val, b_mask = _last_hours(ts, val, END - SIX_HOURS_MS)
     bd = [torch.from_numpy(x).to(dev) for x in (b_ts, b_val, b_mask)]
     one = torch.tensor([0, S], dtype=torch.int64, device=dev)
     u, uoff = _union_order_cases("(b) ungrouped 6h", *bd, one, checks,
-                                 False)
-    print("time (b) ungrouped 6h: union_order median %.4f ms, U=%d"
-          % (time_ms(lambda: ua.union_order(*bd, one, u, uoff, "median",
-                                            "lerp")), u.numel()))
+                                 False, digests)
+    b_bytes = b_ts.size * 17 + u.numel() * 16 + 2 * 16
+    b_ops = u.numel() * S
+    u3_b = {
+        **kernel_ms(lambda: ua.union_order(*bd, one, u, uoff, "median",
+                                           "lerp")),
+        "plain_ms": time_ms(lambda: ua.union_order_plain(
+            *bd, one, u, uoff, "median", "lerp"), 3),
+        "bound_ms": bound_ms(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes > b_ops / F64_FLOPS * HBM_BYTES_S
+        else "operations",
+        "library_ms": None,
+    }
+    print("time (b) ungrouped 6h: union_order median, U=%d" % u.numel())
     del bd, u, uoff
 
     c_val = (h[:INT_ROWS] % 1_000).astype(np.int64) + 2**53 - 500
@@ -2029,10 +2034,155 @@ def union_order_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                        d_ts[:INT_ROWS], torch.from_numpy(c_val).to(dev),
                        d_mask[:INT_ROWS],
                        ga.group_offsets(c_gid, INT_GROUPS).to(dev), checks,
-                       True)
-    times = {"union_order": u3, "moving_average": ma}
+                       True, digests)
+    times = {"union_order": u3, "union_order.fanin": u3_b,
+             "moving_average": ma}
     print_times(times)
     return times
+
+
+def _digest(x: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _ma_exact(checks: Checks, case: str, got, want) -> None:
+    """MA against its plain version on the CPU, bit for bit: the same
+    ordered additions from 0 (float64 compared as their bits)."""
+    got = got.cpu()
+    if got.is_floating_point():
+        got, want = _raw_bits(got), _raw_bits(want)
+    checks.exact("moving_average", case, got, want, "bits")
+    print("%-15s %-44s bit for bit %s" % (
+        "moving_average", case, "ok" if torch.equal(got, want) else "FAIL"))
+
+
+@functools.cache
+def chain_latency_ns(dev) -> float | None:
+    """The card's dependent float64 add latency in ns: one thread adding
+    2^20 and then 2^22 times (csrc/moving_average.cu moving_average_chain,
+    CUDA events, medians of 7), the difference over the adds between.
+    Measured once a run; None where the library has no such entry (a tree
+    from before it)."""
+    import ctypes
+    from opentsdb_tpu_torch.ops import kernels
+
+    fn = getattr(kernels.library("moving_average"), "moving_average_chain",
+                 None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(adds):
+        if fn(adds, 1.0, out.data_ptr(), stream) != 0:
+            raise RuntimeError("moving_average_chain failed to launch")
+
+    lo, hi = 1 << 20, 1 << 22
+    t_lo, t_hi = time_ms(lambda: run(lo)), time_ms(lambda: run(hi))
+    if float(out[0]) != hi:
+        raise RuntimeError("moving_average_chain summed %r" % float(out[0]))
+    ns = (t_hi - t_lo) * 1e6 / (hi - lo)
+    print("chain: a dependent float64 add %.4f ns (%d adds %.4f ms, %d adds "
+          "%.4f ms)" % (ns, lo, t_lo, hi, t_hi))
+    return ns
+
+
+def ma_row(dev, sums, live, offsets, nw: int = 5) -> dict:
+    """MA's timed row at one position, movingAverage<nw>: wall and device
+    time, the plain version, the byte bound (sums, live and out once, the
+    offsets once) and, for float64 sums, the chain bound: the longest
+    run's live slots times the dependent float64 add latency."""
+    from opentsdb_tpu_torch.ops import aggregators as ag
+
+    r = offsets.numel() - 1
+    if live is None:
+        per_run = offsets[1:] - offsets[:-1]
+    else:
+        seen = torch.cat([live.new_zeros(1, dtype=torch.int64),
+                          torch.cumsum(live.to(torch.int64), 0)])
+        per_run = seen[offsets[1:]] - seen[offsets[:-1]]
+    ns = chain_latency_ns(dev) if sums.is_floating_point() else None
+    return {
+        **kernel_ms(lambda: ag.moving_average(sums, live, offsets, nw)),
+        "plain_ms": time_ms(lambda: ag.moving_average_plain(
+            sums, live, offsets, nw)),
+        "bound_ms": bound_ms(sums.numel() * (16 if live is None else 17)
+                             + (r + 1) * 8, 2.0 * sums.numel()),
+        "chain_bound_ms": None if ns is None
+        else int(per_run.max()) * ns * 1e-6,
+        "library_ms": None,
+    }
+
+
+def ma_positions_phase(dev, ts, val, gid, checks: Checks,
+                       digests: dict | None = None) -> dict:
+    """MA at the downsample position (K1's 1h window sums of the headline
+    batch over their mask: 1024 runs of 283) and at the grid position
+    (K3's group sums over the windows with data: 100 runs of 283),
+    movingAverage5 and movingAverage10 each held to the plain version on
+    the CPU bit for bit; movingAverage5 timed at each
+    (`moving_average.downsample`, `moving_average.grid`)."""
+    from opentsdb_tpu_torch.ops import aggregators as ag
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
+    edges = ds.FixedWindows.for_range(START, END, INTERVAL_MS) \
+        .window_edges(dev)
+    w = edges.numel() - 1
+    sums, sum_mask = ds.window_moments(d_ts, d_val, d_mask, edges, "sum")
+    v, m = ds.window_moments(d_ts, d_val, d_mask, edges, "avg")
+    del d_ts, d_val, d_mask
+    contrib, part, present = ga.grid_fill_rate(edges[:w], v, m, "lerp")
+    offsets = ga.group_offsets(gid, GROUPS).to(dev)
+    gsum, _ = ga.group_moments("sum", contrib, part, present, offsets)
+    gcnt, _ = ga.group_moments("count", contrib, part, present, offsets)
+    del v, m, contrib, part, present
+    positions = {  # name: (sums, live, offsets of runs of w)
+        "downsample": (sums.reshape(-1), sum_mask.reshape(-1),
+                       torch.arange(S + 1, device=dev) * w),
+        "grid": (gsum.reshape(-1), (gcnt > 0).reshape(-1),
+                 torch.arange(GROUPS + 1, device=dev) * w),
+    }
+    times = {}
+    for name, (x, live, off) in positions.items():
+        for nw in (5, 10):
+            got = ag.moving_average(x, live, off, nw)
+            want = ag.moving_average_plain(x.cpu(), live.cpu(), off.cpu(),
+                                           nw)
+            _ma_exact(checks, "%s movingAverage%d" % (name, nw), got, want)
+            if digests is not None:
+                digests["moving_average %s %d" % (name, nw)] = _digest(got)
+        times["moving_average." + name] = ma_row(dev, x, live, off)
+    print_times(times)
+    return times
+
+
+def union_fanin_merge(dev, b_ts, b_mask) -> dict:
+    """U1 on case (b), all 1024 rows as one group over the last 6 h
+    (`union_merge.fanin`): wall and device time beside its byte bound
+    (each valid timestamp read once, each union slot written once), the
+    plain version and torch.unique of the same timestamps."""
+    from opentsdb_tpu_torch.ops import union_agg as ua
+
+    d_ts = torch.from_numpy(b_ts).to(dev)
+    d_mask = torch.from_numpy(b_mask).to(dev)
+    one = torch.tensor([0, S], dtype=torch.int64, device=dev)
+    u, _ = ua.union_merge(d_ts, d_mask, one)
+    keys = d_ts[d_mask]
+    lib = kernel_ms(lambda: torch.unique(keys))
+    return {"union_merge.fanin": {
+        **kernel_ms(lambda: ua.union_merge(d_ts, d_mask, one)),
+        "plain_ms": time_ms(lambda: ua.union_merge_plain(d_ts, d_mask, one),
+                            3),
+        "bound_ms": bound_ms(keys.numel() * 8 + u.numel() * 8, 0.0),
+        "library_ms": lib["ms"], "library_device_ms": lib["device_ms"]}}
 
 
 def union_e2e_phase(dev, tsdb, ts, h, checks: Checks) -> dict:
@@ -5699,6 +5849,72 @@ def ptxas_report(lines: list[str]) -> list[str]:
     return ["%s %s" % (k, "; ".join(v)) for k, v in merged.items()]
 
 
+def kernel_rows(times: dict, launches: dict, checks: Checks) -> list:
+    """The `kernels` line's rows.  A timed case of a kernel
+    (group_moments.fanin, moving_average.grid) is not a form of its own:
+    it carries the kernel's launches, and its errors where its checks are
+    the kernel's."""
+    rows = []
+    for name, t in times.items():
+        base = name.split(".")[0]
+        worst = checks.worst.get(name) or checks.worst[base]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "opentsdb_tpu_torch/csrc/%s.cu" % base,
+            "replaces": REPLACES[name],
+            "launches": launches[name if name in launches else base],
+            "max_abs_err": worst["abs"], "max_rel_err": worst["rel"],
+            "max_err_of_limit": worst["to_limit"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
+            "library_ms": t["library_ms"], "device_ms": t.get("device_ms"),
+            "library_device_ms": t.get("library_device_ms"),
+            "chain_bound_ms": t.get("chain_bound_ms")})
+    return rows
+
+
+def union_only(dev, ts, val, gid, h, checks: Checks,
+               digests_file: str | None) -> None:
+    """`--union-only`: MA at the downsample and grid positions, U1's case
+    (b), U3 and MA in phase 5's cases (a)-(c), then phase 6's union
+    queries on the headline TSDB.  With `digests_file`, the outputs'
+    sha256 are written there, or held to the ones it holds (U3's mult
+    reported, not failed: the shallow groups' product is the ordered walk
+    itself, a tree before it combined in another order)."""
+    digests = {} if digests_file else None
+    t_start = time.perf_counter()
+    ma_positions_phase(dev, ts, val, gid, checks, digests)
+    torch.cuda.empty_cache()
+    b_ts, _, b_mask = _last_hours(ts, val, END - SIX_HOURS_MS)
+    print_times(union_fanin_merge(dev, b_ts, b_mask))
+    del b_ts, b_mask
+    torch.cuda.empty_cache()
+    union_order_phase(dev, ts, val, gid, h, checks, digests)
+    torch.cuda.empty_cache()
+    tsdb, _ = headline_tsdb(dev, ts, val)
+    union_e2e_phase(dev, tsdb, ts, h, checks)
+    del tsdb
+    torch.cuda.empty_cache()
+    print("union-only wall %.1f s" % (time.perf_counter() - t_start))
+    if digests is None:
+        return
+    if not os.path.exists(digests_file):
+        with open(digests_file, "w") as fh:
+            json.dump(digests, fh, indent=1)
+        print("union outputs' digests written to %s" % digests_file)
+        return
+    with open(digests_file) as fh:
+        before = json.load(fh)
+    for name, digest in digests.items():
+        same = before.get(name) == digest
+        print("union outputs %-40s %s %s" % (
+            name, "equal bit for bit to" if same else "DIFFER from",
+            digests_file))
+        if not same and not name.endswith(" mult"):
+            checks.failures.append("%s: outputs differ from %s"
+                                   % (name, digests_file))
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5718,6 +5934,17 @@ def main(argv=None) -> int:
                         help="with --fill-only: write the sha256 of K2's "
                         "outputs in each case to FILE, or, where FILE "
                         "exists, fail unless they equal its digests")
+    parser.add_argument("--union-only", action="store_true",
+                        help="build the kernels and run the union path's "
+                        "timed cases alone: MA at the downsample and grid "
+                        "positions, U1's case (b), U3 and MA in phase 5's "
+                        "cases (a)-(c), then phase 6; prints no result line")
+    parser.add_argument("--u3-digests", metavar="FILE",
+                        help="with --union-only: write the sha256 of U3's "
+                        "and MA's outputs in each case to FILE, or, where "
+                        "FILE exists, fail unless they equal its digests "
+                        "(U3's mult, the ordered product, may differ: "
+                        "reported, not failed)")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 18 alone on "
                         "the headline TSDB (every visible card: with two "
@@ -5748,7 +5975,8 @@ def main(argv=None) -> int:
     print("kernel build %.2f s" % (time.perf_counter() - t0))
     # the redesigned kernels' registers, shared memory and spills
     for name in ("window_order", "union_merge", "group_moments",
-                 "tile_partials", "grid_fill_rate", "histogram_accumulate"):
+                 "tile_partials", "grid_fill_rate", "histogram_accumulate",
+                 "union_order", "moving_average"):
         for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
@@ -5759,6 +5987,12 @@ def main(argv=None) -> int:
         fill_phase(dev, ts, val, h, checks, args.k2_digests)
         torch.cuda.empty_cache()
         histogram_kernel_phase(dev, fleet_tsdb(dev), checks)
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
+    if args.union_only:
+        union_only(dev, ts, val, gid, h, checks, args.u3_digests)
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)
         print(smi)
@@ -5789,6 +6023,8 @@ def main(argv=None) -> int:
     times = kernel_phase(dev, ts, val, gid, h, checks)
     torch.cuda.empty_cache()
     times.update(order_kernel_phase(dev, ts, val, gid, h, checks))
+    torch.cuda.empty_cache()
+    times.update(ma_positions_phase(dev, ts, val, gid, checks))
     torch.cuda.empty_cache()
     times.update(gather_phase(dev, ts, val, gid, checks))
     torch.cuda.empty_cache()
@@ -5880,23 +6116,7 @@ def main(argv=None) -> int:
                            + tiled_launches[name] + striped_launches[name]
                            + fleet_launches[name] + hit_launches[name]
                            + mesh_launches[name] + group_launches[name])
-    # A timed case of a kernel (group_moments.fanin, .1m) is not a form
-    # of its own: it carries the kernel's launches.
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "opentsdb_tpu_torch/csrc/%s.cu" % name.split(".")[0],
-         "replaces": REPLACES[name],
-         "launches": launches[name if name in launches
-                              else name.split(".")[0]],
-         "max_abs_err": checks.worst[name]["abs"],
-         "max_rel_err": checks.worst[name]["rel"],
-         "max_err_of_limit": checks.worst[name]["to_limit"],
-         "ms": t["ms"], "plain_ms": t["plain_ms"],
-         "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
-         "library_ms": t["library_ms"],
-         "device_ms": t.get("device_ms"),
-         "library_device_ms": t.get("library_device_ms")}
-        for name, t in times.items()]}))
+    print(json.dumps({"kernels": kernel_rows(times, launches, checks)}))
     if checks.failures:
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)

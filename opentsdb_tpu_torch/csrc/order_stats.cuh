@@ -1,6 +1,7 @@
 // Order statistics and the order reduces of a run: the device routines that
 // K4 window_order, K5 group_order and U3 union_order share (S2 sketch_fold
-// takes the selection too).
+// takes the selection too; U3's groups of at most 32 members order their
+// few keys themselves and take only the estimators, through SortedRanks).
 //
 // Replaces the sorts behind opentsdb_tpu/ops/percentile.py (_estimate,
 // row_run_percentile, column_run_percentile, masked_percentile) and the
@@ -116,6 +117,21 @@ __device__ __forceinline__ double double_of(uint64_t k) {
 __device__ __forceinline__ void value_of(uint64_t k, double& v) { v = double_of(k); }
 __device__ __forceinline__ void value_of(uint64_t k, int64_t& v) {
   v = (int64_t)(k ^ 0x8000000000000000ull);
+}
+
+// A float64 result as the reduce's value type: an int64 one is Java's
+// (long) cast, truncating, NaN to 0 and saturating at the long range (what
+// cvt.rzi.s64.f64 does; written out so that no compiler may differ).
+template <typename V>
+__device__ __forceinline__ V of_double(double x) {
+  if constexpr (std::is_floating_point<V>::value) {
+    return x;
+  } else {
+    if (isnan(x)) return 0;
+    if (x >= 9223372036854775808.0) return INT64_MAX;
+    if (x < -9223372036854775808.0) return INT64_MIN;
+    return (V)x;
+  }
 }
 
 // Arithmetic of the reduces: float64 rounds each operation on its own,
@@ -418,6 +434,20 @@ struct Ranks {
     le = team.sum(le);
     gt = team.min_key(gt);
     b = le > rb ? a : gt;
+  }
+};
+
+// The order statistics of n keys already sorted, keys[0] the least (U3's
+// shallow groups): at() and pair() as Ranks gives them.
+struct SortedRanks {
+  const uint64_t* keys;
+  int64_t n;
+
+  __device__ int64_t clip(int64_t k) const { return k < 1 ? 0 : (k > n ? n - 1 : k - 1); }
+  __device__ uint64_t at(int64_t k) const { return keys[clip(k)]; }
+  __device__ void pair(int64_t k, uint64_t& a, uint64_t& b) const {
+    a = keys[clip(k)];
+    b = keys[clip(k + 1)];
   }
 };
 
@@ -756,7 +786,7 @@ __device__ V warp_order(Get get, int64_t m, int code, double q, int est, unsigne
       };
       const WarpTeam team;
       const Ranks<decltype(keyed)> r{keyed, m, n, hist, team.and_key(kand), team.or_key(kor)};
-      return (V)percentile(r, q, est);
+      return of_double<V>(percentile(r, q, est));
     }
   }
 }

@@ -100,4 +100,89 @@ __device__ __forceinline__ V contribution(const int64_t* __restrict__ tr,
                       : interpolate(policy, x, tr[pos - 1], vr[pos - 1], tr[pos], vr[pos]);
 }
 
+// The same contribution from the points around x already in registers:
+// (x1, y1) the first point at or after x, (x0, y0) the one before it.
+template <typename V>
+__device__ __forceinline__ V contribution(int64_t x, int64_t x0, V y0, int64_t x1, V y1,
+                                          int policy) {
+  return x1 == x ? y1 : interpolate(policy, x, x0, y0, x1, y1);
+}
+
+// The contribution of row base / n (ts + base, val + base, c valid points)
+// at x, with a binary search and no state; false where the member does not
+// take part (x outside its points, or a NaN value).
+template <typename V>
+__device__ __forceinline__ bool contribution_at(const int64_t* __restrict__ ts,
+                                                const V* __restrict__ val, int64_t base,
+                                                int64_t c, int64_t x, int policy, V& v) {
+  const int64_t* tr = ts + base;
+  if (c <= 0 || x < tr[0] || x > tr[c - 1]) return false;
+  v = contribution(tr, val + base, first_at_or_after(tr, c, x), x, policy);
+  return !skipped(v);
+}
+
+// A member's cursor over ascending slots: the points around the last slot
+// asked for stay in registers, and the cursor walks its row forward as the
+// slots advance (one step a point passed, so a row that repeats a
+// timestamp costs one step more, not a search).  at() gives exactly what
+// contribution_at gives for the same x.  AHEAD keeps the point after them
+// loaded too, so that a step waits on no load issued at that step.
+template <typename V, bool AHEAD = false>
+struct Cursor {
+  int64_t base = 0, pos = 0, c = 0;
+  int64_t lo = INT64_MAX, hi = INT64_MIN;  // first and last timestamps (none: empty)
+  int64_t x0 = 0, x1 = 0, x2 = INT64_MAX;
+  V y0 = 0, y1 = 0, y2 = 0;
+
+  // Row base / n with c valid points, placed at the first point at or
+  // after x.
+  __device__ void start(const int64_t* __restrict__ ts, const V* __restrict__ val,
+                        int64_t row_base, int64_t count, int64_t x) {
+    base = row_base;
+    c = count;
+    if (c <= 0) return;
+    const int64_t* tr = ts + base;
+    lo = tr[0];
+    hi = tr[c - 1];
+    pos = first_at_or_after(tr, c, x);
+    if (pos < c) {
+      x1 = tr[pos];
+      y1 = val[base + pos];
+    }
+    if (pos > 0) {
+      x0 = tr[pos - 1];
+      y0 = val[base + pos - 1];
+    }
+    if (AHEAD && pos + 1 < c) {
+      x2 = tr[pos + 1];
+      y2 = val[base + pos + 1];
+    }
+  }
+
+  // The contribution at x, no earlier than the last x asked for; false
+  // where the member does not take part.
+  __device__ __forceinline__ bool at(const int64_t* __restrict__ ts, const V* __restrict__ val,
+                                     int64_t x, int policy, V& v) {
+    if (x < lo || x > hi) return false;
+    while (x1 < x) {  // x <= hi: the walk stops inside the row
+      x0 = x1;
+      y0 = y1;
+      ++pos;
+      if constexpr (AHEAD) {
+        x1 = x2;
+        y1 = y2;
+        if (pos + 1 < c) {
+          x2 = ts[base + pos + 1];
+          y2 = val[base + pos + 1];
+        }
+      } else {
+        x1 = ts[base + pos];
+        y1 = val[base + pos];
+      }
+    }
+    v = contribution(x, x0, y0, x1, y1, policy);
+    return !skipped(v);
+  }
+};
+
 }  // namespace union_contrib

@@ -130,6 +130,11 @@ def order_args(name: str) -> tuple[int, float, int]:
     q, est = parse_percentile_name(name)
     return PERCENTILE, q, EST_CODES[est]
 
+# The longest movingAverage window whose running sums MA keeps in shared
+# memory (csrc/moving_average.cu RING_N); a longer one takes a buffer in
+# device memory.
+MA_RING_WINDOW = 768
+
 # Interpolation policy -> the kernels' `enum Policy` (csrc/grid_fill_rate.cu,
 # union_reduce.cu).
 POLICY_CODES = {LERP: 0, ZIM: 1, MAX_IF_MISSING: 2, MIN_IF_MISSING: 3,
@@ -147,6 +152,17 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x)
+
+
+def java_long(x: torch.Tensor) -> torch.Tensor:
+    """Java's (long) of float64 values (JLS 5.1.3): truncation toward
+    zero, NaN to 0, and the long range's ends past it, as the reference's
+    int64 conversion and the card's cvt give; torch's own conversion on
+    the CPU turns a value past the range into Long.MIN_VALUE."""
+    over = x >= 2.0**63
+    under = x < -2.0**63
+    out = torch.where(over | under | torch.isnan(x), 0.0, x).to(torch.int64)
+    return torch.where(over, I64_MAX, torch.where(under, I64_MIN, out))
 
 
 # shape: values[S,T] f64|i64, mask[S,T] bool -> [T] f64|i64
@@ -193,7 +209,7 @@ def moment_reduce(name: str, values: torch.Tensor,
         var = total(centered * centered) / (n - 1).clamp(min=1)
         out = torch.where(n >= 2, _sqrt(var), 0.0)
         if not is_float:
-            return out.to(torch.int64)      # the (long) cast truncates
+            return java_long(out)           # the (long) cast truncates
     else:
         raise KeyError("aggregator %r is not a moment" % name)
     if is_float:
@@ -246,7 +262,7 @@ def order_reduce(name: str, values: torch.Tensor,
         q, est = parse_percentile_name(name)
         out = masked_percentile(values.to(torch.float64), ok, q, est)
         if not is_float:
-            return out.to(torch.int64)      # the (long) cast truncates
+            return java_long(out)           # the (long) cast truncates
     else:
         raise KeyError("aggregator %r is not an order or rank function"
                        % name)
@@ -316,15 +332,16 @@ def moving_average(sums: torch.Tensor, live: torch.Tensor | None,
     r = offsets.numel() - 1
     if r == 0 or sums.numel() == 0:
         return out
-    # the running sums (one entry a slot and one a run) and each slot's
-    # index into them
-    pre = torch.empty(sums.numel() + r, dtype=sums.dtype, device=dev)
-    at = torch.empty(sums.numel(), dtype=torch.int64, device=dev)
+    # the running sums (one entry a slot and one a run) go to device memory
+    # only for a window longer than the kernel's shared rings hold
+    pre = None
+    if n_window > MA_RING_WINDOW:
+        pre = torch.empty(sums.numel() + r, dtype=sums.dtype, device=dev)
     kernels.launch(
         "moving_average", dev, kernels.ptr(sums),
         None if live is None else kernels.ptr(live), kernels.ptr(offsets),
         r, n_window, int(sums.dtype == torch.int64), sums.numel(),
-        kernels.ptr(pre), kernels.ptr(at), kernels.ptr(out))
+        None if pre is None else kernels.ptr(pre), kernels.ptr(out))
     return out
 
 

@@ -97,12 +97,12 @@ SIGNATURES: dict[str, tuple] = {
     # out_mask, stream
     "group_order": (_P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P, _P, _P),
     # ts, val, mask, offsets, u, uoff, s, n, g, total, code, q, est, policy,
-    # val_is_int, maxm, tile, counts, scratch, flags, out, stream
+    # val_is_int, counts, out, stream
     "union_order": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                    _F64, _I32, _I32, _I32, _I64, _I64, _P, _P, _P, _P, _P),
+                    _F64, _I32, _I32, _I32, _P, _P, _P),
     # sums, live (may be null), offsets, r, n_window, val_is_int, total,
-    # pre, at, out, stream
-    "moving_average": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P, _P, _P),
+    # pre (null for a window the kernel's rings hold), out, stream
+    "moving_average": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P, _P),
     # ts_buf, val_buf, p, starts, lengths, s, n, ts_base, ts_is_i32,
     # out_ts, out_val, out_mask, stream
     "gather_windows": (_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,

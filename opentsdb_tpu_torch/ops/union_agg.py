@@ -29,7 +29,7 @@ of some member, so no output mask is needed.  ``union_merge_plain``,
 ``union_reduce_plain`` and ``union_order_plain`` are the plain PyTorch
 versions; the last two keep the reference's tiling of the union axis
 (_UNION_TILE_CELLS) so that their [members, slots] contribution matrix fits
-in memory, as U3's scratch does.
+in memory (the kernels form no such matrix).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from opentsdb_tpu_torch.ops.aggregators import (
     moment_reduce, moving_average, order_args, order_reduce)
 from opentsdb_tpu_torch.ops.rate import PAD_TS
 
-# Cells of [members, slots] a tile of the plain version materialises
+# Cells of [members, slots] a tile of the plain versions materialises
 # (the reference's ceiling, union_agg.py:123).
 _UNION_TILE_CELLS = 1 << 24
 # Merged slots a block of U1's merge rounds and compaction owns
@@ -250,8 +250,10 @@ def union_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     float64 `val` skips NaN contributions and gives NaN where none
     participates.  int64 `val` is int mode: mult and diff wrap, the median
     is the exact long and a percentile is the truncated float64 one.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel, its
-    scratch sized by the largest group (one read of the offsets).
+    tensors run the plain version; CUDA tensors launch the kernel: one
+    pass over the whole union, every group's contributions reduced where
+    they are made, with no scratch beyond the rows' point counts and no
+    synchronisation.
     """
     if agg_name not in ORDER_AGGS:
         raise KeyError("union_order computes the order and rank functions, "
@@ -263,22 +265,16 @@ def union_order(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     dev = kernels.require_cuda(ts, val, mask, offsets, u, uoff)
     s, n = ts.shape
     out = torch.empty(u.numel(), dtype=val.dtype, device=dev)
-    maxm = int((offsets[1:] - offsets[:-1]).max()) if offsets.numel() > 1 \
-        else 0
-    if u.numel() == 0 or maxm == 0:
+    if u.numel() == 0:
         return out
-    tile = min(max(_UNION_TILE_CELLS // maxm, 1), u.numel())
     counts = torch.empty(s, dtype=torch.int64, device=dev)
-    scratch = torch.empty(maxm * tile, dtype=val.dtype, device=dev)
-    flags = torch.empty(maxm * tile, dtype=torch.uint8, device=dev)
     code, q, est = order_args(agg_name)
     kernels.launch(
         "union_order", dev, kernels.ptr(ts), kernels.ptr(val),
         kernels.ptr(mask), kernels.ptr(offsets), kernels.ptr(u),
         kernels.ptr(uoff), s, n, offsets.numel() - 1, u.numel(), code, q,
-        est, POLICY_CODES[policy], int(val.dtype == torch.int64), maxm, tile,
-        kernels.ptr(counts), kernels.ptr(scratch), kernels.ptr(flags),
-        kernels.ptr(out))
+        est, POLICY_CODES[policy], int(val.dtype == torch.int64),
+        kernels.ptr(counts), kernels.ptr(out))
     return out
 
 

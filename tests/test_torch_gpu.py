@@ -1807,3 +1807,98 @@ def test_tile_partials_modes_over_split_groups(cuda_device, mode, rows):
             assert_exact(got[lane].cpu().numpy(), want[lane].numpy())
         else:
             assert_values(got[lane].cpu().numpy(), want[lane].numpy())
+
+
+# -- U3 and MA: the team widths, the deep path and the rings ---------------
+
+U3_SIZES = (1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 64, 1024)
+
+
+def _u3_edge_batch(seed, int_values, n=24):
+    """Groups of U3_SIZES members in one batch, each with members that
+    hold no point, members whose spans miss the others', timestamps
+    repeated within a row, NaN values and ties; int rows near 2^53.  The
+    1024-member group's rows hold at most 3 points (its union stays a few
+    thousand slots for the plain version)."""
+    rng = np.random.default_rng(seed)
+    s = sum(U3_SIZES)
+    ts = np.full((s, n), np.iinfo(np.int64).max, np.int64)
+    val = np.zeros((s, n), np.int64 if int_values else np.float64)
+    mask = np.zeros((s, n), bool)
+    gid = np.repeat(np.arange(len(U3_SIZES), dtype=np.int64), U3_SIZES)
+    for i in range(s):
+        deep = U3_SIZES[gid[i]] > 64
+        k = 0 if i % 7 == 3 else int(rng.integers(1, (3 if deep else n) + 1))
+        base = T0 + (10_000_000 * (i % 11 + 1) if i % 5 == 2 else 0)
+        ts[i, :k] = np.sort(rng.choice(2_000 if i % 3 else 300, size=k,
+                                       replace=True)) * 37 + base
+        mask[i, :k] = True
+        if int_values:
+            val[i, :k] = rng.integers(-40, 40, k) + 2**53
+        else:
+            v = np.round(rng.normal(50.0, 20.0, k) / 8.0) * 8.0
+            v[rng.random(k) < 0.08] = np.nan
+            val[i, :k] = v
+    return ts, val, mask, tga.group_offsets(gid, len(U3_SIZES))
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_union_order_edge_groups_kernel_matches_plain(cuda_device, policy,
+                                                      int_values):
+    """Every order and rank aggregator over groups of 1 to 1024 members in
+    one call (teams of 8, 16 and 32 lanes, the deep path past 32)."""
+    ts, val, mask, offsets = _u3_edge_batch(41, int_values)
+    d_ts, d_val, d_mask, d_off = _on(cuda_device, ts, val, mask, offsets)
+    u, uoff = tua.union_merge(d_ts, d_mask, d_off)
+    for func in ORDER_AGGS:
+        got = tua.union_order(d_ts, d_val, d_mask, d_off, u, uoff, func,
+                              policy)
+        want = tua.union_order_plain(t(ts), t(val), t(mask), offsets,
+                                     u.cpu(), uoff.cpu(), func, policy)
+        if int_values:
+            assert_exact(got.cpu().numpy(), want.numpy())
+        else:
+            assert_values(got.cpu().numpy(), want.numpy())
+
+
+def _ma_edge_cases(int_values):
+    """(sums, live, offsets): short runs (a warp each: runs of 3, 0, 40
+    dead, 1,700 and 9 slots) and long ones (a block each: 20,000, 0 and
+    30,000 slots), one slot in five dead; then the cancellation case
+    (-1e15, then small values); int64 sums that wrap."""
+    rng = np.random.default_rng(43)
+    cases = []
+    for offsets in ([0, 3, 3, 43, 1743, 1752], [0, 20_000, 20_000, 50_000]):
+        offsets = np.array(offsets, np.int64)
+        sums = rng.normal(100.0, 40.0, offsets[-1])
+        if int_values:
+            sums = (sums * 1e6).astype(np.int64) + 2**62 + 2**61
+        live = rng.random(offsets[-1]) >= 0.2
+        if offsets[-1] < 2000:
+            live[3:43] = False
+        cases.append((sums, live, offsets))
+    if not int_values:
+        sums = np.concatenate([[-1e15], rng.normal(3.0, 1.0, 9_999)])
+        cases.append((sums, np.ones(sums.size, bool),
+                      np.array([0, 5_000, 10_000], np.int64)))
+    return cases
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("n_window", [1, 5, 1000])
+def test_moving_average_edge_runs_kernel_matches_plain(cuda_device, n_window,
+                                                       int_values):
+    """Bit for bit the plain version on the CPU (whose cumsum runs in
+    slot order): every live flag set or given, a window past the shared
+    ring (1000 > MA_RING_WINDOW), runs shorter than the window."""
+    for sums, live, offsets in _ma_edge_cases(int_values):
+        for lv in (live, None):
+            d = _on(cuda_device, sums, offsets,
+                    *([] if lv is None else [lv]))
+            got = tagg.moving_average(d[0], None if lv is None else d[2],
+                                      d[1], n_window).cpu().numpy()
+            want = tagg.moving_average_plain(
+                t(sums), None if lv is None else t(lv), t(offsets),
+                n_window).numpy()
+            assert_exact(got.view(np.int64), want.view(np.int64))

@@ -10,10 +10,15 @@ their plain PyTorch versions.
   a group of one row and an empty group, and the presence mask of
   grid_group_aggregate.
 * U3: every order and rank aggregator against union_aggregate, float and
-  int mode (values above 2^53), and groups of uneven size.
+  int mode (values above 2^53), and groups of uneven size; groups at the
+  kernel's edges (1, 31, 32, 33 and 1013 members) with empty rows,
+  disjoint spans, repeated timestamps, NaN values and ties.
 * MA: java_moving_average itself, and movingAverage<N> in its three
   positions: the downsample function, the grid aggregator
-  (moment_group_reduce) and the union aggregator (union_aggregate).
+  (moment_group_reduce) and the union aggregator (union_aggregate); runs
+  shorter than the window, empty and all-dead runs, a window past the
+  kernel's shared ring, int64 sums that wrap, and the cancellation case
+  held to the ordered running sums.
 
 Values agree at rtol 1e-9 (torch_parity.RTOL) with NaN positions equal;
 masks, timestamps and int-mode values are exact.
@@ -41,12 +46,13 @@ from opentsdb_tpu_torch.ops.aggregators import ORDER_AGGS, PERCENTILE_AGGS
 from test_torch_downsample import FILLS, _port, _reference
 from test_torch_group_agg import _grid, _ref_k2
 from test_torch_union import GROUPS, ROWS, _assert_same, _batch, _run_both
-from torch_parity import assert_exact, assert_values, sorted_batch, t
+from torch_parity import PAD_TS, assert_exact, assert_values, sorted_batch, t
 
 DS_FUNCS = ["first", "last", "diff", "mult", "median", *PERCENTILE_AGGS]
 AGGS = sorted(ORDER_AGGS)
 KINDS = ["fixed", "edges", "all"]
 MA_NAMES = ["movingAverage", "movingAverage1", "movingAverage3"]
+T0 = 1_356_998_400_000
 
 
 # -- K4: the downsample position -------------------------------------------
@@ -253,3 +259,140 @@ def test_moving_average_runs(int_mode):
         assert_values(got[a:b], want)
     with pytest.raises(ValueError):
         tagg.moving_average(t(sums), None, offsets, 0)
+
+
+# -- U3 and MA at the kernels' edges ---------------------------------------
+# U3 takes a group of at most 32 members by a team of 8, 16 or 32 lanes and
+# a deeper one by a whole block; MA keeps a window of up to
+# MA_RING_WINDOW running sums in shared memory and a longer one in device
+# memory.  The plain versions the CPU runs are held to the reference at
+# those edges.
+
+EDGE_SIZES = (1, 31, 32, 33, 1013)
+EDGE_N = 3
+EDGE_AGGS = ["first", "last", "diff", "none", "mult", "median", "p99",
+             "ep99r3", "ep75r7"]
+
+
+def _edge_groups(seed: int, int_values: bool):
+    """Groups of EDGE_SIZES members, rows laid out as the batch builders
+    lay them (a sorted prefix, PAD_TS after): rows with no point, rows
+    whose spans miss the others', timestamps repeated within a row, NaN
+    values and ties; int rows near 2^53."""
+    rng = np.random.default_rng(seed)
+    s = sum(EDGE_SIZES)
+    ts = np.full((s, EDGE_N), PAD_TS, np.int64)
+    val = np.zeros((s, EDGE_N), np.int64 if int_values else np.float64)
+    mask = np.zeros((s, EDGE_N), bool)
+    for i in range(s):
+        k = 0 if i % 7 == 3 else int(rng.integers(1, EDGE_N + 1))
+        base = T0 + (50_000_000 * (i + 1) if i % 5 == 2 else 0)
+        ts[i, :k] = np.sort(rng.choice(60, size=k, replace=True)) * 1000 + base
+        mask[i, :k] = True
+        if int_values:
+            val[i, :k] = rng.integers(-40, 40, k) + 2**53
+        else:
+            v = np.round(rng.normal(50.0, 20.0, k) / 8.0) * 8.0
+            v[rng.random(k) < 0.1] = np.nan
+            val[i, :k] = v
+    return ts, val, mask, np.repeat(np.arange(len(EDGE_SIZES)), EDGE_SIZES)
+
+
+@pytest.mark.parametrize("int_mode", [False, True])
+@pytest.mark.parametrize("agg", EDGE_AGGS)
+def test_union_order_edge_groups_match_reference(agg, int_mode):
+    """Every group at once through the port, each group alone (eagerly,
+    as test_union_order_and_ma_int_mode_match_reference explains) through
+    union_aggregate; int mode exact."""
+    ts, val, mask, gid = _edge_groups(61, int_mode)
+    agg_ = jagg.get_agg(agg)
+    pu, pout, puoff = tua.union_aggregate(
+        t(ts), t(val), t(mask), tga.group_offsets(gid, len(EDGE_SIZES)), agg,
+        agg_.interpolation)
+    for g in range(len(EDGE_SIZES)):
+        rows = gid == g
+        ru, rout, rmask = (np.asarray(x) for x in jua.union_aggregate(
+            ts[rows], val[rows], mask[rows], agg_, int_mode))
+        assert_exact(pu[puoff[g]:puoff[g + 1]].numpy(), ru[rmask])
+        if int_mode:
+            assert_exact(pout[puoff[g]:puoff[g + 1]].numpy(), rout[rmask])
+        else:
+            assert_values(pout[puoff[g]:puoff[g + 1]].numpy(), rout[rmask])
+
+
+def _edge_runs(int_mode: bool):
+    """Runs of 3 (shorter than most windows), 0, 40 dead, 1,700 and 9
+    slots, one in five dead; int64 sums that wrap."""
+    rng = np.random.default_rng(71)
+    offsets = np.array([0, 3, 3, 43, 1743, 1752], np.int64)
+    sums = rng.normal(100.0, 40.0, offsets[-1])
+    if int_mode:
+        sums = (sums * 1e6).astype(np.int64) + 2**62 + 2**61
+    live = rng.random(offsets[-1]) >= 0.2
+    live[3:43] = False
+    return sums, live, offsets
+
+
+@pytest.mark.parametrize("int_mode", [False, True])
+@pytest.mark.parametrize("n_window", [1, 5, tagg.MA_RING_WINDOW + 32])
+def test_moving_average_edge_runs_match_reference(n_window, int_mode):
+    sums, live, offsets = _edge_runs(int_mode)
+    got = tagg.moving_average(t(sums), t(live), t(offsets), n_window).numpy()
+    for a, b in zip(offsets[:-1], offsets[1:]):
+        if a == b:
+            continue                            # the empty run
+        want = np.asarray(jagg.java_moving_average(sums[a:b], live[a:b],
+                                                   n_window, int_mode))
+        if int_mode:
+            assert_exact(got[a:b], want)
+        else:
+            assert_values(got[a:b], want)
+    assert not got[3:43].any()                  # dead slots hold 0
+
+
+@pytest.mark.parametrize("n_window", [1, 5, tagg.MA_RING_WINDOW + 32])
+def test_moving_average_cancellation_is_the_ordered_chain(n_window):
+    """-1e15, then small values (ROADMAP queue C): the port's window sums
+    are differences of running sums taken in slot order from 0, bit for
+    bit; the reference's running sums are taken in another order, and
+    both quantise at the large sum's ulp."""
+    rng = np.random.default_rng(72)
+    sums = np.concatenate([[-1e15], rng.normal(3.0, 1.0, 2000)])
+    live = rng.random(sums.size) >= 0.2
+    live[0] = True
+    got = tagg.moving_average(t(sums), t(live),
+                              torch.tensor([0, sums.size]), n_window).numpy()
+    pre, want = [0.0], np.zeros(sums.size)
+    for i in np.flatnonzero(live):
+        k = len(pre) - 1
+        if k >= n_window:
+            want[i] = (pre[k] - pre[k - n_window]) / n_window
+        pre.append(pre[-1] + sums[i])
+    assert_exact(got, want)
+    ref = np.asarray(jagg.java_moving_average(sums, live, n_window, False))
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=64 * np.spacing(1e15) / n_window)
+
+
+@pytest.mark.parametrize("agg,policy", [("p99", "max"), ("ep99r7", "max"),
+                                        ("dev", "lerp")])
+def test_union_int_results_past_the_long_range_saturate(agg, policy):
+    """A float64 result past the long range (a percentile over
+    MAX_IF_MISSING's Long.MAX_VALUE, a dev of values 2^64 apart) is the
+    range's end in int mode, as Java's (long) cast, the reference and the
+    card give (torch's conversion on the CPU gave Long.MIN_VALUE)."""
+    big = np.iinfo(np.int64).max
+    if agg == "dev":
+        ts = np.array([[1000, 2000], [1000, 2000]], np.int64)
+        val = np.array([[-big - 1, 5], [big, 9]], np.int64)
+    else:
+        ts = np.array([[1000, 3000], [2000, PAD_TS], [1000, 3000]], np.int64)
+        val = np.array([[5, 6], [7, 0], [8, 9]], np.int64)
+    mask = ts != PAD_TS
+    _, pout, _ = tua.union_aggregate(t(ts), t(val), t(mask),
+                                     torch.tensor([0, len(ts)]), agg, policy)
+    _, rout, rmask = (np.asarray(x) for x in jua.union_aggregate(
+        ts, val, mask, Aggregator(agg, policy, jagg.get_agg(agg).reduce),
+        True))
+    assert_exact(pout.numpy(), rout[rmask])
+    assert pout[0 if agg == "dev" else 1] == big
