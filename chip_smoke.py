@@ -10,7 +10,9 @@ admission gate and dispatch batcher, and the device mesh.
     python3 chip_smoke.py [--seed N]
                           [--mesh-only | --fold-only
                            | --fill-only [--k2-digests FILE]
-                           | --union-only [--u3-digests FILE]]
+                           | --union-only [--u3-digests FILE]
+                                          [--u2-digests FILE]
+                           | --sketch-only [--s2-digests FILE]]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -97,16 +99,24 @@ days), 1h windows.  Phases:
    batch under every rate option set, float and all-integer; U1 (e) on
    awkward shapes over the last 6 h (groups of 1, 2, 3, 5 and 1013 rows
    with all-masked rows, 64 equal rows, every point repeated in its row),
-   exactly.  U1 is timed on (a) and (b) against torch.unique.  Then U3
+   exactly.  U1 is timed on (a) and (b) against torch.unique, U2's sum
+   and dev on (a) and its sum on (b) (`union_reduce`, `.dev`, `.fanin`),
+   each beside its byte bound and its operation bound (an add at every
+   member-slot pair where the member takes part, and where it
+   interpolates a subtract, a multiply, an add and the division's
+   float64 instructions as `cuobjdump -sass` lists them in the built
+   kernel), the larger the row's bound.  Then U3
    union_order (first last diff mult median p99 ep99r3 ep99r7) and MA
    after U2's sums, in the same cases (a) to (c), (c) exact, MA bit for
    bit the plain version on the CPU in each; U3's median timed in (a)
    (first, p99 and mult beside it) and (b), MA's movingAverage5 in (a),
    each a wall and a device time.  `--union-only` runs MA's positions,
-   U1's case (b), this phase and phase 6 alone, and `--u3-digests FILE`
-   writes the sha256 of U3's and MA's outputs in every case, or holds
-   them to FILE's (U3's mult reported only: its shallow groups take the
-   ordered walk itself).
+   U1 and U2 in cases (a)-(c) with their timed cases, U3 and MA in the
+   same cases and phase 6 alone; `--u3-digests FILE` writes the sha256
+   of U3's and MA's outputs in every case, or holds them to FILE's (U3's
+   mult reported only: its shallow groups take the ordered walk itself),
+   and `--u2-digests FILE` does the same for U2's outputs under every
+   moment aggregator.
 6. end to end, union: the same TSDB plus an integer metric `mi` (64
    series x 65,536 points in 8 groups) answers ten queries without a
    downsample over the last 6 h of the range (the union path emits a point
@@ -181,11 +191,18 @@ days), 1h windows.  Phases:
    planner slices, sum lanes and every lane) and on config 2's chunks
    ([128, 65,536] into the [128, 720,897] 10 s state, sliced), its audit
    of a wrong slice; S2 sketch_fold on the headline chunks under 1h
-   windows; S3 stream_finish on the p95 sketch and on a full config-2
+   windows, on "0all" windows over two chunks of 4,096 points (1024
+   rows: the block path's sort) and of 16,384 (64 rows: its selection),
+   and on edge runs of 0, 1, 2, 31, 32, 33, 255, 256, 257, 4,096 and
+   4,097 points with NaN, +inf and -inf values and state cells of count
+   0; S3 stream_finish on the p95 sketch and on a full config-2
    grid (every function of the config, fills none and zero), each
    against its plain version (the sketch at float32 tolerance, rtol 1e-6
    and atol 1e-4).  S1's library yardstick: torch.segment_reduce sum,
    min and max over the chunk's window runs and the elementwise merge.
+   `--sketch-only` runs S2's cases and phase 12's streamed `sum:1h-p95`
+   alone, and `--s2-digests FILE` writes the sha256 of each S2 case's
+   folded sketch, or holds them to FILE's.
 12. streamed queries (after phase 8, on its TSDB, the default
    threshold): the cold `sum:1h-avg` (cache entry dropped) must stream
    and queue its entry's build, refresh() build it and the next query
@@ -413,6 +430,8 @@ REPLACES = {
     "group_moments.fanin": "opentsdb_tpu/ops/group_agg.py:420",
     "union_merge.fanin": "opentsdb_tpu/ops/union_agg.py:65",
     "union_order.fanin": "opentsdb_tpu/ops/union_agg.py:209",
+    "union_reduce.dev": "opentsdb_tpu/ops/union_agg.py:143",
+    "union_reduce.fanin": "opentsdb_tpu/ops/union_agg.py:143",
     "moving_average.downsample": "opentsdb_tpu/ops/aggregators.py:177",
     "moving_average.grid": "opentsdb_tpu/ops/aggregators.py:177",
     "group_moments.1m": "opentsdb_tpu/ops/group_agg.py:420",
@@ -1073,22 +1092,7 @@ def fill_phase(dev, ts, val, h, checks: Checks,
     # (64 rows: a kernel of a few us, so that the host sets the pace)
     wts, gv, gm = cases["grid_fill_rate"][:3]
     _k2_host_split(dev, wts, gv[:64], gm[:64])
-    if digests:
-        if os.path.exists(digests):
-            with open(digests) as fh:
-                before = json.load(fh)
-            for name, digest in sums.items():
-                same = before.get(name) == digest
-                print("k2 outputs %-22s %s %s" % (
-                    name, "equal bit for bit to" if same else "DIFFER from",
-                    digests))
-                if not same:
-                    checks.failures.append("%s: outputs differ from %s"
-                                           % (name, digests))
-        else:
-            with open(digests, "w") as fh:
-                json.dump(sums, fh, indent=1)
-            print("k2 outputs' digests written to %s" % digests)
+    hold_digests(checks, "k2", sums, digests)
     return times
 
 
@@ -1683,10 +1687,12 @@ def _last_hours(ts: np.ndarray, val: np.ndarray, start: int):
 
 
 def _union_cases(name, d_ts, d_val, d_mask, offsets,
-                 checks: Checks, exact_ints: bool):
+                 checks: Checks, exact_ints: bool,
+                 digests: dict | None = None):
     """U1, then U2 under every aggregator (each with its own
-    interpolation policy), each against its plain version; returns
-    (u, uoff) of the kernel."""
+    interpolation policy), each against its plain version; with
+    `digests`, each U2 output's sha256 goes into it.  Returns (u, uoff)
+    of the kernel."""
     from opentsdb_tpu_torch.ops import union_agg as ua
     from opentsdb_tpu_torch.ops.aggregators import get_agg
 
@@ -1703,6 +1709,8 @@ def _union_cases(name, d_ts, d_val, d_mask, offsets,
         want = ua.union_reduce_plain(d_ts, d_val, d_mask, offsets, u, uoff,
                                      agg, policy)
         case = "%s %s policy=%s" % (name, agg, policy)
+        if digests is not None:
+            digests["union_reduce %s %s" % (name, agg)] = _digest(got)
         if exact_ints and agg != "dev":
             checks.exact("union_reduce", case, got, want, "int64 values")
             print("%-15s %-44s exact %s" % (
@@ -1817,9 +1825,98 @@ def mult_class_phase(dev, ts, val, h, d_ts, d_mask, edges, lengths,
         del d_v, flat, got
 
 
-def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+def _u2_pairs(d_ts, d_mask, offsets, u, uoff) -> tuple[int, int]:
+    """The member-slot pairs U2 must compute: (those where a member takes
+    part, the slot within its first and last point; those where it has a
+    point, its distinct timestamps).  The rest it interpolates."""
+    dev = d_ts.device
+    g = offsets.numel() - 1
+    groups = torch.arange(g, device=dev)
+    row_g = torch.repeat_interleave(groups, offsets[1:] - offsets[:-1])
+    slot_g = torch.repeat_interleave(groups, uoff[1:] - uoff[:-1])
+    counts = d_mask.sum(dim=1)
+    base = int(u.min())
+    key = slot_g * (1 << 42) + (u - base)
+    first = d_ts[:, 0] - base
+    last = d_ts.gather(1, (counts - 1).clamp(min=0)[:, None])[:, 0] - base
+    lo = torch.searchsorted(key, row_g * (1 << 42) + first)
+    hi = torch.searchsorted(key, row_g * (1 << 42) + last, right=True)
+    part = int(torch.where(counts > 0, hi - lo, 0).sum())
+    repeats = int(((d_ts[:, 1:] == d_ts[:, :-1]) & d_mask[:, 1:]).sum())
+    return part, int(counts.sum()) - repeats
+
+
+@functools.lru_cache(maxsize=None)
+def ddiv_ops() -> int | None:
+    """The float64 instructions nvcc emits for one division in U2's
+    interpolation, read from `cuobjdump -sass` of the built union_reduce
+    library: in union_reduce_kernel<double, SUM>, its first MUFU.RCP64H
+    and every DFMA, DMUL and DADD after it that reads a register the
+    reciprocal's chain wrote, up to the quotient's range check (the first
+    FFMA); the slow path's call is left out.  None where the listing
+    cannot be read."""
+    import re
+    import shutil
+    from opentsdb_tpu_torch.ops import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", kernels.library_path(
+            "union_reduce")], capture_output=True, text=True,
+            check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    body = next((part for part in re.split(r"\n\s*Function : ", sass)[1:]
+                 if "union_reduce_kernelIdLi0E" in part.split("\n", 1)[0]),
+                None)
+    if body is None:
+        return None
+    ops, chain = 0, None
+    for line in body.splitlines():
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*);",
+                      line)
+        if not m:
+            continue
+        op, regs = m.group(1), [int(r) & ~1 for r in
+                                re.findall(r"\bR(\d+)", m.group(2))]
+        if chain is None:
+            if op.startswith("MUFU.RCP64H"):
+                ops, chain = 1, {regs[0]}
+            continue
+        if op.startswith("FFMA"):
+            break
+        if op.split(".")[0] in ("DFMA", "DMUL", "DADD") and regs \
+                and chain.intersection(regs[1:]):
+            ops += 1
+            chain.add(regs[0])
+    return ops or None
+
+
+def _u2_bound(name: str, nbytes: float, part: int, exact: int,
+              per_pair: int) -> tuple[float, str]:
+    """U2's bound: its bytes against its float64 operations, `per_pair`
+    at every pair where a member takes part and an interpolation (a
+    subtract, a multiply, the division's instructions and an add) at
+    every pair without a point; prints both, returns the larger and what
+    bounds it."""
+    div = ddiv_ops()
+    ops = part * per_pair + (part - exact) * (3 + (div or 1))
+    b_bytes, b_ops = bound_ms(nbytes, 0.0), bound_ms(0.0, ops)
+    print("bound union_reduce %-18s bytes %.4f ms (%.3e B), operations "
+          "%.4f ms (%.3e: %.3e pairs taking part, %.3e interpolated, a "
+          "division %s float64 instructions%s)"
+          % (name, b_bytes, nbytes, b_ops, ops, part, part - exact,
+             div or 1, "" if div else ", not read: counted as 1"))
+    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
+def u2_phase(dev, ts, val, gid, h, checks: Checks,
+             digests: dict | None = None) -> dict:
+    """U1 and U2 in phase 5's cases (a)-(c), each U2 output against its
+    plain version (and into `digests`); U1 timed in (a) and (b), U2's
+    sum and dev in (a) and its sum in (b), each a wall and a device time
+    beside its byte and operation bounds."""
     from opentsdb_tpu_torch.ops import group_agg as ga
-    from opentsdb_tpu_torch.ops import rate as rt
     from opentsdb_tpu_torch.ops import union_agg as ua
 
     d_ts = torch.from_numpy(ts).to(dev)
@@ -1829,9 +1926,8 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
 
     # (a) the headline batch as it is: ~6.55e5 union slots a group
     u, uoff = _union_cases("(a) headline", d_ts, d_val, d_mask,
-                           offsets, checks, False)
+                           offsets, checks, False, digests)
     n_slots = u.numel()
-    s_g = S / GROUPS
     keys = torch.from_numpy(gid).to(dev)[:, None] * (1 << 42) + d_ts
     u1 = {
         **kernel_ms(lambda: ua.union_merge(d_ts, d_mask, offsets)),
@@ -1843,40 +1939,41 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         "library_ms": time_ms(lambda: torch.unique(keys)),
     }
     del keys
-    u2_ops = n_slots * s_g   # one f64 add a member and slot at least
-    u2 = {
-        **kernel_ms(lambda: ua.union_reduce(d_ts, d_val, d_mask, offsets,
-                                            u, uoff, "sum", "lerp")),
-        "plain_ms": time_ms(lambda: ua.union_reduce_plain(
-            d_ts, d_val, d_mask, offsets, u, uoff, "sum", "lerp"), 3),
-        "bound_ms": bound_ms(S * N * 17 + n_slots * 16 + (GROUPS + 1) * 16,
-                             u2_ops),
-        "bound_by": "bytes" if S * N * 17 + n_slots * 16
-        > u2_ops / F64_FLOPS * HBM_BYTES_S else "operations",
-        "library_ms": None,
-    }
-    del u, uoff
+    part, exact = _u2_pairs(d_ts, d_mask, offsets, u, uoff)
+    nbytes = S * N * 17 + n_slots * 16 + (GROUPS + 1) * 16
+    times = {"union_merge": u1}
+    for row, agg, per_pair in (("union_reduce", "sum", 1),
+                               ("union_reduce.dev", "dev", 4)):
+        bound, by = _u2_bound("(a) " + agg, nbytes, part, exact, per_pair)
+        times[row] = {
+            **kernel_ms(lambda: ua.union_reduce(d_ts, d_val, d_mask, offsets,
+                                                u, uoff, agg, "lerp")),
+            "plain_ms": time_ms(lambda: ua.union_reduce_plain(
+                d_ts, d_val, d_mask, offsets, u, uoff, agg, "lerp"), 3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    del u, uoff, d_val
 
     # (b) all 1024 rows as one group over the last 6 h
     b_ts, b_val, b_mask = _last_hours(ts, val, END - SIX_HOURS_MS)
     bd = [torch.from_numpy(x).to(dev) for x in (b_ts, b_val, b_mask)]
     one = torch.tensor([0, S], dtype=torch.int64, device=dev)
-    u, uoff = _union_cases("(b) ungrouped 6h", *bd, one, checks,
-                           False)
-    pairs = u.numel() * S
-    b_ms = time_ms(lambda: ua.union_reduce(*bd, one, u, uoff, "sum",
-                                           "lerp"))
-    fanin = union_fanin_merge(dev, b_ts, b_mask)
-    m = fanin["union_merge.fanin"]
+    u, uoff = _union_cases("(b) ungrouped 6h", *bd, one, checks, False,
+                           digests)
+    times.update(union_fanin_merge(dev, b_ts, b_mask))
+    part, exact = _u2_pairs(bd[0], bd[2], one, u, uoff)
+    # each valid point's ts and val read once, the mask, u and out
+    bound, by = _u2_bound("(b) sum", int(b_mask.sum()) * 16 + b_mask.size
+                          + u.numel() * 16 + 32, part, exact, 1)
+    times["union_reduce.fanin"] = {
+        **kernel_ms(lambda: ua.union_reduce(*bd, one, u, uoff, "sum",
+                                            "lerp")),
+        "plain_ms": time_ms(lambda: ua.union_reduce_plain(
+            *bd, one, u, uoff, "sum", "lerp"), 3),
+        "bound_ms": bound, "bound_by": by, "library_ms": None}
     print("time (b) ungrouped 6h: %d rows x %d points, U=%d, %.3e "
-          "member-slot pairs | union_merge %.4f ms, device %s (10 merge "
-          "rounds; torch.unique of the %d timestamps %.4f ms), union_reduce "
-          "sum %.4f ms (ops bound %.4f ms)"
-          % (S, b_ts.shape[1], u.numel(), pairs, m["ms"],
-             _fmt(m["device_ms"]), int(b_mask.sum()), m["library_ms"], b_ms,
-             bound_ms(0.0, pairs)))
+          "member-slot pairs taking part" % (S, b_ts.shape[1], u.numel(),
+                                             part))
     del bd, u, uoff
-    union_shape_cases(dev, b_ts, b_mask, checks)
 
     # (c) an integer copy of 64 rows in 8 groups, values near 2^53
     c_val = (h[:INT_ROWS] % 1_000).astype(np.int64) + 2**53 - 500
@@ -1884,7 +1981,21 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
     _union_cases("(c) int64 near 2^53",
                  d_ts[:INT_ROWS], torch.from_numpy(c_val).to(dev),
                  d_mask[:INT_ROWS],
-                 ga.group_offsets(c_gid, INT_GROUPS).to(dev), checks, True)
+                 ga.group_offsets(c_gid, INT_GROUPS).to(dev), checks, True,
+                 digests)
+    return times
+
+
+def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+    from opentsdb_tpu_torch.ops import rate as rt
+
+    times = u2_phase(dev, ts, val, gid, h, checks)
+    b_ts, _, b_mask = _last_hours(ts, val, END - SIX_HOURS_MS)
+    union_shape_cases(dev, b_ts, b_mask, checks)
+    del b_ts, b_mask
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
 
     # (d) R on the headline batch under every rate option set
     i_val = torch.from_numpy(h % 1_000 + 2**53).to(dev)
@@ -1909,8 +2020,7 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
     }
-    times = {"union_merge": u1, "union_merge.fanin": fanin[
-        "union_merge.fanin"], "union_reduce": u2, "point_rate": r}
+    times["point_rate"] = r
     print_times(times)
     return times
 
@@ -3191,6 +3301,170 @@ def _config_chunk(pinned, s: int, base_col: int, seed: int) -> None:
     mask.fill_(True)
 
 
+# S2's edge runs: one window a run of each length, 1 s a point
+S2_RUNS = (0, 1, 2, 31, 32, 33, 255, 256, 257, 4096, 4097)
+
+
+def _sketch_pair(st, windows, chunks, dev, digests, name, checks):
+    """The chunks folded by S2 (and S1's count) into a state on the card
+    and by the plain versions into one on the CPU (whose sort orders NaN
+    grid points as the reference's does), unsliced; the sketches held
+    together at the sketch's tolerance and the card's into `digests`."""
+    s = chunks[0][0].shape[0]
+    states = [st.zero_state(s, windows.count, d, sketch=True,
+                            lanes=frozenset()) for d in (dev, "cpu")]
+    edges = windows.window_edges(dev)
+    for c_ts, c_val, c_mask in chunks:
+        st.sketch_fold(states[0], c_ts, c_val, c_mask, edges)
+        st.stream_fold(states[0], c_ts, c_val, c_mask, edges)
+        cpu = [x.cpu() for x in (c_ts, c_val, c_mask, edges)]
+        st.sketch_fold_plain(states[1], *cpu)
+        st.stream_fold_plain(states[1], *cpu)
+    checks.values("sketch_fold", name, states[0]["q"], states[1]["q"],
+                  SKETCH_RTOL, SKETCH_ATOL)
+    if digests is not None:
+        digests["sketch_fold " + name] = _digest(states[0]["q"])
+
+
+def _s2_edge_chunks(dev, seed: int, infinite: bool):
+    """Two [4, 9,060] chunks over windows whose runs hold S2_RUNS points,
+    with NaN values (and with `infinite` +inf and -inf ones, whose equal
+    neighbours interpolate to NaN grid points) and masked slots: row 2
+    holds no point in the first chunk (its cells merge into a count of
+    0), row 3 none in the second (state cells merged with an empty
+    chunk)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+
+    rng = np.random.default_rng(seed)
+    n = sum(S2_RUNS)
+    edges = START + 1000 * np.concatenate([[0], np.cumsum(S2_RUNS)])
+    chunks = []
+    for k in range(2):
+        c_ts = np.tile(START + 1000 * np.arange(n, dtype=np.int64), (4, 1))
+        c_val = np.round(rng.normal(10.0, 5.0, (4, n)), 1)
+        cls = rng.random((4, n))
+        c_val[cls < 0.03] = np.nan
+        if infinite:
+            c_val[(cls >= 0.03) & (cls < 0.05)] = np.inf
+            c_val[(cls >= 0.05) & (cls < 0.07)] = -np.inf
+        c_mask = rng.random((4, n)) >= 0.1
+        c_mask[2 if k == 0 else 3] = False
+        chunks.append(tuple(torch.from_numpy(x).to(dev)
+                            for x in (c_ts, c_val, c_mask)))
+    return ds.EdgeWindows(tuple(int(e) for e in edges)), chunks
+
+
+def sketch_phase(dev, ts, val, h, checks: Checks,
+                 digests: dict | None = None) -> dict:
+    """Phase 11 (d): S2 on the headline chunks under 1h windows (p95's
+    sketch, two chunks, sliced as the planner slices) with S3's p95 and
+    median over it; "0all" runs of 4,096 points (the block path's sort)
+    and 16,384 points (its selection); the edge runs; each sketch against
+    the plain version's at float32 tolerance (rtol 1e-6, atol 1e-4) and
+    into `digests`.  Then S2's time on a clean headline chunk."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import streaming as st
+
+    n_chunk = 4_096      # the planner's chunk at 1024 series (4e6 points)
+    windows = ds.FixedWindows.for_range(START, END, INTERVAL_MS)
+    w = windows.count
+    chunks = _headline_chunks(dev, ts, val, h, n_chunk, clean=False)
+    span = int(chunks[0][0].max() - chunks[0][0].min())
+    wc = st.quantize_window_slice(2 * (span // INTERVAL_MS + 2), windows) \
+        or w
+    states = [st.zero_state(S, w, dev, sketch=True, lanes=frozenset(),
+                            with_oob=True) for _ in range(2)]
+    _fold_both(st, states, chunks, windows, wc, sketch=True)
+    _compare_states(checks, "sketch_fold", "headline p95 sketch",
+                    [{"q": states[0]["q"]}, {"q": states[1]["q"]}],
+                    SKETCH_RTOL, SKETCH_ATOL)
+    if digests is not None:
+        digests["sketch_fold headline p95 sketch"] = _digest(states[0]["q"])
+    for fn in ("p95", "median"):
+        got = st.stream_finish(states[0], fn)
+        want = st.stream_finish_plain(states[1], fn)
+        checks.exact("stream_finish", "headline " + fn, got[1], want[1])
+        checks.values("stream_finish", "headline " + fn, got[0], want[0],
+                      SKETCH_RTOL, SKETCH_ATOL)
+    del chunks
+
+    # "0all": one window a row over two chunks of 4,096 points (1024
+    # rows) and of 16,384 (64 rows)
+    every = ds.AllWindow(START, END)
+    for rows, n in ((S, 4_096), (64, 16_384)):
+        part = _headline_chunks(dev, ts[:rows], val[:rows], h[:rows], n,
+                                clean=False)
+        _sketch_pair(st, every, part, dev, digests,
+                     "0all [%d, %d] x 2" % (rows, n), checks)
+        del part
+    for infinite in (False, True):
+        _sketch_pair(st, *_s2_edge_chunks(dev, 53, infinite), dev, digests,
+                     "edge runs" + (" inf values" if infinite else ""),
+                     checks)
+
+    clean = _headline_chunks(dev, ts, val, h, n_chunk, clean=True)[0]
+    c_ts, c_val, c_mask = clean
+    w0 = _slice_of(c_ts, windows, wc)
+    edges = windows.window_edges(dev)[w0:w0 + wc + 1]
+    q_state, q_plain = states     # the state of the two chunks folded
+    times = {"sketch_fold": {
+        **kernel_ms(lambda: st.sketch_fold(q_state, c_ts, c_val, c_mask,
+                                           edges, w0)),
+        "plain_ms": time_ms(lambda: st.sketch_fold_plain(
+            q_plain, c_ts, c_val, c_mask, edges, w0)),
+        "bound_ms": bound_ms(S * n_chunk * (8 + 1) + S * (wc + 1) * 8
+                             + S * wc * (st.SKETCH_K * 4 * 2 + 8),
+                             2.0 * S * n_chunk),
+        # no torch call merges equi-rank summaries
+        "library_ms": None,
+    }}
+    print("time sketch_fold     headline chunk [%d, %d], a %d-window slice"
+          % (S, n_chunk, wc))
+    return times
+
+
+def stream_p95_phase(dev, ts, val, checks: Checks) -> None:
+    """Phase 12's streamed `sum:1h-p95:m{group=*}` alone on the headline
+    TSDB (the device cache detached, the default threshold): its wall and
+    split, the fold's ms among them, median of 3."""
+    from opentsdb_tpu_torch.ops import kernels
+    from opentsdb_tpu_torch.utils.config import DEFAULTS
+
+    tsdb, _ = headline_tsdb(dev, ts, val)
+    key = "tsd.query.streaming.point_threshold"
+    tsdb.config.override_config(key, DEFAULTS[key])
+    tsdb.device_cache = None
+    m = "sum:1h-p95:m{group=*}"
+    kernels.reset_launches()
+    _, wall, sp = _timed_query(tsdb, m)
+    print("stream e2e %-34s wall %.1f ms (median of 3) | %d chunks | "
+          "stream %.1f (pack %.1f h2d %.1f fold %.1f) finish+tail %.1f "
+          "extract %.1f ms | sketch_fold launches %d"
+          % (m, wall, sp.get("streamedChunks", 0), sp["streamMs"],
+             sp.get("streamPackMs", 0.0), sp.get("streamH2dMs", 0.0),
+             sp.get("streamFoldMs", 0.0), sp["kernelsMs"], sp["extractMs"],
+             kernels.LAUNCHES["sketch_fold"]))
+    if not sp.get("streamedChunks") or kernels.LAUNCHES["sketch_fold"] < 1:
+        checks.failures.append("stream: %s did not stream through S2" % m)
+
+
+def _timed_query(tsdb, m, reps=3):
+    """A warm-up, then `reps` runs of query `m`: (the last answer, the
+    median wall in ms, the median of each exec_stats entry)."""
+    runner = tsdb.new_query_runner()
+    runner.run(_query(m))                   # warm-up
+    walls, stats = [], []
+    for _ in range(reps):
+        runner = tsdb.new_query_runner()
+        t0 = time.perf_counter()
+        res = runner.run(_query(m))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stats.append(dict(runner.exec_stats))
+    split = {k: statistics.median(s.get(k, 0.0) for s in stats)
+             for k in stats[0]}
+    return res, statistics.median(walls), split
+
+
 def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
     """Phase 11: S1 stream_fold, S2 sketch_fold and S3 stream_finish
     against their plain versions on the card."""
@@ -3300,35 +3574,8 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
              t_c2["bound_ms"], t_c2["library_ms"]))
     del state, plain_state, lib_state, c2
 
-    # (d) S2 at the headline chunks under 1h windows (p95's sketch)
-    states = [st.zero_state(S, w, dev, sketch=True, lanes=frozenset(),
-                            with_oob=True) for _ in range(2)]
-    _fold_both(st, states, chunks, windows, wc, sketch=True)
-    _compare_states(checks, "sketch_fold", "headline p95 sketch",
-                    [{"q": states[0]["q"]}, {"q": states[1]["q"]}],
-                    SKETCH_RTOL, SKETCH_ATOL)
-    for fn in ("p95", "median"):
-        got = st.stream_finish(states[0], fn)
-        want = st.stream_finish_plain(states[1], fn)
-        checks.exact("stream_finish", "headline " + fn, got[1], want[1])
-        checks.values("stream_finish", "headline " + fn, got[0], want[0],
-                      SKETCH_RTOL, SKETCH_ATOL)
-    c_ts, c_val, c_mask = clean
-    w0 = _slice_of(c_ts, windows, wc)
-    edges = windows.window_edges(dev)[w0:w0 + wc + 1]
-    q_state, q_plain = states
-    times["sketch_fold"] = {
-        **kernel_ms(lambda: st.sketch_fold(q_state, c_ts, c_val, c_mask,
-                                           edges, w0)),
-        "plain_ms": time_ms(lambda: st.sketch_fold_plain(
-            q_plain, c_ts, c_val, c_mask, edges, w0)),
-        "bound_ms": bound_ms(S * n_chunk * (8 + 1) + S * (wc + 1) * 8
-                             + S * wc * (st.SKETCH_K * 4 * 2 + 8),
-                             2.0 * S * n_chunk),
-        # no torch call merges equi-rank summaries
-        "library_ms": None,
-    }
-    del states, q_state, q_plain, chunks, clean
+    del chunks, clean
+    times.update(sketch_phase(dev, ts, val, h, checks))
 
     # (e) S3 on config 2's grid: a full [128, 720,897] state, some cells
     # empty, every function of the config and the fills
@@ -3434,24 +3681,10 @@ def stream_e2e_phase(dev, tsdb, checks: Checks) -> dict:
     _same_answer(checks, "cold streamed " + STREAM_QUERIES[0], cold,
                  hits[STREAM_QUERIES[0]], exact=False)
 
-    def timed(m, reps=3):
-        runner = tsdb.new_query_runner()
-        runner.run(_query(m))                   # warm-up
-        walls, stats = [], []
-        for _ in range(reps):
-            runner = tsdb.new_query_runner()
-            t0 = time.perf_counter()
-            res = runner.run(_query(m))
-            walls.append((time.perf_counter() - t0) * 1e3)
-            stats.append(dict(runner.exec_stats))
-        split = {k: statistics.median(s.get(k, 0.0) for s in stats)
-                 for k in stats[0]}
-        return res, statistics.median(walls), split
-
     tsdb.device_cache = None
     streamed = {}
     for m in STREAM_QUERIES:
-        res, wall, sp = timed(m)
+        res, wall, sp = _timed_query(tsdb, m)
         streamed[m] = (res, wall, sp)
         print("stream e2e %-34s wall %.1f ms (median of 3) | %d chunks | "
               "build %.1f stream %.1f (pack %.1f h2d %.1f fold kernels "
@@ -3475,7 +3708,7 @@ def stream_e2e_phase(dev, tsdb, checks: Checks) -> dict:
     # the materialized miss beside it (threshold raised)
     cfg.override_config(key, MATERIALIZE[key])
     for m in STREAM_QUERIES:
-        _, wall, sp = timed(m)
+        _, wall, sp = _timed_query(tsdb, m)
         print("stream miss %-34s materialized wall %.1f ms (median of 3) | "
               "build %.1f h2d %.1f kernels %.1f extract %.1f ms | streamed "
               "%.1f ms" % (m, wall, sp["buildMs"], sp["h2dMs"],
@@ -5873,46 +6106,55 @@ def kernel_rows(times: dict, launches: dict, checks: Checks) -> list:
     return rows
 
 
+def hold_digests(checks: Checks, label: str, digests: dict | None,
+                 digests_file: str | None, reported=()) -> None:
+    """Write `digests` (name -> sha256) to `digests_file`, or, where it
+    exists, fail each one that differs from the file's, except those whose
+    name ends with one of `reported` (printed only)."""
+    if digests is None or not digests_file:
+        return
+    if not os.path.exists(digests_file):
+        with open(digests_file, "w") as fh:
+            json.dump(digests, fh, indent=1)
+        print("%s outputs' digests written to %s" % (label, digests_file))
+        return
+    with open(digests_file) as fh:
+        before = json.load(fh)
+    for name, digest in digests.items():
+        same = before.get(name) == digest
+        print("%s outputs %-40s %s %s" % (
+            label, name, "equal bit for bit to" if same else "DIFFER from",
+            digests_file))
+        if not same and not name.endswith(tuple(reported)):
+            checks.failures.append("%s: outputs differ from %s"
+                                   % (name, digests_file))
+
+
 def union_only(dev, ts, val, gid, h, checks: Checks,
-               digests_file: str | None) -> None:
-    """`--union-only`: MA at the downsample and grid positions, U1's case
-    (b), U3 and MA in phase 5's cases (a)-(c), then phase 6's union
-    queries on the headline TSDB.  With `digests_file`, the outputs'
-    sha256 are written there, or held to the ones it holds (U3's mult
-    reported, not failed: the shallow groups' product is the ordered walk
-    itself, a tree before it combined in another order)."""
-    digests = {} if digests_file else None
+               u3_file: str | None, u2_file: str | None) -> None:
+    """`--union-only`: MA at the downsample and grid positions, U1 and U2
+    in phase 5's cases (a)-(c) with U2's timed cases, U3 and MA in the
+    same cases, then phase 6's union queries on the headline TSDB.  With
+    `u3_file` (`u2_file`), U3's and MA's (U2's) outputs' sha256 are
+    written there, or held to the ones it holds (U3's mult reported, not
+    failed: the shallow groups' product is the ordered walk itself, a
+    tree before it combined in another order)."""
+    u3 = {} if u3_file else None
+    u2 = {} if u2_file else None
     t_start = time.perf_counter()
-    ma_positions_phase(dev, ts, val, gid, checks, digests)
+    ma_positions_phase(dev, ts, val, gid, checks, u3)
     torch.cuda.empty_cache()
-    b_ts, _, b_mask = _last_hours(ts, val, END - SIX_HOURS_MS)
-    print_times(union_fanin_merge(dev, b_ts, b_mask))
-    del b_ts, b_mask
+    print_times(u2_phase(dev, ts, val, gid, h, checks, u2))
     torch.cuda.empty_cache()
-    union_order_phase(dev, ts, val, gid, h, checks, digests)
+    union_order_phase(dev, ts, val, gid, h, checks, u3)
     torch.cuda.empty_cache()
     tsdb, _ = headline_tsdb(dev, ts, val)
     union_e2e_phase(dev, tsdb, ts, h, checks)
     del tsdb
     torch.cuda.empty_cache()
     print("union-only wall %.1f s" % (time.perf_counter() - t_start))
-    if digests is None:
-        return
-    if not os.path.exists(digests_file):
-        with open(digests_file, "w") as fh:
-            json.dump(digests, fh, indent=1)
-        print("union outputs' digests written to %s" % digests_file)
-        return
-    with open(digests_file) as fh:
-        before = json.load(fh)
-    for name, digest in digests.items():
-        same = before.get(name) == digest
-        print("union outputs %-40s %s %s" % (
-            name, "equal bit for bit to" if same else "DIFFER from",
-            digests_file))
-        if not same and not name.endswith(" mult"):
-            checks.failures.append("%s: outputs differ from %s"
-                                   % (name, digests_file))
+    hold_digests(checks, "union", u3, u3_file, reported=(" mult",))
+    hold_digests(checks, "u2", u2, u2_file)
 
 
 def main(argv=None) -> int:
@@ -5945,6 +6187,21 @@ def main(argv=None) -> int:
                         "FILE exists, fail unless they equal its digests "
                         "(U3's mult, the ordered product, may differ: "
                         "reported, not failed)")
+    parser.add_argument("--u2-digests", metavar="FILE",
+                        help="with --union-only: write the sha256 of U2's "
+                        "outputs under every moment aggregator in cases "
+                        "(a)-(c) to FILE, or, where FILE exists, fail "
+                        "unless they equal its digests")
+    parser.add_argument("--sketch-only", action="store_true",
+                        help="build the kernels and run S2's cases alone: "
+                        "phase 11 (d) on the headline chunks, the \"0all\" "
+                        "runs and the edge runs, then phase 12's streamed "
+                        "sum:1h-p95 on the headline TSDB; prints no result "
+                        "line")
+    parser.add_argument("--s2-digests", metavar="FILE",
+                        help="with --sketch-only: write the sha256 of the "
+                        "folded sketch in each S2 case to FILE, or, where "
+                        "FILE exists, fail unless they equal its digests")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 18 alone on "
                         "the headline TSDB (every visible card: with two "
@@ -5976,7 +6233,8 @@ def main(argv=None) -> int:
     # the redesigned kernels' registers, shared memory and spills
     for name in ("window_order", "union_merge", "group_moments",
                  "tile_partials", "grid_fill_rate", "histogram_accumulate",
-                 "union_order", "moving_average"):
+                 "union_order", "moving_average", "union_reduce",
+                 "sketch_fold"):
         for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
@@ -5992,7 +6250,22 @@ def main(argv=None) -> int:
         print(smi)
         return 1 if checks.failures else 0
     if args.union_only:
-        union_only(dev, ts, val, gid, h, checks, args.u3_digests)
+        union_only(dev, ts, val, gid, h, checks, args.u3_digests,
+                   args.u2_digests)
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
+    if args.sketch_only:
+        s2 = {} if args.s2_digests else None
+        print_times(sketch_phase(dev, ts, val, h, checks, s2))
+        torch.cuda.empty_cache()
+        stream_p95_phase(dev, ts, val, checks)
+        # the infinite edge runs' NaN grid points sort last in the merge,
+        # as the reference's argsort orders them; a build that keyed a NaN
+        # by its sign bit differs there: reported, not failed
+        hold_digests(checks, "s2", s2, args.s2_digests,
+                     reported=(" inf values",))
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)
         print(smi)

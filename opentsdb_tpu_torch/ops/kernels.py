@@ -85,7 +85,7 @@ SIGNATURES: dict[str, tuple] = {
     "union_merge": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _I64, _P,
                     _P, _P),
     # ts, val, mask, offsets, u, uoff, s, n, g, total, agg, policy,
-    # val_is_int, counts, out, stream
+    # val_is_int, rows (3 * s int64 of scratch), out, stream
     "union_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                      _I32, _I32, _P, _P, _P),
     # ts, val, mask, edges, s, n, w, rows_per_member, code, q, est,
@@ -124,8 +124,10 @@ SIGNATURES: dict[str, tuple] = {
     # first, last, prod, oob, grid_lo, grid_hi, stream
     "stream_fold": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P, _P, _P,
                     _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
-    # ts, val, mask, edges, s, n, wc, w, w0, n_state, q_state, stream
-    "sketch_fold": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P, _P, _P),
+    # ts, val, mask, edges, s, n, wc, w, w0, n_state, q_state, list, stream
+    # (list: s * wc + 1 int64 of scratch)
+    "sketch_fold": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P, _P, _P,
+                    _P),
     # n, total, m2, lo, hi, first, last, prod, q, cells, code, pct,
     # fill_mode, fill_value, out, out_mask, stream
     "stream_finish": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _F64,

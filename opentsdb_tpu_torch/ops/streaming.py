@@ -456,10 +456,13 @@ def sketch_fold(state: dict, ts: torch.Tensor, val: torch.Tensor,
     wc = edges.numel() - 1
     if s == 0:
         return
+    # the cells whose runs pass 256 points, listed for the block path
+    cell_list = torch.empty(s * wc + 1, dtype=torch.int64, device=dev)
     kernels.launch(
         "sketch_fold", dev, kernels.ptr(ts), kernels.ptr(val),
         kernels.ptr(mask), kernels.ptr(edges), s, n, wc, w, int(w0),
-        kernels.ptr(state["n"]), kernels.ptr(state["q"]))
+        kernels.ptr(state["n"]), kernels.ptr(state["q"]),
+        kernels.ptr(cell_list))
 
 
 def sketch_fold_plain(state: dict, ts, val, mask, edges,

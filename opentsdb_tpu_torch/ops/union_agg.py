@@ -181,13 +181,14 @@ def union_reduce(ts: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     out = torch.empty(u.numel(), dtype=val.dtype, device=dev)
     if u.numel() == 0:
         return out
-    counts = torch.empty(s, dtype=torch.int64, device=dev)
+    # each row's valid points, first and last timestamps
+    rows = torch.empty(3 * s, dtype=torch.int64, device=dev)
     kernels.launch(
         "union_reduce", dev, kernels.ptr(ts), kernels.ptr(val),
         kernels.ptr(mask), kernels.ptr(offsets), kernels.ptr(u),
         kernels.ptr(uoff), s, n, offsets.numel() - 1, u.numel(),
         MOMENT_CODES[agg_name], POLICY_CODES[policy],
-        int(val.dtype == torch.int64), kernels.ptr(counts), kernels.ptr(out))
+        int(val.dtype == torch.int64), kernels.ptr(rows), kernels.ptr(out))
     return out
 
 

@@ -1902,3 +1902,121 @@ def test_moving_average_edge_runs_kernel_matches_plain(cuda_device, n_window,
                 t(sums), None if lv is None else t(lv), t(offsets),
                 n_window).numpy()
             assert_exact(got.view(np.int64), want.view(np.int64))
+
+
+# -- U2 and S2: staged spans, the warp path and the block path -------------
+
+U2_SIZES = (1, 2, 3, 5, 33, 1013, 3, 1, 2)
+U2_LONG, U2_REPEAT = 6, 7      # groups: long rows; a row repeating stamps
+
+
+def _u2_edge_batch(seed, int_values, n=3_000):
+    """Groups of U2_SIZES rows in one call: rows with no point among them
+    and rows whose spans miss the others'; the 1013-row group's rows hold
+    at most 4 points; group U2_LONG's three rows hold 3,000 points each
+    (a union of several 2,048-slot tiles) and group U2_REPEAT's row 1,000
+    timestamps three times each (a span past a stage); the small groups
+    share a tile; every row repeats some timestamps.  int rows near 2^62,
+    so that sums and products wrap."""
+    rng = np.random.default_rng(seed)
+    s = sum(U2_SIZES)
+    ts = np.full((s, n), np.iinfo(np.int64).max, np.int64)
+    val = np.zeros((s, n), np.int64 if int_values else np.float64)
+    mask = np.zeros((s, n), bool)
+    gid = np.repeat(np.arange(len(U2_SIZES), dtype=np.int64), U2_SIZES)
+    for i in range(s):
+        g = gid[i]
+        if g == U2_LONG:
+            k = n
+            t = np.sort(rng.choice(40 * n, size=k, replace=False)) * 7
+        elif g == U2_REPEAT:
+            k = n
+            t = np.repeat(np.arange(n // 3) * 11, 3)
+        else:
+            k = 0 if i % 7 == 3 else int(rng.integers(
+                1, (4 if U2_SIZES[g] > 64 else 40) + 1))
+            t = np.sort(rng.choice(300, size=k, replace=True)) * 37
+            if i % 5 == 2:
+                t = t + 50_000
+        ts[i, :k] = t + T0
+        mask[i, :k] = True
+        if int_values:
+            val[i, :k] = rng.integers(-2**40, 2**40, k) + 2**62
+        else:
+            v = rng.normal(50.0, 20.0, k)
+            v[rng.random(k) < 0.05] = np.nan
+            val[i, :k] = v
+    return ts, val, mask, tga.group_offsets(gid, len(U2_SIZES))
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_union_reduce_edge_groups_kernel_matches_plain(cuda_device, policy,
+                                                       int_values):
+    """Every moment aggregator over groups of 1 to 1013 members in one
+    call: stages of many members, a group over several tiles, a tile of
+    several small groups, a member walked in device memory; int mode
+    exactly but for dev."""
+    ts, val, mask, offsets = _u2_edge_batch(47, int_values)
+    d_ts, d_val, d_mask, d_off = _on(cuda_device, ts, val, mask, offsets)
+    u, uoff = tua.union_merge(d_ts, d_mask, d_off)
+    long_slots = int(uoff[U2_LONG + 1] - uoff[U2_LONG])
+    assert long_slots > 4 * 2048
+    for func in FUNCS:
+        got = tua.union_reduce(d_ts, d_val, d_mask, d_off, u, uoff, func,
+                               policy)
+        want = tua.union_reduce_plain(t(ts), t(val), t(mask), offsets,
+                                      u.cpu(), uoff.cpu(), func, policy)
+        if int_values and func != "dev":
+            assert_exact(got.cpu().numpy(), want.numpy())
+        else:
+            assert_values(got.cpu().numpy(), want.numpy())
+
+
+S2_RUNS = (0, 1, 2, 31, 32, 33, 255, 256, 257, 4096, 4097)
+
+
+def _s2_edge_chunks(seed):
+    """Two [4, n] chunks over windows whose runs hold S2_RUNS points
+    each (one window a run, at 1 s a point), with NaN, +inf and -inf
+    values and masked slots: row 2 holds no point in the first chunk
+    (its cells merge into a count of 0) and row 3 none in the second
+    (state cells merged with an empty chunk)."""
+    rng = np.random.default_rng(seed)
+    n = sum(S2_RUNS)
+    edges = T0 + 1000 * np.concatenate([[0], np.cumsum(S2_RUNS)])
+    windows = tds.EdgeWindows(tuple(int(e) for e in edges))
+    chunks = []
+    for k in range(2):
+        ts = np.tile(T0 + 1000 * np.arange(n, dtype=np.int64), (4, 1))
+        val = np.round(rng.normal(10.0, 5.0, (4, n)), 1)
+        cls = rng.random((4, n))
+        val[cls < 0.03] = np.nan
+        val[(cls >= 0.03) & (cls < 0.05)] = np.inf
+        val[(cls >= 0.05) & (cls < 0.07)] = -np.inf
+        mask = rng.random((4, n)) >= 0.1
+        mask[2 if k == 0 else 3] = False
+        chunks.append((ts, val, mask))
+    return windows, chunks
+
+
+def test_sketch_fold_edge_runs_kernel_matches_plain(cuda_device):
+    """S2 over runs at the warp path's network sizes and past them (the
+    block path's sort from 257 points, its selection past 4,096), NaN and
+    infinite values, state cells of count 0: the card's state against
+    the CPU's at the sketch's tolerance."""
+    windows, chunks = _s2_edge_chunks(53)
+    accs = [tst.StreamAccumulator.create(4, windows, d, sketch=True)
+            for d in (cuda_device, "cpu")]
+    for ts, val, mask in chunks:
+        for acc in accs:
+            acc.update(*_on(acc.device, ts, val, mask))
+        np.testing.assert_allclose(accs[0].state["q"].cpu().numpy(),
+                                   accs[1].state["q"].numpy(), rtol=1e-6,
+                                   atol=1e-5)
+    for fn in ("p95", "median"):
+        _, got, gm = accs[0].finish(fn)
+        _, want, wm = accs[1].finish(fn)
+        assert_exact(gm.cpu().numpy(), wm.numpy())
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-6, atol=1e-5)

@@ -420,6 +420,109 @@ def test_inf_data_values_survive_merges(extra):
     assert abs(est - 50.0) < 3.0
 
 
+def _warp_scan_ranks(wt):
+    """The midpoint ranks as csrc/sketch_fold.cu's merge computes them:
+    lane l's four weights (positions 4l..4l+3) summed in order, a
+    Hillis-Steele scan of the 32 lane sums, then each position's running
+    weight less half its own."""
+    lanes = wt.reshape(32, 4)
+    part = np.zeros_like(lanes)
+    run = np.zeros(32)
+    for r in range(4):
+        run = run + lanes[:, r]
+        part[:, r] = run
+    incl = run.copy()
+    d = 1
+    while d < 32:
+        incl = np.concatenate([incl[:d], incl[d:] + incl[:-d]])
+        d *= 2
+    before = np.concatenate([[0.0], incl[:-1]])
+    return ((before[:, None] + part) - 0.5 * lanes).reshape(-1)
+
+
+def _tree_ranks(wt):
+    """The running weights by a pairwise tree (an up-sweep of sums of
+    adjacent blocks, then each prefix from the tree's blocks)."""
+    levels = [wt]
+    while levels[-1].size > 1:
+        levels.append(levels[-1][0::2] + levels[-1][1::2])
+    incl = np.zeros_like(wt)
+    for i in range(wt.size):
+        acc, pos, k = 0.0, i + 1, 0
+        while pos:
+            if pos & 1:
+                acc = acc + levels[k][pos - 1]
+            pos >>= 1
+            k += 1
+        incl[i] = acc
+    return incl - 0.5 * wt
+
+
+@pytest.mark.parametrize("bits", [10, 20, 30, 40])
+def test_sketch_midpoint_ranks_are_order_free(bits):
+    """S2's merge weighs each point n / K; every running weight is then a
+    multiple of 1/K below 2^46, exact in float64, so a warp scan or a
+    pairwise tree gives the serial walk's midpoint ranks (and
+    merge_sketch_plain's cumsum) bit for bit, counts up to 2^bits."""
+    rng = np.random.default_rng(bits)
+    for trial in range(200):
+        n1, n2 = (int(x) for x in rng.integers(0, 2 ** bits, 2))
+        if trial % 10 == 0:
+            n1 = 0
+        elif trial % 10 == 1:
+            n2 = 0
+        side = rng.permutation(np.repeat([0, 1], K))
+        wt = np.where(side == 0, float(n1) / K, float(n2) / K)
+        serial = np.zeros(2 * K)
+        run = 0.0
+        for i in range(2 * K):
+            run = run + wt[i]
+            serial[i] = run - 0.5 * wt[i]
+        plain = (torch.cumsum(torch.from_numpy(wt), 0)
+                 - 0.5 * torch.from_numpy(wt)).numpy()
+        for got in (_warp_scan_ranks(wt), _tree_ranks(wt), plain):
+            np.testing.assert_array_equal(got.view(np.int64),
+                                          serial.view(np.int64))
+
+
+def _merge_keys(v32):
+    """csrc/sketch_fold.cu merge_key of float32 values, the point's index
+    in the low 7 bits: order_stats.cuh key_of of the value widened to
+    float64, -0.0 keyed as +0.0, a NaN of either sign as the top key."""
+    wide = np.where(v32 == 0, 0.0, v32.astype(np.float64))
+    b = wide.view(np.uint64)
+    neg = (b >> np.uint64(63)) == 1
+    key = np.where(neg, ~b, b | np.uint64(1 << 63))
+    low = key & np.uint64(0x1FFFFFFF)
+    finite = ~np.isnan(v32)
+    assert np.all((low[finite] == 0) | (low[finite] == np.uint64(0x1FFFFFFF)))
+    key = np.where(np.isnan(v32), ~np.uint64(0), key)
+    return (key & ~np.uint64(127)) | np.arange(v32.size, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sketch_merge_keys_sort_as_the_stable_argsort(seed):
+    """S2's merge sorts 128 float32 points by unique 64-bit keys: the
+    value's order-preserving key with the point's index in the 7 low bits
+    (0 in every widened float32, all 1 for a negative one), -0.0 as +0.0
+    and NaN of either sign last.  Their order is merge_sketch_plain's
+    stable sort (and the reference's argsort): equal values by index,
+    NaN, infinities and signed zeros included."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-45,
+                     -1e-45, 3.4e38, -3.4e38, 1.5, -1.5, 2.0],
+                    np.float32)
+    for _ in range(50):
+        v = np.where(rng.random(2 * K) < 0.5,
+                     rng.choice(pool, 2 * K),
+                     rng.normal(0, 1e3, 2 * K).astype(np.float32))
+        v = v.astype(np.float32)
+        unique = _merge_keys(v)
+        assert np.unique(unique).size == 2 * K
+        want = torch.sort(torch.from_numpy(v), stable=True).indices
+        np.testing.assert_array_equal(np.argsort(unique), want.numpy())
+
+
 def _adversarial_drift(n_chunks: int, per_chunk: int = 256) -> float:
     """Every chunk folds into the one "0all" cell, as an ascending run of
     values disjoint from the others: the worst case for the summary."""
