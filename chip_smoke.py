@@ -12,7 +12,9 @@ admission gate and dispatch batcher, and the device mesh.
                            | --fill-only [--k2-digests FILE]
                            | --union-only [--u3-digests FILE]
                                           [--u2-digests FILE]
-                           | --sketch-only [--s2-digests FILE]]
+                           | --sketch-only [--s2-digests FILE]
+                           | [--stream-fold-only [--s1-digests FILE]]
+                             [--group-only [--p1-digests FILE]]]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -85,7 +87,7 @@ days), 1h windows.  Phases:
    apart (snapshot uploads, device concatenation), beside the host route
    (numpy snapshots, host concatenation, one upload).  Then writes at the
    store's cadence (a point a series every 15.5 s, spread across the
-   period or aligned at its start, two periods each) interleave with
+   period or aligned at its start, one period each) interleave with
    `sum:1h-avg:m{group=*}` run back to back while the maintenance thread
    rebuilds the stale entry: each arm prints its hit share and its hit
    and miss walls; afterwards a hit must equal a miss and the count must
@@ -202,7 +204,12 @@ days), 1h windows.  Phases:
    min and max over the chunk's window runs and the elementwise merge.
    `--sketch-only` runs S2's cases and phase 12's streamed `sum:1h-p95`
    alone, and `--s2-digests FILE` writes the sha256 of each S2 case's
-   folded sketch, or holds them to FILE's.
+   folded sketch, or holds them to FILE's.  `--stream-fold-only` runs
+   S1's cases alone (config 2's chunk printed with its device time and a
+   bound over the cells it reaches), and `--s1-digests FILE` does the
+   same for each S1 case's folded state.  `--group-only` runs phase 19
+   (a), P1 in its four modes, alone, and `--p1-digests FILE` does the
+   same for P1's lanes.
 12. streamed queries (after phase 8, on its TSDB, the default
    threshold): the cold `sum:1h-avg` (cache entry dropped) must stream
    and queue its entry's build, refresh() build it and the next query
@@ -323,7 +330,8 @@ days), 1h windows.  Phases:
    p99, each query's request phases from /api/diag/latency and the
    responder thread's CPU a query; every body equal to the hits arm's.
    Launch counts are reset before (b) and read after (d).  Since phase
-   18 came, (d) runs at 1 and 8 responders only.
+   18 came, (d) runs at 1 and 8 responders only, and since S1's and P1's
+   redesign at 8 only (the full run's time limit).
 18. the device mesh (after phase 17, on the headline TSDB's state).  (a)
    T1's four modes (square and centred: the mesh's squareSum and dev
    partials) against their plain versions on a 256-row tile of the 1m
@@ -1382,7 +1390,7 @@ def ingest_arm(tsdb, m: str, median_wall: dict, checks: Checks) -> None:
     """Writes at the store's cadence, a point a series every STEP_MS,
     interleaved with a dashboard's grouped query `m` run back to back,
     while the maintenance thread (TSDB.start_maintenance) rebuilds the
-    device cache's stale entry.  Two arms of two periods each: "spread",
+    device cache's stale entry.  Two arms of one period each: "spread",
     the series' points one at a time across the period, as independent
     hosts' collectors send them; "aligned", every series' point at once
     at the start of each period, as a relay flushing a fleet's points
@@ -1392,7 +1400,7 @@ def ingest_arm(tsdb, m: str, median_wall: dict, checks: Checks) -> None:
     TSDB, and the count query must count every point written."""
     import threading
 
-    periods = 2
+    periods = 1
     cache = tsdb.device_cache
     # past every point this phase writes: period k of arm a writes at
     # END + (a * periods + k) * STEP_MS + a slot of its own
@@ -3465,11 +3473,20 @@ def _timed_query(tsdb, m, reps=3):
     return res, statistics.median(walls), split
 
 
-def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
-    """Phase 11: S1 stream_fold, S2 sketch_fold and S3 stream_finish
-    against their plain versions on the card."""
+def stream_fold_cases(dev, ts, val, h, checks: Checks, seed: int,
+                      digests: dict | None = None) -> dict:
+    """Phase 11's S1 cases: (a) two headline chunks, sum lanes and every
+    lane, (b) the audit of a wrong slice, the headline chunk timed, (c)
+    config 2's chunks, held to the plain version and timed.  With
+    `digests`, each case's folded state (and the audit's count) goes in
+    as sha256."""
     from opentsdb_tpu_torch.ops import downsample as ds
     from opentsdb_tpu_torch.ops import streaming as st
+
+    def digest(case, state):
+        if digests is not None:
+            for k, x in state.items():
+                digests["stream_fold %s %s" % (case, k)] = _digest(x)
 
     n_chunk = 4_096      # the planner's chunk at 1024 series (4e6 points)
     windows = ds.FixedWindows.for_range(START, END, INTERVAL_MS)
@@ -3488,6 +3505,7 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
                   for _ in range(2)]
         _fold_both(st, states, chunks, windows, wc)
         _compare_states(checks, "stream_fold", "headline " + name, states)
+        digest("headline " + name, states[0])
         del states
     # (b) the audit: a slice 10 windows past the chunk's
     states = [st.zero_state(S, w, dev, lanes=st.lanes_for(["sum"]),
@@ -3501,6 +3519,8 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
     st.stream_fold_plain(states[1], c_ts, c_val, c_mask, edges, w0, audit)
     checks.exact("stream_fold", "wrong slice audit", states[0]["oob"],
                  states[1]["oob"], "counts")
+    _compare_states(checks, "stream_fold", "wrong slice", states)
+    digest("wrong slice", states[0])
     print("stream_fold     wrong slice: oob %d (plain %d)"
           % (int(states[0]["oob"]), int(states[1]["oob"])))
     if int(states[1]["oob"]) <= 0:
@@ -3528,7 +3548,7 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
         "library_ms": time_ms(_segment_fold(lib_state, c_ts, c_val, edges,
                                             w0)),
     }}
-    del state, plain_state, lib_state
+    del state, plain_state, lib_state, chunks, clean
 
     # (c) S1 at config 2's chunk into its 720,897-window state, sliced
     cfg = CONFIGS[2]
@@ -3550,10 +3570,14 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
               for _ in range(2)]
     _fold_both(st, states, c2, c2_windows, wc2)
     _compare_states(checks, "stream_fold", "config 2 chunk", states)
+    digest("config 2 chunk", states[0])
     del states
     c_ts, c_val, c_mask = c2[1]
     w0 = _slice_of(c_ts, c2_windows, wc2)
     edges = c2_windows.window_edges(dev)[w0:w0 + wc2 + 1]
+    # the cells this chunk reaches: the only ones the fold reads and writes
+    reached = int((st.chunk_moments_plain(c_ts, c_val, c_mask, edges,
+                                          frozenset())["n"] > 0).sum())
     state = st.zero_state(s2, w2, dev, lanes=lanes2)
     plain_state = st.zero_state(s2, w2, dev, lanes=lanes2)
     lib_state = st.zero_state(s2, w2, dev, lanes=lanes2)
@@ -3567,14 +3591,33 @@ def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
         "library_ms": time_ms(_segment_fold(lib_state, c_ts, c_val, edges,
                                             w0)),
     }
+    # the bound over the reached cells only (n and 3 lanes, read and
+    # written), and each row's edges read once
+    reached_ms = bound_ms(s2 * C_CHUNK * (8 + 1) + s2 * (wc2 + 1) * 8
+                          + reached * 8 * 4 * 2, 3.0 * s2 * C_CHUNK)
     print("time stream_fold     config 2 chunk [%d, %d] into [%d, %d] "
-          "(slice %d, 4 lanes): kernel %.4f ms  plain %.4f ms  bound %.4f "
-          "ms (bytes)  library %.4f ms"
-          % (s2, C_CHUNK, s2, w2, wc2, t_c2["ms"], t_c2["plain_ms"],
-             t_c2["bound_ms"], t_c2["library_ms"]))
+          "(slice %d, 4 lanes, %d cells reached): kernel %.4f ms, device %s"
+          "  plain %.4f ms  bound %.4f ms (bytes; %.4f ms over the reached "
+          "cells)  library %.4f ms"
+          % (s2, C_CHUNK, s2, w2, wc2, reached, t_c2["ms"],
+             _fmt(t_c2["device_ms"]), t_c2["plain_ms"], t_c2["bound_ms"],
+             reached_ms, t_c2["library_ms"]))
     del state, plain_state, lib_state, c2
+    return times
 
-    del chunks, clean
+
+def stream_kernel_phase(dev, ts, val, h, checks: Checks, seed: int) -> dict:
+    """Phase 11: S1 stream_fold, S2 sketch_fold and S3 stream_finish
+    against their plain versions on the card."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import streaming as st
+
+    times = stream_fold_cases(dev, ts, val, h, checks, seed)
+    cfg = CONFIGS[2]
+    s2 = cfg["s"]
+    w2 = ds.FixedWindows.for_range(
+        C_START, C_START + C_CHUNK * cfg["chunks"] * C_STEP,
+        cfg["interval"]).count
     times.update(sketch_phase(dev, ts, val, h, checks))
 
     # (e) S3 on config 2's grid: a full [128, 720,897] state, some cells
@@ -4949,7 +4992,7 @@ def admission_phase(tsdb, server, checks: Checks, admission) -> None:
 
 # Phase 17: the cache-hit path.  The follow-up's responder counts, its
 # arms' warm-up and timed seconds, and (c)'s queries.
-FOLLOWUP_THREADS = (1, 8)
+FOLLOWUP_THREADS = (8,)
 # (shorter than phase 16's: the script's 1200 s limit)
 FOLLOWUP_WARMUP_S, FOLLOWUP_WINDOW_S = 2.0, 4.0
 AGG_QUERIES = ("sum:1h-avg:m{group=*}", "max:1m-max:m{group=*}")
@@ -5769,13 +5812,15 @@ def _p1_library(mode, d_ts, d_val, mask, edges, gid_t, mean, g, w):
     return lambda: into.index_add_(0, seg, operand)
 
 
-def group_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
+def group_kernel_phase(dev, ts, val, gid, h, checks: Checks,
+                       digests: dict | None = None) -> dict:
     """Phase 19 (a): P1 against its plain version on the headline batch
     (100 groups) at 1h windows (W = 283) and at 1m windows, on the
     headline gid and on a permuted, interleaved one, every mode: counts
     and extremes exact, sums at rtol 1e-9.  At 1h on the headline gid
     each mode is timed against its byte bound, the plain version and
-    the library yardstick (``_p1_library``)."""
+    the library yardstick (``_p1_library``).  With `digests`, each
+    case's lanes go in as sha256."""
     from opentsdb_tpu_torch.ops import downsample as ds
     from opentsdb_tpu_torch.ops import lanes
 
@@ -5789,7 +5834,10 @@ def group_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                               ("interleaved", _interleaved_gid(gid))):
             gid_t = torch.from_numpy(g_host).to(dev)
             members, offsets = lanes.group_members(gid_t, GROUPS)
-            first = lanes.point_group_moments_plain(
+            # the centred mode's mean from P1's own additive lanes: the
+            # plain version's index_add_ adds in no fixed order on the
+            # card, and the centred digests need the same mean every run
+            first = lanes.point_group_moments(
                 d_ts, d_val, mask, edges, members, offsets, "additive")
             mean = first["tot"] / first["cnt"].clamp(min=1)
             for mode, name in P1_NAMES.items():
@@ -5799,6 +5847,10 @@ def group_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                 want = lanes.point_group_moments_plain(
                     d_ts, d_val, mask, edges, members, offsets, mode, mu)
                 case = "%s %s gid %s" % (label, gname, mode)
+                if digests is not None:
+                    for lane in got:
+                        digests["%s %s %s" % (name, case, lane)] = _digest(
+                            got[lane])
                 for lane in want:
                     if lane in ("cnt", "lo", "hi"):
                         checks.exact(name, case + " " + lane, got[lane],
@@ -5828,10 +5880,11 @@ def group_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                     "library_ms": time_ms(library),
                 }
                 del library
-                print("time %s [%d, %d] -> [%d, %d]: kernel %.4f ms  plain "
-                      "%.4f ms  bound %.4f ms (bytes)  library %.4f ms (%s "
-                      "over gid x W + window)"
-                      % (name, S, N, GROUPS, w, t["ms"], t["plain_ms"],
+                print("time %s [%d, %d] -> [%d, %d]: kernel %.4f ms, device "
+                      "%s  plain %.4f ms  bound %.4f ms (bytes)  library %.4f "
+                      "ms (%s over gid x W + window)"
+                      % (name, S, N, GROUPS, w, t["ms"],
+                         _fmt(t["device_ms"]), t["plain_ms"],
                          t["bound_ms"], t["library_ms"],
                          "one scatter_reduce_ amin of values and negatives"
                          if mode == "extreme" else "one index_add_"))
@@ -6202,6 +6255,25 @@ def main(argv=None) -> int:
                         help="with --sketch-only: write the sha256 of the "
                         "folded sketch in each S2 case to FILE, or, where "
                         "FILE exists, fail unless they equal its digests")
+    parser.add_argument("--stream-fold-only", action="store_true",
+                        help="build the kernels and run S1's cases alone: "
+                        "phase 11's two headline chunks, the wrong slice's "
+                        "audit, the timed headline chunk and config 2's "
+                        "chunks; prints no result line")
+    parser.add_argument("--s1-digests", metavar="FILE",
+                        help="with --stream-fold-only: write the sha256 of "
+                        "the folded state in each S1 case to FILE, or, "
+                        "where FILE exists, fail unless they equal its "
+                        "digests")
+    parser.add_argument("--group-only", action="store_true",
+                        help="build the kernels and run phase 19 (a) alone: "
+                        "P1 in every mode at 1h and 1m on the headline and "
+                        "the interleaved gid, timed at 1h; prints no result "
+                        "line")
+    parser.add_argument("--p1-digests", metavar="FILE",
+                        help="with --group-only: write the sha256 of P1's "
+                        "lanes in each case to FILE, or, where FILE exists, "
+                        "fail unless they equal its digests")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 18 alone on "
                         "the headline TSDB (every visible card: with two "
@@ -6234,7 +6306,7 @@ def main(argv=None) -> int:
     for name in ("window_order", "union_merge", "group_moments",
                  "tile_partials", "grid_fill_rate", "histogram_accumulate",
                  "union_order", "moving_average", "union_reduce",
-                 "sketch_fold"):
+                 "sketch_fold", "stream_fold", "point_group_moments"):
         for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
@@ -6266,6 +6338,21 @@ def main(argv=None) -> int:
         # by its sign bit differs there: reported, not failed
         hold_digests(checks, "s2", s2, args.s2_digests,
                      reported=(" inf values",))
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
+    if args.stream_fold_only or args.group_only:
+        if args.stream_fold_only:
+            s1 = {} if args.s1_digests else None
+            print_times(stream_fold_cases(dev, ts, val, h, checks, args.seed,
+                                          s1))
+            hold_digests(checks, "s1", s1, args.s1_digests)
+            torch.cuda.empty_cache()
+        if args.group_only:
+            p1 = {} if args.p1_digests else None
+            group_kernel_phase(dev, ts, val, gid, h, checks, p1)
+            hold_digests(checks, "p1", p1, args.p1_digests)
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)
         print(smi)

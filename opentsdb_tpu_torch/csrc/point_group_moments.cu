@@ -27,15 +27,23 @@
 // builds a stable member list (members[], grouped by group in row order,
 // and offsets[G + 1] into it; a CSR made on the device).  One block owns
 // one (group, window tile) and is the only program that writes its cells:
-// no atomics, no f64 atomics.  It walks the group's member rows in row
-// order; for each it finds the tile's edge positions in the row by binary
-// search (window_runs.cuh, as L1 does) and adds each window's run.  Where
-// runs are long (32 points a window and more on average) a warp reduces a
-// window's run of the row with L1's butterfly tree and lane 0 adds the
-// row's partial to the cell's accumulator in shared memory; where runs are
-// short each thread owns one window and adds its points in time order.
-// Either way the order of every addition is fixed by the data alone, so a
-// run gives the same bits every time.
+// no atomics, no f64 atomics.  It takes the group's member rows a batch
+// at a time.  Where runs are long (32 points a window and more on
+// average: the headline's ~232 at 1h), the positions of every (member,
+// edge) pair of the batch are found at once, a pair a thread, by
+// seek_position (window_runs.cuh: an edge outside the row's first and
+// last timestamps is clamped with no probe, any other reads the eight
+// points around the line's guess in one round of loads); then a warp
+// takes a (member, window) pair, its lanes striding the run eight loads
+// deep (each lane's points in time order), reduces it with L1's butterfly
+// tree, and puts the row's partial into shared memory, [members of the
+// batch x tile]; each cell's thread then adds the batch's partials in row
+// order.  A tile is 32 windows, so that the headline's 100 groups make
+// 900 blocks, several resident on each SM.  Where runs are short a thread
+// owns a window and adds each member's run in time order, the members in
+// row order, after the batch's searches (Seek, four members in step)
+// placed its edges.  Either way the order of every addition is fixed by
+// the data alone, so a run gives the same bits every time.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -44,10 +52,13 @@
 
 namespace {
 
-constexpr int TILE_W = 64;          // windows per block, warp mode
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int WARP_MIN_RUN = 32;    // mean points a window for warp mode
+constexpr int TILE_W = 32;          // windows a block, warp form
+constexpr int BATCH = 16;           // member rows a batch, warp form
+constexpr int STEP_ROWS = 4;        // member rows searched in step, thread form
+constexpr int DEPTH = 8;            // loads a lane has in flight, warp form
+constexpr int WARP_MIN_RUN = 32;    // mean points a window for the warp form
 
 enum Mode { ADDITIVE = 0, EXTREME = 1, SQUARE = 2, CENTRED = 3 };
 
@@ -83,6 +94,27 @@ __device__ __forceinline__ void add_point(int mode, double v, double mu,
   }
 }
 
+// Adds the point at k of a row if it takes part.
+template <typename V>
+__device__ __forceinline__ void add_slot(int mode, V x, uint8_t m, double mu,
+                                         int& c, double& a, double& b) {
+  const double v = (double)x;
+  if (m && !isnan(v)) add_point(mode, v, mu, c, a, b);
+}
+
+// Folds a row's partial (c2, a2, b2) into a cell's accumulators.
+__device__ __forceinline__ void fold(int mode, int64_t& c, double& a,
+                                     double& b, int c2, double a2,
+                                     double b2) {
+  c += c2;
+  if (mode == EXTREME) {
+    a = fmin(a, a2);
+    b = fmax(b, b2);
+  } else {
+    a += a2;
+  }
+}
+
 __device__ __forceinline__ void write_cell(int mode, int64_t cell, int64_t c,
                                            double a, double b,
                                            const Lanes& out) {
@@ -101,8 +133,8 @@ __device__ __forceinline__ void write_cell(int mode, int64_t cell, int64_t c,
   }
 }
 
-// A warp a window of each member row; the row's partials added to the
-// block's accumulators in row order.
+// A warp a (member, window) pair; the batch's partials added to each
+// cell in row order.  Block (g, y) covers TILE_W windows of group g.
 template <typename V>
 __global__ void __launch_bounds__(THREADS)
 moments_warp(const int64_t* __restrict__ ts, const V* __restrict__ val,
@@ -112,61 +144,74 @@ moments_warp(const int64_t* __restrict__ ts, const V* __restrict__ val,
              const int64_t* __restrict__ offsets,
              const double* __restrict__ mean, int64_t n, int w, int mode,
              Lanes out) {
-  __shared__ int64_t pos[TILE_W + 1];
-  __shared__ int64_t acc_c[TILE_W];
-  __shared__ double acc_a[TILE_W];
-  __shared__ double acc_b[TILE_W];
+  __shared__ int64_t pos[BATCH][TILE_W + 1];
+  __shared__ int part_c[BATCH][TILE_W];
+  __shared__ double part_a[BATCH][TILE_W];
+  __shared__ double part_b[BATCH][TILE_W];
+  __shared__ double mu[TILE_W];
   const int64_t g = blockIdx.x;
   const int w0 = blockIdx.y * TILE_W;
   const int tw = min(TILE_W, w - w0);
   const int64_t r0 = offsets[g], r1 = offsets[g + 1];
-  for (int j = threadIdx.x; j < tw; j += THREADS) {
-    acc_c[j] = 0;
-    acc_a[j] = ident_a(mode);
-    acc_b[j] = ident_b();
-  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int64_t r = r0; r < r1; ++r) {
-    const int64_t row = members[r];
-    const int64_t* trow = ts + row * n;
-    const V* vrow = val + row * n;
-    const uint8_t* mrow = mask + row * n;
-    __syncthreads();   // the previous row's runs are read
-    for (int i = threadIdx.x; i <= tw; i += THREADS)
-      pos[i] = lower_bound(trow, n, edges[w0 + i]);
-    __syncthreads();
-    for (int j = warp; j < tw; j += WARPS) {
-      const int64_t lo = pos[j], hi = pos[j + 1];
-      if (lo >= hi) continue;   // the whole warp skips together
-      const double mu = mode == CENTRED ? mean[g * w + w0 + j] : 0.0;
+  if (mode == CENTRED && (int)threadIdx.x < tw)
+    mu[threadIdx.x] = mean[g * w + w0 + threadIdx.x];
+  int64_t acc_c = 0;             // thread j < tw owns cell j
+  double acc_a = ident_a(mode), acc_b = ident_b();
+  for (int64_t r = r0; r < r1; r += BATCH) {
+    const int nb = (int)min((int64_t)BATCH, r1 - r);
+    for (int q = threadIdx.x; q < nb * (tw + 1); q += THREADS) {
+      const int mi = q / (tw + 1), i = q - mi * (tw + 1);
+      const int64_t* trow = ts + members[r + mi] * n;
+      pos[mi][i] = seek_position(trow, n, trow[0], trow[n - 1], edges[w0 + i]);
+    }
+    __syncthreads();   // the batch's positions are placed (and mu loaded)
+    for (int q = warp; q < nb * tw; q += WARPS) {
+      const int mi = q / tw, j = q - mi * tw;
+      const int64_t row = members[r + mi];
+      const V* vrow = val + row * n;
+      const uint8_t* mrow = mask + row * n;
+      const int64_t lo = pos[mi][j], hi = pos[mi][j + 1];
+      const double mu_j = mode == CENTRED ? mu[j] : 0.0;
       int c = 0;
       double a = ident_a(mode), b = ident_b();
-      for (int64_t k = lo + lane; k < hi; k += 32) {
-        const double v = (double)vrow[k];
-        if (mrow[k] && !isnan(v)) add_point(mode, v, mu, c, a, b);
+      for (int64_t k0 = lo + lane; k0 < hi; k0 += 32 * DEPTH) {
+        // DEPTH loads a lane issued together, then added in time order
+        V x[DEPTH];
+        uint8_t m[DEPTH];
+#pragma unroll
+        for (int u = 0; u < DEPTH; ++u) {
+          const int64_t k = k0 + 32 * u;
+          m[u] = k < hi ? mrow[k] : 0;
+          x[u] = k < hi ? vrow[k] : (V)0;
+        }
+#pragma unroll
+        for (int u = 0; u < DEPTH; ++u) add_slot(mode, x[u], m[u], mu_j, c, a, b);
       }
-      c = warp_sum_int(c);
-      if (mode == EXTREME) {
-        a = warp_min(a);
-        b = warp_max(b);
-      } else {
-        a = warp_sum(a);
-      }
-      if (lane == 0) {
-        acc_c[j] += c;
+      if (lo < hi) {   // the whole warp takes the branch together
+        c = warp_sum_int(c);
         if (mode == EXTREME) {
-          acc_a[j] = fmin(acc_a[j], a);
-          acc_b[j] = fmax(acc_b[j], b);
+          a = warp_min(a);
+          b = warp_max(b);
         } else {
-          acc_a[j] += a;
+          a = warp_sum(a);
         }
       }
+      if (lane == 0) {
+        part_c[mi][j] = c;
+        part_a[mi][j] = a;
+        part_b[mi][j] = b;
+      }
     }
+    __syncthreads();   // the batch's partials are in
+    if ((int)threadIdx.x < tw)
+      for (int mi = 0; mi < nb; ++mi)
+        fold(mode, acc_c, acc_a, acc_b, part_c[mi][threadIdx.x],
+             part_a[mi][threadIdx.x], part_b[mi][threadIdx.x]);
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < tw; j += THREADS)
-    write_cell(mode, g * (int64_t)w + w0 + j, acc_c[j], acc_a[j], acc_b[j],
+  if ((int)threadIdx.x < tw)
+    write_cell(mode, g * (int64_t)w + w0 + threadIdx.x, acc_c, acc_a, acc_b,
                out);
 }
 
@@ -181,7 +226,7 @@ moments_thread(const int64_t* __restrict__ ts, const V* __restrict__ val,
                const int64_t* __restrict__ offsets,
                const double* __restrict__ mean, int64_t n, int w, int mode,
                Lanes out) {
-  __shared__ int64_t pos[THREADS + 1];
+  __shared__ int64_t pos[STEP_ROWS][THREADS + 1];
   const int64_t g = blockIdx.x;
   const int w0 = blockIdx.y * THREADS;
   const int tw = min(THREADS, w - w0);
@@ -190,22 +235,49 @@ moments_thread(const int64_t* __restrict__ ts, const V* __restrict__ val,
   const double mu = (mode == CENTRED && j < tw) ? mean[g * w + w0 + j] : 0.0;
   int64_t c = 0;
   double a = ident_a(mode), b = ident_b();
-  for (int64_t r = r0; r < r1; ++r) {
-    const int64_t row = members[r];
-    const int64_t* trow = ts + row * n;
-    const V* vrow = val + row * n;
-    const uint8_t* mrow = mask + row * n;
-    __syncthreads();   // the previous row's runs are read
-    for (int i = threadIdx.x; i <= tw; i += THREADS)
-      pos[i] = lower_bound(trow, n, edges[w0 + i]);
+  for (int64_t r = r0; r < r1; r += STEP_ROWS) {
+    const int nb = (int)min((int64_t)STEP_ROWS, r1 - r);
+    __syncthreads();   // the previous batch's runs are read
+    for (int i = j; i <= tw; i += THREADS) {
+      // the batch's rows searched in step: their probes are independent
+      const int64_t x = edges[w0 + i];
+      const int64_t* tr[STEP_ROWS];
+      Seek sk[STEP_ROWS];
+#pragma unroll
+      for (int q = 0; q < STEP_ROWS; ++q) {
+        tr[q] = ts + members[r + min(q, nb - 1)] * n;
+        if (q < nb && n > 0) {
+          sk[q].start(n, tr[q][0], tr[q][n - 1], x);
+        } else {   // no such member, or no points: done
+          sk[q].mode = 3;
+          sk[q].hi = 0;
+        }
+      }
+      bool busy = true;
+      while (busy) {
+        busy = false;
+#pragma unroll
+        for (int q = 0; q < STEP_ROWS; ++q) {
+          if (sk[q].done()) continue;
+          sk[q].take(tr[q][sk[q].probe()] < x);
+          busy |= !sk[q].done();
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < STEP_ROWS; ++q)
+        if (q < nb) pos[q][i] = sk[q].hi;
+    }
     __syncthreads();
     if (j < tw) {
-      int rc = 0;
-      for (int64_t k = pos[j]; k < pos[j + 1]; ++k) {
-        const double v = (double)vrow[k];
-        if (mrow[k] && !isnan(v)) add_point(mode, v, mu, rc, a, b);
+      for (int q = 0; q < nb; ++q) {
+        const int64_t row = members[r + q];
+        const V* vrow = val + row * n;
+        const uint8_t* mrow = mask + row * n;
+        int rc = 0;
+        for (int64_t k = pos[q][j]; k < pos[q][j + 1]; ++k)
+          add_slot(mode, vrow[k], mrow[k], mu, rc, a, b);
+        c += rc;
       }
-      c += rc;
     }
   }
   if (j < tw) write_cell(mode, g * (int64_t)w + w0 + j, c, a, b, out);

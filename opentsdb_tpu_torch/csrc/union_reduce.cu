@@ -27,10 +27,10 @@
 // accumulators in registers.  The members are the outer loop, in row
 // order, so that each slot adds its members in the reference's order.
 // For a segment [a, b) the block first locates a batch of members' spans,
-// one member a thread: two searches in step in device memory (Seek: a
-// probe where the line through the row's first and last points puts the
-// slot, then doubling strides, then bisection; a few probes for a series
-// at a steady cadence) bracket the segment's first and last slot, and the
+// one member a thread: two searches in step in device memory (Seek, in
+// window_runs.cuh: a probe where the line through the row's first and
+// last points puts the slot, then doubling strides, then bisection; a few
+// probes for a series at a steady cadence) bracket the segment's first and last slot, and the
 // span is the points from the one before u[a] to the first at or after
 // u[b - 1], which without repeated timestamps is at most b - a + 1 points.
 // A block scan of the spans' lengths packs consecutive members into
@@ -63,6 +63,7 @@
 #include <type_traits>
 
 #include "union_contrib.cuh"
+#include "window_runs.cuh"
 
 namespace {
 
@@ -164,58 +165,6 @@ __global__ void row_spans_kernel(const uint8_t* __restrict__ mask,
   counts[s + r] = lo > 0 ? ts[r * n] : 0;
   counts[2 * s + r] = lo > 0 ? ts[r * n + lo - 1] : 0;
 }
-
-// The search of a row of c time-sorted points (first f, last l) for the
-// first point at or after x: a probe where the line from (0, f) to
-// (c - 1, l) puts x, then probes stepping away from it by doubling
-// strides until they bracket x, then bisection; the answer is hi.  A
-// series at a steady cadence is found in a few probes, any other in
-// about twice a bisection's.  probe() is the next index to read, take()
-// its verdict (the point lies before x).
-struct Seek {
-  int64_t x, lo, hi, next, step;  // tr[lo] < x <= tr[hi] while searching
-  int mode;                       // 2 the line's probe, 1 up, -1 down, 0 bisect, 3 done
-
-  __device__ __forceinline__ void start(int64_t c, int64_t f, int64_t l, int64_t xx) {
-    x = xx;
-    mode = 3;
-    if (x <= f) { hi = 0; return; }
-    if (x > l) { hi = c; return; }
-    lo = 0;  // f < x <= l: c >= 2 and the answer lies in [1, c - 1]
-    hi = c - 1;
-    const int64_t g = (int64_t)((double)(x - f) / (double)(l - f) * (double)(c - 1));
-    next = g < 1 ? 1 : (g > c - 1 ? c - 1 : g);
-    mode = 2;
-    settle();
-  }
-  __device__ __forceinline__ bool done() const { return mode == 3; }
-  __device__ __forceinline__ int64_t probe() const {
-    return mode == 0 ? (lo + hi) >> 1 : next;
-  }
-  // a stride that passes the bracket, or a bracket of adjacent points,
-  // turns the search to bisection or ends it
-  __device__ __forceinline__ void settle() {
-    if ((mode == 1 && next >= hi) || (mode == -1 && next <= lo)) mode = 0;
-    if (mode == 0 && hi - lo <= 1) mode = 3;
-  }
-  __device__ __forceinline__ void take(bool below) {
-    const int64_t p = probe();
-    if (mode == 0) {
-      if (below) lo = p; else hi = p;
-    } else if (mode == 2) {
-      step = 1;
-      if (below) { lo = p; next = p + 1; mode = 1; }
-      else { hi = p; next = p - 1; mode = -1; }
-    } else if (mode == 1) {
-      if (below) { lo = p; step *= 2; next = p + step; }
-      else { hi = p; mode = 0; }
-    } else {
-      if (!below) { hi = p; step *= 2; next = p - step; }
-      else { lo = p; mode = 0; }
-    }
-    settle();
-  }
-};
 
 // Locates the spans of members [r, min(r + MEMBERS, r1)) for the segment
 // whose first and last slots are x_first and x_last, thread t member r + t,

@@ -2020,3 +2020,211 @@ def test_sketch_fold_edge_runs_kernel_matches_plain(cuda_device):
         assert_exact(gm.cpu().numpy(), wm.numpy())
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-6, atol=1e-5)
+
+
+# -- S1 and P1 at the edges of their forms ----------------------------------
+
+S1_RUNS = {"device memory": (0, 1, 31, 32, 33, 4096),
+           "staged": (0, 1, 31, 32, 33, 3000)}
+S1_EXACT = ("n", "oob", "lo", "hi", "first", "last")
+
+
+def _fold_card_and_cpu(dev, s, w, lanes, chunks, audit):
+    """Each (ts, val, mask, edges, w0) chunk folded by S1 into a state on
+    the card and by the plain version into one on the CPU; both states."""
+    states = []
+    for d in (dev, "cpu"):
+        state = tst.zero_state(s, w, d, lanes=lanes, with_oob=True)
+        for ts, val, mask, edges, w0 in chunks:
+            tst.stream_fold(state, *_on(d, ts, val, mask), edges.to(d), w0,
+                            audit)
+        states.append(state)
+    return states
+
+
+def _assert_states(card, cpu):
+    for k in cpu:
+        if k in S1_EXACT:
+            assert_exact(card[k].cpu().numpy(), cpu[k].numpy())
+        else:
+            assert_values(card[k].cpu().numpy(), cpu[k].numpy())
+
+
+def _s1_run_chunk(seed, runs):
+    """A [4, n] chunk over windows whose runs hold `runs` points each (one
+    window a run, 1 s a point), NaN values and masked slots, row 2 all
+    masked; its EdgeWindows' edges."""
+    rng = np.random.default_rng(seed)
+    n = sum(runs)
+    edges = T0 + 1000 * np.concatenate([[0], np.cumsum(runs)])
+    ts = np.tile(T0 + 1000 * np.arange(n, dtype=np.int64), (4, 1))
+    val = np.round(rng.normal(10.0, 5.0, (4, n)), 1)
+    val[rng.random((4, n)) < 0.03] = np.nan
+    mask = rng.random((4, n)) >= 0.1
+    mask[2] = False
+    return (ts, val, mask), torch.from_numpy(edges.astype(np.int64))
+
+
+@pytest.mark.parametrize("lanes", ["sum", "all"])
+@pytest.mark.parametrize("form", list(S1_RUNS))
+def test_stream_fold_edge_runs_kernel_matches_plain(cuda_device, form, lanes):
+    """S1 over windows of 0, 1, 31, 32, 33 and 4,096 points (a tile past
+    the stage, reduced from device memory) or 3,000 (staged), NaN values
+    and masked slots, two chunks merged: every lane, counts and extremes
+    exact."""
+    runs = S1_RUNS[form]
+    (ts, val, mask), edges = _s1_run_chunk(61, runs)
+    ln = tst.lanes_for(["sum"]) if lanes == "sum" else None
+    audit = (int(edges[0]), int(edges[-1]))
+    card, cpu = _fold_card_and_cpu(
+        cuda_device, 4, len(runs), ln,
+        [(ts, val, mask, edges, 0), (ts, val[::-1].copy(), mask, edges, 0)],
+        audit)
+    _assert_states(card, cpu)
+    assert int(card["oob"]) == int(cpu["oob"]) == 0
+
+
+def _headline_rows(seed, s, n):
+    """[s, 2n] rows at a ~15.5 s cadence from T0 with NaN values and
+    masked slots."""
+    rng = np.random.default_rng(seed)
+    ts = (T0 + np.arange(2 * n, dtype=np.int64) * 15_500)[None, :] \
+        + rng.integers(0, 4_000, (s, 2 * n))
+    ts.sort(axis=1)
+    val = rng.normal(50.0, 10.0, (s, 2 * n))
+    val[rng.random((s, 2 * n)) < 0.01] = np.nan
+    mask = rng.random((s, 2 * n)) >= 0.02
+    return ts, val, mask
+
+
+@pytest.mark.parametrize("interval_ms", [3_600_000, 10_000])
+def test_stream_fold_rows_outside_the_slice_kernel_matches_plain(
+        cuda_device, interval_ms):
+    """S1 in its warp form (1h windows, a 64-window slice) and its thread
+    form (10 s windows, an 8,192-window slice) over two chunks, a row of
+    the second whose points all lie before the slice and one whose points
+    all lie after it, every lane; then the audit of a wrong slice."""
+    s, n = 8, 4096
+    ts, val, mask = _headline_rows(62, s, n)
+    wc = 64 if interval_ms == 3_600_000 else 8_192
+    windows = tds.FixedWindows.for_range(T0, T0 + 300 * 3_600_000,
+                                         interval_ms)
+    e = windows.window_edges("cpu")
+    audit = (T0, T0 + windows.count * interval_ms)
+    chunks = []
+    for k in range(2):
+        c = [np.ascontiguousarray(x[:, k * n:(k + 1) * n])
+             for x in (ts, val, mask)]
+        w0 = int((c[0].min() - T0) // interval_ms)
+        if k == 1:
+            c[0][0] = T0 + np.arange(n) * 10              # before the slice
+            c[0][1] = audit[1] - 1 - (n - np.arange(n))   # after it
+        chunks.append((*c, e[w0:w0 + wc + 1], w0))
+    card, cpu = _fold_card_and_cpu(cuda_device, s, windows.count, None,
+                                   chunks, audit)
+    _assert_states(card, cpu)
+    assert int(cpu["oob"]) > 0
+    ts1, val1, mask1, _, w0 = chunks[1]
+    w0 += 10
+    card, cpu = _fold_card_and_cpu(
+        cuda_device, s, windows.count, tst.lanes_for(["sum"]),
+        [(ts1, val1, mask1, e[w0:w0 + wc + 1], w0)], audit)
+    _assert_states(card, cpu)
+
+
+@pytest.mark.parametrize("interval_ms", [60_000, 600_000])
+def test_stream_fold_long_rows_kernel_matches_plain(cuda_device,
+                                                    interval_ms):
+    """Rows of 20,000 points at ~1.5 s: 1m windows give a row of eight
+    64-window tiles, each staged; 10 min windows one tile whose run
+    (every point of the row) is past the stage and reduced from device
+    memory.  Every lane, a slice that starts inside the row."""
+    rng = np.random.default_rng(63)
+    s, n = 5, 20_000
+    ts = (T0 + np.arange(n, dtype=np.int64) * 1_500)[None, :] \
+        + rng.integers(0, 1_000, (s, n))
+    val = rng.normal(5.0, 2.0, (s, n))
+    mask = rng.random((s, n)) >= 0.05
+    windows = tds.FixedWindows.for_range(T0, T0 + 40_000_000, interval_ms)
+    e = windows.window_edges("cpu")
+    wc = 512 if interval_ms == 60_000 else 52
+    audit = (T0, T0 + windows.count * interval_ms)
+    for w0 in (0, 3):
+        card, cpu = _fold_card_and_cpu(cuda_device, s, windows.count, None,
+                                       [(ts, val, mask, e[w0:w0 + wc + 1],
+                                         w0)], audit)
+        _assert_states(card, cpu)
+
+
+P1_MODES = ["additive", "extreme", "square", "centred"]
+
+
+@pytest.mark.parametrize("interval_ms", [80_000, 20_000])
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("mode", P1_MODES)
+def test_point_group_moments_edge_groups_kernel_matches_plain(
+        cuda_device, mode, int_values, interval_ms):
+    """P1 over 1024 rows: groups of 0 and 1 member beside one of the other
+    1023 rows, then all 1024 rows as one group; W = 46 (warp form, not a
+    multiple of its 32-window tile) or 181 (thread form); integer values
+    near 2^53."""
+    from opentsdb_tpu_torch.ops import lanes
+    rng = np.random.default_rng(64)
+    s, n = 1024, 2048
+    ts, val, mask = sorted_batch(rng, s, n, int_values=int_values)
+    if int_values:
+        val = val + 2**53 - 1000
+    plan = tds.FixedWindows.for_range(T0, T0 + 3_600_000, interval_ms)
+    edges = plan.window_edges("cpu")
+    w = plan.count
+    d_args = _on(cuda_device, ts, val, mask)
+    for gid, g in ((np.where(np.arange(s) == 5, 1, 2), 3),
+                   (np.zeros(s, np.int64), 1)):
+        mean = rng.normal(50.0, 5.0, (g, w)) if mode == "centred" else None
+        members, offsets = lanes.group_members(t(gid), g)
+        want = lanes.point_group_moments(
+            t(ts), t(val), t(mask), edges, members, offsets, mode,
+            None if mean is None else t(mean))
+        got = lanes.point_group_moments(
+            *d_args, edges.to(cuda_device), members.to(cuda_device),
+            offsets.to(cuda_device), mode,
+            None if mean is None else t(mean).to(cuda_device))
+        for lane in want:
+            if lane in ("cnt", "lo", "hi"):
+                assert_exact(got[lane].cpu().numpy(), want[lane].numpy())
+            else:
+                assert_values(got[lane].cpu().numpy(), want[lane].numpy())
+
+
+def test_stream_fold_and_point_group_moments_repeat_bit_for_bit(cuda_device):
+    """Two launches of S1 (each form) and of P1 (each mode, each form) on
+    the same inputs give the same bits."""
+    from opentsdb_tpu_torch.ops import lanes
+    ts, val, mask = _headline_rows(65, 8, 4096)
+    d_ts, d_val, d_mask = _on(cuda_device, ts, val, mask)
+    for interval_ms, wc in ((3_600_000, 64), (10_000, 8_192)):
+        windows = tds.FixedWindows.for_range(T0, T0 + 300 * 3_600_000,
+                                             interval_ms)
+        e = windows.window_edges(cuda_device)[:wc + 1]
+        folds = []
+        for _ in range(2):
+            state = tst.zero_state(8, windows.count, cuda_device)
+            tst.stream_fold(state, d_ts, d_val, d_mask, e, 0)
+            folds.append(state)
+        for k in folds[0]:
+            assert torch.equal(folds[0][k], folds[1][k]), k
+    gid = torch.arange(8, device=cuda_device) % 3
+    members, offsets = lanes.group_members(gid, 3)
+    for interval_ms in (3_600_000, 60_000):
+        plan = tds.FixedWindows.for_range(T0, T0 + 2 * 4096 * 15_500,
+                                          interval_ms)
+        edges = plan.window_edges(cuda_device)
+        mean = torch.full((3, plan.count), 50.0, dtype=torch.float64,
+                          device=cuda_device)
+        for mode in P1_MODES:
+            mu = mean if mode == "centred" else None
+            a, b = (lanes.point_group_moments(d_ts, d_val, d_mask, edges,
+                                              members, offsets, mode, mu)
+                    for _ in range(2))
+            for lane in a:
+                assert torch.equal(a[lane], b[lane]), (mode, lane)
