@@ -14,7 +14,9 @@ admission gate and dispatch batcher, and the device mesh.
                                           [--u2-digests FILE]
                            | --sketch-only [--s2-digests FILE]
                            | [--stream-fold-only [--s1-digests FILE]]
-                             [--group-only [--p1-digests FILE]]]
+                             [--group-only [--p1-digests FILE]]
+                           | --order-only [--k5-digests FILE]
+                                          [--r-digests FILE]]
 
 Needs one CUDA card (exits 2 without one) and the repository around it.
 --seed (default 0, bench_configs' own data) is mixed into the chunks of
@@ -58,7 +60,10 @@ days), 1h windows.  Phases:
    (finite, +-inf, +-0, NaN), the last two held to the plain version on
    the CPU (classes exact), each timed against torch.segment_reduce
    prod; K5 group_order (every order and rank aggregator over the 100
-   groups, median and ep99r7 over all 1024 rows as one group, mult timed)
+   groups, median and ep99r7 over all 1024 rows as one group, mult timed;
+   ep99r7 on the one group timed beside torch.nanquantile, wall and
+   device, and p99 over the 100 groups, the main path's shape, as
+   `group_order.grouped`)
    and MA moving_average after K1's and K3's sums (1024 and 100 runs of
    283 windows), movingAverage5 and 10 held to the plain version on the
    CPU bit for bit, movingAverage5 timed at each position beside its byte
@@ -98,7 +103,9 @@ days), 1h windows.  Phases:
    one group over the last 6 h (the fan-in of `sum:metric` over a fleet);
    (c) on an integer copy of 64 rows in 8 groups near 2^53 (int mode,
    exact but for dev, a truncated float); R point_rate (d) on the headline
-   batch under every rate option set, float and all-integer; U1 (e) on
+   batch under every rate option set, float and all-integer, timed there
+   and on the last 6 h of every row, the union path's shape
+   (`point_rate.union`); U1 (e) on
    awkward shapes over the last 6 h (groups of 1, 2, 3, 5 and 1013 rows
    with all-masked rows, 64 equal rows, every point repeated in its row),
    exactly.  U1 is timed on (a) and (b) against torch.unique, U2's sum
@@ -118,7 +125,18 @@ days), 1h windows.  Phases:
    of U3's and MA's outputs in every case, or holds them to FILE's (U3's
    mult reported only: its shallow groups take the ordered walk itself),
    and `--u2-digests FILE` does the same for U2's outputs under every
-   moment aggregator.
+   moment aggregator.  `--order-only` runs K5 and R alone at the shapes
+   the main path launches them at, each against its plain version under
+   every aggregator (rate option set), each timed case a wall and a
+   device time beside its byte bound: K5 (a) the headline grid in its
+   100 groups, (b) one stacked dispatch of phase 16's 16 order panels
+   ([160, 60] in 16 groups), (c) one such panel, (d) the headline grid
+   as one group, (e) one group of 40,000 rows x 2 windows (exactness
+   only); R (a) the headline batch, (b) its last 6 h, (c) the integer
+   counters `mi` over the last 6 h.  `--k5-digests FILE` and
+   `--r-digests FILE` write the sha256 of their outputs, or hold them to
+   FILE's (K5's mult reported only: a shallow group's product is the
+   ordered walk itself).
 6. end to end, union: the same TSDB plus an integer metric `mi` (64
    series x 65,536 points in 8 groups) answers ten queries without a
    downsample over the last 6 h of the range (the union path emits a point
@@ -412,8 +430,10 @@ REPLACES = {
     "union_merge": "opentsdb_tpu/ops/union_agg.py:65",
     "union_reduce": "opentsdb_tpu/ops/union_agg.py:143",
     "point_rate": "opentsdb_tpu/ops/rate.py:58",
+    "point_rate.union": "opentsdb_tpu/ops/rate.py:58",
     "window_order": "opentsdb_tpu/ops/downsample.py:1218",
     "group_order": "opentsdb_tpu/ops/group_agg.py:558",
+    "group_order.grouped": "opentsdb_tpu/ops/group_agg.py:558",
     "union_order": "opentsdb_tpu/ops/union_agg.py:209",
     "moving_average": "opentsdb_tpu/ops/aggregators.py:177",
     "gather_windows": "opentsdb_tpu/storage/device_cache.py:443",
@@ -1216,14 +1236,19 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
                                            present, one)),
         "plain_ms": time_ms(lambda: ga.group_order_plain(
             "ep99r7", contrib, part, present, one)),
-        "bound_ms": bound_ms(S * w * (8 + 1 + 1) + 2 * 8 + w * (8 + 1),
-                             0.0),
-        "library_ms": time_ms(lambda: torch.nanquantile(contrib, 0.99,
-                                                        dim=0)),
+        "bound_ms": _k5_bound(contrib, one),
     }
-    print("time group_order p99 over %d groups %.4f ms"
-          % (GROUPS, time_ms(lambda: ga.group_order("p99", contrib, part,
-                                                    present, offsets))))
+    k5["library_ms"], k5["library_device_ms"] = both_ms(
+        lambda: torch.nanquantile(contrib, 0.99, dim=0))
+    # the main path's shape: p99 over the 100 groups (case (a))
+    k5_grouped = {
+        **kernel_ms(lambda: ga.group_order("p99", contrib, part, present,
+                                           offsets)),
+        "plain_ms": time_ms(lambda: ga.group_order_plain(
+            "p99", contrib, part, present, offsets)),
+        "bound_ms": _k5_bound(contrib, offsets),
+        "library_ms": None,
+    }
     print("time group_order mult (the shared ordered product) over %d "
           "groups %.4f ms, 1024 rows one group %.4f ms"
           % (GROUPS, time_ms(lambda: ga.group_order("mult", contrib, part,
@@ -1231,9 +1256,208 @@ def order_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
              time_ms(lambda: ga.group_order("mult", contrib, part, present,
                                             one))))
 
-    times = {"window_order": k4, "group_order": k5}
+    times = {"window_order": k4, "group_order": k5,
+             "group_order.grouped": k5_grouped}
     print_times(times)
     return times
+
+
+def k5_inputs(dev, ts, val, gid) -> dict:
+    """K5's operands at the shapes the main path launches it at: name ->
+    (contrib, participate, present, offsets, label).  (a) the headline
+    grid [1024, 283] in its 100 groups (`p99:1h-avg:m{group=*}`); (b) one
+    stacked dispatch of the fleet's 16 `p99:1m-p95` order panels, [160,
+    60] in 16 groups of 10; (c) one such panel alone, [10, 60] in one
+    group; (d) the headline grid as one group of 1024 rows (a downsampled
+    order function with no group-by); (e) one group of 40,000 rows x 2
+    windows, past the kernel's staging room (exactness only)."""
+    from opentsdb_tpu_torch.ops import downsample as ds
+    from opentsdb_tpu_torch.ops import group_agg as ga
+    from opentsdb_tpu_torch.ops import pipeline as pl
+
+    d_ts = torch.from_numpy(ts).to(dev)
+    d_val = torch.from_numpy(val).to(dev)
+    d_mask = torch.ones((S, N), dtype=torch.bool, device=dev)
+    edges = ds.FixedWindows.for_range(START, END, INTERVAL_MS) \
+        .window_edges(dev)
+    w = edges.numel() - 1
+    v, m = ds.window_moments(d_ts, d_val, d_mask, edges, "avg")
+    del d_ts, d_val, d_mask
+    grid = ga.grid_fill_rate(edges[:w], v, m, "lerp")
+    cases = {
+        "(a)": (*grid, ga.group_offsets(gid, GROUPS).to(dev),
+                "[%d x %d] %d groups" % (S, w, GROUPS)),
+        "(d)": (*grid, torch.tensor([0, S], dtype=torch.int64, device=dev),
+                "[%d x %d] one group" % (S, w)),
+    }
+    members = _fleet_members("headline", ts, val, 16)
+    for name, chosen in (("(b)", members), ("(c)", members[:1])):
+        d_ts, d_val, d_mask, m_gid, groups, d_edges = _stacked_args(chosen,
+                                                                    dev)
+        ov, om = ds.window_order(d_ts, d_val, d_mask, d_edges, "p95")
+        c = ga.grid_fill_rate(d_edges[:, :-1].contiguous(), ov, om, "lerp")
+        offsets = pl.stacked_offsets(m_gid, groups).to(dev)
+        cases[name] = (*c, offsets, "[%d x %d] %d group%s" % (
+            c[0].shape[0], c[0].shape[1], len(chosen),
+            "s" if len(chosen) > 1 else ""))
+    rng = np.random.default_rng(22)
+    contrib = np.round(rng.normal(0, 50, (40_000, 2)), 1)
+    part = torch.from_numpy(rng.random((40_000, 2)) < 0.9).to(dev)
+    cases["(e)"] = (torch.from_numpy(contrib).to(dev), part, part,
+                    torch.tensor([0, 40_000], dtype=torch.int64, device=dev),
+                    "[40000 x 2] one group")
+    return cases
+
+
+def _k5_bound(contrib, offsets) -> float:
+    s, w = contrib.shape
+    g = offsets.numel() - 1
+    return bound_ms(s * w * (8 + 1 + 1) + (g + 1) * 8 + g * w * (8 + 1), 0.0)
+
+
+# K5's timed functions at each case: the main path's p99 (and first and
+# mult beside it on the headline groups), ep99r7 and mult on one group
+K5_TIMED = {"(a)": ("p99", "first", "mult"), "(b)": ("p99",),
+            "(c)": ("p99",), "(d)": ("ep99r7", "mult"), "(e)": ()}
+
+
+def k5_phase(dev, ts, val, gid, checks: Checks,
+             digests: dict | None = None) -> dict:
+    """K5 at cases (a)-(e) (k5_inputs): every order and rank aggregator
+    against the plain version ((e): the rank functions, first and mult;
+    mult against the plain version on the CPU), outputs' sha256 into
+    `digests`; each timed function's wall and device time beside its byte
+    bound and the plain version's time, and at (d)
+    torch.nanquantile's (R-7 over the non-NaN cells, exactly the
+    participating ones there).  Returns the timed rows by name."""
+    from opentsdb_tpu_torch.ops import group_agg as ga
+
+    rows = {}
+    for case, (contrib, part, present, offsets, label) in k5_inputs(
+            dev, ts, val, gid).items():
+        aggs = ORDER_AGGS if case != "(e)" else (
+            "median", "ep99r7", "p50", "ep50r3", "first", "mult")
+        for agg in aggs:
+            got = ga.group_order(agg, contrib, part, present, offsets)
+            # torch's product scatter on the card multiplies in no fixed
+            # order (an overflow and a zero in one run make NaN or 0 by
+            # their order): mult is held to the plain version on the CPU
+            args = (contrib, part, present, offsets)
+            want = ga.group_order_plain(agg, *(
+                x.cpu() for x in args) if agg == "mult" else args)
+            name = "%s %s %s" % (case, label, agg)
+            checks.exact("group_order", name, got[1], want[1])
+            checks.values("group_order", name, got[0], want[0])
+            if digests is not None:
+                digests["group_order %s %s" % (case, agg)] = _digest(
+                    torch.cat([got[0].view(torch.uint8).reshape(-1),
+                               got[1].view(torch.uint8).reshape(-1)]))
+        if case == "(e)":
+            med = ga.group_order("median", contrib, part, present,
+                                 offsets)[0][0].cpu()
+            for col in range(2):
+                vals = torch.sort(contrib[:, col][part[:, col]]).values
+                checks.exact("group_order", "(e) median column %d" % col,
+                             med[col], vals[vals.numel() // 2])
+        bound = _k5_bound(contrib, offsets)
+        for agg in K5_TIMED[case]:
+            wall, device = both_ms(lambda agg=agg: ga.group_order(
+                agg, contrib, part, present, offsets))
+            row = {"ms": wall, "device_ms": device, "bound_ms": bound,
+                   "plain_ms": time_ms(lambda agg=agg: ga.group_order_plain(
+                       agg, contrib, part, present, offsets)),
+                   "library_ms": None}
+            if case == "(d)" and agg == "ep99r7":
+                checks.values("group_order", "(d) ep99r7 vs nanquantile",
+                              ga.group_order(agg, contrib, part, present,
+                                             offsets)[0][0],
+                              torch.nanquantile(contrib, 0.99, dim=0))
+                row["library_ms"], row["library_device_ms"] = both_ms(
+                    lambda: torch.nanquantile(contrib, 0.99, dim=0))
+            rows["group_order %s %s %s" % (case, label, agg)] = row
+    print_times(rows)
+    return rows
+
+
+def r_inputs(dev, ts, val, h) -> dict:
+    """R's operands at the shapes the main path launches it at: name ->
+    (ts, val, mask, label, the timed rate set).  (a) the headline batch
+    [1024, 65,536] float64; (b) its last 6 h, [1024, ~1,394] (what
+    `sum:rate:m{group=*}` and `diff:rate:m{group=*}` read on the union
+    path); (c) the integer counters `mi` over the last 6 h, [64, ~1,394]
+    (`sum:rate{counter}:mi{group=*}`)."""
+    start = END - SIX_HOURS_MS
+    cases = {"(a)": tuple(torch.from_numpy(x).to(dev) for x in (
+        ts, val, np.ones((S, N), bool))) + ("[%d x %d] float" % (S, N),
+                                            "rate")}
+    b = _last_hours(ts, val, start)
+    cases["(b)"] = tuple(torch.from_numpy(x).to(dev) for x in b) + (
+        "[%d x %d] float, last 6 h" % b[0].shape, "rate")
+    ival = np.cumsum(h[:INT_ROWS] % 1_000, axis=1) + 2**53
+    c = _last_hours(ts[:INT_ROWS], ival, start)
+    cases["(c)"] = tuple(torch.from_numpy(x).to(dev) for x in c) + (
+        "[%d x %d] int64, last 6 h" % c[0].shape, "counter")
+    return cases
+
+
+def r_phase(dev, ts, val, h, checks: Checks,
+            digests: dict | None = None) -> dict:
+    """R at cases (a)-(c) (r_inputs) under every rate option set against
+    the plain version, outputs' sha256 into `digests`; each case's timed
+    set's wall and device time beside its byte bound (17 bytes in and 17
+    out a point) and the plain version's time.  Returns the timed rows by
+    name."""
+    from opentsdb_tpu_torch.ops import rate as rt
+
+    rows = {}
+    for case, (d_ts, d_val, d_mask, label, timed) in r_inputs(
+            dev, ts, val, h).items():
+        for rname, rargs in RATE_SETS.items():
+            if rargs is None:
+                continue
+            opts = rt.RateOptions(*rargs)
+            got = rt.point_rate(d_ts, d_val, d_mask, opts)
+            want = rt.point_rate_plain(d_ts, d_val, d_mask, opts)
+            name = "%s %s rate=%s" % (case, label, rname)
+            checks.exact("point_rate", name, got[0], want[0], "timestamps")
+            checks.exact("point_rate", name, got[2], want[2])
+            checks.values("point_rate", name, got[1], want[1])
+            if digests is not None:
+                digests["point_rate %s %s" % (case, rname)] = _digest(
+                    torch.cat([x.view(torch.uint8).reshape(-1)
+                               for x in got]))
+        opts = rt.RateOptions(*RATE_SETS[timed])
+        wall, device = both_ms(lambda: rt.point_rate(d_ts, d_val, d_mask,
+                                                     opts))
+        rows["point_rate %s %s %s" % (case, label, timed)] = {
+            "ms": wall, "device_ms": device,
+            "bound_ms": bound_ms(d_ts.numel() * 17 * 2, 0.0),
+            "plain_ms": time_ms(lambda: rt.point_rate_plain(
+                d_ts, d_val, d_mask, opts)),
+            "library_ms": None}
+        del d_ts, d_val, d_mask
+        torch.cuda.empty_cache()
+    print_times(rows)
+    return rows
+
+
+def order_only(dev, ts, val, gid, h, checks: Checks,
+               k5_file: str | None, r_file: str | None) -> None:
+    """`--order-only`: K5's cases (a)-(e) and R's (a)-(c) alone, each
+    against its plain version; with `k5_file` (`r_file`) their outputs'
+    sha256 are written there, or held to the ones it holds (K5's mult
+    reported, not failed: a shallow group's product is the ordered walk
+    itself, a tree before it combined it in another order)."""
+    k5 = {} if k5_file else None
+    r = {} if r_file else None
+    t_start = time.perf_counter()
+    k5_phase(dev, ts, val, gid, checks, k5)
+    torch.cuda.empty_cache()
+    r_phase(dev, ts, val, h, checks, r)
+    torch.cuda.empty_cache()
+    print("order-only wall %.1f s" % (time.perf_counter() - t_start))
+    hold_digests(checks, "k5", k5, k5_file, reported=(" mult",))
+    hold_digests(checks, "r", r, r_file)
 
 
 def _gather_cases(ts, gid) -> dict:
@@ -2029,6 +2253,17 @@ def union_kernel_phase(dev, ts, val, gid, h, checks: Checks) -> dict:
         "library_ms": None,
     }
     times["point_rate"] = r
+    del d_ts, d_val, d_mask
+    # the union path's shape: the last 6 h of every row (case (b))
+    b_ts, b_val, b_mask = (torch.from_numpy(x).to(dev) for x in _last_hours(
+        ts, val, END - SIX_HOURS_MS))
+    times["point_rate.union"] = {
+        **kernel_ms(lambda: rt.point_rate(b_ts, b_val, b_mask, opts)),
+        "plain_ms": time_ms(lambda: rt.point_rate_plain(b_ts, b_val, b_mask,
+                                                        opts)),
+        "bound_ms": bound_ms(b_ts.numel() * 17 * 2, 0.0),
+        "library_ms": None,
+    }
     print_times(times)
     return times
 
@@ -6274,6 +6509,22 @@ def main(argv=None) -> int:
                         help="with --group-only: write the sha256 of P1's "
                         "lanes in each case to FILE, or, where FILE exists, "
                         "fail unless they equal its digests")
+    parser.add_argument("--order-only", action="store_true",
+                        help="build the kernels and run K5's cases (a)-(e) "
+                        "and R's (a)-(c) alone, each against its plain "
+                        "version, timed at the shapes the main path "
+                        "launches them at; prints no result line")
+    parser.add_argument("--k5-digests", metavar="FILE",
+                        help="with --order-only: write the sha256 of K5's "
+                        "outputs under every aggregator in each case to "
+                        "FILE, or, where FILE exists, fail unless they "
+                        "equal its digests (mult, the ordered product, may "
+                        "differ: reported, not failed)")
+    parser.add_argument("--r-digests", metavar="FILE",
+                        help="with --order-only: write the sha256 of R's "
+                        "outputs under every rate option set in each case "
+                        "to FILE, or, where FILE exists, fail unless they "
+                        "equal its digests")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 18 alone on "
                         "the headline TSDB (every visible card: with two "
@@ -6306,7 +6557,8 @@ def main(argv=None) -> int:
     for name in ("window_order", "union_merge", "group_moments",
                  "tile_partials", "grid_fill_rate", "histogram_accumulate",
                  "union_order", "moving_average", "union_reduce",
-                 "sketch_fold", "stream_fold", "point_group_moments"):
+                 "sketch_fold", "stream_fold", "point_group_moments",
+                 "group_order", "point_rate"):
         for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
@@ -6317,6 +6569,13 @@ def main(argv=None) -> int:
         fill_phase(dev, ts, val, h, checks, args.k2_digests)
         torch.cuda.empty_cache()
         histogram_kernel_phase(dev, fleet_tsdb(dev), checks)
+        for f in checks.failures:
+            print("FAILED: " + f, file=sys.stderr)
+        print(smi)
+        return 1 if checks.failures else 0
+    if args.order_only:
+        order_only(dev, ts, val, gid, h, checks, args.k5_digests,
+                   args.r_digests)
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)
         print(smi)

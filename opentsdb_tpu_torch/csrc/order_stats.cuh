@@ -1,7 +1,8 @@
 // Order statistics and the order reduces of a run: the device routines that
 // K4 window_order, K5 group_order and U3 union_order share (S2 sketch_fold
-// takes the selection too; U3's groups of at most 32 members order their
-// few keys themselves and take only the estimators, through SortedRanks).
+// takes the selection too; U3's and K5's groups of at most 32 members sort
+// or rank their few keys themselves, by the networks below or in place,
+// and take only the estimators, through SortedRanks and rank_reduce).
 //
 // Replaces the sorts behind opentsdb_tpu/ops/percentile.py (_estimate,
 // row_run_percentile, column_run_percentile, masked_percentile) and the
@@ -13,9 +14,9 @@
 // A run is m elements in order (time order in a window, row order in a
 // group), read through an accessor get(i, v) that says whether element i
 // takes part and gives its value, or already staged in shared memory as
-// keys (K4's pool, where an element that takes no part holds ~0, a key
-// above every value's: the selection of a rank below the count of real
-// keys never reaches it).
+// keys (K4's and K5's pools, where an element that takes no part holds ~0,
+// a key above every value's: the selection of a rank below the count of
+// real keys never reaches it).
 //
 // Selection.  The k-th smallest value is found by a radix select over the
 // order-preserving 64-bit key of the value, by a team: one warp, or a whole
@@ -451,6 +452,38 @@ struct SortedRanks {
   }
 };
 
+// Sorting networks over keys in registers (U3's and K5's shallow rows).
+__device__ __forceinline__ void order2(uint64_t& a, uint64_t& b) {
+  const uint64_t lo = a < b ? a : b;
+  b = a < b ? b : a;
+  a = lo;
+}
+
+// Batcher's odd-even merge of k[LO, LO + N), whose even and odd elements
+// at stride R are sorted: templates, so that every index is a constant
+// and the keys stay in registers.
+template <int LO, int N, int R, int P>
+__device__ __forceinline__ void merge_keys(uint64_t (&k)[P]) {
+  if constexpr (2 * R < N) {
+    merge_keys<LO, N, 2 * R>(k);
+    merge_keys<LO + R, N, 2 * R>(k);
+#pragma unroll
+    for (int i = LO + R; i + R < LO + N; i += 2 * R) order2(k[i], k[i + R]);
+  } else {
+    order2(k[LO], k[LO + R]);
+  }
+}
+
+// Batcher's odd-even merge sort of k[LO, LO + N), N a power of two.
+template <int LO, int N, int P>
+__device__ __forceinline__ void sort_keys(uint64_t (&k)[P]) {
+  if constexpr (N > 1) {
+    sort_keys<LO, N / 2>(k);
+    sort_keys<LO + N / 2, N / 2>(k);
+    merge_keys<LO, N, 1>(k);
+  }
+}
+
 // Percentile q of the run's n accepted double keys by the estimator `est`:
 // ops/percentile.py:_estimate, operation for operation.
 template <typename R>
@@ -473,6 +506,18 @@ __device__ double percentile(const R& r, double q, int est) {
   r.pair((int64_t)fh, a, b);
   const double lo = double_of(a), hi = double_of(b);
   return __dadd_rn(lo, __dmul_rn(__dsub_rn(h, fh), __dsub_rn(hi, lo)));
+}
+
+// The median (the upper one, at(n / 2 + 1)) or the percentile of a run's
+// keys as the reduce's value type, from any of the rank sources above.
+template <typename V, typename R>
+__device__ __forceinline__ V rank_reduce(const R& r, int code, double q, int est) {
+  V res;
+  if (code == MEDIAN)
+    value_of(r.at(r.n / 2 + 1), res);
+  else
+    res = of_double<V>(percentile(r, q, est));
+  return res;
 }
 
 // ---- the ordered product -------------------------------------------------------

@@ -67,6 +67,8 @@ namespace {
 
 using namespace union_contrib;
 using order_stats::FULL;
+using order_stats::rank_reduce;
+using order_stats::sort_keys;
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
@@ -123,37 +125,6 @@ __device__ __forceinline__ int64_t group_of(const int64_t* __restrict__ uoff, in
     if (uoff[mid] <= k) lo = mid; else hi = mid - 1;
   }
   return lo;
-}
-
-__device__ __forceinline__ void order2(uint64_t& a, uint64_t& b) {
-  const uint64_t lo = a < b ? a : b;
-  b = a < b ? b : a;
-  a = lo;
-}
-
-// Batcher's odd-even merge of k[LO, LO + N), whose even and odd elements
-// at stride R are sorted: templates, so that every index is a constant
-// and the keys stay in registers.
-template <int LO, int N, int R, int P>
-__device__ __forceinline__ void merge_keys(uint64_t (&k)[P]) {
-  if constexpr (2 * R < N) {
-    merge_keys<LO, N, 2 * R>(k);
-    merge_keys<LO + R, N, 2 * R>(k);
-#pragma unroll
-    for (int i = LO + R; i + R < LO + N; i += 2 * R) order2(k[i], k[i + R]);
-  } else {
-    order2(k[LO], k[LO + R]);
-  }
-}
-
-// Batcher's odd-even merge sort of k[LO, LO + N), N a power of two.
-template <int LO, int N, int P>
-__device__ __forceinline__ void sort_keys(uint64_t (&k)[P]) {
-  if constexpr (N > 1) {
-    sort_keys<LO, N / 2>(k);
-    sort_keys<LO + N / 2, N / 2>(k);
-    merge_keys<LO, N, 1>(k);
-  }
 }
 
 // The key a rank function orders a value by: the median the value's own
@@ -219,18 +190,6 @@ struct RowRanks {
     pick(clip(k), clip(k + 1), a, b);
   }
 };
-
-// Median or percentile of the keys of a row's participants: sorted in
-// registers for rows of up to 16 members, ranked in place past that.
-template <typename V, typename R>
-__device__ __forceinline__ V rank_reduce(const R& r, int code, double q, int est) {
-  V res;
-  if (code == order_stats::MEDIAN)
-    order_stats::value_of(r.at(r.n / 2 + 1), res);
-  else
-    res = order_stats::of_double<V>(order_stats::percentile(r, q, est));
-  return res;
-}
 
 // Slots [k_begin, k_end) of a group of m <= 32 members, rows r0.., by the
 // warp's teams; wsm is the warp's WARP_WORDS of shared memory.

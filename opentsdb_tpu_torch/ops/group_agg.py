@@ -266,8 +266,8 @@ def group_order(agg_name: str, contrib: torch.Tensor,
         return out, out_mask
     kernels.launch(
         "group_order", dev, kernels.ptr(contrib), kernels.ptr(participate),
-        kernels.ptr(present), kernels.ptr(offsets), g, w, code, q, est,
-        kernels.ptr(out), kernels.ptr(out_mask))
+        kernels.ptr(present), kernels.ptr(offsets), contrib.shape[0], g, w,
+        code, q, est, kernels.ptr(out), kernels.ptr(out_mask))
     return out, out_mask
 
 

@@ -93,9 +93,10 @@ SIGNATURES: dict[str, tuple] = {
     # (edges as window_moments takes them)
     "window_order": (_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I32, _F64, _I32,
                      _I32, _F64, _I32, _I32, _P, _P, _P),
-    # contrib, participate, present, offsets, g, w, code, q, est, out,
+    # contrib, participate, present, offsets, s, g, w, code, q, est, out,
     # out_mask, stream
-    "group_order": (_P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P, _P, _P),
+    "group_order": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _F64, _I32, _P, _P,
+                    _P),
     # ts, val, mask, offsets, u, uoff, s, n, g, total, code, q, est, policy,
     # val_is_int, counts, out, stream
     "union_order": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,

@@ -27,9 +27,10 @@ from opentsdb_tpu_torch.ops.rate import RateOptions
 from opentsdb_tpu_torch.storage import device_cache as tdc
 
 import mult_runs as mr
-from torch_parity import (K2_EDGE_WIDTHS, assert_exact,  # noqa: F401
-                          assert_values, cuda_device, k2_edge_grid,
-                          sorted_batch, t)
+from torch_parity import (K2_EDGE_WIDTHS, K5_EDGE_LAYOUTS,  # noqa: F401
+                          R_EDGE_LENGTHS, assert_exact, assert_values,
+                          cuda_device, k2_edge_grid, k5_edge_groups,
+                          r_edge_rows, sorted_batch, t)
 
 pytestmark = pytest.mark.gpu
 
@@ -2228,3 +2229,59 @@ def test_stream_fold_and_point_group_moments_repeat_bit_for_bit(cuda_device):
                     for _ in range(2))
             for lane in a:
                 assert torch.equal(a[lane], b[lane]), (mode, lane)
+
+
+# -- K5 and R at their routes' and tiles' edges -----------------------------
+
+@pytest.mark.parametrize("layout", list(K5_EDGE_LAYOUTS))
+def test_group_order_route_edges_kernel_matches_plain(cuda_device, layout):
+    """K5 on every route: groups of 0-33 rows in tiles of 128 windows (a
+    thread a cell; the 33-row group staged, every window in one pass),
+    groups of 100 and 2,200 rows there (staged, all windows a pass and
+    one), staged groups of 33-4,224 rows in tiles of one window (the
+    block's select) and 4,225 rows read from device memory; every order
+    and rank aggregator."""
+    contrib, participate, present, offsets = k5_edge_groups(layout)
+    dv = _on(cuda_device, contrib, participate, present, offsets)
+    for agg in ORDER_AGGS:
+        got = tga.group_order(agg, *dv)
+        want = tga.group_order_plain(agg, t(contrib), t(participate),
+                                     t(present), t(offsets))
+        assert_exact(got[1].cpu().numpy(), want[1].numpy())
+        assert_values(got[0].cpu().numpy(), want[0].numpy())
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_group_order_mult_classes_shallow_kernel_matches_plain(
+        cuda_device, interleaved):
+    """mult's classes on K5's shallow route (the ordered walk on a
+    thread): each class run down one window of a group of at most 12
+    rows, masked and NaN cells between its values when interleaved."""
+    contrib, part = mr.k5_columns(list(mr.CLASS_RUNS), interleaved)
+    assert contrib.shape[0] <= 32
+    offsets = np.array([0, contrib.shape[0]], np.int64)
+    got = tga.group_order("mult", *_on(cuda_device, contrib, part, part,
+                                       offsets))
+    want = tga.group_order_plain("mult", t(contrib), t(part), t(part),
+                                 t(offsets))
+    mr.assert_same_product(got[0].cpu().numpy(), want[0].numpy())
+    assert_exact(got[1].cpu().numpy(), want[1].numpy())
+
+
+@pytest.mark.parametrize("int_values", [False, True])
+@pytest.mark.parametrize("n", R_EDGE_LENGTHS)
+def test_point_rate_tile_edges_kernel_matches_plain(cuda_device, n,
+                                                    int_values):
+    """R at its tile edges (one tile of 32-256 threads up to 2,048 points,
+    tiles of 1,024 past it): resets at tile edges, a previous valid point
+    tiles back, rows with no valid point and with one, values near 2^63;
+    every rate option set."""
+    ts, val, mask = r_edge_rows(n, int_values)
+    dv = _on(cuda_device, ts, val, mask)
+    for rate_args in RATES[1:]:
+        opts = RateOptions(*rate_args)
+        got = trate.point_rate(*dv, opts)
+        want = trate.point_rate_plain(t(ts), t(val), t(mask), opts)
+        assert_exact(got[0].cpu().numpy(), want[0].numpy())
+        assert_exact(got[2].cpu().numpy(), want[2].numpy())
+        assert_values(got[1].cpu().numpy(), want[1].numpy())

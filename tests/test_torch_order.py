@@ -8,7 +8,9 @@ their plain PyTorch versions.
   opentsdb_tpu.ops.downsample.downsample.
 * K5: every order and rank aggregator against ordered_group_reduce, with
   a group of one row and an empty group, and the presence mask of
-  grid_group_aggregate.
+  grid_group_aggregate; and at the kernel's route edges (groups of 0, 1,
+  2, 31, 32, 33, 100, 2200, 4224 and 4225 rows under either tile:
+  torch_parity.K5_EDGE_LAYOUTS).
 * U3: every order and rank aggregator against union_aggregate, float and
   int mode (values above 2^53), and groups of uneven size; groups at the
   kernel's edges (1, 31, 32, 33 and 1013 members) with empty rows,
@@ -46,7 +48,8 @@ from opentsdb_tpu_torch.ops.aggregators import ORDER_AGGS, PERCENTILE_AGGS
 from test_torch_downsample import FILLS, _port, _reference
 from test_torch_group_agg import _grid, _ref_k2
 from test_torch_union import GROUPS, ROWS, _assert_same, _batch, _run_both
-from torch_parity import PAD_TS, assert_exact, assert_values, sorted_batch, t
+from torch_parity import (K5_EDGE_LAYOUTS, PAD_TS, assert_exact,
+                          assert_values, k5_edge_groups, sorted_batch, t)
 
 DS_FUNCS = ["first", "last", "diff", "mult", "median", *PERCENTILE_AGGS]
 AGGS = sorted(ORDER_AGGS)
@@ -159,6 +162,27 @@ def test_group_order_first_follows_row_order():
            .numpy()[0].tolist() for name in ("first", "last", "diff")}
     assert got == {"first": [5.0, 2.0], "last": [3.0, 4.0],
                    "diff": [-2.0, 2.0]}
+
+
+K5_EDGE_AGGS = ["first", "last", "diff", "none", "mult", "median", "p99",
+                "ep99r3", "ep50r7"]
+
+
+@pytest.mark.parametrize("agg", K5_EDGE_AGGS)
+@pytest.mark.parametrize("layout", list(K5_EDGE_LAYOUTS))
+def test_group_order_route_edges_match_reference(layout, agg):
+    contrib, participate, present, offsets = k5_edge_groups(layout)
+    g = len(offsets) - 1
+    gid = np.repeat(np.arange(g, dtype=np.int64), np.diff(offsets))
+    ref, _ = _ordered(agg_name=agg, contrib=contrib, participate=participate,
+                      gid=gid, num_groups=g)
+    _, _, ref_mask = _group_aggregate(
+        np.zeros(contrib.shape[1], np.int64), contrib, present, gid,
+        num_groups=g, agg=Aggregator("sum", "lerp", None), rows_sorted=True)
+    out, out_mask = tga.group_order(agg, t(contrib), t(participate),
+                                    t(present), t(offsets))
+    assert_values(out.numpy(), np.asarray(ref))
+    assert_exact(out_mask.numpy(), np.asarray(ref_mask))
 
 
 @pytest.mark.parametrize("agg", MA_NAMES)

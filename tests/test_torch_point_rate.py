@@ -6,8 +6,12 @@ holes, an empty row) and on all-integer rows (Java long differences, with
 values above 2^53 and counters that wrap past counter_max).  The port
 writes the surviving points first in each row and pads the rest with
 PAD_TS, NaN and False; the reference's compacted rows hold the same
-points first.  Rates agree at rtol 1e-9 (torch_parity.RTOL); timestamps
-and masks are equal.  On the CPU the port runs the plain version.
+points first.  The same at the kernel's tile edges (torch_parity
+R_EDGE_LENGTHS and r_edge_rows: rows no multiple of a tile long, resets at
+tile edges, a previous valid point tiles back, rows with no valid point
+and with one, values near 2^63).  Rates agree at rtol 1e-9
+(torch_parity.RTOL); timestamps and masks are equal.  On the CPU the port
+runs the plain version.
 """
 
 import jax
@@ -19,7 +23,8 @@ from opentsdb_tpu.ops import rate as jrate
 from opentsdb_tpu.ops import union_agg as jua
 from opentsdb_tpu_torch.ops import rate as trate
 
-from torch_parity import assert_exact, assert_values, sorted_batch, t
+from torch_parity import (R_EDGE_LENGTHS, assert_exact, assert_values,
+                          r_edge_rows, sorted_batch, t)
 
 RATE_SETS = {
     "rate": (),
@@ -50,12 +55,7 @@ def _rows(int_values: bool):
     return ts, val, mask
 
 
-@pytest.mark.parametrize("int_values", [False, True],
-                         ids=["float", "int"])
-@pytest.mark.parametrize("name", list(RATE_SETS))
-def test_point_rate_matches_reference(name, int_values):
-    ts, val, mask = _rows(int_values)
-    opts = RATE_SETS[name]
+def _check(ts, val, mask, opts, int_values):
     _, rv, rm = _rate(ts, val, mask, jrate.RateOptions(*opts), int_values)
     rts, rv, rm = (np.asarray(x) for x in _compact(ts, rv, rm))
     pts, pv, pm = trate.point_rate(t(ts), t(val), t(mask),
@@ -65,6 +65,21 @@ def test_point_rate_matches_reference(name, int_values):
     assert (pts.numpy()[~rm] == trate.PAD_TS).all()
     assert np.isnan(pv.numpy()[~rm]).all()
     assert_values(pv.numpy()[rm], rv[rm])
+
+
+@pytest.mark.parametrize("int_values", [False, True],
+                         ids=["float", "int"])
+@pytest.mark.parametrize("name", list(RATE_SETS))
+def test_point_rate_matches_reference(name, int_values):
+    _check(*_rows(int_values), RATE_SETS[name], int_values)
+
+
+@pytest.mark.parametrize("name", list(RATE_SETS))
+@pytest.mark.parametrize("int_values", [False, True],
+                         ids=["float", "int"])
+@pytest.mark.parametrize("n", R_EDGE_LENGTHS)
+def test_point_rate_tile_edges_match_reference(n, int_values, name):
+    _check(*r_edge_rows(n, int_values), RATE_SETS[name], int_values)
 
 
 def test_point_rate_rows_without_a_rate():

@@ -83,6 +83,77 @@ def k2_edge_grid(rng, s: int, w: int, t0: int = 1_356_998_400_000):
     return wts, np.where(mask, v, np.nan), mask
 
 
+# K5's routes (csrc/group_order.cu): a group of at most 32 rows is a
+# thread a cell; up to 4,224 rows its cells are staged in shared memory (as
+# many windows a pass as that holds: a warp a window, or the whole block
+# where a pass holds one); a deeper group stays in device memory.  A block
+# owns 128 windows where the mean group holds at most 32 rows, else 1.
+K5_EDGE_LAYOUTS = {
+    "128-window tiles, groups of 0-33 rows, w=37": (
+        [0, 1, 2, 31, 32, 33] + [3] * 40, 37),
+    "128-window tiles, groups of 100 and 2200 rows, w=37": (
+        [1] * 300 + [100, 2200], 37),
+    "1-window tiles, groups of 33 and 40 rows": ([33, 40], 5),
+    "1-window tiles, groups of 1, 0 and 4224 rows": ([1, 0, 4224], 3),
+    "1-window tiles, a group of 4225 rows": ([4225], 2),
+}
+
+
+def k5_edge_groups(layout: str, seed: int = 71):
+    """One K5_EDGE_LAYOUTS layout: contrib [S, W] (ties across members,
+    NaN values, no exact zero, so that an ordered product's class does
+    not hang on where an overflow falls), participate, present and the
+    group offsets [G + 1]."""
+    sizes, w = K5_EDGE_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    s = sum(sizes)
+    contrib = np.round(rng.normal(50.0, 30.0, (s, w)) * 4.0) / 4.0
+    contrib[contrib == 0.0] = 0.25
+    contrib[rng.random((s, w)) < 0.05] = np.nan
+    participate = rng.random((s, w)) < 0.85
+    present = participate | (rng.random((s, w)) < 0.1)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    return contrib, participate, present, offsets
+
+
+# R's tiles (csrc/point_rate.cu): a row of at most 2,048 points is one tile
+# of 32-256 threads x 8 points; a longer row runs in tiles of 1,024.
+R_EDGE_LENGTHS = [7, 255, 257, 2048, 2049, 3077]
+
+
+def r_edge_rows(n: int, int_values: bool, seed: int = 81):
+    """[6, n] sorted rows at R's tile edges: (0) a climbing counter with
+    holes, resets and one repeated timestamp; (1) no valid point; (2) one;
+    (3) two, at 0 and n - 1 (the second's previous valid point tiles back);
+    (4) a reset just before and just after each tile edge (255/256,
+    1023/1024, 2047/2048); (5) values near 2^63 (int64: some past it, so
+    that the long difference wraps)."""
+    rng = np.random.default_rng(seed + n)
+    ts = 1_356_998_400_000 + np.cumsum(rng.integers(1, 20_000, (6, n)),
+                                       axis=1)
+    if n > 2:
+        ts[0, n // 2] = ts[0, n // 2 - 1]
+    val = np.cumsum(rng.integers(-2_000, 6_000, (6, n)), axis=1)
+    for k in (255, 256, 1023, 1024, 2047, 2048):
+        if k < n:
+            val[4, k:] -= 1_000_000
+    mask = np.ones((6, n), bool)
+    mask[0] = rng.random(n) < 0.9
+    mask[1] = False
+    mask[2] = False
+    mask[2, n // 2] = True
+    mask[3] = False
+    mask[3, [0, n - 1]] = True
+    if int_values:
+        val = val.astype(np.int64)
+        val[5] = np.iinfo(np.int64).max - np.abs(val[5]) \
+            + rng.integers(0, 2, n) * 3_000
+        return ts, val, mask
+    val = val.astype(np.float64) * 0.37
+    val[5] = 2.0**63 + val[5]
+    return ts, val, mask
+
+
 def assert_values(port, ref, where=None):
     """float64 values at RTOL/ATOL with NaN positions equal; `where`
     restricts the comparison to the cells that carry meaning."""
