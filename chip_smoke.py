@@ -10,6 +10,7 @@ admission gate and dispatch batcher, and the device mesh.
     python3 chip_smoke.py [--seed N]
                           [--mesh-only | --fold-only
                            | --fill-only [--k2-digests FILE]
+                                         [--h2-digests FILE]
                            | --union-only [--u3-digests FILE]
                                           [--u2-digests FILE]
                            | --sketch-only [--s2-digests FILE]
@@ -150,11 +151,23 @@ days), 1h windows.  Phases:
    below (R = 23,040 rows, B = 32, nnz 11.8e6); (b) a synthetic batch made
    on the card, 4,096 series x 1,440 points x 32 buckets in 64 groups (nnz
    1.89e8, R = 92,160); (c) case (b) under a 1h downsample (R = 1,536,
-   ~3,840 entries a cell).  Each case prints the kernel, bound, plain and
-   `index_add_` (the library call for H1) times; H1's kernel time is its
-   query-path form (accumulate_rows_deferred: the flag left for the
-   answer's copy, no sync), beside the form that reads the flag at the
-   call.
+   ~3,840 entries a cell); the batches phase 8's other percentile queries
+   launch H2 at: (d) `sum:1h-sum:percentiles[50,99]:h{group=*}` (R = 384,
+   P = 2, `histogram_percentile.1h`) and (e) `sum:percentiles[99]:h`, all
+   256 series as one group (R = 1,440, P = 1,
+   `histogram_percentile.ungrouped`).  Each case prints the kernel, bound,
+   plain and `index_add_` (the library call for H1) times; H1's kernel
+   time is its query-path form (accumulate_rows_deferred: the flag left
+   for the answer's copy, no sync), beside the form that reads the flag at
+   the call.  Then H2 untimed at the widths where its layout changes (B =
+   1, 7, 8, 9, 16, 17, 32, 33, 64, 65, 200, 256, 257, 600) on rows of four
+   classes (mixed, negative counts and totals <= 0, running sums that wrap
+   past 2^63, totals past 2^48 at p = 100), on 1 and 1,001 rows and on two
+   grids that take 4 and 8 buckets a lane, under 0, 1 and 70 percentiles
+   with NaN, 0.5, 100 and 101 among them, each exactly its plain version.
+   `--fill-only` runs this phase on the latency fleet built by
+   load_state, and `--h2-digests FILE` writes the sha256 of H2's outputs
+   in every case, or holds them to FILE's.
 8. the daemon on the card: a TSDServer on 127.0.0.1 (an ephemeral port)
    over the same TSDB, configured for histograms.  The latency fleet,
    metric `h`: 256 series in 16 groups, a histogram of 32 fixed,
@@ -170,7 +183,8 @@ days), 1h windows.  Phases:
    group, and `sum:1h-avg:m{group=*}`.  Each body must equal the
    in-process answer, and each histogram answer a CPU TSDB's built by
    load_state from the same histogram state.  Launch counts are reset
-   before the queries and read after them.
+   before the queries and read after them; H2's launches are also printed
+   by shape (`daemon H2 shapes`).
 9. lane kernels (run after phase 6, on the headline batch): L1
    lane_partials under 1h windows (W = 283, the rollup job's 1h batch)
    and 1m windows (W = 16,931), with masked slots and NaN values, against
@@ -439,6 +453,8 @@ REPLACES = {
     "gather_windows": "opentsdb_tpu/storage/device_cache.py:443",
     "histogram_accumulate": "opentsdb_tpu/histogram/kernels.py:24",
     "histogram_percentile": "opentsdb_tpu/histogram/kernels.py:35",
+    "histogram_percentile.1h": "opentsdb_tpu/histogram/kernels.py:35",
+    "histogram_percentile.ungrouped": "opentsdb_tpu/histogram/kernels.py:35",
     "lane_partials": "opentsdb_tpu/ops/pipeline.py:190",
     "rollup_avg": "opentsdb_tpu/ops/pipeline.py:109",
     "stream_fold": "opentsdb_tpu/ops/streaming.py:513",
@@ -492,6 +508,14 @@ H_END_S = H_START_S + H_POINTS * H_STEP_S
 H_EDGES = [round(50 * 1.4 ** k) for k in range(33)]
 H_PERCS = [50.0, 90.0, 99.0, 99.9]
 HB_SERIES, HB_GROUPS = 4_096, 64   # the synthetic histogram batch (b)
+# H2's layouts (csrc/histogram_percentile.cu): a lane holds K = 8, 4 or 2
+# neighbouring buckets (fewer on small grids), a row the power of two at or
+# above B / K lanes; rows past 256 buckets are read twice.  A copy of
+# tests/torch_parity.py's H2_EDGE_*, h2_edge_rows, h2_edge_counts and
+# h2_edge_percs.
+H2_EDGE_WIDTHS = [1, 7, 8, 9, 16, 17, 32, 33, 64, 65, 200, 256, 257, 600]
+H2_EDGE_CLASSES = ["mixed", "negative", "wrap", "big"]
+H2_EDGE_PS = [0, 1, 70]
 # Phases 4-10 keep the materialized route (their misses build
 # the [S, N] batch): the streaming threshold raised past every query.
 MATERIALIZE = {"tsd.query.streaming.point_threshold": str(2 ** 62)}
@@ -2814,17 +2838,27 @@ def _hist_times(fn, plain, library, nbytes) -> dict:
 
 
 def histogram_cases(dev, tsdb) -> dict:
-    """Phase 7's cases on `dev`: name -> (seg, cnt, rows, buckets, mid)."""
+    """Phase 7's cases on `dev`: name -> (seg, cnt, rows, buckets, mid,
+    percentiles)."""
     from opentsdb_tpu_torch.histogram.store import assemble_columnar
 
-    batch = assemble_columnar(_h_groups(tsdb), H_START_S * 1000,
-                              H_END_S * 1000, 0)
-    seg = torch.from_numpy(batch["seg"]).to(dev)
-    cnt = torch.from_numpy(batch["cnt"]).to(dev)
-    mid = torch.from_numpy(batch["mid"]).to(dev)
-    r, b = batch["n_rows"], batch["n_buckets"]
+    def planner_batch(groups, interval_ms):
+        batch = assemble_columnar(groups, H_START_S * 1000, H_END_S * 1000,
+                                  interval_ms)
+        return (torch.from_numpy(batch["seg"]).to(dev),
+                torch.from_numpy(batch["cnt"]).to(dev),
+                batch["n_rows"], batch["n_buckets"],
+                torch.from_numpy(batch["mid"]).to(dev))
+
+    groups = _h_groups(tsdb)
+    seg, cnt, r, b, mid = planner_batch(groups, 0)
     print("histogram (a) planner batch: R=%d B=%d nnz=%d" % (r, b,
                                                              seg.numel()))
+    # the daemon's other percentile queries: 1h-sum by group, and every
+    # series as one group
+    hour = planner_batch(groups, 3_600_000) + ([50.0, 99.0],)
+    flat = planner_batch([((), list(tsdb.histogram_store.series_for_metric(
+        tsdb.metrics.get_id("h"))))], 0) + ([99.0],)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -2838,25 +2872,111 @@ def histogram_cases(dev, tsdb) -> dict:
     cnt_b = torch.randint(0, 100, (seg_b.numel(),), generator=gen,
                           dtype=torch.int64, device=dev)
     mid_b = torch.arange(1, n_b + 1, dtype=torch.float64, device=dev) * 1.5
-    return {"(a) planner batch": (seg, cnt, r, b, mid),
+    return {"(a) planner batch": (seg, cnt, r, b, mid, H_PERCS),
             "(b) synthetic %dx%d" % (n_s, n_t): (seg_b, cnt_b, n_g * n_t,
-                                                 n_b, mid_b),
+                                                 n_b, mid_b, H_PERCS),
             "(c) synthetic, 1h downsample": (seg_c, cnt_b, n_g * n_t // 60,
-                                             n_b, mid_b)}
+                                             n_b, mid_b, H_PERCS),
+            "(d) daemon 1h-sum by group": hour,
+            "(e) daemon, one group": flat}
 
 
-def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
+def h2_edge_rows(b: int):
+    """A copy of tests/torch_parity.py's: 1, 1,001 and two row counts at
+    which a 132-SM card takes K = 4 and K = 8 at width b."""
+    big = 70_001 * 8 // max(b, 8)
+    return [1, 1001, big // 2 + 1, big]
+
+
+def h2_edge_counts(r: int, b: int, cls: str, seed: int = 91):
+    """A copy of tests/torch_parity.py's: counts [r, b] int64 and
+    bound-sorted midpoints [b] of one H2_EDGE_CLASSES class."""
+    rng = np.random.default_rng(seed + 1000 * b + 7 * r
+                                + H2_EDGE_CLASSES.index(cls))
+    counts = rng.integers(0, 50, (r, b)).astype(np.int64)
+    counts[rng.random((r, b)) < 0.4] = 0
+    if cls == "negative":
+        counts -= rng.integers(0, 30, (r, b))
+        counts[0] = -1 - rng.integers(0, 9, b)
+        if r > 1:
+            counts[1] = 0
+            counts[1, 0] = -5
+            counts[1, -1] = 5 if b > 1 else 0
+    elif cls == "wrap":
+        add = np.zeros((r, b), np.uint64)
+        for k in (3, 4) if b else ():
+            rows = np.arange(k - 3, r, 2)
+            cols = np.linspace(0, b - 1, k).round().astype(np.int64)
+            np.add.at(add, (np.repeat(rows, k), np.tile(cols, len(rows))),
+                      np.uint64(1 << 62))
+        counts = (counts.astype(np.uint64) + add).astype(np.int64)
+    elif cls == "big" and b:
+        counts[:, -1] = rng.integers(1 << 50, 1 << 51, r)
+        while True:
+            tot = float(counts[0].sum())
+            if tot * 100.0 / tot < 100.0:
+                break
+            counts[0, -1] = rng.integers(1 << 50, 1 << 51)
+    if cls != "negative" and r > 2:
+        counts[2] = 0
+    mid = np.sort(rng.uniform(-50.0, 500.0, b))
+    return counts, mid
+
+
+def h2_edge_percs(n: int):
+    """A copy of tests/torch_parity.py's: n percentiles, 100, NaN, 0.5,
+    101, 50, 1 and 99.9 first, then draws from [-1, 102)."""
+    head = [100.0, np.nan, 0.5, 101.0, 50.0, 1.0, 99.9]
+    tail = np.random.default_rng(n).uniform(-1.0, 102.0, max(0, n - 7))
+    return np.concatenate([head[:n], tail]).astype(np.float64)
+
+
+def h2_edge_phase(dev, checks: Checks, digests: dict | None = None) -> None:
+    """H2 untimed at every H2_EDGE_WIDTHS width and class, on
+    h2_edge_rows' row counts (1, 1,001, and grids that take K = 4 and K =
+    8) and under 0, 1 and 70 percentiles, each exactly its plain version
+    on the card; with `digests`, each output's sha256 goes into it."""
+    from opentsdb_tpu_torch.histogram import kernels as hk
+
+    bad = 0
+    for b in H2_EDGE_WIDTHS:
+        for cls in H2_EDGE_CLASSES:
+            for r in h2_edge_rows(b):
+                counts, mid = h2_edge_counts(r, b, cls)
+                d_counts = torch.from_numpy(counts).to(dev)
+                d_mid = torch.from_numpy(mid).to(dev)
+                for n_p in H2_EDGE_PS:
+                    percs = torch.from_numpy(h2_edge_percs(n_p)).to(dev)
+                    got = hk.percentile_rows(d_counts, d_mid, percs)
+                    want = hk.percentile_rows_plain(d_counts, d_mid, percs)
+                    case = "edge B=%d %s R=%d P=%d" % (b, cls, r, n_p)
+                    checks.exact("histogram_percentile", case, got, want,
+                                 "percentile values")
+                    bad += not torch.equal(got, want)
+                    if digests is not None:
+                        digests["histogram_percentile " + case] = \
+                            _digest(got)
+    print("%-20s %-44s %s" % (
+        "histogram_percentile", "edge cases (%d widths x %d classes x 4 R "
+        "x %d P)" % (len(H2_EDGE_WIDTHS), len(H2_EDGE_CLASSES),
+                     len(H2_EDGE_PS)),
+        "exact ok" if not bad else "%d FAIL" % bad))
+
+
+def histogram_kernel_phase(dev, tsdb, checks: Checks,
+                           digests: dict | None = None) -> dict:
     """H1 and H2 against their plain versions on the card, exactly, in
-    cases (a) to (c), with their times."""
+    cases (a) to (e), with their times, then H2's edge cases; with
+    `digests`, each H2 output's sha256 goes into it."""
     from opentsdb_tpu_torch.histogram import kernels as hk
 
     cases = histogram_cases(dev, tsdb)
-    percs = torch.tensor(H_PERCS, dtype=torch.float64, device=dev)
     # the query path's form: the flag left for the answer's copy (a tree
     # before it has only the form that reads it at the call)
     deferred = getattr(hk, "accumulate_rows_deferred", None)
     out = {}
-    for name, (sg, ct, rows, buckets, md) in cases.items():
+    for name, (sg, ct, rows, buckets, md, pl) in cases.items():
+        percs = torch.tensor(pl, dtype=torch.float64, device=dev)
         grid = hk.accumulate_rows(sg, ct, rows, buckets)
         want = hk.accumulate_rows_plain(sg, ct, rows, buckets)
         checks.exact("histogram_accumulate", name, grid, want, "int64 grids")
@@ -2870,8 +2990,11 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
         pwant = hk.percentile_rows_plain(grid, md, percs)
         checks.exact("histogram_percentile", name, pv, pwant,
                      "percentile values")
-        print("%-20s %-44s R=%d B=%d nnz=%d grid and percentiles exact %s"
-              % ("histogram", name, rows, buckets, sg.numel(),
+        if digests is not None:
+            digests["histogram_percentile " + name] = _digest(pv)
+        print("%-20s %-44s R=%d B=%d P=%d nnz=%d grid and percentiles "
+              "exact %s" % ("histogram", name, rows, buckets, len(pl),
+                            sg.numel(),
                  "ok" if torch.equal(grid, want) and torch.equal(pv, pwant)
                  else "FAIL"))
         cells = rows * buckets
@@ -2910,8 +3033,11 @@ def histogram_kernel_phase(dev, tsdb, checks: Checks) -> dict:
         out[name] = (h1, h2)
         del grid, want, pv, pwant
     del cases
-    h1, h2 = out["(a) planner batch"]
-    return {"histogram_accumulate": h1, "histogram_percentile": h2}
+    h2_edge_phase(dev, checks, digests)
+    return {"histogram_accumulate": out["(a) planner batch"][0],
+            "histogram_percentile": out["(a) planner batch"][1],
+            "histogram_percentile.1h": out["(d) daemon 1h-sum by group"][1],
+            "histogram_percentile.ungrouped": out["(e) daemon, one group"][1]}
 
 
 H_QUERIES = [
@@ -2974,6 +3100,18 @@ def daemon_query_phase(dev, tsdb, server, checks: Checks) -> dict:
             return None, wall
         return json.loads(raw), wall
 
+    # H2's launches by shape: the planner's percentile_rows wrapped for
+    # the phase (the kernel's own count stays the one in kernels.LAUNCHES)
+    from opentsdb_tpu_torch.query import planner
+    h2_shapes: dict[str, int] = {}
+    h2 = planner.percentile_rows
+
+    def h2_by_shape(counts, mid, percs):
+        key = "[%d, %d] P=%d" % (*counts.shape, percs.numel())
+        h2_shapes[key] = h2_shapes.get(key, 0) + 1
+        return h2(counts, mid, percs)
+
+    planner.percentile_rows = h2_by_shape
     kernels.reset_launches()
     answers = {}
     for m, sub, start, end in queries:
@@ -3018,7 +3156,9 @@ def daemon_query_phase(dev, tsdb, server, checks: Checks) -> dict:
         answers[m] = (q, want)
     conn.close()
     launches = dict(kernels.LAUNCHES)
+    planner.percentile_rows = h2
     print("daemon launches %s" % json.dumps(launches))
+    print("daemon H2 shapes %s" % json.dumps(h2_shapes))
     for name in ("histogram_accumulate", "histogram_percentile"):
         if launches[name] < 1:
             checks.failures.append("kernel %s never launched on the "
@@ -6464,6 +6604,11 @@ def main(argv=None) -> int:
                         help="with --fill-only: write the sha256 of K2's "
                         "outputs in each case to FILE, or, where FILE "
                         "exists, fail unless they equal its digests")
+    parser.add_argument("--h2-digests", metavar="FILE",
+                        help="with --fill-only: write the sha256 of H2's "
+                        "outputs in every phase 7 case and edge case to "
+                        "FILE, or, where FILE exists, fail unless they "
+                        "equal its digests")
     parser.add_argument("--union-only", action="store_true",
                         help="build the kernels and run the union path's "
                         "timed cases alone: MA at the downsample and grid "
@@ -6558,7 +6703,7 @@ def main(argv=None) -> int:
                  "tile_partials", "grid_fill_rate", "histogram_accumulate",
                  "union_order", "moving_average", "union_reduce",
                  "sketch_fold", "stream_fold", "point_group_moments",
-                 "group_order", "point_rate"):
+                 "group_order", "point_rate", "histogram_percentile"):
         for line in ptxas_report(kernels.resources(name)):
             print("ptxas %s %s" % (name, line))
 
@@ -6568,7 +6713,9 @@ def main(argv=None) -> int:
     if args.fill_only:
         fill_phase(dev, ts, val, h, checks, args.k2_digests)
         torch.cuda.empty_cache()
-        histogram_kernel_phase(dev, fleet_tsdb(dev), checks)
+        h2 = {} if args.h2_digests else None
+        histogram_kernel_phase(dev, fleet_tsdb(dev), checks, h2)
+        hold_digests(checks, "h2", h2, args.h2_digests)
         for f in checks.failures:
             print("FAILED: " + f, file=sys.stderr)
         print(smi)

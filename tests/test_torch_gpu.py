@@ -27,9 +27,11 @@ from opentsdb_tpu_torch.ops.rate import RateOptions
 from opentsdb_tpu_torch.storage import device_cache as tdc
 
 import mult_runs as mr
-from torch_parity import (K2_EDGE_WIDTHS, K5_EDGE_LAYOUTS,  # noqa: F401
+from torch_parity import (H2_EDGE_CLASSES, H2_EDGE_PS,  # noqa: F401
+                          H2_EDGE_WIDTHS, K2_EDGE_WIDTHS, K5_EDGE_LAYOUTS,
                           R_EDGE_LENGTHS, assert_exact, assert_values,
-                          cuda_device, k2_edge_grid, k5_edge_groups,
+                          cuda_device, h2_edge_counts, h2_edge_percs,
+                          h2_edge_rows, k2_edge_grid, k5_edge_groups,
                           r_edge_rows, sorted_batch, t)
 
 pytestmark = pytest.mark.gpu
@@ -784,28 +786,43 @@ def test_histogram_accumulate_deferred_flag_on_card(cuda_device):
             planner.assemble_columnar = assemble
 
 
-@pytest.mark.parametrize("b", [7, 32, 45])
-def test_histogram_percentile_kernel_matches_plain(cuda_device, b):
-    """H2 against the plain version, exactly: empty rows, p outside
-    [1, 100], ties, and totals near 2^50 whose share of the last bucket
-    rounds under 100 (the answer is then bucket 0's midpoint)."""
+@pytest.mark.parametrize("rows", range(4))
+@pytest.mark.parametrize("cls", ["spread"] + H2_EDGE_CLASSES)
+@pytest.mark.parametrize("b", sorted(set(H2_EDGE_WIDTHS + [7, 32, 45])))
+def test_histogram_percentile_kernel_matches_plain(cuda_device, b, cls,
+                                                   rows):
+    """H2 against the plain version, exactly, at the widths where its
+    layout changes, on torch_parity.h2_edge_rows' row counts: one row,
+    1,001 (no multiple of a block's rows) and grids that take 4 and 8
+    buckets a lane.  "spread": empty rows, p outside [1, 100], ties, and
+    totals near 2^50 whose share of the last bucket rounds under 100 (the
+    answer is then bucket 0's midpoint); the edge classes of
+    torch_parity.h2_edge_counts under 0, 1 and 70 percentiles."""
+    r = h2_edge_rows(b)[rows]
     from opentsdb_tpu_torch.histogram import kernels as hk
-    rng = np.random.default_rng(b)
-    r = 1000
-    counts = rng.integers(0, 40, (r, b)).astype(np.int64)
-    counts[rng.random((r, b)) < 0.5] = 0
-    counts[:10] = 0
-    big = rng.integers(1 << 50, 1 << 51, 200)
-    counts[10:210, -1] = big
-    mid = np.sort(rng.uniform(0, 1000, b))
-    percs = np.array([50.0, 90.0, 99.0, 99.9, 100.0, 1.0, 0.5, 101.0])
-    args = _on(cuda_device, counts, mid, percs)
-    kernels.reset_launches()
-    got = hk.percentile_rows(*args)
-    assert kernels.LAUNCHES["histogram_percentile"] == 1
-    want = hk.percentile_rows_plain(*(a.cpu() for a in args))
-    assert_exact(got.cpu().numpy(), want.numpy())
-    assert (got[4, 10:210] == float(mid[0])).any()
+    if cls == "spread":
+        rng = np.random.default_rng(b)
+        counts = rng.integers(0, 40, (r, b)).astype(np.int64)
+        counts[rng.random((r, b)) < 0.5] = 0
+        counts[:10] = 0
+        big = rng.integers(1 << 50, 1 << 51, 200)
+        counts[10:210, -1] = big[:len(counts[10:210])]
+        mid = np.sort(rng.uniform(0, 1000, b))
+        percs_sets = [np.array([50.0, 90.0, 99.0, 99.9, 100.0, 1.0, 0.5,
+                                101.0])]
+    else:
+        counts, mid = h2_edge_counts(r, b, cls)
+        percs_sets = [h2_edge_percs(n) for n in H2_EDGE_PS]
+    for percs in percs_sets:
+        args = _on(cuda_device, counts, mid, percs)
+        kernels.reset_launches()
+        got = hk.percentile_rows(*args)
+        assert kernels.LAUNCHES["histogram_percentile"] == (
+            1 if len(percs) else 0)
+        want = hk.percentile_rows_plain(*(a.cpu() for a in args))
+        assert_exact(got.cpu().numpy(), want.numpy())
+    if cls == "spread" and r > 10:
+        assert (got[4, 10:210] == float(mid[0])).any()
 
 
 def test_histogram_query_on_card_matches_cpu(cuda_device):

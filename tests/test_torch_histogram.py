@@ -27,6 +27,8 @@ from opentsdb_tpu_torch.models import TSQuery, parse_m_subquery
 from opentsdb_tpu_torch.query.limits import QueryException
 from opentsdb_tpu_torch.storage.memstore import SeriesKey
 from opentsdb_tpu_torch.utils.config import Config
+from torch_parity import (H2_EDGE_CLASSES, H2_EDGE_PS, H2_EDGE_WIDTHS,
+                          h2_edge_counts, h2_edge_percs)
 
 BASE = 1_356_998_400
 HIST_CONFIG = '{"SimpleHistogramDecoder": 0}'
@@ -263,6 +265,32 @@ def test_percentile_100_below_100_share_answers_bucket_zero():
                              torch.from_numpy(percs)).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got[0] == 1.0).all() and (got[1] == 3.0).all()
+
+
+@pytest.mark.parametrize("n_p", H2_EDGE_PS)
+@pytest.mark.parametrize("cls", H2_EDGE_CLASSES)
+@pytest.mark.parametrize("b", H2_EDGE_WIDTHS)
+def test_percentile_rows_edge_classes_match_the_reference(b, cls, n_p):
+    """H2's edge classes at the widths where its layout changes (a lane
+    holds two buckets: segments of 1-16 lanes up to B = 32, a warp a row
+    up to 128, two reads past it): negative counts and totals <= 0,
+    running sums that wrap past 2^63, totals past 2^48 at p = 100, with
+    NaN, 0.5, 100 and 101 among the percentiles."""
+    counts, mid = h2_edge_counts(37, b, cls)
+    percs = h2_edge_percs(n_p)
+    want = np.asarray(ref_kernels.percentile_rows(counts, mid, percs))
+    got = hk.percentile_rows(torch.from_numpy(counts), torch.from_numpy(mid),
+                             torch.from_numpy(percs)).numpy()
+    assert got.shape == (n_p, 37)
+    np.testing.assert_array_equal(got, want)
+    if n_p > 3:
+        assert (got[1:4:2] == -1.0).all()           # NaN and 101
+    totals = counts.sum(axis=1)                     # wraps as the cumsum
+    if n_p and cls in ("negative", "wrap"):
+        assert (totals <= 0).any()
+        assert (got[0, totals <= 0] == 0.0).all()   # no mass
+    if n_p and cls == "big":
+        assert got[0, 0] == mid[0]                  # none reaches 100
 
 
 def test_percentile_rows_without_buckets():

@@ -154,6 +154,76 @@ def r_edge_rows(n: int, int_values: bool, seed: int = 81):
     return ts, val, mask
 
 
+# H2's layouts (csrc/histogram_percentile.cu): a lane holds K = 8, 4 or 2
+# neighbouring buckets (8 where the grid keeps two blocks an SM busy, fewer
+# on small grids) and a row takes the power of two at or above B / K lanes,
+# so rows of up to 8 K buckets share a warp; rows past 256 buckets are read
+# twice.  The widths cross each of those edges; the row counts give the
+# card every K (h2_edge_rows).
+H2_EDGE_WIDTHS = [1, 7, 8, 9, 16, 17, 32, 33, 64, 65, 200, 256, 257, 600]
+H2_EDGE_CLASSES = ["mixed", "negative", "wrap", "big"]
+H2_EDGE_PS = [0, 1, 70]
+
+
+def h2_edge_rows(b: int):
+    """Row counts at width b: one row, 1,001 (no multiple of a block's
+    rows), and two grids large enough that a 132-SM card takes K = 4 and
+    K = 8 (273 blocks and more at K = 8)."""
+    big = 70_001 * 8 // max(b, 8)
+    return [1, 1001, big // 2 + 1, big]
+
+
+def h2_edge_counts(r: int, b: int, cls: str, seed: int = 91):
+    """counts [r, b] int64 and bound-sorted midpoints [b] of one class:
+    "mixed", counts of 0-49 with ties and a row of zeros; "negative",
+    negative counts, an all-negative row and a row whose total is 0;
+    "wrap", 2^62 added three or four times a row, so that the running sums
+    wrap past 2^63 (totals of either sign); "big", a last bucket of
+    2^50-2^51, where total * 100.0 / total can round under 100 (row 0's
+    does) and no bucket reaches p = 100."""
+    rng = np.random.default_rng(seed + 1000 * b + 7 * r
+                                + H2_EDGE_CLASSES.index(cls))
+    counts = rng.integers(0, 50, (r, b)).astype(np.int64)
+    counts[rng.random((r, b)) < 0.4] = 0
+    if cls == "negative":
+        counts -= rng.integers(0, 30, (r, b))
+        counts[0] = -1 - rng.integers(0, 9, b)
+        if r > 1:
+            counts[1] = 0
+            counts[1, 0] = -5
+            counts[1, -1] = 5 if b > 1 else 0
+    elif cls == "wrap":
+        # 2^62 three times in even rows (a negative total), four times in
+        # odd ones (the sum wraps back to a positive total)
+        add = np.zeros((r, b), np.uint64)
+        for k in (3, 4) if b else ():
+            rows = np.arange(k - 3, r, 2)
+            cols = np.linspace(0, b - 1, k).round().astype(np.int64)
+            np.add.at(add, (np.repeat(rows, k), np.tile(cols, len(rows))),
+                      np.uint64(1 << 62))
+        counts = (counts.astype(np.uint64) + add).astype(np.int64)
+    elif cls == "big" and b:
+        counts[:, -1] = rng.integers(1 << 50, 1 << 51, r)
+        # row 0's share of its whole total rounds under 100
+        while True:
+            tot = float(counts[0].sum())
+            if tot * 100.0 / tot < 100.0:
+                break
+            counts[0, -1] = rng.integers(1 << 50, 1 << 51)
+    if cls != "negative" and r > 2:
+        counts[2] = 0
+    mid = np.sort(rng.uniform(-50.0, 500.0, b))
+    return counts, mid
+
+
+def h2_edge_percs(n: int):
+    """n percentiles: 100, NaN, 0.5, 101, 50, 1 and 99.9 first, then
+    draws from [-1, 102)."""
+    head = [100.0, np.nan, 0.5, 101.0, 50.0, 1.0, 99.9]
+    tail = np.random.default_rng(n).uniform(-1.0, 102.0, max(0, n - 7))
+    return np.concatenate([head[:n], tail]).astype(np.float64)
+
+
 def assert_values(port, ref, where=None):
     """float64 values at RTOL/ATOL with NaN positions equal; `where`
     restricts the comparison to the cells that carry meaning."""
